@@ -14,13 +14,30 @@ last line:
   4. K2      - the raster kernel against its plain version at the flagship
                shape (64 x 256^2, 21-class 1024-face uvsphere bank, culling
                on): every map bit-identical; times and bound;
-  5. slice   - make_scflow_infer_fn(slim) at the bench configuration (batch
+  5. K3      - the v4 (exact-binned) raster kernel against its plain version
+               on the same scene's pack_shaded_exact entries: bit-identical;
+               against K2's maps: the same mask, the same winner face and
+               depth on all but 2e-3 of the pixels;
+  6. K4      - the depth-only kernel against its plain version on the
+               scene's depth packs at rasterize()'s 8x128 tiles and 512-face
+               chunks: bit-identical keys;
+  7. K5/K6   - the v1/v2 kernel against its plain version on K2's packs,
+               bit-identical, and equal to K2's maps;
+  8. slice   - make_scflow_infer_fn(slim) at the bench configuration (batch
                64, 256^2, 8 iterations, 21 classes, fp32, TF32 off, seeded
                random weights): one call with every launch count reset, then
                checks (finite, orthonormal, poses moved, the first 4 samples
                equal the CPU run of the plain versions to the slice-test
-               tolerances, 8 K1 and 1 K2 launches) and refinements/s;
-  6. the kernels line, then the device line the chip harness reads.
+               tolerances, 8 K1 and 1 K2 launches) and refinements/s; then
+               the profile of one call;
+  9. render  - the render surface at the flagship scene, each entry point
+               called once with every launch count reset: render_batch v4
+               (1 K3) against v3 (1 K2), rasterize 'pallas' (1 K4) against
+               'xla', one rasterize_shaded call per version (1 K5, 1 K6),
+               flat and gouraud shading, and render_batch at a 192^2 crop
+               with backend 'auto' (the brute-force path, no kernel) against
+               the CPU run; ms per call of each;
+ 10. the kernels line, then the device line the chip harness reads.
 Imports no JAX.  Needs one card; without one it exits non-zero at once.
 """
 
@@ -171,11 +188,12 @@ def phase_k1(dev):
     return res
 
 
-def _flagship_raster_inputs(dev):
-    """Rows/active of the bench render: 64 images, 256^2, 21-class 1024-face
-    uvsphere bank, culling on; the bench's pose (t = (0, 0, 700)) with
-    random rotations and a spread of translations."""
-    from scflow_tpu_torch.ops.cuda.rasterize import pack_shaded_and_bin
+def _flagship_scene(dev):
+    """The bench render's scene: 64 images, 256^2, 21-class 1024-face
+    uvsphere bank; the bench's pose (t = (0, 0, 700)) with random rotations
+    and a spread of translations.  Returns the bank, the batch (R, t, K,
+    labels) and the posed faces' projected corners, corner depths, validity
+    and corner [normal, colour] attributes, all on dev."""
     from scflow_tpu_torch.render.meshbank import make_synthetic_bank
     from scflow_tpu_torch.render.rasterizer import (gather_corner_attrs, gather_tri,
                                                     project_to_screen)
@@ -194,23 +212,38 @@ def _flagship_raster_inputs(dev):
     K = torch.tensor([[572.4, 0, IMG / 2], [0, 573.5, IMG / 2], [0, 0, 1]]).expand(BATCH, 3, 3)
     verts = torch.from_numpy(bank.verts)[labels].to(dev)
     faces = torch.from_numpy(bank.faces)[labels].to(dev)
-    R, t, K = R.to(dev), t.to(dev), K.to(dev)
+    R, t, K = R.to(dev), t.to(dev), K.contiguous().to(dev)
     verts_cam = torch.einsum("nij,nvj->nvi", R, verts) + t[:, None]
     normals_cam = torch.einsum("nij,nvj->nvi", R, torch.from_numpy(bank.normals)[labels].to(dev))
     xy, zv = project_to_screen(verts_cam, K)
     tri_xy, tri_z = gather_tri(xy, zv, faces)
     corner = gather_corner_attrs(
         torch.cat([normals_cam, torch.from_numpy(bank.colors)[labels].to(dev)], -1), faces)
-    rows, active, _ = pack_shaded_and_bin(tri_xy, tri_z, torch.from_numpy(bank.face_valid)[labels].to(dev),
-                                          corner, IMG, IMG, cull_backfaces=True)
-    return rows, active
+    face_valid = torch.from_numpy(bank.face_valid)[labels].to(dev)
+    return dict(bank=bank, R=R, t=t, K=K, labels=labels.to(dev), verts_cam=verts_cam,
+                faces=faces, face_valid=face_valid, tri_xy=tri_xy, tri_z=tri_z, corner=corner)
 
 
-def phase_k2(dev):
+def _raster_bound(inputs, out, pairs: int, faces_per_pair: int, pixels_per_pair: int):
+    """Bytes: each input and the output once.  Operations: 14 fp32 operations
+    (3 affine planes of 4, w2's 2) per face-pixel of every (tile, chunk)
+    pair the kernel walks."""
+    nbytes = sum(a.numel() * a.element_size() for a in inputs) + out.numel() * out.element_size()
+    return bound(nbytes, pairs * faces_per_pair * pixels_per_pair * 14)
+
+
+def _time_kernel(kernel, plain):
+    return {"ms": median_ms(kernel, 20), "plain_ms": median_ms(plain, 1, groups=3)}
+
+
+def phase_k2(dev, scene):
+    from scflow_tpu_torch.ops import raster_pack as pk
     from scflow_tpu_torch.ops.cuda import rasterize as k2
 
-    rows, active = _flagship_raster_inputs(dev)
-    bits = k2.id_bits_for(rows.shape[-1])
+    rows, active, _ = pk.pack_shaded_and_bin(scene["tri_xy"], scene["tri_z"], scene["face_valid"],
+                                             scene["corner"], IMG, IMG, k2.TH, k2.TW, k2.FC,
+                                             cull_backfaces=True)
+    bits = pk.id_bits_for(rows.shape[-1])
     got = k2.rasterize_shaded_v3(rows, active, IMG, IMG, bits)
     want = k2.rasterize_shaded_v3_plain(rows, active, IMG, IMG, bits)
     torch.cuda.synchronize()
@@ -222,20 +255,123 @@ def phase_k2(dev):
     err = (got - want).abs().max().item()
     require(err == 0.0, f"K2 attrs max |d| {err} == 0")
     pairs = int(active.sum().item())
-    out_bytes = got.numel() * 4
-    bound_ms, bound_by = bound(rows.numel() * 4 + active.numel() * 4 + out_bytes,
-                               pairs * k2.FC * k2.TH * k2.TW * 14)
+    bound_ms, bound_by = _raster_bound((rows, active), got, pairs, k2.FC, k2.TH * k2.TW)
     res = {
         "max_abs_err": err,
-        "ms": median_ms(lambda: k2.rasterize_shaded_v3(rows, active, IMG, IMG, bits), 20),
-        "plain_ms": median_ms(lambda: k2.rasterize_shaded_v3_plain(rows, active, IMG, IMG, bits),
-                              1, groups=3),
+        **_time_kernel(lambda: k2.rasterize_shaded_v3(rows, active, IMG, IMG, bits),
+                       lambda: k2.rasterize_shaded_v3_plain(rows, active, IMG, IMG, bits)),
         "library_ms": None,
         "bound_ms": bound_ms, "bound_by": bound_by,
     }
     emit({"phase": "K2", "faces": rows.shape[-1], "active_pairs": pairs,
           "active_pairs_max": active.numel(), "fg_share": fg, "bit_identical": exact, **res})
+    return res, (rows, active, got)
+
+
+def _max_abs(got, want):
+    return (got.double() - want.double()).abs().max().item()
+
+
+def phase_k3(dev, scene, k2_out):
+    """K3 against its plain version, and its maps against K2's: mask equal,
+    and depth, normal, colour and barycentric channels and the original
+    winner face inside tests/test_pallas_raster.py's tie bounds (> 1e-3 on
+    < 2e-3 of the pixels)."""
+    from scflow_tpu_torch.ops import raster_pack as pk
+    from scflow_tpu_torch.ops.cuda import rasterize as k2
+
+    rows, seg_start, seg_count, ov_counts, ov_order, perm = pk.pack_shaded_exact(
+        scene["tri_xy"], scene["tri_z"], scene["face_valid"], scene["corner"], IMG, IMG,
+        8, 128, 128, cull_backfaces=True)
+    bits = pk.id_bits_for(rows.shape[-1])
+    packs = (rows, seg_start, seg_count, ov_counts, ov_order)
+    kw = dict(h=IMG, w=IMG, th=8, tw=128, fc=128, id_bits=bits)
+    got = k2.rasterize_shaded_v4(*packs, **kw)
+    want = k2.rasterize_shaded_v4_plain(*packs, **kw)
+    torch.cuda.synchronize()
+    require(torch.equal(got, want), f"K3 bit-identical (max |d| {_max_abs(got, want)})")
+
+    rows3, _, v3 = k2_out
+    _, _, perm3 = pk.pack_shaded_and_bin(scene["tri_xy"], scene["tri_z"], scene["face_valid"],
+                                         scene["corner"], IMG, IMG, 8, 128, 128,
+                                         cull_backfaces=True)
+    require(torch.equal(got[:, 1], v3[:, 1]), "K3 and K2 masks equal")
+    fg = v3[:, 1] > 0.5
+    tie_share = {ch: ((got[:, ch] - v3[:, ch]).abs() > 1e-3).float().mean().item()
+                 for ch in [0] + list(range(3, 12))}
+    fid3 = torch.gather(perm3, 1, v3[:, 2].long().reshape(BATCH, -1)).reshape(fg.shape)
+    fid4 = torch.gather(perm, 1, got[:, 2].long().reshape(BATCH, -1)).reshape(fg.shape)
+    face_share = (fid3[fg] != fid4[fg]).float().mean().item()
+    require(max(tie_share.values()) < 2e-3 and face_share < 2e-3,
+            f"K3 vs K2: channel tie shares {tie_share}, winner faces {face_share}")
+
+    walks = int((seg_count + torch.clamp(ov_counts, max=ov_order.shape[-1])).sum().item())
+    bound_ms, bound_by = _raster_bound(packs, got, walks, 128, 8 * 128)
+    res = {"max_abs_err": _max_abs(got, want),
+           **_time_kernel(lambda: k2.rasterize_shaded_v4(*packs, **kw),
+                          lambda: k2.rasterize_shaded_v4_plain(*packs, **kw)),
+           "library_ms": None, "bound_ms": bound_ms, "bound_by": bound_by}
+    emit({"phase": "K3", "entries": rows.shape[-1], "id_bits": bits, "chunk_walks": walks,
+          "overflow_lists": int(ov_counts.sum().item()), "nov": ov_order.shape[-1],
+          "k2_active_pairs": int(k2_out[1].sum().item()), "tie_share_vs_k2": tie_share,
+          "winner_face_share_vs_k2": face_share, "bit_identical": True, **res})
     return res
+
+
+def phase_k4(dev, scene):
+    from scflow_tpu_torch.ops import raster_pack as pk
+    from scflow_tpu_torch.ops.cuda import rasterize as k2
+
+    fc = pk.pick_face_chunk(scene["faces"].shape[1])
+    rows, active, _ = pk.pack_faces_and_bin(scene["tri_xy"], scene["tri_z"], scene["face_valid"],
+                                            IMG, IMG, 8, 128, fc, cull_backfaces=True)
+    kw = dict(h=IMG, w=IMG, th=8, tw=128, fc=fc, id_bits=pk.id_bits_for(rows.shape[-1]))
+    got = k2.rasterize_packed(rows, active, **kw)
+    want = k2.rasterize_packed_plain(rows, active, **kw)
+    torch.cuda.synchronize()
+    require(torch.equal(got, want), "K4 keys bit-identical")
+    fg = (want != k2.INT32_MAX).float().mean().item()
+    require(fg > 0.05, f"K4 scene covers {fg} of the pixels")
+    pairs = int(active.sum().item())
+    bound_ms, bound_by = _raster_bound((rows, active), got, pairs, fc, 8 * 128)
+    res = {"max_abs_err": _max_abs(got, want),
+           **_time_kernel(lambda: k2.rasterize_packed(rows, active, **kw),
+                          lambda: k2.rasterize_packed_plain(rows, active, **kw)),
+           "library_ms": None, "bound_ms": bound_ms, "bound_by": bound_by}
+    emit({"phase": "K4", "fc": fc, "active_pairs": pairs, "active_pairs_max": active.numel(),
+          "fg_share": fg, "bit_identical": True, **res})
+    return res
+
+
+def phase_k56(dev, k2_out):
+    """The v1/v2 kernel on K2's packs (fc 128): bit-identical to its plain
+    version, and its maps equal K2's."""
+    from scflow_tpu_torch.ops import raster_pack as pk
+    from scflow_tpu_torch.ops.cuda import rasterize as k2
+
+    rows, active, v3 = k2_out
+    kw = dict(th=8, tw=128, fc=128, id_bits=pk.id_bits_for(rows.shape[-1]))
+    want = k2.rasterize_shaded_plain(rows, active, IMG, IMG, **kw)
+    out = {}
+    for version in (1, 2):
+        got = k2.rasterize_shaded(rows, active, IMG, IMG, **kw, version=version)
+        torch.cuda.synchronize()
+        require(torch.equal(got, want), f"K{4 + version} bit-identical")
+        require(torch.equal(got, v3), f"K{4 + version} maps equal K2's")
+        bound_ms, bound_by = _raster_bound((rows, active), got, int(active.sum().item()), 128,
+                                           8 * 128)
+        out[version] = {
+            "max_abs_err": _max_abs(got, want),
+            "ms": median_ms(lambda: k2.rasterize_shaded(rows, active, IMG, IMG, **kw,
+                                                        version=version), 20),
+            "library_ms": None, "bound_ms": bound_ms, "bound_by": bound_by}
+    plain_ms = median_ms(lambda: k2.rasterize_shaded_plain(rows, active, IMG, IMG, **kw), 1,
+                         groups=3)
+    for version in (1, 2):
+        out[version]["plain_ms"] = plain_ms
+        emit({"phase": f"K{4 + version}", "version": version, "bit_identical": True,
+              "equal_to_k2": True, **out[version]})
+    return out
 
 
 def seeded_model():
@@ -277,9 +413,31 @@ def bench_batch():
     return dict(real_images=real, ref_rotations=R, ref_translations=t, k=K, labels=labels)
 
 
-def phase_slice(smi):
+def kernel_counters():
+    """{name: the CudaKernel whose `launches` counts that kernel}."""
     from scflow_tpu_torch.ops.cuda import corr_lookup as k1
     from scflow_tpu_torch.ops.cuda import rasterize as k2
+
+    return {"K1": k1.KERNEL, "K2": k2.V3_KERNEL, "K3": k2.V4_KERNEL, "K4": k2.PACKED_KERNEL,
+            "K5": k2.V12_KERNELS[1], "K6": k2.V12_KERNELS[2]}
+
+
+def counted(fn):
+    """fn() with every launch count set to 0 just before and read just
+    after (synchronised): (its result, {kernel: launches})."""
+    kernels = kernel_counters()
+    for k in kernels.values():
+        k.launches = 0
+    out = fn()
+    torch.cuda.synchronize()
+    return out, {name: k.launches for name, k in kernels.items()}
+
+
+def only(counts, **want):
+    return counts == {name: want.get(name, 0) for name in counts}
+
+
+def phase_slice(smi):
     from scflow_tpu_torch.refiners.scflow import SCFlowRefiner
     from scflow_tpu_torch.refiners.system import RenderAssets, make_scflow_infer_fn
     from scflow_tpu_torch.render.meshbank import make_synthetic_bank
@@ -296,11 +454,8 @@ def phase_slice(smi):
     infer(batch)  # warm-up: cuDNN plans, allocator
     torch.cuda.synchronize()
 
-    k1.KERNEL.launches = k2.KERNEL.launches = 0
-    out = infer(batch)
-    torch.cuda.synchronize()
-    launches = {"K1": k1.KERNEL.launches, "K2": k2.KERNEL.launches}
-    require(launches == {"K1": ITERS, "K2": 1}, f"launches per call {launches}")
+    out, launches = counted(lambda: infer(batch))
+    require(only(launches, K1=ITERS, K2=1), f"launches per call {launches}")
 
     R, t = out["rotations"].cpu().numpy(), out["translations"].cpu().numpy()
     require(np.isfinite(R).all() and np.isfinite(t).all(), "finite poses")
@@ -310,8 +465,8 @@ def phase_slice(smi):
     require(moved > 1.0 and np.abs(R - batch["ref_rotations"]).max() > 1e-3, "poses moved")
 
     ref_infer = make_scflow_infer_fn(cpu_model, RenderAssets.from_bank(bank, device="cpu"),
-                                     image_size=(IMG, IMG), render_cull_backfaces=True,
-                                     device="cpu")
+                                     image_size=(IMG, IMG), render_backend="pallas",
+                                     render_cull_backfaces=True, device="cpu")
     ref = ref_infer({k: v[:4] for k, v in batch.items()})
     d_rot = float(np.abs(R[:4] - ref["rotations"].numpy()).max())
     t_ref = ref["translations"].numpy()
@@ -352,7 +507,7 @@ def phase_profile(infer, model, assets, batch, smi):
             ev[0].record()
             images, depths, _ = render_and_normalize(
                 assets, b["ref_rotations"], b["ref_translations"], b["k"], b["labels"],
-                (IMG, IMG), cull_backfaces=True)
+                (IMG, IMG), backend="auto", cull_backfaces=True)
             ev[1].record()
             feats = model.extract_feat(images.permute(0, 3, 1, 2).contiguous(),
                                        b["real_images"].permute(0, 3, 1, 2).contiguous())
@@ -381,6 +536,114 @@ def phase_profile(infer, model, assets, batch, smi):
           "top_kernels_ms_count": [[name[:90], ms, n] for name, (ms, n) in top], "card": smi})
 
 
+def _render_close(got, want, what: str):
+    """The CPU parity bounds of tests/test_torch_render.py's brute-force
+    renders: masks on all but 2e-3 of the pixels, depth to 1e-3 where both
+    cover, images to 1e-3 on all but 2e-3 of the pixels."""
+    both = (got["masks"] > 0) & (want["masks"] > 0)
+    shares = {"mask": (got["masks"] != want["masks"]).float().mean().item(),
+              "image": ((got["images"] - want["images"]).abs().amax(-1) > 1e-3)
+              .float().mean().item()}
+    depth = (got["depths"][both] - want["depths"][both]).abs().max().item()
+    require(shares["mask"] < 2e-3 and shares["image"] < 2e-3 and depth <= 1e-3,
+            f"{what}: {shares}, depth max |d| {depth}")
+    return {**shares, "depth_max_abs_diff": depth}
+
+
+def phase_render(dev, scene, smi):
+    """Each entry point of the render surface once, its launches counted."""
+    from scflow_tpu_torch.ops import raster_pack as pk
+    from scflow_tpu_torch.ops.cuda import rasterize as k2
+    from scflow_tpu_torch.render.rasterizer import rasterize
+    from scflow_tpu_torch.render.renderer import BANK_FIELDS, render_batch
+
+    bank = tuple(torch.from_numpy(getattr(scene["bank"], f)).to(dev) for f in BANK_FIELDS)
+    pose = (scene["R"], scene["t"], scene["K"], scene["labels"])
+
+    def render(h=IMG, w=IMG, pose=pose, bank=bank, **kw):
+        return render_batch(*bank, *pose, h, w, cull_backfaces=True, **kw)
+
+    res, launches = {}, {}
+    v4, c = counted(lambda: render(backend="pallas", raster_version=4))
+    require(only(c, K3=1), f"render_batch v4 launches {c}")
+    launches["K3"] = c["K3"]
+    v3, c = counted(lambda: render(backend="pallas", raster_version=3))
+    require(only(c, K2=1), f"render_batch v3 launches {c}")
+    require(torch.equal(v4["masks"], v3["masks"]), "v4 and v3 masks equal")
+    res["v4_vs_v3_tie_share"] = {
+        "depth": ((v4["depths"] - v3["depths"]).abs() > 1e-3).float().mean().item(),
+        "image": ((v4["images"] - v3["images"]).abs().amax(-1) > 1e-3).float().mean().item()}
+    require(max(res["v4_vs_v3_tie_share"].values()) < 2e-3,
+            f"v4 vs v3 tie shares {res['v4_vs_v3_tie_share']}")
+
+    args = (scene["verts_cam"], scene["faces"], scene["face_valid"], scene["K"])
+    fp, c = counted(lambda: rasterize(*args, IMG, IMG, backend="pallas", cull_backfaces=True))
+    require(only(c, K4=1), f"rasterize('pallas') launches {c}")
+    launches["K4"] = c["K4"]
+    fx, c = counted(lambda: rasterize(*args, IMG, IMG, backend="xla", cull_backfaces=True))
+    require(only(c), f"rasterize('xla') launches {c}")
+    # the two backends test coverage with different formulas for the same
+    # barycentrics (plane coefficients, a division), so a pixel whose
+    # barycentric is within rounding of 0 can flip: every flip must lie on
+    # the edge of the face that covers it (exact barycentric below 1e-4)
+    flip = (fp.face_id >= 0) != (fx.face_id >= 0)
+    edge_w = torch.where((fp.face_id >= 0)[..., None], fp.bary, fx.bary).abs().amin(-1)[flip]
+    res["rasterize_fg_flips"] = int(flip.sum().item())
+    res["rasterize_fg_flip_max_edge_w"] = edge_w.max().item() if edge_w.numel() else 0.0
+    require(res["rasterize_fg_flips"] <= 1e-5 * flip.numel()
+            and res["rasterize_fg_flip_max_edge_w"] < 1e-4,
+            f"rasterize backends' foreground: {res['rasterize_fg_flips']} flips, largest "
+            f"edge barycentric {res['rasterize_fg_flip_max_edge_w']}")
+    res["rasterize_face_id_diff_share"] = (fp.face_id != fx.face_id).float().mean().item()
+    require(res["rasterize_face_id_diff_share"] < 2e-3,
+            f"rasterize backends' face ids differ on {res['rasterize_face_id_diff_share']}")
+
+    rows, active, _ = pk.pack_shaded_and_bin(scene["tri_xy"], scene["tri_z"], scene["face_valid"],
+                                             scene["corner"], IMG, IMG, 8, 128, 128,
+                                             cull_backfaces=True)
+    bits = pk.id_bits_for(rows.shape[-1])
+    for version in (1, 2):
+        _, c = counted(lambda: k2.rasterize_shaded(rows, active, IMG, IMG, 8, 128, 128, bits,
+                                                   version=version))
+        name = f"K{4 + version}"
+        require(only(c, **{name: 1}), f"rasterize_shaded(version={version}) launches {c}")
+        launches[name] = c[name]
+
+    for mode in ("flat", "gouraud"):
+        out, c = counted(lambda: render(backend="pallas", shading=mode))
+        img = out["images"]
+        require(only(c) and bool(torch.isfinite(img).all()) and img.min() >= 0 and img.max() <= 1
+                and out["masks"].mean() > 0.05, f"{mode} shading: finite, in [0, 1], launches {c}")
+
+    # a crop the 8x128 tiles do not divide: 'auto' is 'pallas' on the card,
+    # and render_batch sends the crop to the brute-force path
+    k192 = scene["K"].clone()
+    k192[:, :2, 2] = 96.0
+    pose192 = (scene["R"], scene["t"], k192, scene["labels"])
+    out192, c = counted(lambda: render(192, 192, pose=pose192, backend="auto"))
+    require(only(c) and out192["masks"].mean() > 0.05, f"192^2 'auto' render launches {c}")
+    cpu_bank = tuple(a.cpu() for a in bank)
+    ref = render(192, 192, pose=tuple(a[:2].cpu() for a in pose192), bank=cpu_bank,
+                 backend="auto")
+    res["crop192_vs_cpu"] = _render_close({k: v[:2].cpu() for k, v in out192.items()}, ref,
+                                          "192^2 card vs CPU")
+
+    res["ms_per_call"] = {
+        "render_batch_v3": median_ms(lambda: render(backend="pallas", raster_version=3), 5),
+        "render_batch_v4": median_ms(lambda: render(backend="pallas", raster_version=4), 5),
+        "render_batch_xla": median_ms(lambda: render(backend="xla"), 1, groups=3),
+        "render_batch_192_auto": median_ms(lambda: render(192, 192, pose=pose192,
+                                                          backend="auto"), 1, groups=3),
+        "rasterize_pallas": median_ms(lambda: rasterize(*args, IMG, IMG, backend="pallas",
+                                                        cull_backfaces=True), 5),
+        "rasterize_xla": median_ms(lambda: rasterize(*args, IMG, IMG, backend="xla",
+                                                     cull_backfaces=True), 1, groups=3),
+    }
+    emit({"phase": "render", "batch": BATCH, "image": IMG, "launches_per_call": launches,
+          **res, "card": smi})
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -392,20 +655,32 @@ def main() -> int:
     dev = torch.device("cuda", 0)
     name, smi = phase_device()
     phase_build()
-    k1_res = phase_k1(dev)
-    k2_res = phase_k2(dev)
+    scene = _flagship_scene(dev)
+    res = {"K1": phase_k1(dev)}
+    res["K2"], k2_out = phase_k2(dev, scene)
+    res["K3"] = phase_k3(dev, scene, k2_out)
+    res["K4"] = phase_k4(dev, scene)
+    k56 = phase_k56(dev, k2_out)
+    res["K5"], res["K6"] = k56[1], k56[2]
+    del k2_out
     launches = phase_slice(smi)
+    launches.update(phase_render(dev, scene, smi))
+    src = "scflow_tpu_torch/csrc/"
+    tpu = "scflow_tpu/ops/pallas/"
+    table = [
+        ("K1", "corr_lookup", "corr_lookup.cu", "corr_lookup.py:230 (_kernel)"),
+        ("K2", "rasterize_shaded_v3", "rasterize_v3.cu", "rasterize.py:473 (_kernel_shaded_v3)"),
+        ("K3", "rasterize_shaded_v4", "rasterize_v4.cu", "rasterize.py:610 (_kernel_shaded_v4)"),
+        ("K4", "rasterize_packed", "rasterize_packed.cu", "rasterize.py:57 (_kernel)"),
+        ("K5", "rasterize_shaded(version=1)", "rasterize_v12.cu",
+         "rasterize.py:142 (_kernel_shaded)"),
+        ("K6", "rasterize_shaded(version=2)", "rasterize_v12.cu",
+         "rasterize.py:284 (_kernel_shaded_v2)"),
+    ]
     emit({"kernels": [
-        {"name": "K1 corr_lookup", "route": "cuda", "source": "scflow_tpu_torch/csrc/corr_lookup.cu",
-         "replaces": "scflow_tpu/ops/pallas/corr_lookup.py:230 (_kernel)",
-         "launches": launches["K1"], **k1_res,
-         "max_abs_diff": k1_res["max_abs_err"], "kernel_ms": k1_res["ms"]},
-        {"name": "K2 rasterize_shaded_v3", "route": "cuda",
-         "source": "scflow_tpu_torch/csrc/rasterize_v3.cu",
-         "replaces": "scflow_tpu/ops/pallas/rasterize.py:473 (_kernel_shaded_v3)",
-         "launches": launches["K2"], **k2_res,
-         "max_abs_diff": k2_res["max_abs_err"], "kernel_ms": k2_res["ms"]},
-    ], "card": smi})
+        {"name": f"{key} {fn}", "route": "cuda", "source": src + file, "replaces": tpu + where,
+         "launches": launches[key], **res[key]}
+        for key, fn, file, where in table], "card": smi})
     emit({"ok": True, "device": {"platform": "gpu", "kind": name,
                                  "count": torch.cuda.device_count()}})
     return 0

@@ -30,44 +30,31 @@
 // where the TPU kernel used a one-hot matmul) and writes the 16 maps,
 // neighbouring threads on neighbouring pixels.
 //
-// Rounding: every a*b + c here is written as __fmul_rn/__fadd_rn, and the
-// file is compiled with -fmad=false, so nothing is contracted into an FMA.
-// Keys, depth, mask and id then equal the plain PyTorch version's (one
-// rounding per operation) bit for bit.
+// Rounding and the shared device code: csrc/raster_common.cuh.
 
-#include <cuda_runtime.h>
-#include <limits.h>
+#include "raster_common.cuh"
 
 #define TH 8
 #define TW 128
 #define FC 128
-#define THREADS 256
-#define PPT (TH * TW / THREADS)  // pixels per thread
 #define COEF_ROWS 10
 
-__device__ __forceinline__ float affine(float a, float b, float c, float px, float py) {
-  return __fadd_rn(__fadd_rn(__fmul_rn(a, px), __fmul_rn(b, py)), c);
-}
+static_assert(TH * TW == RC_BLOCK_PIX && FC == RC_PIECE, "one block per tile, one piece per chunk");
 
-__device__ __forceinline__ float blend3(float w0, float w1, float w2, float a0,
-                                        float a1, float a2) {
-  return __fadd_rn(__fadd_rn(__fmul_rn(w0, a0), __fmul_rn(w1, a1)), __fmul_rn(w2, a2));
-}
-
-__global__ void __launch_bounds__(THREADS)
+__global__ void __launch_bounds__(RC_THREADS)
 raster_v3_kernel(const float* __restrict__ rows, const int* __restrict__ active,
                  float* __restrict__ out, int F, int H, int W, int NC, int id_mask) {
   const int tx = blockIdx.x, ty = blockIdx.y, n = blockIdx.z;
   const int TX = gridDim.x, TY = gridDim.y;
   const float* rn = rows + (size_t)n * 32 * F;
   const int* act = active + (((size_t)n * TY + ty) * TX + tx) * NC;
-  __shared__ float coef[COEF_ROWS][FC];
+  __shared__ float coef[COEF_ROWS][RC_PIECE];
 
-  float px[PPT], py[PPT];
-  int best[PPT];
+  float px[RC_PPT], py[RC_PPT];
+  int best[RC_PPT];
 #pragma unroll
-  for (int k = 0; k < PPT; ++k) {
-    const int p = threadIdx.x + k * THREADS;
+  for (int k = 0; k < RC_PPT; ++k) {
+    const int p = threadIdx.x + k * RC_THREADS;
     px[k] = (float)(tx * TW + p % TW);
     py[k] = (float)(ty * TH + p / TW);
     best[k] = INT_MAX;
@@ -75,66 +62,16 @@ raster_v3_kernel(const float* __restrict__ rows, const int* __restrict__ active,
 
   for (int c = 0; c < NC; ++c) {
     if (act[c] == 0) continue;  // the same for every thread of the block
-    __syncthreads();            // the previous chunk is no longer read
-    for (int e = threadIdx.x; e < COEF_ROWS * FC; e += THREADS) {
-      const int r = e / FC, f = e - r * FC;
-      coef[r][f] = rn[(size_t)r * F + c * FC + f];
-    }
-    __syncthreads();
-    for (int f = 0; f < FC; ++f) {
-      const int id = (int)coef[9][f];
-#pragma unroll
-      for (int k = 0; k < PPT; ++k) {
-        const float w0 = affine(coef[0][f], coef[1][f], coef[2][f], px[k], py[k]);
-        const float w1 = affine(coef[3][f], coef[4][f], coef[5][f], px[k], py[k]);
-        const float z = affine(coef[6][f], coef[7][f], coef[8][f], px[k], py[k]);
-        const float w2 = __fsub_rn(__fsub_rn(1.f, w0), w1);
-        // min(min(w0, w1), w2) >= 0, false for NaN as in the reference
-        const bool cover = (w0 >= 0.f) && (w1 >= 0.f) && (w2 >= 0.f);
-        const float zc = isnan(z) ? z : fmaxf(z, 1e-6f);
-        const int key = (__float_as_int(zc) & ~id_mask) | id;
-        if (cover && key < best[k]) best[k] = key;
-      }
-    }
+    rc_test_piece<COEF_ROWS>(coef, rn, F, c * FC, px, py, best, id_mask);
   }
 
   const size_t plane = (size_t)H * W;
   float* on = out + (size_t)n * 16 * plane;
 #pragma unroll
-  for (int k = 0; k < PPT; ++k) {
-    const int p = threadIdx.x + k * THREADS;
+  for (int k = 0; k < RC_PPT; ++k) {
+    const int p = threadIdx.x + k * RC_THREADS;
     const int x = tx * TW + p % TW, y = ty * TH + p / TW;
-    const bool fg = best[k] != INT_MAX;
-    // the winner's record; a background pixel keeps zeros, like the
-    // reference's zero-initialised carry
-    float a[29];
-#pragma unroll
-    for (int r = 0; r < 29; ++r) a[r] = 0.f;
-    if (fg) {
-      const int id = best[k] & id_mask;
-#pragma unroll
-      for (int r = 0; r < 29; ++r)
-        if (r != 10) a[r] = rn[(size_t)r * F + id];
-    }
-    const float fgf = fg ? 1.f : 0.f;
-    const float w0 = affine(a[0], a[1], a[2], px[k], py[k]);
-    const float w1 = affine(a[3], a[4], a[5], px[k], py[k]);
-    const float w2 = __fsub_rn(__fsub_rn(1.f, w0), w1);
-    const float z = affine(a[6], a[7], a[8], px[k], py[k]);
-    float* o = on + (size_t)y * W + x;
-    o[0 * plane] = __fmul_rn(z, fgf);
-    o[1 * plane] = fgf;
-    o[2 * plane] = a[9];
-#pragma unroll
-    for (int ch = 0; ch < 3; ++ch) {
-      o[(3 + ch) * plane] = blend3(w0, w1, w2, a[11 + ch], a[14 + ch], a[17 + ch]);
-      o[(6 + ch) * plane] = blend3(w0, w1, w2, a[20 + ch], a[23 + ch], a[26 + ch]);
-    }
-    o[9 * plane] = __fmul_rn(w0, fgf);
-    o[10 * plane] = __fmul_rn(w1, fgf);
-    o[11 * plane] = __fmul_rn(w2, fgf);
-#pragma unroll
-    for (int ch = 12; ch < 16; ++ch) o[ch * plane] = 0.f;
+    rc_emit_maps(rn, F, best[k], id_mask, px[k], py[k], on + (size_t)y * W + x, plane);
   }
 }
 
@@ -144,6 +81,6 @@ extern "C" int raster_v3_launch(const float* rows, const int* active, float* out
   if (H % TH != 0 || W % TW != 0 || F != NC * FC || N > 65535)
     return (int)cudaErrorInvalidValue;
   dim3 grid(W / TW, H / TH, N);
-  raster_v3_kernel<<<grid, THREADS, 0, stream>>>(rows, active, out, F, H, W, NC, id_mask);
+  raster_v3_kernel<<<grid, RC_THREADS, 0, stream>>>(rows, active, out, F, H, W, NC, id_mask);
   return (int)cudaGetLastError();
 }

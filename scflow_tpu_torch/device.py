@@ -18,3 +18,19 @@ def resolve_device(device: Optional[Union[str, torch.device]] = None) -> torch.d
         if dev.index is None:  # name the card, so devices compare equal
             dev = torch.device("cuda", torch.cuda.current_device())
     return dev
+
+
+BACKENDS = ("auto", "pallas", "xla")
+
+
+def resolve_backend(name: str, device: torch.device) -> str:
+    """The render backend for tensors on `device`, with the JAX package's
+    names so that configs carry across: 'pallas' is the tile-binned kernel
+    path (the CUDA kernels for CUDA tensors, their plain versions for CPU
+    ones), 'xla' the brute-force tensor path, 'auto' 'pallas' on a card and
+    'xla' on the CPU.  Any other name raises."""
+    if name not in BACKENDS:
+        raise ValueError(f"unknown backend {name!r}; expected one of {BACKENDS}")
+    if name == "auto":
+        return "pallas" if torch.device(device).type == "cuda" else "xla"
+    return name

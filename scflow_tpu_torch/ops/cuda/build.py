@@ -3,8 +3,8 @@
 Each source in `scflow_tpu_torch/csrc/` compiles on its own into a shared
 library with a plain C interface (no PyTorch headers, so a build takes
 seconds).  Libraries land in `<repo>/build/kernels/`, named by a hash of the
-source and the flags, so an edited source rebuilds and an unchanged one is
-reused.  All missing libraries build in parallel, one nvcc per source.
+source, every shared header (`csrc/*.cuh`) and the flags, so an edited source
+or header rebuilds and an unchanged one is reused.  All missing libraries build in parallel, one nvcc per source.
 """
 
 import ctypes
@@ -25,11 +25,14 @@ NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 ]
-# per-source extra flags: the raster kernel must not contract a*b + c into
-# an FMA, so that its keys round exactly like the plain PyTorch version
+# per-source extra flags: the raster kernels must not contract a*b + c into
+# an FMA, so that their keys round exactly like the plain PyTorch versions
 SOURCES: Dict[str, List[str]] = {
     "corr_lookup.cu": [],
     "rasterize_v3.cu": ["-fmad=false"],
+    "rasterize_v4.cu": ["-fmad=false"],
+    "rasterize_packed.cu": ["-fmad=false"],
+    "rasterize_v12.cu": ["-fmad=false"],
 }
 
 _lock = threading.Lock()
@@ -49,9 +52,11 @@ def _nvcc() -> str:
 
 def library_path(source: str) -> Path:
     flags = NVCC_FLAGS + SOURCES[source]
-    digest = hashlib.sha256(
-        (CSRC_DIR / source).read_bytes() + " ".join(flags).encode()
-    ).hexdigest()[:16]
+    digest = hashlib.sha256((CSRC_DIR / source).read_bytes())
+    for header in sorted(CSRC_DIR.glob("*.cuh")):
+        digest.update(header.name.encode() + header.read_bytes())
+    digest.update(" ".join(flags).encode())
+    digest = digest.hexdigest()[:16]
     return BUILD_DIR / f"{Path(source).stem}-{digest}.so"
 
 

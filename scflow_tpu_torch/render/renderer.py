@@ -1,24 +1,66 @@
 """Batched renderer: (R, t, K, labels) -> images, depths, masks.
 
-Port of scflow_tpu/render/renderer.py::render_batch on its fused-kernel
-branch (`_render_pallas`, raster version 3): project, gather corners, pack
-and bin the faces, rasterize with kernel K2, then Phong-light each pixel
-with the surface point rebuilt from the depth ray.  The brute-force
-rasterizer the JAX package uses for other crop sizes is not ported, so a
-crop whose height is not a multiple of 8 or width not a multiple of 128
-raises.
+Port of scflow_tpu/render/renderer.py.  `render_batch` takes the fused
+kernel path (`_render_pallas`: pack, then kernel K2 for raster version 3 or
+K3 for version 4, then Phong with the surface point rebuilt from the depth
+ray) when the backend is 'pallas', the crop tiles as 8x128 and the shading
+is smooth Phong; otherwise it rasterizes (`rasterizer.rasterize`, the
+brute-force path) and shades the fragments (`shading.shade_phong`).
 """
 
-from typing import Dict
+from typing import Dict, Optional, Tuple
 
 import torch
 
-from scflow_tpu_torch.ops.cuda.rasterize import (TH, TW, id_bits_for,
-                                                 pack_shaded_and_bin,
-                                                 rasterize_shaded_v3)
+from scflow_tpu_torch.device import resolve_backend, resolve_device
+from scflow_tpu_torch.ops.cuda.rasterize import rasterize_shaded_v3, rasterize_shaded_v4
+from scflow_tpu_torch.ops.raster_pack import (id_bits_for, pack_shaded_and_bin,
+                                              pack_shaded_exact)
+from scflow_tpu_torch.render.meshbank import MeshBank, resolve_cull_backfaces
 from scflow_tpu_torch.render.rasterizer import (gather_corner_attrs, gather_tri,
-                                                project_to_screen)
-from scflow_tpu_torch.render.shading import phong_lighting
+                                                project_to_screen, rasterize)
+from scflow_tpu_torch.render.shading import BACKGROUND, phong_lighting, shade_phong
+
+RASTER_VERSIONS = (3, 4)
+BANK_FIELDS = ("verts", "faces", "face_valid", "colors", "normals", "vert_valid")
+
+
+def _render_pallas(verts_cam, normals_cam, colors, faces, face_valid, K, h, w, light_cam,
+                   version: int = 3, ambient: float = 0.5, diffuse: float = 0.3,
+                   specular: float = 0.2,
+                   background_color: Tuple[float, float, float] = BACKGROUND,
+                   cull_backfaces: bool = False):
+    """The fused raster+shade path at 8x128 tiles and 128-face chunks:
+    version 3 bins faces by chunk bbox (K2), version 4 by exact per-tile
+    entries (K3)."""
+    xy, z = project_to_screen(verts_cam, K)
+    tri_xy, tri_z = gather_tri(xy, z, faces)
+    corner_attrs = gather_corner_attrs(torch.cat([normals_cam, colors], dim=-1), faces)
+    th, tw, fc = 8, 128, 128
+    if version == 4:
+        rows, seg_start, seg_count, ov_counts, ov_order, _ = pack_shaded_exact(
+            tri_xy, tri_z, face_valid, corner_attrs, h, w, th, tw, fc,
+            cull_backfaces=cull_backfaces)
+        maps = rasterize_shaded_v4(rows, seg_start, seg_count, ov_counts, ov_order, h, w,
+                                   th=th, tw=tw, fc=fc, id_bits=id_bits_for(rows.shape[-1]))
+    else:
+        rows, active, _ = pack_shaded_and_bin(tri_xy, tri_z, face_valid, corner_attrs,
+                                              h, w, th, tw, fc, cull_backfaces=cull_backfaces)
+        maps = rasterize_shaded_v3(rows, active, h, w, id_bits_for(rows.shape[-1]))
+    depths = maps[:, 0]
+    fg = maps[:, 1] > 0.5
+    nrm = maps[:, 3:6].permute(0, 2, 3, 1)
+    texel = maps[:, 6:9].permute(0, 2, 3, 1)
+    # surface position from the depth ray through each pixel
+    ys = torch.arange(h, dtype=depths.dtype, device=depths.device)
+    xs = torch.arange(w, dtype=depths.dtype, device=depths.device)
+    gy, gx = torch.meshgrid(ys, xs, indexing="ij")
+    homo = torch.stack([gx, gy, torch.ones_like(gx)], dim=-1)
+    rays = torch.einsum("nij,hwj->nhwi", torch.linalg.inv(K), homo)
+    images = phong_lighting(rays * depths[..., None], nrm, texel, light_cam, fg,
+                            ambient=ambient, diffuse=diffuse, specular=specular,
+                            background_color=background_color)
+    return {"images": images, "depths": depths, "masks": fg.to(images.dtype)}
 
 
 def render_batch(
@@ -34,14 +76,25 @@ def render_batch(
     labels: torch.Tensor,  # (N,)
     h: int,
     w: int,
+    chunk: int = 64,
+    flat_shading: bool = False,
+    backend: str = "xla",
+    shading: str = "phong",
+    seperate_lights: bool = True,
+    default_lights: bool = True,
+    raster_version: int = 3,
+    background_color: Tuple[float, float, float] = BACKGROUND,
     cull_backfaces: bool = False,
 ) -> Dict[str, torch.Tensor]:
     """Returns images (N, H, W, 3) in [0, 1], depths (N, H, W) (0 off the
-    object) and masks (N, H, W).  cull_backfaces is for closed, consistently
-    wound meshes only: it drops faces that cannot win the depth test."""
-    if h % TH or w % TW:
-        raise ValueError(f"the raster kernel tiles the crop as {TH}x{TW}; "
-                         f"a {h}x{w} crop is not supported")
+    object) and masks (N, H, W).  backend: 'xla', 'pallas' or 'auto'
+    (device.resolve_backend); shading: 'phong', 'flat' or 'gouraud';
+    raster_version 3 or 4 selects the kernel of the fused path;
+    cull_backfaces is for closed, consistently wound meshes only."""
+    backend = resolve_backend(backend, bank_verts.device)
+    if raster_version not in RASTER_VERSIONS:
+        raise ValueError(f"raster_version must be one of {RASTER_VERSIONS}, "
+                         f"got {raster_version!r}")
     labels = labels.long()
     verts = bank_verts[labels]
     faces = bank_faces[labels]
@@ -53,30 +106,103 @@ def render_batch(
     verts_cam = torch.einsum("nij,nvj->nvi", rotations, verts) + translations[:, None]
     normals_cam = torch.einsum("nij,nvj->nvi", rotations, normals)
 
-    # one point light per object at R @ (0, 0, max(znear - 400, 0)) in the
-    # world frame; the camera-frame light is R @ that + t, so R is applied
-    # twice.  That is the reference's own placement, kept knowingly.
-    z = torch.where(vert_valid, verts_cam[..., 2], torch.full_like(verts_cam[..., 2], float("inf")))
-    lz = torch.clamp(z.amin(dim=1) - 400.0, min=0.0)
-    light_local = torch.stack([torch.zeros_like(lz), torch.zeros_like(lz), lz], dim=-1)
-    light_world = torch.einsum("nij,nj->ni", rotations, light_local)
+    # point-light placement (the reference's rendering.py:194-213).  The
+    # light's world position is R @ (0, 0, lz), so in the camera frame it
+    # sits at R @ (R @ (0, 0, lz)) + t: R twice, the reference's own
+    # placement, kept knowingly.  The branches:
+    #   seperate_lights (either default_lights): lz = max(znear_obj - 400, 0)
+    #   not seperate, not default: lz = znear / 4, the batch's znear floored
+    #       to hundreds
+    #   not seperate, default: pytorch3d PointLights' default world location
+    #       (0, 1, 0), no R @ (0, 0, lz)
+    z = torch.where(vert_valid, verts_cam[..., 2],
+                    torch.full_like(verts_cam[..., 2], float("inf")))
+    znear = z.amin(dim=1)
+    if seperate_lights or not default_lights:
+        if seperate_lights:
+            lz = torch.clamp(znear - 400.0, min=0.0)
+        else:
+            znear_r = torch.floor(znear.amin() / 100.0) * 100.0
+            lz = (znear_r / 4.0).expand(znear.shape)
+        light_world = torch.einsum(
+            "nij,nj->ni", rotations,
+            torch.stack([torch.zeros_like(lz), torch.zeros_like(lz), lz], dim=-1))
+    else:
+        light_world = torch.tensor([0.0, 1.0, 0.0], dtype=translations.dtype,
+                                   device=translations.device).expand(translations.shape)
     light_cam = torch.einsum("nij,nj->ni", rotations, light_world) + translations
+    # light colours: pytorch3d PointLights' defaults, or the reference's
+    # explicit set (rendering.py:204)
+    amb, dif, spec = (0.5, 0.3, 0.2) if default_lights else (0.8, 0.5, 1.0)
 
-    xy, zv = project_to_screen(verts_cam, K)
-    tri_xy, tri_z = gather_tri(xy, zv, faces)
-    corner_attrs = gather_corner_attrs(torch.cat([normals_cam, colors], dim=-1), faces)
-    rows, active, _ = pack_shaded_and_bin(tri_xy, tri_z, face_valid, corner_attrs,
-                                          h, w, cull_backfaces=cull_backfaces)
-    maps = rasterize_shaded_v3(rows, active, h, w, id_bits_for(rows.shape[-1]))
+    # the fused path tiles the image as 8x128 and bakes smooth Phong
+    # shading; other crops and the flat and gouraud modes rasterize
+    if (backend == "pallas" and h % 8 == 0 and w % 128 == 0
+            and shading == "phong" and not flat_shading):
+        return _render_pallas(verts_cam, normals_cam, colors, faces, face_valid, K, h, w,
+                              light_cam, version=raster_version, ambient=amb, diffuse=dif,
+                              specular=spec, background_color=background_color,
+                              cull_backfaces=cull_backfaces)
 
-    depths = maps[:, 0]
-    fg = maps[:, 1] > 0.5
-    nrm = maps[:, 3:6].permute(0, 2, 3, 1)
-    texel = maps[:, 6:9].permute(0, 2, 3, 1)
-    ys = torch.arange(h, dtype=depths.dtype, device=depths.device)
-    xs = torch.arange(w, dtype=depths.dtype, device=depths.device)
-    gy, gx = torch.meshgrid(ys, xs, indexing="ij")
-    homo = torch.stack([gx, gy, torch.ones_like(gx)], dim=-1)
-    rays = torch.einsum("nij,hwj->nhwi", torch.linalg.inv(K), homo)
-    images = phong_lighting(rays * depths[..., None], nrm, texel, light_cam, fg)
-    return {"images": images, "depths": depths, "masks": fg.to(images.dtype)}
+    fragments = rasterize(verts_cam, faces, face_valid, K, h, w, chunk,
+                          cull_backfaces=cull_backfaces)
+    images = shade_phong(fragments, faces, verts_cam, normals_cam, colors, light_cam,
+                         ambient=amb, diffuse=dif, specular=spec, flat_shading=flat_shading,
+                         mode=shading, background_color=background_color)
+    depths = fragments.zbuf
+    return {"images": images, "depths": depths, "masks": (depths > 0).to(images.dtype)}
+
+
+class Renderer:
+    """Owns a mesh bank as tensors on one device and renders batches of
+    (rotations, translations, K, labels) with fixed settings."""
+
+    def __init__(
+        self,
+        mesh_dir: Optional[str] = None,
+        bank: Optional[MeshBank] = None,
+        image_size: Tuple[int, int] = (256, 256),
+        shader_type: str = "Phong",
+        background_color: Tuple[float, float, float] = BACKGROUND,
+        seperate_lights: bool = True,
+        default_lights: bool = True,
+        backend: str = "xla",
+        chunk: int = 64,
+        cull_backfaces=False,
+        device=None,
+        **unused,
+    ):
+        """A bank, or a directory of .ply meshes.  cull_backfaces: False,
+        True (refused unless every mesh passes the winding check) or
+        'force' (meshbank.resolve_cull_backfaces).  device None means
+        CUDA."""
+        if bank is None:
+            if mesh_dir is None:
+                raise ValueError("need mesh_dir or bank")
+            bank = MeshBank.from_dir(mesh_dir)
+        self.bank = bank
+        self.image_size = tuple(image_size)
+        self.shader_type = shader_type
+        self.background_color = tuple(background_color)
+        self.seperate_lights = seperate_lights
+        self.default_lights = default_lights
+        self.backend = backend
+        self.chunk = chunk
+        self.cull_backfaces = resolve_cull_backfaces(bank, cull_backfaces)
+        self.device = resolve_device(device)
+        self._dev = {k: torch.as_tensor(getattr(bank, k)).to(self.device) for k in BANK_FIELDS}
+
+    def __call__(self, rotations, translations, K, labels) -> Dict[str, torch.Tensor]:
+        hh, ww = self.image_size
+
+        def dev(x, dtype):
+            return torch.as_tensor(x, dtype=dtype, device=self.device)
+
+        return render_batch(
+            *(self._dev[k] for k in BANK_FIELDS),
+            dev(rotations, torch.float32), dev(translations, torch.float32),
+            dev(K, torch.float32), dev(labels, torch.int64), hh, ww,
+            chunk=self.chunk, flat_shading=False, backend=self.backend,
+            shading=self.shader_type.lower(), seperate_lights=self.seperate_lights,
+            default_lights=self.default_lights, background_color=self.background_color,
+            cull_backfaces=self.cull_backfaces)

@@ -1,5 +1,5 @@
-"""Kernels K1 (corr lookup) and K2 (raster v3) against their plain PyTorch
-versions, and the CPU/CUDA dispatch of their wrappers.
+"""Kernels K1 (corr lookup) and K2-K6 (the raster kernels) against their
+plain PyTorch versions, and the CPU/CUDA dispatch of their wrappers.
 
 Tests marked `cuda` need a card and skip without one.  This file imports no
 JAX, so on a machine with only PyTorch and a card it runs as
@@ -11,6 +11,7 @@ import pytest
 import torch
 
 from scflow_tpu_torch.ops.cuda import corr_lookup as k1
+from scflow_tpu_torch.ops import raster_pack as pk
 from scflow_tpu_torch.ops.cuda import rasterize as k2
 from scflow_tpu_torch.render.meshbank import make_synthetic_bank
 from scflow_tpu_torch.render.rasterizer import gather_corner_attrs, gather_tri, project_to_screen
@@ -41,7 +42,9 @@ def _lookup_case(case: str, seed: int = 0):
     return levels, coords
 
 
-def _raster_scene(device, n=2, img=128, cull=True):
+def _raster_corners(device, n=2, img=128):
+    """Projected corners (N, F, 3, 2), corner depths, face_valid and corner
+    [normal, colour] attributes of two posed spheres on an img x img crop."""
     bank = make_synthetic_bank(3, kind="sphere", size=160.0, subdivisions=2)
     g = torch.Generator().manual_seed(3)
     labels = torch.tensor([0, 2])[:n]
@@ -61,33 +64,81 @@ def _raster_scene(device, n=2, img=128, cull=True):
     tri_xy, tri_z = gather_tri(xy, zv, faces)
     corner = gather_corner_attrs(
         torch.cat([normals_cam, torch.from_numpy(bank.colors)[labels]], -1), faces)
-    rows, active, _ = k2.pack_shaded_and_bin(
-        tri_xy.to(device), tri_z.to(device), torch.from_numpy(bank.face_valid)[labels].to(device),
-        corner.to(device), img, img, cull_backfaces=cull)
+    fv = torch.from_numpy(bank.face_valid)[labels]
+    return tuple(a.to(device) for a in (tri_xy, tri_z, fv, corner))
+
+
+def _raster_scene(device, n=2, img=128, cull=True, fc=128):
+    """Shaded packs at 8x128 tiles: rows (N, 32, F'), active, img."""
+    tri_xy, tri_z, fv, corner = _raster_corners(device, n, img)
+    rows, active, _ = pk.pack_shaded_and_bin(tri_xy, tri_z, fv, corner, img, img, 8, 128, fc,
+                                             cull_backfaces=cull)
     return rows, active, img
+
+
+def _packed_scene(device, img, fc):
+    """Depth-only packs at rasterize()'s tiles for an img x img crop."""
+    tri_xy, tri_z, fv, _ = _raster_corners(device, img=img)
+    th, tw = (8 if img % 8 == 0 else img), (128 if img % 128 == 0 else img)
+    rows, active, _ = pk.pack_faces_and_bin(tri_xy, tri_z, fv, img, img, th, tw, fc,
+                                            cull_backfaces=True)
+    return rows, active, dict(h=img, w=img, th=th, tw=tw, fc=fc,
+                              id_bits=pk.id_bits_for(rows.shape[-1]))
+
+
+def _v4_scene(device, dup):
+    tri_xy, tri_z, fv, corner = _raster_corners(device)
+    packs = pk.pack_shaded_exact(tri_xy, tri_z, fv, corner, 128, 128, 8, 128, 128, dup=dup,
+                                 cull_backfaces=True)
+    return packs[:5], dict(h=128, w=128, th=8, tw=128, fc=128,
+                           id_bits=pk.id_bits_for(packs[0].shape[-1]))
+
+
+def _all_launches():
+    return (k1.KERNEL.launches, k2.V3_KERNEL.launches, k2.V4_KERNEL.launches,
+            k2.PACKED_KERNEL.launches, k2.V12_KERNELS[1].launches, k2.V12_KERNELS[2].launches)
 
 
 def test_cpu_tensors_run_the_plain_versions_without_launching():
     levels, coords = _lookup_case("random")
-    before = (k1.KERNEL.launches, k2.KERNEL.launches)
+    before = _all_launches()
     torch.testing.assert_close(k1.corr_lookup_flat(levels, coords),
                                k1.corr_lookup_flat_plain(levels, coords), rtol=0, atol=0)
-    rows, active, img = _raster_scene(torch.device("cpu"))
-    bits = k2.id_bits_for(rows.shape[-1])
+    cpu = torch.device("cpu")
+    rows, active, img = _raster_scene(cpu)
+    bits = pk.id_bits_for(rows.shape[-1])
     torch.testing.assert_close(k2.rasterize_shaded_v3(rows, active, img, img, bits),
                                k2.rasterize_shaded_v3_plain(rows, active, img, img, bits),
                                rtol=0, atol=0)
-    assert (k1.KERNEL.launches, k2.KERNEL.launches) == before
+    for version in (1, 2):
+        assert torch.equal(
+            k2.rasterize_shaded(rows, active, img, img, 8, 128, 128, bits, version=version),
+            k2.rasterize_shaded_plain(rows, active, img, img, 8, 128, 128, bits))
+    rows, active, kw = _packed_scene(cpu, 100, 128)
+    assert torch.equal(k2.rasterize_packed(rows, active, **kw),
+                       k2.rasterize_packed_plain(rows, active, **kw))
+    packs, kw = _v4_scene(cpu, 8)
+    assert torch.equal(k2.rasterize_shaded_v4(*packs, **kw),
+                       k2.rasterize_shaded_v4_plain(*packs, **kw))
+    assert _all_launches() == before
 
 
 def test_wrappers_reject_other_devices():
     levels = [torch.empty((4, s * s), device="meta") for s in (4, 2, 1)]
     with pytest.raises(ValueError, match="unsupported device"):
         k1.corr_lookup_flat(levels, torch.empty((4, 2), device="meta"))
+    rows = torch.empty((1, 32, 128), device="meta")
+    act = torch.empty((1, 1, 1, 1), dtype=torch.int32, device="meta")
+    tiles = torch.empty((1, 1, 1), dtype=torch.int32, device="meta")
     with pytest.raises(ValueError, match="unsupported device"):
-        k2.rasterize_shaded_v3(torch.empty((1, 32, 128), device="meta"),
-                               torch.empty((1, 1, 1, 1), dtype=torch.int32, device="meta"),
-                               8, 128, 7)
+        k2.rasterize_shaded_v3(rows, act, 8, 128, 7)
+    for version in (1, 2):
+        with pytest.raises(ValueError, match="unsupported device"):
+            k2.rasterize_shaded(rows, act, 8, 128, 8, 128, 128, 7, version=version)
+    with pytest.raises(ValueError, match="unsupported device"):
+        k2.rasterize_packed(rows[:, :16], act, 8, 128, 8, 128, 128, 7)
+    with pytest.raises(ValueError, match="unsupported device"):
+        k2.rasterize_shaded_v4(rows, tiles, tiles, tiles, act, 8, 128, 8, 128, 128, 7)
 
 
 @pytest.mark.cuda
@@ -122,11 +173,74 @@ def test_raster_kernel_matches_plain_bit_for_bit(cull, cuda):
     """No FMA contraction on either side (the kernel is built with
     -fmad=false), so every map is identical, not just close."""
     rows, active, img = _raster_scene(cuda, cull=cull)
-    bits = k2.id_bits_for(rows.shape[-1])
-    before = k2.KERNEL.launches
+    bits = pk.id_bits_for(rows.shape[-1])
+    before = k2.V3_KERNEL.launches
     got = k2.rasterize_shaded_v3(rows, active, img, img, bits)
     torch.cuda.synchronize()
-    assert k2.KERNEL.launches == before + 1
+    assert k2.V3_KERNEL.launches == before + 1
     want = k2.rasterize_shaded_v3_plain(rows, active, img, img, bits)
     assert want[:, 1].mean() > 0.1  # the scene is not empty
     assert torch.equal(got, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("img,fc", [(128, 128), (128, 512), (192, 128), (100, 128)])
+def test_packed_kernel_matches_plain_bit_for_bit(img, fc, cuda):
+    """K4 at 8x128 tiles, at 8x192 tiles (a 192^2 crop) and on one 100x100
+    tile, where each tile takes several blocks."""
+    rows, active, kw = _packed_scene(cuda, img, fc)
+    before = k2.PACKED_KERNEL.launches
+    got = k2.rasterize_packed(rows, active, **kw)
+    torch.cuda.synchronize()
+    assert k2.PACKED_KERNEL.launches == before + 1
+    want = k2.rasterize_packed_plain(rows, active, **kw)
+    assert (want != k2.INT32_MAX).float().mean() > 0.1
+    assert torch.equal(got, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("version", [1, 2])
+@pytest.mark.parametrize("fc", [128, 512])
+def test_shaded_v12_kernel_matches_plain_bit_for_bit(version, fc, cuda):
+    rows, active, img = _raster_scene(cuda, fc=fc)
+    bits = pk.id_bits_for(rows.shape[-1])
+    before = k2.V12_KERNELS[version].launches
+    got = k2.rasterize_shaded(rows, active, img, img, 8, 128, fc, bits, version=version)
+    torch.cuda.synchronize()
+    assert k2.V12_KERNELS[version].launches == before + 1
+    want = k2.rasterize_shaded_plain(rows, active, img, img, 8, 128, fc, bits)
+    assert want[:, 1].mean() > 0.1
+    assert torch.equal(got, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dup", [8, 1])
+def test_v4_kernel_matches_plain_bit_for_bit(dup, cuda):
+    """K3; dup 1 sends nearly every face through the overflow lists."""
+    packs, kw = _v4_scene(cuda, dup)
+    before = k2.V4_KERNEL.launches
+    got = k2.rasterize_shaded_v4(*packs, **kw)
+    torch.cuda.synchronize()
+    assert k2.V4_KERNEL.launches == before + 1
+    want = k2.rasterize_shaded_v4_plain(*packs, **kw)
+    assert want[:, 1].mean() > 0.1
+    assert torch.equal(got, want)
+
+
+@pytest.mark.cuda
+def test_raster_kernels_reject_bad_input(cuda):
+    rows, active, img = _raster_scene(cuda)
+    bits = pk.id_bits_for(rows.shape[-1])
+    with pytest.raises(ValueError, match="version"):
+        k2.rasterize_shaded(rows, active, img, img, 8, 128, 128, bits, version=3)
+    with pytest.raises(ValueError):  # tiles that do not divide the crop
+        k2.rasterize_shaded(rows, active, img, img, 8, 96, 128, bits)
+    with pytest.raises(ValueError):  # active of another shape
+        k2.rasterize_shaded(rows, active[:, :, :, :0].contiguous(), img, img, 8, 128, 128, bits)
+    with pytest.raises(ValueError):  # too few id bits
+        k2.rasterize_shaded(rows, active, img, img, 8, 128, 128, 3)
+    with pytest.raises(ValueError):  # rows that are not contiguous
+        k2.rasterize_packed(rows[:, :16], active, img, img, 8, 128, 128, bits)
+    packs, kw = _v4_scene(cuda, 8)
+    with pytest.raises(ValueError):  # an int64 overflow list
+        k2.rasterize_shaded_v4(*packs[:4], packs[4].long(), **kw)

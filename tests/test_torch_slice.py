@@ -93,10 +93,25 @@ def test_infer_fn_matches_jax(models, batch, monkeypatch, no_tf32):
     want = j_infer(variables, {k: jnp.asarray(v) for k, v in batch.items()})
     assets = RenderAssets.from_bank(make_synthetic_bank(NCLASS, kind="sphere", size=SIZE, subdivisions=2),
                                     device="cpu")
-    infer = make_scflow_infer_fn(port, assets, image_size=(IMG, IMG),
+    infer = make_scflow_infer_fn(port, assets, image_size=(IMG, IMG), render_backend="pallas",
                                  render_cull_backfaces=True, device="cpu")
     got = infer(batch)
     assert got["rotations"].shape == (N, 3, 3) and got["translations"].shape == (N, 3)
+    _assert_poses(got["rotations"].numpy(), got["translations"].numpy(),
+                  np.asarray(want["rotations"]), np.asarray(want["translations"]))
+
+
+def test_infer_fn_brute_force_render_matches_jax(models, batch, no_tf32):
+    """The default render_backend 'auto' on the CPU renders by the
+    brute-force path, held against the JAX package's 'xla' render."""
+    fmodel, variables, port = models
+    j_infer = jsystem.make_scflow_infer_fn(
+        fmodel, jsystem.RenderAssets.from_bank(j_bank(NCLASS, kind="sphere", size=SIZE, subdivisions=2)),
+        image_size=(IMG, IMG), render_backend="xla", lookup_backend="xla", slim=True)
+    want = j_infer(variables, {k: jnp.asarray(v) for k, v in batch.items()})
+    assets = RenderAssets.from_bank(make_synthetic_bank(NCLASS, kind="sphere", size=SIZE, subdivisions=2),
+                                    device="cpu")
+    got = make_scflow_infer_fn(port, assets, image_size=(IMG, IMG), device="cpu")(batch)
     _assert_poses(got["rotations"].numpy(), got["translations"].numpy(),
                   np.asarray(want["rotations"]), np.asarray(want["translations"]))
 
@@ -111,6 +126,13 @@ def test_entry_points_refuse_cpu_without_asking(monkeypatch):
     assets = RenderAssets.from_bank(bank, device="cpu")
     with pytest.raises(RuntimeError, match="no CUDA device"):
         make_scflow_infer_fn(SCFlowRefiner(num_class=1, image_size=(128, 128)), assets)
+
+
+def test_infer_fn_rejects_unknown_render_backend():
+    assets = RenderAssets.from_bank(make_synthetic_bank(1, kind="sphere"), device="cpu")
+    with pytest.raises(ValueError, match="unknown backend"):
+        make_scflow_infer_fn(SCFlowRefiner(num_class=1, image_size=(128, 128)), assets,
+                             render_backend="triton", device="cpu")
 
 
 def _imported_modules(path: Path):
