@@ -37,7 +37,29 @@ last line:
                flat and gouraud shading, and render_batch at a 192^2 crop
                with backend 'auto' (the brute-force path, no kernel) against
                the CPU run; ms per call of each;
- 10. the kernels line, then the device line the chip harness reads.
+ 10. K7/K8   - the shift and bdiag lookup kernels at K1's flagship inputs:
+               K7 bit-identical to its plain version, K8 within 1e-4 of the
+               tent plain version; times, F.grid_sample's and the bound;
+ 11. K1b     - the lookup's backward at the training shape (16 x 32^2 rows,
+               random, border and integer centres) against its plain
+               version, level and flow grads within 1e-4; times (without
+               the flow grad, as the train step runs it), the autograd
+               backward of the 4 F.grid_sample calls, and the bound;
+ 12. train   - make_scflow_train_step(lookup_backend='pallas') at the shipped
+               recipe (batch 16, 256^2, 8 iterations, 21-class 1024-face
+               uvsphere bank, culling on, fp32 with TF32 off, AdamW + clip
+               10 + OneCycle, seeded weights) on a synthetic batch (real
+               images rendered at gt poses, jittered reference poses, gt
+               masks from the render): one step with every launch count
+               reset (exactly 1 K2, 8 K1, 8 K1b; finite loss); one step each
+               with lookup_variant 'shift' and 'bdiag' from the same state
+               (8 K7 or 8 K8, the tent loss within rtol 1e-4); the loss
+               falling over 6 steps at a constant lr 1e-3; a card step
+               against a CPU step of the plain versions at batch 2, 128^2,
+               3 iterations (loss rtol 1e-3, worst per-leaf gradient rel L2
+               <= 2e-2); ms per step, samples/s, forward/backward/optimizer
+               ms (CUDA events), peak memory and the profiler's top kernels;
+ 13. the kernels line, then the device line the chip harness reads.
 Imports no JAX.  Needs one card; without one it exits non-zero at once.
 """
 
@@ -55,6 +77,7 @@ import torch
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM, NVIDIA data sheet
 FP32_FLOPS = 67e12  # H100 SXM fp32 outside the tensor cores
 BATCH, IMG, ITERS, NCLASS = 64, 256, 8, 21
+TRAIN_BATCH = 16  # configs/refine_datasets/ycbv_real.py:118, samples_per_gpu
 HEAD_STD = 0.005  # pose-head output weights of the seeded model (seeded_model)
 
 
@@ -111,12 +134,12 @@ def phase_build():
           "ptxas": ptxas})
 
 
-def _flagship_lookup_inputs(dev):
-    """65,536 rows (64 images at 32x32), levels 32^2..4^2; a third of the
-    rows get random flows, a third border-straddling ones, a third exactly
-    integer centres."""
+def _flagship_lookup_inputs(dev, n: int = None):
+    """n images at 32x32 (65,536 rows at the bench's 64), levels 32^2..4^2;
+    a third of the rows get random flows, a third border-straddling ones, a
+    third exactly integer centres."""
     g = torch.Generator().manual_seed(1)
-    n, h = BATCH, IMG // 8
+    n, h = n or BATCH, IMG // 8
     rows = n * h * h
     levels = [torch.randn((rows, (h >> l) ** 2), generator=g).to(dev) for l in range(4)]
     flow = 4.0 * torch.randn((rows, 2), generator=g)
@@ -164,28 +187,91 @@ def _grid_sample_lookup(levels, coords, radius: int = 4):
     return calls
 
 
-def phase_k1(dev):
+def phase_lookup(dev):
+    """K1 (tent), K7 (shift) and K8 (bdiag) on the same flagship inputs:
+    each against its plain version, timed beside the same F.grid_sample
+    calls and bound."""
     from scflow_tpu_torch.ops.cuda import corr_lookup as k1
 
     levels, coords = _flagship_lookup_inputs(dev)
-    got = k1.corr_lookup_flat(levels, coords)
-    want = k1.corr_lookup_flat_plain(levels, coords)
-    torch.cuda.synchronize()
-    err = (got - want).abs().max().item()
-    require(math.isfinite(err) and err <= 1e-4, f"K1 max |d| {err} <= 1e-4")
     calls = _grid_sample_lookup(levels, coords)
+    tent = k1.corr_lookup_flat_plain(levels, coords)
     lib = torch.cat([f().reshape(coords.shape[0], -1) for f in calls], dim=1)
-    lib_err = (lib - want).abs().max().item()
+    lib_err = (lib - tent).abs().max().item()
+    library_ms = sum(median_ms(f, 10) for f in calls)
     bound_ms, bound_by = _lookup_bound(levels, coords)
+    out = {}
+    for key, variant, plain, tol in (("K1", "tent", k1.corr_lookup_flat_plain, 1e-4),
+                                     ("K7", "shift", k1.corr_lookup_flat_shift_plain, 0.0),
+                                     ("K8", "bdiag", k1.corr_lookup_flat_plain, 1e-4)):
+        got = k1.corr_lookup_flat(levels, coords, variant=variant)
+        want = plain(levels, coords)
+        torch.cuda.synchronize()
+        err = _max_abs(got, want)
+        if tol == 0.0:
+            require(torch.equal(got, want), f"{key} bit-identical (max |d| {err})")
+        require(math.isfinite(err) and err <= tol, f"{key} max |d| {err} <= {tol}")
+        out[key] = {
+            "max_abs_err": err,
+            "ms": median_ms(lambda: k1.corr_lookup_flat(levels, coords, variant=variant), 20),
+            "plain_ms": median_ms(lambda: plain(levels, coords), 3),
+            "library_ms": library_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+        }
+        emit({"phase": key, "variant": variant, "rows": coords.shape[0],
+              "tolerance": tol, "grid_sample_max_abs_diff_vs_tent": lib_err, **out[key]})
+    return out
+
+
+def phase_k1b(dev):
+    """K1b at the training shape: 16 images at 32^2, so 16,384 rows."""
+    from scflow_tpu_torch.ops.cuda import corr_lookup as k1
+
+    levels, coords = _flagship_lookup_inputs(dev, TRAIN_BATCH)
+    rows = coords.shape[0]
+    g = torch.randn((rows, 4 * 81), generator=torch.Generator().manual_seed(3)).to(dev)
+    errs = {}
+    for want_coords in (True, False):
+        got, got_c = k1.corr_lookup_flat_bwd(levels, coords, g, want_coords=want_coords)
+        want, want_c = k1.corr_lookup_flat_bwd_plain(levels, coords, g, want_coords=want_coords)
+        torch.cuda.synchronize()
+        errs[want_coords] = max(_max_abs(a, b) for a, b in zip(got, want))
+        if want_coords:
+            errs["coords"] = _max_abs(got_c, want_c)
+    err = max(errs.values())
+    require(math.isfinite(err) and err <= 1e-4, f"K1b max |d| {errs} <= 1e-4")
+    # the autograd backward of the 4 F.grid_sample calls into the maps
+    maps = [m.detach().clone().requires_grad_() for m in levels]
+    outs = [f() for f in _grid_sample_lookup(maps, coords)]
+    gs = [gi.reshape(o.shape).contiguous() for gi, o in zip(g.split(81, dim=1), outs)]
+
+    def library():
+        torch.autograd.grad(outs, maps, gs, retain_graph=True)
+
+    # bytes: g and coords read once, the dense level grads written once
+    nbytes = g.numel() * 4 + coords.numel() * 4 + sum(m.numel() * 4 for m in levels)
+    cells = rows * sum((2 * 4 + 2) ** 2 for _ in levels)
+    bound_ms, bound_by = bound(nbytes, cells * 4 * 5)  # up to 4 taps x (weight, mul, add)
     res = {
         "max_abs_err": err,
-        "ms": median_ms(lambda: k1.corr_lookup_flat(levels, coords), 20),
-        "plain_ms": median_ms(lambda: k1.corr_lookup_flat_plain(levels, coords), 3),
-        "library_ms": sum(median_ms(f, 10) for f in calls),
+        "ms": median_ms(lambda: k1.corr_lookup_flat_bwd(levels, coords, g, want_coords=False), 20),
+        "plain_ms": median_ms(lambda: k1.corr_lookup_flat_bwd_plain(levels, coords, g,
+                                                                    want_coords=False), 3),
+        "library_ms": median_ms(library, 5),
         "bound_ms": bound_ms, "bound_by": bound_by,
     }
-    emit({"phase": "K1", "rows": coords.shape[0], "grid_sample_max_abs_diff": lib_err, **res})
+    with_coords_ms = median_ms(lambda: k1.corr_lookup_flat_bwd(levels, coords, g), 20)
+    emit({"phase": "K1b", "rows": rows, "max_abs_err_by_case": {str(k): v for k, v in errs.items()},
+          "ms_with_flow_grad": with_coords_ms, **res})
     return res
+
+
+def quat_to_matrix(q: torch.Tensor) -> torch.Tensor:
+    """(N, 4) unit quaternions (w, x, y, z) -> (N, 3, 3) rotations."""
+    w, x, y, z = q.unbind(-1)
+    return torch.stack([1 - 2 * (y * y + z * z), 2 * (x * y - z * w), 2 * (x * z + y * w),
+                        2 * (x * y + z * w), 1 - 2 * (x * x + z * z), 2 * (y * z - x * w),
+                        2 * (x * z - y * w), 2 * (y * z + x * w), 1 - 2 * (x * x + y * y)],
+                       -1).reshape(-1, 3, 3)
 
 
 def _flagship_scene(dev):
@@ -201,12 +287,7 @@ def _flagship_scene(dev):
     g = torch.Generator().manual_seed(2)
     bank = make_synthetic_bank(NCLASS, kind="uvsphere", size=80.0)
     labels = torch.randint(0, NCLASS, (BATCH,), generator=g)
-    q = torch.nn.functional.normalize(torch.randn((BATCH, 4), generator=g), dim=-1)
-    w, x, y, z = q.unbind(-1)
-    R = torch.stack([1 - 2 * (y * y + z * z), 2 * (x * y - z * w), 2 * (x * z + y * w),
-                     2 * (x * y + z * w), 1 - 2 * (x * x + z * z), 2 * (y * z - x * w),
-                     2 * (x * z - y * w), 2 * (y * z + x * w), 1 - 2 * (x * x + y * y)],
-                    -1).reshape(BATCH, 3, 3)
+    R = quat_to_matrix(torch.nn.functional.normalize(torch.randn((BATCH, 4), generator=g), dim=-1))
     t = torch.tensor([0.0, 0.0, 700.0]) + torch.cat(
         [40.0 * torch.randn((BATCH, 2), generator=g), 100.0 * torch.rand((BATCH, 1), generator=g)], 1)
     K = torch.tensor([[572.4, 0, IMG / 2], [0, 573.5, IMG / 2], [0, 0, 1]]).expand(BATCH, 3, 3)
@@ -419,7 +500,8 @@ def kernel_counters():
     from scflow_tpu_torch.ops.cuda import rasterize as k2
 
     return {"K1": k1.KERNEL, "K2": k2.V3_KERNEL, "K3": k2.V4_KERNEL, "K4": k2.PACKED_KERNEL,
-            "K5": k2.V12_KERNELS[1], "K6": k2.V12_KERNELS[2]}
+            "K5": k2.V12_KERNELS[1], "K6": k2.V12_KERNELS[2], "K7": k1.SHIFT_KERNEL,
+            "K8": k1.BDIAG_KERNEL, "K1b": k1.BWD_KERNEL}
 
 
 def counted(fn):
@@ -513,7 +595,7 @@ def phase_profile(infer, model, assets, batch, smi):
                                        b["real_images"].permute(0, 3, 1, 2).contiguous())
             ev[2].record()
             model.decoder(*feats, b["ref_rotations"], b["ref_translations"], depths, b["k"],
-                          b["labels"])
+                          b["labels"], output_sequences=False, pose_only=True)
             ev[3].record()
             torch.cuda.synchronize()
             for name, a, z in zip(times, ev, ev[1:]):
@@ -534,6 +616,239 @@ def phase_profile(infer, model, assets, batch, smi):
           "kernel_time_sum_ms": sum(ms for ms, _ in kernels.values()),
           "kernel_names": len(kernels), "ours_ms_count": ours,
           "top_kernels_ms_count": [[name[:90], ms, n] for name, (ms, n) in top], "card": smi})
+
+
+# the shipped recipe (configs/refine_models/scflow.py)
+SYMMETRY_TYPES = {"cls_13": {"z": 0}, "cls_16": {"x": 180, "y": 180, "z": 90},
+                  "cls_19": {"y": 180}, "cls_20": {"x": 180}, "cls_21": {"x": 180, "y": 90, "z": 180}}
+OPTIMIZER = dict(type="AdamW", lr=4e-4, betas=(0.9, 0.999), eps=1e-8, weight_decay=1e-4)
+LR_CONFIG = dict(policy="OneCycle", max_lr=4e-4, total_steps=100100, pct_start=0.05,
+                 anneal_strategy="linear")
+
+
+def train_model(image: int, iters: int):
+    """The shipped network (detach_depth_for_xy=True) with PyTorch's default
+    initialisation from a seed; the pose head's output weights get
+    normal(0, 0.005) so that the poses move.  PyTorch's initialisation,
+    smaller than the lecun-normal one of seeded_model, keeps the float32
+    gradients of two devices within the 2e-2 the card-CPU check allows."""
+    from scflow_tpu_torch.refiners.scflow import SCFlowRefiner
+
+    torch.manual_seed(0)
+    model = SCFlowRefiner(num_class=NCLASS, image_size=(image, image), iters=iters,
+                          detach_depth_for_xy=True)
+    g = torch.Generator().manual_seed(1)
+    head = model.decoder.pose_pred
+    with torch.no_grad():
+        for lin in (head.rotation_pred, head.translation_pred):
+            lin.weight.copy_(HEAD_STD * torch.randn(lin.weight.shape, generator=g))
+    return model
+
+
+def train_batch(assets, n: int, image: int, seed: int = 0):
+    """tests/test_train_system.py's recipe: real images rendered at gt poses
+    (random rotations, t = (10 N(0,1), 10 N(0,1), U(650, 750)) mm), the
+    reference pose jittered by 8 degrees N(0,1) per axis and (5, 5, 15) mm
+    N(0,1), gt masks from the render; LINEMOD intrinsics."""
+    from scflow_tpu_torch.refiners.system import render_and_normalize
+
+    rng = np.random.default_rng(seed)
+    q = rng.normal(size=(n, 4))
+    gt_R = quat_to_matrix(torch.from_numpy(q / np.linalg.norm(q, axis=1, keepdims=True))).float()
+    gt_t = np.stack([10 * rng.normal(size=n), 10 * rng.normal(size=n),
+                     rng.uniform(650, 750, n)], -1).astype(np.float32)
+    a = np.deg2rad(8 * rng.normal(size=(n, 3)))  # axis-angle
+    angle = np.linalg.norm(a, axis=1, keepdims=True)
+    dR = quat_to_matrix(torch.from_numpy(
+        np.concatenate([np.cos(angle / 2), np.sin(angle / 2) * a / angle], 1))).float()
+    gt_R, dR = gt_R.numpy(), dR.numpy()
+    K = np.tile(np.array([[[572.4, 0, image / 2], [0, 573.5, image / 2], [0, 0, 1]]],
+                         np.float32), (n, 1, 1))
+    labels = rng.integers(0, NCLASS, n).astype(np.int64)
+    dev = assets.verts.device
+    real, _, masks = render_and_normalize(
+        assets, torch.from_numpy(gt_R).to(dev), torch.from_numpy(gt_t).to(dev),
+        torch.from_numpy(K).to(dev), torch.from_numpy(labels).to(dev), (image, image),
+        backend="pallas" if image % 128 == 0 else "xla", cull_backfaces=True)
+    return dict(real_images=real.cpu().numpy(), ref_rotations=np.einsum("nij,njk->nik", dR, gt_R),
+                ref_translations=gt_t + rng.normal(size=(n, 3)).astype(np.float32)
+                * np.array([5, 5, 15], np.float32), gt_rotations=gt_R, gt_translations=gt_t,
+                labels=labels, k=K, gt_masks=masks.cpu().numpy())
+
+
+def _train_setup(model, bank, image: int, device=None, lr_cfg=LR_CONFIG, optimizer=OPTIMIZER,
+                 **step_kw):
+    """(TrainState, step, render assets, loss assets) of the shipped recipe
+    on `device` (None: the card), with the kernels' lookup ('pallas')."""
+    from scflow_tpu_torch.refiners.system import (RenderAssets, loss_assets_from_bank,
+                                                  make_scflow_train_step)
+    from scflow_tpu_torch.runtime.optim import build_optimizer
+    from scflow_tpu_torch.runtime.train_state import TrainState
+
+    assets = RenderAssets.from_bank(bank, device=device)
+    loss_assets = loss_assets_from_bank(bank, SYMMETRY_TYPES, device=device)
+    tx, _ = build_optimizer(model.parameters(), optimizer, lr_cfg, grad_clip=10.0)
+    step = make_scflow_train_step(model, assets, loss_assets, image_size=(image, image),
+                                  render_cull_backfaces=True, lookup_backend="pallas",
+                                  device=device, **step_kw)
+    return TrainState(model, tx), step, assets, loss_assets
+
+
+def _worst_grad_rel(got, want):
+    """Worst per-leaf relative L2 error, skipping leaves whose reference
+    gradient is below 1e-5 of the global norm (biases before a norm: 0 up
+    to rounding), which must then be small on both sides."""
+    gn = math.sqrt(sum(float((w.double() ** 2).sum()) for w in want.values()))
+    worst, name = 0.0, None
+    for k, w in want.items():
+        w, g = w.double(), got[k].double()
+        if float(w.norm()) < 1e-5 * gn:
+            require(float(g.norm()) < 1e-3 * gn, f"{k}: gradient ~0 on one side only")
+            continue
+        rel = float((g - w).norm() / w.norm())
+        if rel > worst:
+            worst, name = rel, k
+    return worst, name
+
+
+def phase_train(smi):
+    """The train step at the shipped recipe through the kernels."""
+    import copy
+
+    from torch.profiler import ProfilerActivity, profile
+
+    from scflow_tpu_torch.render.meshbank import make_synthetic_bank
+
+    bank = make_synthetic_bank(NCLASS, kind="uvsphere", size=80.0)
+    state0, step, assets, loss_assets = _train_setup(train_model(IMG, ITERS), bank, IMG)
+    batch = train_batch(assets, TRAIN_BATCH, IMG)
+    torch.cuda.reset_peak_memory_stats()
+    state0, _ = step(state0, batch)  # warm-up: cuDNN plans, allocator, Adam moments
+    torch.cuda.synchronize()
+
+    res, launches = {}, {}
+    (state, logs), c = counted(lambda: step(copy.deepcopy(state0), batch))
+    require(only(c, K1=ITERS, K1b=ITERS, K2=1), f"train step launches {c}")
+    loss = float(logs["loss"])
+    require(math.isfinite(loss) and math.isfinite(float(logs["grad_norm"])), f"loss {loss}")
+    launches.update(K1b=c["K1b"])
+    res["loss"], res["grad_norm"] = loss, float(logs["grad_norm"])
+    res["log_keys"] = len(logs)
+    for key, variant in (("K7", "shift"), ("K8", "bdiag")):
+        vstep = _train_setup(state0.model, bank, IMG, lookup_variant=variant)[1]
+        (_, vlogs), c = counted(lambda: vstep(copy.deepcopy(state0), batch))
+        require(only(c, K1b=ITERS, K2=1, **{key: ITERS}), f"{variant} train step launches {c}")
+        launches[key] = c[key]
+        rel = abs(float(vlogs["loss"]) / loss - 1)
+        require(rel <= 1e-4, f"{variant} loss {float(vlogs['loss'])} vs tent {loss}")
+        res[f"{variant}_loss_rel_diff"] = rel
+
+    # ms per step on the host clock; forward / backward / optimizer by events
+    state = copy.deepcopy(state0)
+    steps = 5
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(steps):
+        state, logs = step(state, batch)
+    torch.cuda.synchronize()
+    dt = (time.perf_counter() - t0) / steps
+    res["ms_per_step"] = 1e3 * dt
+    res["samples_per_s"] = TRAIN_BATCH / dt
+    res["stage_ms"] = _train_stages(state, assets, loss_assets, batch)
+    res["peak_mem_gb"] = torch.cuda.max_memory_allocated() / 1e9
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        step(state, batch)
+        torch.cuda.synchronize()
+    kernels = {e.key: (e.device_time_total / 1e3, e.count) for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA}
+    top = sorted(kernels.items(), key=lambda kv: -kv[1][0])[:12]
+    res["kernel_time_sum_ms"] = sum(ms for ms, _ in kernels.values())
+    res["ours_ms_count"] = {name.split("(")[0]: v for name, v in kernels.items()
+                            if "corr_lookup" in name or "raster_v3" in name}
+    res["top_kernels_ms_count"] = [[name[:90], ms, n] for name, (ms, n) in top]
+
+    # the loss falls over 6 steps at a constant lr 1e-3 (tests/test_train_system.py)
+    fall_state, fall_step, _, _ = _train_setup(copy.deepcopy(state0.model), bank, IMG,
+                                               lr_cfg=None, optimizer=dict(
+                                                   type="AdamW", lr=1e-3, weight_decay=1e-4))
+    losses = []
+    for _ in range(6):
+        fall_state, flogs = fall_step(fall_state, batch)
+        losses.append(float(flogs["loss"]))
+    require(all(map(math.isfinite, losses)) and losses[-1] < losses[0], f"losses {losses}")
+    res["losses_lr_1e-3"] = losses
+    del fall_state, state
+    res["card_vs_cpu"] = _train_card_vs_cpu(bank)
+    emit({"phase": "train", "batch": TRAIN_BATCH, "image": IMG, "iters": ITERS,
+          "classes": NCLASS, "launches_per_step": {"K1": ITERS, "K1b": ITERS, "K2": 1},
+          **res, "card": smi})
+    return launches
+
+
+def _train_stages(state, assets, loss_assets, batch):
+    """Median of 3 (after a warm-up) of the step's parts, by CUDA events:
+    render + gt flow, forward + losses, backward, optimizer update."""
+    from scflow_tpu_torch.geometry import filter_flow_by_mask, flow_from_pose_and_depth
+    from scflow_tpu_torch.refiners.system import render_and_normalize, scflow_sequence_losses
+
+    dev = assets.verts.device
+    b = {k: torch.as_tensor(v, device=dev) for k, v in batch.items()}
+    names = ("render", "forward", "backward", "optimizer")
+    times = {k: [] for k in names}
+    for _ in range(4):
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(5)]
+        ev[0].record()
+        with torch.no_grad():
+            img, depths, masks = render_and_normalize(
+                assets, b["ref_rotations"], b["ref_translations"], b["k"], b["labels"],
+                (IMG, IMG), backend="auto", cull_backfaces=True)
+            gt_flow = filter_flow_by_mask(flow_from_pose_and_depth(
+                b["ref_rotations"], b["ref_translations"], b["gt_rotations"],
+                b["gt_translations"], depths, b["k"]), b["gt_masks"])
+        ev[1].record()
+        out = state.model(img, b["real_images"], b["ref_rotations"], b["ref_translations"],
+                          depths, b["k"], b["labels"], train=True, lookup_backend="pallas")
+        loss, _ = scflow_sequence_losses(out, b["gt_rotations"], b["gt_translations"], gt_flow,
+                                         masks, b["labels"], loss_assets)
+        ev[2].record()
+        state.tx.zero_grad()
+        loss.backward()
+        ev[3].record()
+        state.apply_gradients()
+        ev[4].record()
+        torch.cuda.synchronize()
+        for name, a, z in zip(names, ev, ev[1:]):
+            times[name].append(a.elapsed_time(z))
+    return {k: statistics.median(v[1:]) for k, v in times.items()}
+
+
+def _train_card_vs_cpu(bank):
+    """One step on the card and one on the CPU (the plain versions: render
+    'pallas' runs the plain v3 raster there, the lookup plain K1 and K1b)
+    from the same weights and batch, at batch 2, 128^2, 3 iterations."""
+    import copy
+
+    n, image, iters = 2, 128, 3
+    model = train_model(image, iters)
+    cpu_model = copy.deepcopy(model)
+    card_state, card_step, card_assets, _ = _train_setup(model, bank, image,
+                                                         render_backend="pallas")
+    batch = train_batch(card_assets, n, image, seed=1)
+    _, card_logs = card_step(card_state, batch)
+    cpu_state, cpu_step, _, _ = _train_setup(cpu_model, bank, image, "cpu",
+                                             render_backend="pallas")
+    _, cpu_logs = cpu_step(cpu_state, batch)
+    torch.cuda.synchronize()
+    got = {k: p.grad.cpu() for k, p in card_state.model.named_parameters()}
+    want = {k: p.grad for k, p in cpu_state.model.named_parameters()}
+    worst, leaf = _worst_grad_rel(got, want)
+    loss_rel = abs(float(card_logs["loss"]) / float(cpu_logs["loss"]) - 1)
+    require(loss_rel <= 1e-3 and worst <= 2e-2,
+            f"card vs CPU step: loss rel {loss_rel}, worst gradient rel {worst} ({leaf})")
+    return {"loss_card": float(card_logs["loss"]), "loss_cpu": float(cpu_logs["loss"]),
+            "loss_rel_diff": loss_rel, "worst_grad_rel_l2": worst, "worst_leaf": leaf,
+            "leaves": len(want)}
 
 
 def _render_close(got, want, what: str):
@@ -656,7 +971,8 @@ def main() -> int:
     name, smi = phase_device()
     phase_build()
     scene = _flagship_scene(dev)
-    res = {"K1": phase_k1(dev)}
+    res = phase_lookup(dev)
+    res["K1b"] = phase_k1b(dev)
     res["K2"], k2_out = phase_k2(dev, scene)
     res["K3"] = phase_k3(dev, scene, k2_out)
     res["K4"] = phase_k4(dev, scene)
@@ -665,6 +981,8 @@ def main() -> int:
     del k2_out
     launches = phase_slice(smi)
     launches.update(phase_render(dev, scene, smi))
+    del scene
+    launches.update(phase_train(smi))
     src = "scflow_tpu_torch/csrc/"
     tpu = "scflow_tpu/ops/pallas/"
     table = [
@@ -676,6 +994,12 @@ def main() -> int:
          "rasterize.py:142 (_kernel_shaded)"),
         ("K6", "rasterize_shaded(version=2)", "rasterize_v12.cu",
          "rasterize.py:284 (_kernel_shaded_v2)"),
+        ("K7", "corr_lookup(variant='shift')", "corr_lookup_shift.cu",
+         "corr_lookup.py:147 (_kernel_shift)"),
+        ("K8", "corr_lookup(variant='bdiag')", "corr_lookup_bdiag.cu",
+         "corr_lookup.py:41 (_kernel_bdiag)"),
+        ("K1b", "corr_lookup backward", "corr_lookup_bwd.cu",
+         "corr_lookup.py:346 (_lookup_bwd, the XLA backward of corr_lookup_pallas_diff)"),
     ]
     emit({"kernels": [
         {"name": f"{key} {fn}", "route": "cuda", "source": src + file, "replaces": tpu + where,

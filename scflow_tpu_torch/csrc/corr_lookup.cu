@@ -27,15 +27,7 @@
 // 0.106 ms (PERF.md).  A corner outside the map is never loaded: it reads
 // as 0 (grid_sample's zeros padding).
 
-#include <cuda_runtime.h>
-#include <math.h>
-
-#define MAX_LEVELS 4
-
-struct Levels {
-  const float* map[MAX_LEVELS];
-  int size[MAX_LEVELS];
-};
+#include "corr_common.cuh"
 
 #define ROWS 8  // rows per block
 

@@ -1,9 +1,10 @@
-"""Pose and camera geometry of the inference path (batched, on tensors).
+"""Pose, camera and flow geometry (batched, on tensors).
 
 Ports of scflow_tpu/geometry: rotation.py::rotmat_from_ortho6d,
 se3.py::apply_delta_pose, camera.py::coords_grid and
-lift_depth_to_object_points_at, flow.py::flow_from_object_points_at.
-Same arithmetic and layouts (pixel grids in (x, y) order, NHWC maps).
+lift_depth_to_object_points(_at), flow.py::flow_from_object_points(_at),
+flow_from_pose_and_depth and filter_flow_by_mask.  Same arithmetic and
+layouts (pixel grids in (x, y) order, NHWC maps).
 """
 
 from typing import Tuple
@@ -31,17 +32,23 @@ def apply_delta_pose(
     translation_delta: torch.Tensor,  # (N, 3)
     rotation_src: torch.Tensor,  # (N, 3, 3)
     translation_src: torch.Tensor,  # (N, 3)
+    weight: float = 10.0,
+    depth_transform: str = "exp",
+    detach_depth_for_xy: bool = False,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """R_dst = dR @ R_src; v_z = t_z / exp(dz); v_xy = v_z (d_xy / 10 +
-    t_xy / t_z) — the 'exp' depth transform and weight of the reference.
-    Inference only, so the detach options of the JAX version have nothing
-    to do."""
+    """R_dst = dR @ R_src; v_z = t_z / exp(dz); v_xy = v_z (d_xy / weight +
+    t_xy / t_z), the reference's 'exp' depth transform (the only one its
+    configs use).  detach_depth_for_xy stops v_z's gradient in the x/y
+    terms (the shipped configuration sets it)."""
+    if depth_transform != "exp":
+        raise ValueError(f"depth_transform {depth_transform!r} is not ported; 'exp' is")
     rotation_dst = rotmat_from_ortho6d(rotation_delta) @ rotation_src
     tx, ty, tz = translation_src.unbind(-1)
     dx, dy, dz = translation_delta.unbind(-1)
     vz = tz / torch.exp(dz)
-    vx = vz * (dx / 10.0 + tx / tz)
-    vy = vz * (dy / 10.0 + ty / tz)
+    vz_xy = vz.detach() if detach_depth_for_xy else vz
+    vx = vz_xy * (dx / weight + tx / tz)
+    vy = vz_xy * (dy / weight + ty / tz)
     return rotation_dst, torch.stack([vx, vy, vz], dim=-1)
 
 
@@ -69,6 +76,14 @@ def lift_depth_to_object_points_at(
     return points_obj, depth > 0
 
 
+def lift_depth_to_object_points(depth: torch.Tensor, K: torch.Tensor, R: torch.Tensor,
+                                t: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Every pixel of depth (N, H, W) lifted into the object frame."""
+    h, w = depth.shape[1:]
+    return lift_depth_to_object_points_at(depth, K, R, t,
+                                          coords_grid(h, w, depth.dtype, depth.device))
+
+
 def flow_from_object_points_at(
     points_obj: torch.Tensor,  # (N, h', w', 3)
     valid: torch.Tensor,  # (N, h', w') bool
@@ -76,13 +91,79 @@ def flow_from_object_points_at(
     t_dst: torch.Tensor,
     K: torch.Tensor,
     pix: torch.Tensor,  # (h', w', 2)
+    invalid_num: float = 0.0,
 ) -> torch.Tensor:
     """Pose-induced flow of the lifted points under (R_dst, t_dst):
-    reprojection minus pix, 0 where the depth was empty (the refiner's
-    invalid_flow_num)."""
+    reprojection minus pix, invalid_num where the depth was empty (by
+    default 0, the refiner's invalid_flow_num, which the decoder uses; the
+    JAX function defaults to 400)."""
     pts_cam = torch.einsum("nij,nhwj->nhwi", R_dst, points_obj) + t_dst[:, None, None, :]
     uvw = torch.einsum("nij,nhwj->nhwi", K, pts_cam)
     v = valid[..., None]
     z = torch.where(v, uvw[..., 2:3], torch.ones_like(uvw[..., 2:3]))
     flow = uvw[..., :2] / z - pix[None]
-    return torch.where(v, flow, torch.zeros_like(flow))
+    return torch.where(v, flow, torch.full_like(flow, invalid_num))
+
+
+def flow_from_object_points(points_obj, valid, R_dst, t_dst, K,
+                            invalid_num: float = 400.0) -> torch.Tensor:
+    """flow_from_object_points_at on the dense pixel grid: (N, H, W, 2)."""
+    h, w = points_obj.shape[1:3]
+    return flow_from_object_points_at(points_obj, valid, R_dst, t_dst, K,
+                                      coords_grid(h, w, points_obj.dtype, points_obj.device),
+                                      invalid_num)
+
+
+def flow_from_pose_and_depth(R_src, t_src, R_dst, t_dst, depth_src, K,
+                             invalid_num: float = 400.0) -> torch.Tensor:
+    """Flow from pose (R_src, t_src) to (R_dst, t_dst) of the pixels the
+    source depth (N, H, W) covers; invalid_num elsewhere."""
+    points_obj, valid = lift_depth_to_object_points(depth_src, K, R_src, t_src)
+    return flow_from_object_points(points_obj, valid, R_dst, t_dst, K, invalid_num)
+
+
+def sample_bilinear_zeros(feat: torch.Tensor, xy: torch.Tensor) -> torch.Tensor:
+    """feat (N, H, W, C) at pixel coordinates xy (N, P, 2), bilinear, zeros
+    outside: the port's copy of scflow_tpu/ops/sampling.py::sample_at_pixels
+    (bilinear, padding 'zeros'), in its order of operations."""
+    n, h, w, c = feat.shape
+    flat = feat.reshape(n, h * w, c)
+    x, y = xy[..., 0], xy[..., 1]
+    x0, y0 = torch.floor(x), torch.floor(y)
+    wx1, wy1 = x - x0, y - y0
+    wx0, wy0 = 1.0 - wx1, 1.0 - wy1
+    ix0, iy0 = x0.long(), y0.long()
+    ix1, iy1 = ix0 + 1, iy0 + 1
+    wx0 = wx0 * ((ix0 >= 0) & (ix0 <= w - 1)).to(feat.dtype)
+    wx1 = wx1 * ((ix1 >= 0) & (ix1 <= w - 1)).to(feat.dtype)
+    wy0 = wy0 * ((iy0 >= 0) & (iy0 <= h - 1)).to(feat.dtype)
+    wy1 = wy1 * ((iy1 >= 0) & (iy1 <= h - 1)).to(feat.dtype)
+
+    def gather(ix, iy):
+        idx = torch.clamp(iy, 0, h - 1) * w + torch.clamp(ix, 0, w - 1)
+        return torch.gather(flat, 1, idx[..., None].expand(-1, -1, c))
+
+    return (gather(ix0, iy0) * (wx0 * wy0)[..., None] + gather(ix1, iy0) * (wx1 * wy0)[..., None]
+            + gather(ix0, iy1) * (wx0 * wy1)[..., None]
+            + gather(ix1, iy1) * (wx1 * wy1)[..., None])
+
+
+def filter_flow_by_mask(flow: torch.Tensor, gt_mask: torch.Tensor,
+                        invalid_num: float = 400.0) -> torch.Tensor:
+    """Set to invalid_num the flow (N, H, W, 2) whose target samples the
+    target mask (N, H, W) below 0.9, and flow that is already invalid.  As
+    the reference (models/utils/flow.py:6-26) and the JAX package: the grid
+    is normalized by 2 / (size - 1) and then sampled with
+    align_corners=False, which shifts the sample by half a pixel."""
+    n, h, w, _ = flow.shape
+    coords = coords_grid(h, w, flow.dtype, flow.device)[None] + flow
+    gx = coords[..., 0] * 2.0 / max(w - 1, 1) - 1.0
+    gy = coords[..., 1] * 2.0 / max(h - 1, 1) - 1.0
+    px = ((gx + 1.0) * w - 1.0) * 0.5  # grid_sample's unnormalization, align_corners=False
+    py = ((gy + 1.0) * h - 1.0) * 0.5
+    sampled = sample_bilinear_zeros(gt_mask[..., None].to(flow.dtype),
+                                    torch.stack([px, py], -1).reshape(n, -1, 2))
+    sampled = sampled.reshape(n, h, w)
+    already_invalid = (flow[..., 0] >= invalid_num) & (flow[..., 1] >= invalid_num)
+    bad = (sampled < 0.9) | already_invalid
+    return torch.where(bad[..., None], torch.full_like(flow, invalid_num), flow)

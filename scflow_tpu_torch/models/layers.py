@@ -1,6 +1,7 @@
-"""Building blocks (NCHW): mmcv-style ConvModule and a single-pass
-InstanceNorm.  Port of scflow_tpu/models/layers.py; module and parameter
-names follow the reference's mmcv state dicts (conv, bn / in / gn)."""
+"""Building blocks (NCHW): mmcv-style ConvModule, a single-pass
+InstanceNorm and a BatchNorm with flax's arithmetic.  Port of
+scflow_tpu/models/layers.py; module and parameter names follow the
+reference's mmcv state dicts (conv, bn / in / gn)."""
 
 from typing import Optional
 
@@ -34,9 +35,48 @@ class InstanceNorm(nn.Module):
         return (x - mean) * torch.rsqrt(var + self.eps)
 
 
+class BatchNorm(nn.Module):
+    """flax.linen.BatchNorm (momentum 0.9, eps 1e-5) on NCHW, with the state
+    dict of nn.BatchNorm2d.  Differs from nn.BatchNorm2d in training: the
+    batch variance is single-pass, max(E[x^2] - mean^2, 0), and the running
+    variance takes that biased variance (torch's takes the unbiased one).
+    `momentum` is flax's: running = momentum * running + (1 - momentum) *
+    batch (torch's 0.1 means the same update).  train=True normalizes by the
+    batch statistics and updates the running ones in place; train=False
+    uses the running ones."""
+
+    def __init__(self, channels: int, eps: float = 1e-5, momentum: float = 0.9):
+        super().__init__()
+        self.eps, self.momentum = eps, momentum
+        self.weight = nn.Parameter(torch.ones(channels))
+        self.bias = nn.Parameter(torch.zeros(channels))
+        self.register_buffer("running_mean", torch.zeros(channels))
+        self.register_buffer("running_var", torch.ones(channels))
+        self.register_buffer("num_batches_tracked", torch.tensor(0, dtype=torch.long))
+
+    def forward(self, x: torch.Tensor, train: bool = False) -> torch.Tensor:
+        if train:
+            mean = x.mean(dim=(0, 2, 3))
+            var = torch.clamp((x * x).mean(dim=(0, 2, 3)) - mean * mean, min=0.0)
+            with torch.no_grad():
+                m = self.momentum
+                self.running_mean.copy_(m * self.running_mean + (1 - m) * mean)
+                self.running_var.copy_(m * self.running_var + (1 - m) * var)
+                self.num_batches_tracked += 1
+        else:
+            mean, var = self.running_mean, self.running_var
+        mul = torch.rsqrt(var + self.eps) * self.weight
+        return (x - mean[:, None, None]) * mul[:, None, None] + self.bias[:, None, None]
+
+
+def apply_norm(norm: nn.Module, x: torch.Tensor, train: bool) -> torch.Tensor:
+    """A norm layer on x; only BatchNorm reads `train`."""
+    return norm(x, train) if isinstance(norm, BatchNorm) else norm(x)
+
+
 def make_norm(kind: str, channels: int) -> nn.Module:
     if kind == "BN":
-        return nn.BatchNorm2d(channels, eps=1e-5)
+        return BatchNorm(channels)
     if kind == "IN":
         return InstanceNorm()
     if kind == "GN":
@@ -58,8 +98,8 @@ class ConvModule(nn.Module):
             self.add_module(self.norm_name, make_norm(norm, out_channels))
         self.act = _ACTS[act]
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, train: bool = False) -> torch.Tensor:
         x = self.conv(x)
         if self.norm_name:
-            x = getattr(self, self.norm_name)(x)
+            x = apply_norm(getattr(self, self.norm_name), x, train)
         return self.act(x)

@@ -8,7 +8,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from scflow_tpu_torch.models.layers import NORM_ABBR, make_norm
+from scflow_tpu_torch.models.layers import NORM_ABBR, apply_norm, make_norm
 
 
 class BasicBlock(nn.Module):
@@ -30,15 +30,18 @@ class BasicBlock(nn.Module):
                 make_norm(norm, planes),
             )
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        out = F.relu(getattr(self, f"{self.abbr}1")(self.conv1(x)))
-        out = getattr(self, f"{self.abbr}2")(self.conv2(out))
-        identity = x if self.downsample is None else self.downsample(x)
+    def forward(self, x: torch.Tensor, train: bool = False) -> torch.Tensor:
+        out = F.relu(apply_norm(getattr(self, f"{self.abbr}1"), self.conv1(x), train))
+        out = apply_norm(getattr(self, f"{self.abbr}2"), self.conv2(out), train)
+        identity = x
+        if self.downsample is not None:
+            identity = apply_norm(self.downsample[1], self.downsample[0](x), train)
         return F.relu(out + identity)
 
 
 class RAFTEncoder(nn.Module):
-    """(N, 3, H, W) -> (N, out_channels, H/8, W/8)."""
+    """(N, 3, H, W) -> (N, out_channels, H/8, W/8).  train=True runs
+    BatchNorm on batch statistics (the JAX package's `train`)."""
 
     def __init__(self, out_channels: int = 256, norm: str = "BN"):
         super().__init__()
@@ -54,7 +57,9 @@ class RAFTEncoder(nn.Module):
             cin = planes
         self.conv2 = nn.Conv2d(128, out_channels, 1, bias=True)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        x = F.relu(getattr(self, f"{self.abbr}1")(self.conv1(x)))
-        x = self.res_layer3(self.res_layer2(self.res_layer1(x)))
+    def forward(self, x: torch.Tensor, train: bool = False) -> torch.Tensor:
+        x = F.relu(apply_norm(getattr(self, f"{self.abbr}1"), self.conv1(x), train))
+        for layer in (self.res_layer1, self.res_layer2, self.res_layer3):
+            for block in layer:
+                x = block(x, train)
         return self.conv2(x)

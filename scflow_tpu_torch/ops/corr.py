@@ -1,8 +1,18 @@
 """All-pairs correlation pyramid (flat layout) and its windowed lookup.
 
-Ports of scflow_tpu/ops/corr.py::correlation_pyramid_flat and of the lookup
-`corr_lookup_dispatch` sends to the TPU kernel.  The all-pairs product is
-one large matmul, left to torch.matmul as the JAX package left it to XLA.
+Ports of scflow_tpu/ops/corr.py::correlation_pyramid_flat and
+`corr_lookup_dispatch`.  The all-pairs product is one large matmul, left to
+torch.matmul as the JAX package left it to XLA.  The lookup is
+differentiable on both backends:
+
+- 'pallas': `corr_lookup_pallas_diff`'s pairing, the kernel of the chosen
+  variant forward (K1, K7 or K8) and K1b backward, whose tent derivative is
+  0 at the kinks (`_lookup_bwd`);
+- 'xla': the tent tensor formulation under autograd, with the subgradients
+  JAX's autodiff takes there: d|u|/du = +1 at u = 0 (lax.abs's rule picks
+  u >= 0) and the max(0, 0) tie at |u| = 1 split in half.  torch's own
+  rules (0 at u = 0, 0.5 or 1 at the tie by op) would differ at every
+  integer window centre, which is every row of the first iteration.
 """
 
 import math
@@ -11,8 +21,11 @@ from typing import List, Sequence
 import torch
 import torch.nn.functional as F
 
+from scflow_tpu_torch.device import resolve_backend
 from scflow_tpu_torch.geometry import coords_grid
-from scflow_tpu_torch.ops.cuda.corr_lookup import corr_lookup_flat
+from scflow_tpu_torch.ops.cuda.corr_lookup import (check_variant, corr_lookup_flat,
+                                                   corr_lookup_flat_bwd,
+                                                   corr_lookup_flat_plain)
 
 
 def correlation_pyramid_flat(feat1: torch.Tensor, feat2: torch.Tensor,
@@ -34,13 +47,58 @@ def correlation_pyramid_flat(feat1: torch.Tensor, feat2: torch.Tensor,
     return pyramid
 
 
-def corr_lookup(pyramid: Sequence[torch.Tensor], flow: torch.Tensor,
-                radius: int = 4) -> torch.Tensor:
+class _JaxTent(torch.autograd.Function):
+    """max(0, 1 - |u|) with JAX autodiff's derivative: -s(u) where
+    1 - |u| > 0, -s(u)/2 where it is 0, else 0, with s(u) = +1 for u >= 0."""
+
+    @staticmethod
+    def forward(ctx, u):
+        ctx.save_for_backward(u)
+        return torch.clamp(1.0 - torch.abs(u), min=0.0)
+
+    @staticmethod
+    def backward(ctx, g):
+        (u,) = ctx.saved_tensors
+        v = 1.0 - torch.abs(u)
+        s = torch.where(u >= 0, 1.0, -1.0).to(u.dtype)
+        slope = torch.where(v > 0, -s, torch.where(v == 0, -0.5 * s, torch.zeros_like(s)))
+        return g * slope
+
+
+class _KernelLookup(torch.autograd.Function):
+    """The 'pallas' lookup: a forward kernel of the variant, K1b backward."""
+
+    @staticmethod
+    def forward(ctx, coords, radius, variant, *levels):
+        ctx.save_for_backward(coords, *levels)
+        ctx.radius = radius
+        return corr_lookup_flat(levels, coords, radius, variant)
+
+    @staticmethod
+    def backward(ctx, g):
+        coords, *levels = ctx.saved_tensors
+        grads, g_coords = corr_lookup_flat_bwd(levels, coords, g.contiguous(), ctx.radius,
+                                               want_coords=ctx.needs_input_grad[0])
+        return (g_coords, None, None, *grads)
+
+
+def corr_lookup(pyramid: Sequence[torch.Tensor], flow: torch.Tensor, radius: int = 4,
+                backend: str = "auto", variant: str = "tent") -> torch.Tensor:
     """flow (N, h, w, 2) at level-0 resolution -> (N, h, w, L*(2r+1)^2):
     the window of every level around pixel + flow, tap order as in
-    corr_lookup_flat.  CUDA tensors go to kernel K1, CPU tensors to its
-    plain version."""
+    corr_lookup_flat.  backend 'pallas' runs the kernels (their plain
+    versions on CPU tensors), 'xla' the tent tensor formulation, 'auto'
+    'pallas' on a card and 'xla' on the CPU.  variant 'tent' | 'shift' |
+    'bdiag' picks the forward kernel and means nothing on 'xla', where any
+    other than 'tent' raises."""
+    check_variant(variant)
+    backend = resolve_backend(backend, flow.device)
+    if backend == "xla" and variant != "tent":
+        raise ValueError(f"lookup variant {variant!r} needs backend 'pallas'")
     n, h, w, _ = flow.shape
     coords = (coords_grid(h, w, flow.dtype, flow.device)[None] + flow).reshape(-1, 2)
-    out = corr_lookup_flat(pyramid, coords.contiguous(), radius)
+    if backend == "pallas":
+        out = _KernelLookup.apply(coords.contiguous(), radius, variant, *pyramid)
+    else:
+        out = corr_lookup_flat_plain(pyramid, coords, radius, tent=_JaxTent.apply)
     return out.reshape(n, h, w, -1)

@@ -25,10 +25,14 @@ NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 ]
-# per-source extra flags: the raster kernels must not contract a*b + c into
-# an FMA, so that their keys round exactly like the plain PyTorch versions
+# per-source extra flags: the raster kernels, the shift lookup and the
+# lookup's backward must not contract a*b + c into an FMA, so that they round
+# like the plain PyTorch versions' separate products and sums
 SOURCES: Dict[str, List[str]] = {
     "corr_lookup.cu": [],
+    "corr_lookup_shift.cu": ["-fmad=false"],
+    "corr_lookup_bdiag.cu": ["-fmad=false"],
+    "corr_lookup_bwd.cu": ["-fmad=false"],
     "rasterize_v3.cu": ["-fmad=false"],
     "rasterize_v4.cu": ["-fmad=false"],
     "rasterize_packed.cu": ["-fmad=false"],

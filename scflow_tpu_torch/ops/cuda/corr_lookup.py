@@ -1,26 +1,43 @@
-"""Kernel K1: windowed bilinear corr-pyramid lookup (csrc/corr_lookup.cu).
+"""The corr-lookup kernels: K1 (tent), K7 (shift), K8 (bdiag) and K1b, the
+backward they share (csrc/corr_lookup*.cu).
 
-Port of scflow_tpu/ops/pallas/corr_lookup.py::corr_lookup_pallas_flat
-(variant 'tent').  `corr_lookup_flat` launches the CUDA kernel for CUDA
-tensors and runs the plain version, `corr_lookup_flat_plain`, for CPU
-tensors; there is no other route.
+Ports of scflow_tpu/ops/pallas/corr_lookup.py::corr_lookup_pallas_flat
+(its three variants) and of `_lookup_bwd`, the backward that
+`corr_lookup_pallas_diff` pairs with them.  `corr_lookup_flat` and
+`corr_lookup_flat_bwd` launch a CUDA kernel for CUDA tensors and run the
+plain version for CPU tensors; there is no other route.  Each variant keeps
+its own plain version: 'shift' its one-hot-rows-then-blend formulation,
+'tent' and 'bdiag' the tent formulation, which the TPU's bdiag kernel
+computes as well (same weights, same sums, another matmul layout).
 """
 
 import ctypes
 import math
-from typing import Sequence
+from typing import List, Optional, Sequence, Tuple
 
 import torch
 
 from scflow_tpu_torch.ops.cuda.build import CudaKernel
 
 MAX_LEVELS = 4
+VARIANTS = ("tent", "shift", "bdiag")
 
-KERNEL = CudaKernel(
-    "corr_lookup.cu", "corr_lookup_launch",
-    [ctypes.c_void_p] * 5 + [ctypes.c_int] * 6
+_LOOKUP_ARGS = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 6 + [ctypes.c_longlong, ctypes.c_void_p]
+KERNEL = CudaKernel("corr_lookup.cu", "corr_lookup_launch", _LOOKUP_ARGS)
+SHIFT_KERNEL = CudaKernel("corr_lookup_shift.cu", "corr_lookup_shift_launch", _LOOKUP_ARGS)
+BDIAG_KERNEL = CudaKernel("corr_lookup_bdiag.cu", "corr_lookup_bdiag_launch", _LOOKUP_ARGS)
+BWD_KERNEL = CudaKernel(
+    "corr_lookup_bwd.cu", "corr_lookup_bwd_launch",
+    [ctypes.c_void_p] * 6 + [ctypes.c_int] * 4 + [ctypes.c_void_p] * 4 + [ctypes.c_int] * 2
     + [ctypes.c_longlong, ctypes.c_void_p],
 )
+FORWARD_KERNELS = {"tent": KERNEL, "shift": SHIFT_KERNEL, "bdiag": BDIAG_KERNEL}
+
+
+def check_variant(variant: str) -> str:
+    if variant not in VARIANTS:
+        raise ValueError(f"unknown lookup variant {variant!r}; expected one of {VARIANTS}")
+    return variant
 
 
 def _level_sizes(pyramid: Sequence[torch.Tensor], rows: int):
@@ -34,48 +51,103 @@ def _level_sizes(pyramid: Sequence[torch.Tensor], rows: int):
     return sizes
 
 
+def _tent(u: torch.Tensor) -> torch.Tensor:
+    return torch.clamp(1.0 - torch.abs(u), min=0.0)
+
+
+def _tent_weights(p: torch.Tensor, s: int, radius: int, tent=_tent) -> torch.Tensor:
+    """(B,) level coordinate -> (B, k, S) weights tent((p + off) - cell)."""
+    offs = torch.arange(-radius, radius + 1, dtype=p.dtype, device=p.device)
+    grid = torch.arange(s, dtype=p.dtype, device=p.device)
+    return tent(p[:, None, None] + offs[None, :, None] - grid[None, None, :])
+
+
 def corr_lookup_flat_plain(pyramid: Sequence[torch.Tensor], coords: torch.Tensor,
-                           radius: int = 4) -> torch.Tensor:
+                           radius: int = 4, tent=_tent) -> torch.Tensor:
     """The tent formulation of scflow_tpu/ops/corr.py::corr_lookup on flat
     levels: out[b, j*k + i] = sum_{h,w} wy[b,i,h] wx[b,j,w] m[b,h,w] with
-    wx[b,j,w] = max(0, 1 - |x_b / 2^l + j - r - w|), j offsetting x."""
+    wx[b,j,w] = tent(x_b / 2^l + j - r - w), j offsetting x.  `tent` is
+    max(0, 1 - |u|); ops/corr.py passes one with JAX's subgradients."""
     b = coords.shape[0]
     k = 2 * radius + 1
-    offs = torch.arange(-radius, radius + 1, dtype=coords.dtype, device=coords.device)
     outs = []
     for lvl, (m, s) in enumerate(zip(pyramid, _level_sizes(pyramid, b))):
-        px = coords[:, 0] / 2.0**lvl
-        py = coords[:, 1] / 2.0**lvl
-        grid = torch.arange(s, dtype=coords.dtype, device=coords.device)
-        wx = torch.clamp(1.0 - torch.abs(px[:, None, None] + offs[None, :, None]
-                                         - grid[None, None, :]), min=0.0)
-        wy = torch.clamp(1.0 - torch.abs(py[:, None, None] + offs[None, :, None]
-                                         - grid[None, None, :]), min=0.0)
+        wx = _tent_weights(coords[:, 0] / 2.0**lvl, s, radius, tent)
+        wy = _tent_weights(coords[:, 1] / 2.0**lvl, s, radius, tent)
         tmp = torch.bmm(wy, m.reshape(b, s, s))  # (B, i, w)
         out = torch.bmm(wx, tmp.transpose(1, 2))  # (B, j, i)
         outs.append(out.reshape(b, k * k))
     return torch.cat(outs, dim=-1)
 
 
-def corr_lookup_flat(pyramid: Sequence[torch.Tensor], coords: torch.Tensor,
-                     radius: int = 4) -> torch.Tensor:
-    """pyramid: level l is (B, S_l*S_l) float32; coords: (B, 2) float32
-    window centres (x, y) at level 0.  Returns (B, L*(2r+1)^2) float32,
-    level-major, tap index j*(2r+1) + i with j offsetting x."""
-    if coords.device.type == "cpu":
-        return corr_lookup_flat_plain(pyramid, coords, radius)
-    if coords.device.type != "cuda":
-        raise ValueError(f"unsupported device {coords.device}")
+def _window_cells(m: torch.Tensor, s: int, x0: torch.Tensor, y0: torch.Tensor,
+                  radius: int) -> torch.Tensor:
+    """(B, k+1, k+1): m[b, y0 - r + d, x0 - r + e], zeros outside the map."""
+    k1 = 2 * radius + 2
+    steps = torch.arange(k1, dtype=x0.dtype, device=x0.device) - radius
+    ys = y0[:, None] + steps  # (B, k+1)
+    xs = x0[:, None] + steps
+    iny = (ys >= 0) & (ys <= s - 1)
+    inx = (xs >= 0) & (xs <= s - 1)
+    yi = torch.where(iny, ys, 0).long()
+    xi = torch.where(inx, xs, 0).long()
+    cells = torch.gather(m, 1, (yi[:, :, None] * s + xi[:, None, :]).reshape(m.shape[0], -1))
+    cells = cells.reshape(-1, k1, k1)
+    return torch.where(iny[:, :, None] & inx[:, None, :], cells, torch.zeros_like(cells))
+
+
+def corr_lookup_flat_shift_plain(pyramid: Sequence[torch.Tensor], coords: torch.Tensor,
+                                 radius: int = 4) -> torch.Tensor:
+    """The shift formulation of the TPU's `_kernel_shift`: the window's k+1
+    integer rows V[d] = m[y0 - r + d] (zeros outside; the TPU's one-hot
+    picks are exact), blended T[i] = (1 - fy) V[i] + fy V[i + 1], then the
+    same over columns, with x0 = floor(x), fx = x - x0."""
+    b = coords.shape[0]
+    k = 2 * radius + 1
+    outs = []
+    for lvl, (m, s) in enumerate(zip(pyramid, _level_sizes(pyramid, b))):
+        px = coords[:, 0] / 2.0**lvl
+        py = coords[:, 1] / 2.0**lvl
+        x0, y0 = torch.floor(px), torch.floor(py)
+        fx, fy = (px - x0)[:, None, None], (py - y0)[:, None, None]
+        v = _window_cells(m, s, x0, y0, radius)  # (B, d, e)
+        tmp = (1.0 - fy) * v[:, :-1] + fy * v[:, 1:]  # (B, i, e)
+        out = (1.0 - fx) * tmp[:, :, :-1] + fx * tmp[:, :, 1:]  # (B, i, j)
+        outs.append(out.transpose(1, 2).reshape(b, k * k))
+    return torch.cat(outs, dim=-1)
+
+
+PLAIN = {"tent": corr_lookup_flat_plain, "shift": corr_lookup_flat_shift_plain,
+         "bdiag": corr_lookup_flat_plain}
+
+
+def _check_inputs(pyramid, coords, extra=()):
     b = coords.shape[0]
     if coords.shape != (b, 2):
         raise ValueError(f"coords must be (B, 2), got {tuple(coords.shape)}")
     if not 1 <= len(pyramid) <= MAX_LEVELS:
         raise ValueError(f"1..{MAX_LEVELS} pyramid levels supported, got {len(pyramid)}")
     sizes = _level_sizes(pyramid, b)
-    for t in (coords, *pyramid):
+    for t in (coords, *pyramid, *extra):
         if t.device != coords.device or t.dtype != torch.float32 or not t.is_contiguous():
-            raise ValueError("corr_lookup_flat needs contiguous float32 tensors "
+            raise ValueError("the corr-lookup kernels need contiguous float32 tensors "
                              "on one device")
+    return sizes
+
+
+def corr_lookup_flat(pyramid: Sequence[torch.Tensor], coords: torch.Tensor,
+                     radius: int = 4, variant: str = "tent") -> torch.Tensor:
+    """pyramid: level l is (B, S_l*S_l) float32; coords: (B, 2) float32
+    window centres (x, y) at level 0.  Returns (B, L*(2r+1)^2) float32,
+    level-major, tap index j*(2r+1) + i with j offsetting x.  variant picks
+    the kernel: 'tent' K1, 'shift' K7, 'bdiag' K8."""
+    check_variant(variant)
+    if coords.device.type == "cpu":
+        return PLAIN[variant](pyramid, coords, radius)
+    if coords.device.type != "cuda":
+        raise ValueError(f"unsupported device {coords.device}")
+    sizes = _check_inputs(pyramid, coords)
+    b = coords.shape[0]
     k = 2 * radius + 1
     out = torch.empty((b, len(pyramid) * k * k), dtype=torch.float32,
                       device=coords.device)
@@ -83,6 +155,72 @@ def corr_lookup_flat(pyramid: Sequence[torch.Tensor], coords: torch.Tensor,
         return out
     pad = MAX_LEVELS - len(pyramid)
     ptrs = [m.data_ptr() for m in pyramid] + [None] * pad
-    KERNEL.launch(coords.device, coords.data_ptr(), *ptrs, *(sizes + [0] * pad),
-                  len(pyramid), radius, b, out.data_ptr())
+    FORWARD_KERNELS[variant].launch(coords.device, coords.data_ptr(), *ptrs,
+                                    *(sizes + [0] * pad), len(pyramid), radius, b,
+                                    out.data_ptr())
     return out
+
+
+def corr_lookup_flat_bwd_plain(pyramid: Sequence[torch.Tensor], coords: torch.Tensor,
+                               grad_out: torch.Tensor, radius: int = 4,
+                               want_coords: bool = True
+                               ) -> Tuple[List[torch.Tensor], Optional[torch.Tensor]]:
+    """`_lookup_bwd` in tensor code: grad_m[h,w] = sum_i wy[i,h] sum_j
+    g[j,i] wx[j,w]; d/dcx = sum_l 2^-l sum g[j,i] dwx[j,w] t2[i,w] with
+    t2 = wy m and dwx = -sign(ux) where |ux| < 1 (0 at the kinks), likewise
+    d/dcy.  Returns (grads of the levels, grad of coords or None)."""
+    b = coords.shape[0]
+    k = 2 * radius + 1
+    g = grad_out.reshape(b, len(pyramid), k, k)  # [b, l, j, i]
+    grads = []
+    gcx = torch.zeros((b,), dtype=coords.dtype, device=coords.device)
+    gcy = torch.zeros_like(gcx)
+    for lvl, (m, s) in enumerate(zip(pyramid, _level_sizes(pyramid, b))):
+        inv = 1.0 / 2.0**lvl
+        offs = torch.arange(-radius, radius + 1, dtype=coords.dtype, device=coords.device)
+        grid = torch.arange(s, dtype=coords.dtype, device=coords.device)
+        ux = coords[:, 0, None, None] * inv + offs[None, :, None] - grid[None, None, :]
+        uy = coords[:, 1, None, None] * inv + offs[None, :, None] - grid[None, None, :]
+        wx, wy = _tent(ux), _tent(uy)  # (B, k, S)
+        gl = g[:, lvl]  # (B, j, i)
+        a = torch.bmm(gl.transpose(1, 2), wx)  # (B, i, w)
+        grads.append(torch.bmm(wy.transpose(1, 2), a).reshape(b, s * s))
+        if want_coords:
+            mm = m.reshape(b, s, s)
+            dwx = torch.where(torch.abs(ux) < 1.0, -torch.sign(ux), torch.zeros_like(ux))
+            dwy = torch.where(torch.abs(uy) < 1.0, -torch.sign(uy), torch.zeros_like(uy))
+            t2 = torch.bmm(wy, mm)  # (B, i, w)
+            gpx = (torch.bmm(gl.transpose(1, 2), dwx) * t2).sum(dim=(1, 2))
+            t3 = torch.bmm(wx, mm.transpose(1, 2))  # (B, j, h)
+            gpy = (torch.bmm(gl, dwy) * t3).sum(dim=(1, 2))
+            gcx = gcx + gpx * inv
+            gcy = gcy + gpy * inv
+    return grads, (torch.stack([gcx, gcy], dim=-1) if want_coords else None)
+
+
+def corr_lookup_flat_bwd(pyramid: Sequence[torch.Tensor], coords: torch.Tensor,
+                         grad_out: torch.Tensor, radius: int = 4, want_coords: bool = True
+                         ) -> Tuple[List[torch.Tensor], Optional[torch.Tensor]]:
+    """The backward of `corr_lookup_flat` (any variant): K1b for CUDA
+    tensors, its plain version for CPU tensors.  grad_out: (B, L*(2r+1)^2).
+    Returns (grads of the levels, grad of coords or None)."""
+    if coords.device.type == "cpu":
+        return corr_lookup_flat_bwd_plain(pyramid, coords, grad_out, radius, want_coords)
+    if coords.device.type != "cuda":
+        raise ValueError(f"unsupported device {coords.device}")
+    sizes = _check_inputs(pyramid, coords, (grad_out,))
+    b = coords.shape[0]
+    k = 2 * radius + 1
+    if grad_out.shape != (b, len(pyramid) * k * k):
+        raise ValueError(f"grad_out must be ({b}, {len(pyramid) * k * k}), "
+                         f"got {tuple(grad_out.shape)}")
+    grads = [torch.empty_like(m) for m in pyramid]
+    gc = torch.empty_like(coords) if want_coords else None
+    if b == 0:
+        return grads, gc
+    pad = MAX_LEVELS - len(pyramid)
+    BWD_KERNEL.launch(coords.device, coords.data_ptr(), grad_out.data_ptr(),
+                      *([m.data_ptr() for m in pyramid] + [None] * pad), *(sizes + [0] * pad),
+                      *([t.data_ptr() for t in grads] + [None] * pad), len(pyramid), radius, b,
+                      gc.data_ptr() if want_coords else None)
+    return grads, gc

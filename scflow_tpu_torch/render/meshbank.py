@@ -1,5 +1,5 @@
 """Padded per-class mesh banks (numpy): the port's copy of
-scflow_tpu/render/meshbank.py without `subsample` (the losses' bank).
+scflow_tpu/render/meshbank.py.
 
 All classes pad to a common (V, F); padding faces are (0, 0, 0) with
 face_valid False, padding vertices sit at the origin with vert_valid False.
@@ -78,6 +78,26 @@ class MeshBank:
         names = [os.path.splitext(os.path.basename(p))[0] for p in paths]
         return cls.from_meshes([load_ply(p) for p in paths], pad_multiple,
                                class_names=names, diameters=diameters)
+
+    def subsample(self, max_verts: int, seed: int = 0) -> "MeshBank":
+        """A bank of at most max_verts vertices per class, drawn without
+        replacement from a seeded numpy generator (the same draw as the JAX
+        package's), for the losses; its faces are one invalid face."""
+        rng = np.random.default_rng(seed)
+        c, v, _ = self.verts.shape
+        if v <= max_verts:
+            return self
+        verts = np.zeros((c, max_verts, 3), np.float32)
+        valid = np.zeros((c, max_verts), bool)
+        for i in range(c):
+            n = int(self.vert_valid[i].sum())
+            take = min(n, max_verts)
+            idx = rng.choice(n, size=take, replace=False)
+            verts[i, :take] = self.verts[i, idx]
+            valid[i, :take] = True
+        return MeshBank(verts, np.zeros((c, 1, 3), np.int32), np.zeros_like(verts),
+                        np.zeros_like(verts), valid, np.zeros((c, 1), bool), self.diameters,
+                        self.class_names)
 
     def closed_consistently_wound(self) -> np.ndarray:
         """(C,) bool: is each class a closed 2-manifold wound outward, so

@@ -7,13 +7,15 @@ tests/test_ops.py::test_pallas_lookup_matches_xla uses between the Pallas
 and XLA lookups.  The CUDA kernel is compared with the plain version in
 tests/test_torch_kernels.py, on a card."""
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
+from scflow_tpu.ops.corr import corr_lookup as j_corr_lookup
 from scflow_tpu.ops.corr import correlation_pyramid_flat as j_pyramid
-from scflow_tpu.ops.pallas.corr_lookup import corr_lookup_pallas
+from scflow_tpu.ops.pallas.corr_lookup import corr_lookup_pallas, corr_lookup_pallas_diff
 from scflow_tpu_torch.ops.corr import corr_lookup, correlation_pyramid_flat
 
 from torch_port_helpers import no_tf32  # noqa: F401
@@ -81,3 +83,103 @@ def test_lookup_tap_order():
     for out in (got, want):
         assert out[b, channel] == 1.0
         assert np.count_nonzero(out) == 1
+
+
+@pytest.mark.parametrize("variant", ["shift", "bdiag"])
+@pytest.mark.parametrize("case", ["random", "border", "integer"])
+def test_variant_plain_versions_match_pallas_kernels(variant, case, rng):
+    """The plain versions of K7 (shift) and K8 (bdiag) against the TPU
+    kernels of the same variant in interpret mode.  atol 1e-4 as for tent:
+    XLA's CPU code may contract the blends' a*b + c into FMAs."""
+    levels, flow = _cases(rng)[case]
+    got = corr_lookup([torch.from_numpy(m) for m in levels], torch.from_numpy(flow),
+                      backend="pallas", variant=variant)
+    want = np.asarray(corr_lookup_pallas([jnp.asarray(m) for m in levels], jnp.asarray(flow),
+                                         radius=4, interpret=True, variant=variant))
+    np.testing.assert_allclose(got.numpy(), want, atol=ATOL)
+
+
+def _torch_vjp(levels, flow, g, backend):
+    lv = [torch.from_numpy(m).requires_grad_() for m in levels]
+    fl = torch.from_numpy(flow).requires_grad_()
+    out = corr_lookup(lv, fl, backend=backend)
+    out.backward(torch.from_numpy(g))
+    return out.detach().numpy(), [m.grad.numpy() for m in lv], fl.grad.numpy()
+
+
+@pytest.mark.parametrize("case", ["random", "border", "integer"])
+def test_pallas_backend_grads_match_lookup_bwd(case, rng):
+    """'pallas' (K1b's plain version on the CPU) against jax.vjp of
+    corr_lookup_pallas_diff, whose backward is `_lookup_bwd`: grads into
+    every level and into the flow, 0 at integer centres.  atol 1e-4 on
+    O(1) gradients, the lookup's own bound; the sums run in another order."""
+    levels, flow = _cases(rng)[case]
+    n, h, w, _ = flow.shape
+    g = rng.normal(size=(n, h, w, 4 * 81)).astype(np.float32)
+    gp_j, gf_j = jax.vjp(
+        lambda p, f: corr_lookup_pallas_diff(p, f, 4, 256, True, "tent"),
+        tuple(jnp.asarray(m) for m in levels), jnp.asarray(flow))[1](jnp.asarray(g))
+    _, gp_t, gf_t = _torch_vjp(levels, flow, g, "pallas")
+    for a, b in zip(gp_t, gp_j):
+        np.testing.assert_allclose(a, np.asarray(b), atol=1e-4)
+    np.testing.assert_allclose(gf_t, np.asarray(gf_j), atol=1e-4)
+
+
+@pytest.mark.parametrize("case", ["random", "border", "integer"])
+def test_xla_backend_grads_match_jax_autodiff(case, rng):
+    """'xla' against jax.vjp of scflow_tpu.ops.corr.corr_lookup (JAX's
+    autodiff of the tent form): at integer centres its subgradient is not
+    0, and the port's must follow it."""
+    levels, flow = _cases(rng)[case]
+    n, h, w, _ = flow.shape
+    g = rng.normal(size=(n, h, w, 4 * 81)).astype(np.float32)
+    sizes = [int(round(m.shape[1] ** 0.5)) for m in levels]
+    j_levels = tuple(jnp.asarray(m).reshape(-1, s, s, 1) for m, s in zip(levels, sizes))
+    out_j, vjp = jax.vjp(lambda p, f: j_corr_lookup(list(p), f, 4), j_levels, jnp.asarray(flow))
+    gp_j, gf_j = vjp(jnp.asarray(g))
+    out_t, gp_t, gf_t = _torch_vjp(levels, flow, g, "xla")
+    np.testing.assert_allclose(out_t, np.asarray(out_j), atol=ATOL)
+    for a, b in zip(gp_t, gp_j):
+        np.testing.assert_allclose(a, np.asarray(b).reshape(a.shape), atol=1e-4)
+    np.testing.assert_allclose(gf_t, np.asarray(gf_j), atol=1e-4)
+
+
+def test_flow_subgradients_at_integer_centres(rng):
+    """One level, integer centres: every tent weight sits on a kink.
+    `_lookup_bwd` (and so 'pallas') gives the flow 0 there; JAX's autodiff
+    of the tent form (and so 'xla') does not."""
+    levels = _levels(rng, 2 * 64, (8,))
+    flow = rng.integers(-6, 7, (2, 8, 8, 2)).astype(np.float32)
+    g = rng.normal(size=(2, 8, 8, 81)).astype(np.float32)
+    _, _, gf_pallas = _torch_vjp(levels, flow, g, "pallas")
+    _, _, gf_xla = _torch_vjp(levels, flow, g, "xla")
+    _, gf_j = jax.vjp(lambda p, f: corr_lookup_pallas_diff(p, f, 4, 256, True, "tent"),
+                      (jnp.asarray(levels[0]),), jnp.asarray(flow))[1](jnp.asarray(g))
+    assert (np.asarray(gf_j) == 0).all() and (gf_pallas == 0).all()
+    _, gf_j = jax.vjp(lambda m, f: j_corr_lookup([m], f, 4),
+                      jnp.asarray(levels[0]).reshape(-1, 8, 8, 1), jnp.asarray(flow))[1](
+                          jnp.asarray(g))
+    assert np.abs(np.asarray(gf_j)).max() > 0.1
+    np.testing.assert_allclose(gf_xla, np.asarray(gf_j), atol=1e-4)
+
+
+def test_flow_grad_is_skipped_for_a_detached_flow(rng):
+    levels, flow = _cases(rng)["random"]
+    lv = [torch.from_numpy(m).requires_grad_() for m in levels]
+    out = corr_lookup(lv, torch.from_numpy(flow), backend="pallas")
+    out.sum().backward()
+    assert all(m.grad is not None for m in lv)
+
+
+@pytest.mark.parametrize("backend,variant", [("pallas", "tri"), ("xla", "shift"),
+                                             ("xla", "bdiag"), ("auto", "Tent")])
+def test_lookup_rejects_unknown_or_meaningless_variants(backend, variant):
+    levels = [torch.zeros((4, s * s)) for s in (2, 1)]
+    with pytest.raises(ValueError, match="variant"):
+        corr_lookup(levels, torch.zeros((1, 2, 2, 2)), backend=backend, variant=variant)
+
+
+def test_lookup_rejects_unknown_backend():
+    levels = [torch.zeros((4, s * s)) for s in (2, 1)]
+    with pytest.raises(ValueError, match="unknown backend"):
+        corr_lookup(levels, torch.zeros((1, 2, 2, 2)), backend="triton")

@@ -1,5 +1,6 @@
-"""Kernels K1 (corr lookup) and K2-K6 (the raster kernels) against their
-plain PyTorch versions, and the CPU/CUDA dispatch of their wrappers.
+"""Kernels K1, K7, K8 (the corr lookup's variants), K1b (its backward) and
+K2-K6 (the raster kernels) against their plain PyTorch versions, and the
+CPU/CUDA dispatch of their wrappers.
 
 Tests marked `cuda` need a card and skip without one.  This file imports no
 JAX, so on a machine with only PyTorch and a card it runs as
@@ -95,7 +96,8 @@ def _v4_scene(device, dup):
 
 
 def _all_launches():
-    return (k1.KERNEL.launches, k2.V3_KERNEL.launches, k2.V4_KERNEL.launches,
+    return (k1.KERNEL.launches, k1.SHIFT_KERNEL.launches, k1.BDIAG_KERNEL.launches,
+            k1.BWD_KERNEL.launches, k2.V3_KERNEL.launches, k2.V4_KERNEL.launches,
             k2.PACKED_KERNEL.launches, k2.V12_KERNELS[1].launches, k2.V12_KERNELS[2].launches)
 
 
@@ -104,6 +106,14 @@ def test_cpu_tensors_run_the_plain_versions_without_launching():
     before = _all_launches()
     torch.testing.assert_close(k1.corr_lookup_flat(levels, coords),
                                k1.corr_lookup_flat_plain(levels, coords), rtol=0, atol=0)
+    assert torch.equal(k1.corr_lookup_flat(levels, coords, variant="shift"),
+                       k1.corr_lookup_flat_shift_plain(levels, coords))
+    assert torch.equal(k1.corr_lookup_flat(levels, coords, variant="bdiag"),
+                       k1.corr_lookup_flat_plain(levels, coords))
+    g = torch.randn((coords.shape[0], 4 * 81), generator=torch.Generator().manual_seed(1))
+    got = k1.corr_lookup_flat_bwd(levels, coords, g)
+    want = k1.corr_lookup_flat_bwd_plain(levels, coords, g)
+    assert all(torch.equal(a, b) for a, b in zip(got[0] + [got[1]], want[0] + [want[1]]))
     cpu = torch.device("cpu")
     rows, active, img = _raster_scene(cpu)
     bits = pk.id_bits_for(rows.shape[-1])
@@ -125,8 +135,14 @@ def test_cpu_tensors_run_the_plain_versions_without_launching():
 
 def test_wrappers_reject_other_devices():
     levels = [torch.empty((4, s * s), device="meta") for s in (4, 2, 1)]
+    for variant in k1.VARIANTS:
+        with pytest.raises(ValueError, match="unsupported device"):
+            k1.corr_lookup_flat(levels, torch.empty((4, 2), device="meta"), variant=variant)
     with pytest.raises(ValueError, match="unsupported device"):
-        k1.corr_lookup_flat(levels, torch.empty((4, 2), device="meta"))
+        k1.corr_lookup_flat_bwd(levels, torch.empty((4, 2), device="meta"),
+                                torch.empty((4, 3 * 81), device="meta"))
+    with pytest.raises(ValueError, match="variant"):
+        k1.corr_lookup_flat(levels, torch.empty((4, 2), device="meta"), variant="tri")
     rows = torch.empty((1, 32, 128), device="meta")
     act = torch.empty((1, 1, 1, 1), dtype=torch.int32, device="meta")
     tiles = torch.empty((1, 1, 1), dtype=torch.int32, device="meta")
@@ -155,6 +171,61 @@ def test_corr_lookup_kernel_matches_plain(case, cuda):
     assert k1.KERNEL.launches == before + 1
     want = k1.corr_lookup_flat_plain(levels, coords)
     torch.testing.assert_close(got, want, rtol=0, atol=1e-4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["random", "border", "integer"])
+def test_shift_kernel_matches_plain_bit_for_bit(case, cuda):
+    """K7 and its plain version make the same two products and one sum per
+    blend, unfused (-fmad=false): the outputs are identical."""
+    levels, coords = _lookup_case(case)
+    levels = [m.to(cuda) for m in levels]
+    coords = coords.to(cuda)
+    before = k1.SHIFT_KERNEL.launches
+    got = k1.corr_lookup_flat(levels, coords, variant="shift")
+    torch.cuda.synchronize()
+    assert k1.SHIFT_KERNEL.launches == before + 1
+    assert torch.equal(got, k1.corr_lookup_flat_shift_plain(levels, coords))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["random", "border", "integer"])
+def test_bdiag_kernel_matches_tent_plain(case, cuda):
+    """K8 against the tent plain version at K1's atol 1e-4."""
+    levels, coords = _lookup_case(case)
+    levels = [m.to(cuda) for m in levels]
+    coords = coords.to(cuda)
+    before = k1.BDIAG_KERNEL.launches
+    got = k1.corr_lookup_flat(levels, coords, variant="bdiag")
+    torch.cuda.synchronize()
+    assert k1.BDIAG_KERNEL.launches == before + 1
+    torch.testing.assert_close(got, k1.corr_lookup_flat_plain(levels, coords), rtol=0,
+                               atol=1e-4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("want_coords", [True, False])
+@pytest.mark.parametrize("case", ["random", "border", "integer"])
+def test_bwd_kernel_matches_plain(case, want_coords, cuda):
+    """K1b against its plain version: level grads and the coords grad at
+    atol 1e-4 (sums of a few O(1) terms, in another order)."""
+    levels, coords = _lookup_case(case)
+    g = torch.randn((coords.shape[0], 4 * 81), generator=torch.Generator().manual_seed(2))
+    levels = [m.to(cuda) for m in levels]
+    coords, g = coords.to(cuda), g.to(cuda)
+    before = k1.BWD_KERNEL.launches
+    grads, gc = k1.corr_lookup_flat_bwd(levels, coords, g, want_coords=want_coords)
+    torch.cuda.synchronize()
+    assert k1.BWD_KERNEL.launches == before + 1
+    want, want_c = k1.corr_lookup_flat_bwd_plain(levels, coords, g, want_coords=want_coords)
+    for a, b in zip(grads, want):
+        torch.testing.assert_close(a, b, rtol=0, atol=1e-4)
+    if want_coords:
+        torch.testing.assert_close(gc, want_c, rtol=0, atol=1e-4)
+        if case == "integer":  # level 0 sits on the kinks; the others do not
+            assert gc.abs().max() > 0
+    else:
+        assert gc is None
 
 
 @pytest.mark.cuda

@@ -58,16 +58,17 @@ def load_port(module: torch.nn.Module, variables, **norms) -> torch.nn.Module:
 
 
 def scflow_pair(num_class: int, img: int, iters: int, seed: int = 0,
-                perturb: float = 0.02):
+                perturb: float = 0.02, **model_kw):
     """(flax SCFlowRefiner, numpy variables, port SCFlowRefiner) with the same
     weights.  The pose head's output kernels get normal(0, perturb) noise so
-    that the poses, and their feedback into the next lookup, move."""
+    that the poses, and their feedback into the next lookup, move.
+    model_kw (the detach options) go to both constructors."""
     from scflow_tpu.refiners import SCFlowRefiner as FlaxRefiner
     from scflow_tpu_torch.refiners.scflow import SCFlowRefiner
 
     fmodel = FlaxRefiner(iters=iters, pose_head_cfg=dict(
         type="MultiClassPoseHead", num_class=num_class, in_channels=224,
-        rotation_mode="ortho6d"))
+        rotation_mode="ortho6d"), **model_kw)
     z = jnp.zeros((1, img, img, 3))
     eye = jnp.eye(3)[None]
     variables = np_tree(jax.jit(fmodel.init)(
@@ -79,5 +80,31 @@ def scflow_pair(num_class: int, img: int, iters: int, seed: int = 0,
         k = head[name]["kernel"]
         head[name]["kernel"] = rng.normal(0.0, perturb, k.shape).astype(np.float32)
     port = load_port(SCFlowRefiner(num_class=num_class, image_size=(img, img),
-                                   iters=iters), variables)
+                                   iters=iters, **model_kw), variables)
     return fmodel, variables, port
+
+
+def scflow_pair_torch_init(num_class: int, img: int, iters: int, seed: int = 0,
+                           perturb: float = 0.005, **model_kw):
+    """As scflow_pair, with the port's own (PyTorch default) initialisation
+    from torch.manual_seed(seed), carried to flax by the JAX package's
+    convert_state_dict_to_variables.  These weights are smaller than flax's
+    lecun-normal ones.  From flax's initialisation the float32 gradients of
+    the two packages differ by several percent (their single-pass norm
+    statistics over [0, 1] images lose digits); from these they agree
+    within the train-step tests' 2e-2, as tests/test_grad_parity.py, which
+    starts from torch weights too, finds for the JAX package."""
+    from scflow_tpu.runtime.convert_torch import convert_state_dict_to_variables
+    from scflow_tpu_torch.refiners.scflow import SCFlowRefiner
+
+    fmodel, template, _ = scflow_pair(num_class, img, iters, seed, 0.0, **model_kw)
+    torch.manual_seed(seed)
+    port = SCFlowRefiner(num_class=num_class, image_size=(img, img), iters=iters, **model_kw)
+    g = torch.Generator().manual_seed(seed + 1)
+    head = port.decoder.pose_pred
+    with torch.no_grad():
+        for lin in (head.rotation_pred, head.translation_pred):
+            lin.weight.copy_(perturb * torch.randn(lin.weight.shape, generator=g))
+    variables = np_tree(convert_state_dict_to_variables(
+        {k: v.numpy() for k, v in port.state_dict().items()}, template))
+    return fmodel, variables, port.eval()
