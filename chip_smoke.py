@@ -2,15 +2,23 @@
 """Smoke run of the PyTorch/CUDA port (scflow_tpu_torch) on one NVIDIA card.
 
     python3 chip_smoke.py
+    python3 chip_smoke.py --lookup-only [--root DIR]   # phases 1-3 and 10 only,
+                                 # of the package in DIR (e.g. a parent commit)
 
 Phases, each printing one JSON line; any failure exits non-zero before the
 last line:
   1. device  - the card, its power limit (nvidia-smi), torch and CUDA versions;
   2. build   - nvcc builds every kernel from scflow_tpu_torch/csrc (sm_90a);
+               ptxas's registers, shared memory and spills per kernel; no
+               run-time integer division in a loop of any K7/K8 instance
+               (cuobjdump), and the SASS counts of their radius-4 kernels;
   3. K1      - the corr-lookup kernel against its plain version at the
-               flagship shape (65,536 rows, levels 32^2..4^2), max |d| <= 1e-4,
-               with its time, the plain time, F.grid_sample's time and the
-               bound;
+               flagship shape (65,536 rows, levels 32^2..4^2) and at the
+               train step's 16,384 rows, max |d| <= 1e-4, with its time
+               (back-to-back calls) and device time (calls queued behind a
+               device sleep), the plain time, F.grid_sample's times, the
+               bound, GB/s and share of the bound, registers and shared
+               memory;
   4. K2      - the raster kernel against its plain version at the flagship
                shape (64 x 256^2, 21-class 1024-face uvsphere bank, culling
                on): every map bit-identical; times and bound;
@@ -37,9 +45,10 @@ last line:
                flat and gouraud shading, and render_batch at a 192^2 crop
                with backend 'auto' (the brute-force path, no kernel) against
                the CPU run; ms per call of each;
- 10. K7/K8   - the shift and bdiag lookup kernels at K1's flagship inputs:
-               K7 bit-identical to its plain version, K8 within 1e-4 of the
-               tent plain version; times, F.grid_sample's and the bound;
+ 10. K7/K8   - the shift and bdiag lookup kernels on K1's inputs (both
+               shapes, run with K1 in phase 3): K7 bit-identical to its
+               plain version, K8 within 1e-4 of the tent plain version;
+               the same numbers as K1;
  11. K1b     - the lookup's backward at the training shape (16 x 32^2 rows,
                random, border and integer centres) against its plain
                version, level and flow grads within 1e-4; times (without
@@ -63,8 +72,10 @@ last line:
 Imports no JAX.  Needs one card; without one it exits non-zero at once.
 """
 
+import argparse
 import json
 import math
+import re
 import statistics
 import subprocess
 import sys
@@ -106,6 +117,26 @@ def median_ms(fn, reps: int, groups: int = 5) -> float:
     return statistics.median(times)
 
 
+def device_ms(fn, reps: int, groups: int = 5) -> float:
+    """As median_ms, but each group waits behind a 5 ms device sleep, so the
+    host has queued every launch before the first one starts: the device's
+    time per call, even where a launch takes less time than its Python
+    wrapper (the lookups at 16,384 rows)."""
+    fn()
+    times = []
+    for _ in range(groups):
+        torch.cuda.synchronize()
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(10_000_000)  # cycles: about 5 ms at the H100's clock
+        start.record()
+        for _ in range(reps):
+            fn()
+        end.record()
+        torch.cuda.synchronize()
+        times.append(start.elapsed_time(end) / reps)
+    return statistics.median(times)
+
+
 def bound(nbytes: float, flops: float):
     t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / FP32_FLOPS
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
@@ -123,15 +154,113 @@ def phase_device():
     return name, smi
 
 
+def parse_ptxas(logs) -> dict:
+    """{kernel entry (mangled): {"registers", "smem_bytes" (static),
+    "spill_bytes"}} from nvcc's -Xptxas -v output."""
+    table, entry = {}, None
+    for log in logs.values():
+        for line in log.splitlines():
+            m = re.search(r"Compiling entry function '(\S+)'", line)
+            if m:
+                entry = m.group(1)
+                table[entry] = {"registers": None, "smem_bytes": 0, "spill_bytes": 0}
+                continue
+            if entry is None:
+                continue
+            m = re.search(r"(\d+) bytes spill stores", line)
+            if m:
+                table[entry]["spill_bytes"] = int(m.group(1))
+            m = re.search(r"Used (\d+) registers", line)
+            if m:
+                table[entry]["registers"] = int(m.group(1))
+                m = re.search(r"(\d+) bytes smem", line)
+                table[entry]["smem_bytes"] = int(m.group(1)) if m else 0
+    return table
+
+
+def sass_counts(lib: Path) -> dict:
+    """{kernel (mangled): counts} of a built library by cuobjdump -sass: its
+    SASS instructions; those inside loops (a backward branch closes a loop
+    from its target to itself); and, inside loops, the run-time integer
+    divisions, which nvcc builds for sm_90 around a MUFU.RCP of the divisor
+    converted to float (these kernels divide no floats), and subroutine
+    calls (a 64-bit division is one)."""
+    from scflow_tpu_torch.ops.cuda.build import _nvcc
+
+    cuobjdump = Path(_nvcc()).parent / "cuobjdump"
+    text = subprocess.run([str(cuobjdump), "-sass", str(lib)], capture_output=True, text=True,
+                          timeout=300, check=True).stdout
+    funcs, name = {}, None
+    for line in text.splitlines():
+        m = re.search(r"Function\s*:\s*(\S+)", line)
+        if m:
+            name = m.group(1)
+            funcs[name] = []
+            continue
+        m = re.search(r"/\*([0-9a-f]{4,})\*/\s+(.*?)\s*;", line)
+        if m and name is not None:
+            funcs[name].append((int(m.group(1), 16), m.group(2)))
+    out = {}
+    for fname, insts in funcs.items():
+        in_loop = set()
+        for addr, inst in insts:
+            m = re.match(r"(?:@!?U?P\w+\s+)?BRA\b.*?0x([0-9a-f]+)", inst)
+            if m and int(m.group(1), 16) <= addr:
+                in_loop.update(a for a, _ in insts if int(m.group(1), 16) <= a <= addr)
+        out[fname] = {
+            "instructions": len(insts), "loop_instructions": len(in_loop),
+            "int_div_sequences_in_loops": sum(a in in_loop for a, inst in insts
+                                              if "MUFU.RCP" in inst or "I2F.U32.RP" in inst),
+            "calls_in_loops": sum(a in in_loop for a, inst in insts if "CALL.REL" in inst)}
+    return out
+
+
+# the kernel each lookup runs at radius 4 (K7/K8: that instance of the window
+# pipeline, or a parent's first K7/K8), by a fragment of its mangled name
+LOOKUP_ENTRIES = {"K1": ("corr_lookup_kernel",),
+                  "K7": ("ILi4E10ShiftBlend", "corr_lookup_shift_kernel"),
+                  "K8": ("ILi4E10BdiagBlend", "corr_lookup_bdiag_kernel")}
+
+
 def phase_build():
-    from scflow_tpu_torch.ops.cuda.build import build_all
+    """Builds every kernel; returns ptxas's table.  Requires that no loop of
+    a K7/K8 instance divides integers at run time, and emits the SASS counts
+    of the radius-4 ones."""
+    from scflow_tpu_torch.ops.cuda.build import build_all, library_path
 
     t0 = time.perf_counter()
     logs = build_all()
-    ptxas = [line.strip() for log in logs.values() for line in log.splitlines()
-             if "registers" in line or "Compiling entry" in line]
-    emit({"phase": "build", "seconds": time.perf_counter() - t0, "built": sorted(logs),
-          "ptxas": ptxas})
+    seconds = time.perf_counter() - t0
+    ptxas = parse_ptxas(logs)
+    sass = {}
+    for src in ("corr_lookup_shift.cu", "corr_lookup_bdiag.cu"):
+        for fname, c in sass_counts(library_path(src)).items():
+            if "windowed_lookup_kernel" in fname:
+                require(c["int_div_sequences_in_loops"] == 0 and c["calls_in_loops"] == 0,
+                        f"{fname}: no run-time integer division in a loop ({c})")
+            if any(tag in fname for tag in LOOKUP_ENTRIES["K7"] + LOOKUP_ENTRIES["K8"]):
+                sass[fname] = c
+    emit({"phase": "build", "seconds": seconds, "built": sorted(logs), "ptxas": ptxas,
+          "sass": sass})
+    return ptxas
+
+
+def _lookup_resources(key: str, ptxas: dict, levels: int = 4, radius: int = 4) -> dict:
+    """ptxas's registers, spills and static shared memory of the kernel that
+    key runs at radius 4, and the dynamic shared memory its launch asks for
+    at 4 levels, as the built library reports it (None for a package that
+    does not report it, e.g. a parent's)."""
+    from scflow_tpu_torch.ops.cuda import corr_lookup as k1
+
+    dyn = 0
+    if key != "K1":
+        layout = getattr(k1, "window_layout", None)
+        variant = {"K7": "shift", "K8": "bdiag"}[key]
+        dyn = layout(variant, levels, radius)["smem_bytes"] if layout else None
+    for entry, res in ptxas.items():
+        if any(tag in entry for tag in LOOKUP_ENTRIES[key]):
+            return {"entry": entry, **res, "dynamic_smem_bytes": dyn}
+    return {"entry": None, "dynamic_smem_bytes": dyn}
 
 
 def _flagship_lookup_inputs(dev, n: int = None):
@@ -166,7 +295,8 @@ def _lookup_bound(levels, coords, radius: int = 4):
         span = torch.clamp(hi - lo + 1, min=0)
         cells += int((span[:, 0] * span[:, 1]).sum().item())
     out_elems = rows * len(levels) * (2 * radius + 1) ** 2
-    return bound(coords.numel() * 4 + out_elems * 4 + cells * 4, out_elems * 9)
+    nbytes = coords.numel() * 4 + out_elems * 4 + cells * 4
+    return (*bound(nbytes, out_elems * 9), nbytes)
 
 
 def _grid_sample_lookup(levels, coords, radius: int = 4):
@@ -187,38 +317,58 @@ def _grid_sample_lookup(levels, coords, radius: int = 4):
     return calls
 
 
-def phase_lookup(dev):
-    """K1 (tent), K7 (shift) and K8 (bdiag) on the same flagship inputs:
-    each against its plain version, timed beside the same F.grid_sample
-    calls and bound."""
+def phase_lookup(dev, ptxas):
+    """K1 (tent), K7 (shift) and K8 (bdiag) on the same inputs, at the
+    flagship's 65,536 rows and at the train step's 16,384: each against its
+    plain version, timed beside the same F.grid_sample calls and bound.  ms
+    and library_ms time back-to-back calls (median_ms, as every kernel's ms);
+    device_ms and library_device_ms the same calls queued behind a device
+    sleep (device_ms).  Each line adds the achieved GB/s and share of the
+    bound by both times, and ptxas's registers and shared memory.  Returns
+    the flagship numbers for the kernels line."""
     from scflow_tpu_torch.ops.cuda import corr_lookup as k1
 
-    levels, coords = _flagship_lookup_inputs(dev)
-    calls = _grid_sample_lookup(levels, coords)
-    tent = k1.corr_lookup_flat_plain(levels, coords)
-    lib = torch.cat([f().reshape(coords.shape[0], -1) for f in calls], dim=1)
-    lib_err = (lib - tent).abs().max().item()
-    library_ms = sum(median_ms(f, 10) for f in calls)
-    bound_ms, bound_by = _lookup_bound(levels, coords)
+    variants = (("K1", "tent", k1.corr_lookup_flat_plain, 1e-4),
+                ("K7", "shift", k1.corr_lookup_flat_shift_plain, 0.0),
+                ("K8", "bdiag", k1.corr_lookup_flat_plain, 1e-4))
     out = {}
-    for key, variant, plain, tol in (("K1", "tent", k1.corr_lookup_flat_plain, 1e-4),
-                                     ("K7", "shift", k1.corr_lookup_flat_shift_plain, 0.0),
-                                     ("K8", "bdiag", k1.corr_lookup_flat_plain, 1e-4)):
-        got = k1.corr_lookup_flat(levels, coords, variant=variant)
-        want = plain(levels, coords)
-        torch.cuda.synchronize()
-        err = _max_abs(got, want)
-        if tol == 0.0:
-            require(torch.equal(got, want), f"{key} bit-identical (max |d| {err})")
-        require(math.isfinite(err) and err <= tol, f"{key} max |d| {err} <= {tol}")
-        out[key] = {
-            "max_abs_err": err,
-            "ms": median_ms(lambda: k1.corr_lookup_flat(levels, coords, variant=variant), 20),
-            "plain_ms": median_ms(lambda: plain(levels, coords), 3),
-            "library_ms": library_ms, "bound_ms": bound_ms, "bound_by": bound_by,
-        }
-        emit({"phase": key, "variant": variant, "rows": coords.shape[0],
-              "tolerance": tol, "grid_sample_max_abs_diff_vs_tent": lib_err, **out[key]})
+    for n, shape in ((BATCH, "flagship"), (TRAIN_BATCH, "train_shape")):
+        levels, coords = _flagship_lookup_inputs(dev, n)
+        rows = coords.shape[0]
+        calls = _grid_sample_lookup(levels, coords)
+        tent = k1.corr_lookup_flat_plain(levels, coords)
+        lib = torch.cat([f().reshape(rows, -1) for f in calls], dim=1)
+        lib_err = (lib - tent).abs().max().item()
+        library_ms = sum(median_ms(f, 10) for f in calls)
+        library_device_ms = sum(device_ms(f, 20) for f in calls)
+        bound_ms, bound_by, nbytes = _lookup_bound(levels, coords)
+        for key, variant, plain, tol in variants:
+            got = k1.corr_lookup_flat(levels, coords, variant=variant)
+            want = plain(levels, coords)
+            torch.cuda.synchronize()
+            err = _max_abs(got, want)
+            if tol == 0.0:
+                require(torch.equal(got, want), f"{key} bit-identical at {rows} rows "
+                                                f"(max |d| {err})")
+            require(math.isfinite(err) and err <= tol, f"{key} max |d| {err} <= {tol}")
+
+            def kernel():
+                return k1.corr_lookup_flat(levels, coords, variant=variant)
+
+            res = {"max_abs_err": err, "ms": median_ms(kernel, 20),
+                   "device_ms": device_ms(kernel, 50),
+                   "plain_ms": median_ms(lambda: plain(levels, coords), 3),
+                   "library_ms": library_ms, "bound_ms": bound_ms, "bound_by": bound_by}
+            if shape == "flagship":
+                out[key] = res
+            emit({"phase": key, "variant": variant, "shape": shape, "rows": rows,
+                  "tolerance": tol, "grid_sample_max_abs_diff_vs_tent": lib_err, **res,
+                  "library_device_ms": library_device_ms, "bytes": nbytes,
+                  "gb_per_s": nbytes / res["ms"] / 1e6, "share_of_bound": bound_ms / res["ms"],
+                  "device_gb_per_s": nbytes / res["device_ms"] / 1e6,
+                  "device_share_of_bound": bound_ms / res["device_ms"],
+                  "ptxas": _lookup_resources(key, ptxas)})
+        del levels, coords, calls, tent, lib
     return out
 
 
@@ -960,18 +1110,31 @@ def phase_render(dev, scene, smi):
 
 
 def main() -> int:
+    parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    parser.add_argument("--lookup-only", action="store_true",
+                        help="run only the device, build and lookup phases (K1, K7, K8)")
+    parser.add_argument("--root", type=Path, default=Path(__file__).resolve().parent,
+                        help="the checkout whose scflow_tpu_torch to build and run "
+                             "(default: this script's), e.g. an unpacked parent commit")
+    args = parser.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
         return 1
-    sys.path.insert(0, str(Path(__file__).resolve().parent))
+    sys.path.insert(0, str(args.root.resolve()))
     import scflow_tpu_torch  # noqa: F401  (fails at once outside the repo)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda", 0)
     name, smi = phase_device()
-    phase_build()
+    emit({"phase": "package", "path": str(Path(scflow_tpu_torch.__file__).parent)})
+    ptxas = phase_build()
+    if args.lookup_only:
+        phase_lookup(dev, ptxas)
+        emit({"ok": True, "device": {"platform": "gpu", "kind": name,
+                                     "count": torch.cuda.device_count()}})
+        return 0
     scene = _flagship_scene(dev)
-    res = phase_lookup(dev)
+    res = phase_lookup(dev, ptxas)
     res["K1b"] = phase_k1b(dev)
     res["K2"], k2_out = phase_k2(dev, scene)
     res["K3"] = phase_k3(dev, scene, k2_out)

@@ -12,6 +12,7 @@
 
 #include <cuda_runtime.h>
 #include <math.h>
+#include <stdint.h>
 
 #define MAX_LEVELS 4
 
@@ -20,56 +21,291 @@ struct Levels {
   int size[MAX_LEVELS];
 };
 
-// The window stage of K7 and K8.  For each of a block's rows and each level
-// it keeps the level's centre (px, py) and floor(px), floor(py), and the
-// (k+1) x (k+1) integer cells the window can touch,
-//   patch[d][e] = map[floor(py) - r + d][floor(px) - r + e],  0 outside,
-// so that every tap reads its corners from shared memory.  All of a row's
-// cells come in together, several rows to a block, so many loads are in
-// flight at once.  Cells are tested as floats: a centre far outside the map
-// (or NaN) never reaches an int cast.
+// ---------------------------------------------------------------------------
+// The window pipeline of K7 and K8.
 //
-// Shared layout: cen[(row * L + l) * 4 + {px, py, x0f, y0f}], then
-// patch[((row * L + l) * (k+1) + d) * (k+1) + e].
-__device__ __forceinline__ void stage_windows(const float* __restrict__ coords,
-                                              const Levels& lv, int num_levels,
-                                              int radius, long long rows,
-                                              long long b0, int nrows, float* cen,
-                                              float* patch) {
-  const int kp = 2 * radius + 2;
-  for (int t = threadIdx.x; t < nrows * num_levels; t += blockDim.x) {
-    const int l = t % num_levels;
-    const long long b = b0 + t / num_levels;
-    const long long bc = b < rows ? b : rows - 1;
-    const float inv = ldexpf(1.f, -l);  // exact power of two
-    const float px = coords[2 * bc] * inv, py = coords[2 * bc + 1] * inv;
-    cen[4 * t] = px;
-    cen[4 * t + 1] = py;
-    cen[4 * t + 2] = floorf(px);
-    cen[4 * t + 3] = floorf(py);
-  }
-  __syncthreads();
-  const int cells = kp * kp;
-  for (int t = threadIdx.x; t < nrows * num_levels * cells; t += blockDim.x) {
-    const int win = t / cells;  // row * L + l
-    const int c = t - win * cells;
-    const int d = c / kp, e = c - d * kp;
-    const int l = win % num_levels;
-    const long long b = b0 + win / num_levels;
-    const int s = lv.size[l];
-    const float yy = cen[4 * win + 3] - (float)radius + (float)d;
-    const float xx = cen[4 * win + 2] - (float)radius + (float)e;
-    float v = 0.f;
-    if (b < rows && yy >= 0.f && yy <= (float)(s - 1) && xx >= 0.f && xx <= (float)(s - 1))
-      v = lv.map[l][b * (long long)s * s + (long long)yy * s + (long long)xx];
-    patch[t] = v;
-  }
-  __syncthreads();
+// Both kernels read, for each row and level, the (k+1) x (k+1) integer cells
+// a window can touch,
+//   P[e][d] = map[floor(py) - r + d][floor(px) - r + e],  0 outside,
+// and blend output (j, i) from P[j..j+1][i..i+1] with two weights per axis:
+//   t0 = wy0 P[j][i] + wy1 P[j][i+1],  t1 = the same on column j+1,
+//   out = wx0 t0 + wx1 t1.
+// The kernels differ only in the weights (the Blend class of each source).
+// The radius is a template argument, so k, every loop bound and every
+// offset inside the per-element loops are compile-time (a constant divisor
+// compiles to a multiply and a shift).  The level count is a run-time
+// argument: it divides only in each thread's (row, level, column) split,
+// once, before the loops.
+//
+// A block is persistent: it walks groups of WINDOW_ROWS rows (blockIdx.x,
+// + gridDim.x, ...) over a two-stage ring in shared memory.  While it blends
+// group n from one stage, the cells of group n+1 arrive in the other with
+// 4-byte cp.async (the src-size-0 form for a cell outside the map, which
+// lands as 0, grid_sample's zeros padding, without a branch or a register
+// round trip, and reads nothing); the window centres of group n+2 are
+// already in registers.  TMA cannot stage the windows: a tensor map needs
+// the level's row stride, S*4 bytes, to be a multiple of 16, which S = 2, 3,
+// 5 or 10 are not.
+//
+// What the card rewards here is few shared-memory and L1 wavefronts, not
+// few instructions.  So one thread per (row, level, window column e) stages
+// the k+1 cells of that column, d = 0..k: a warp's cp.async then reads
+// consecutive addresses of each window row.  (One thread per window row,
+// looping over e, issued one line per lane, and ran slower.)  And one thread
+// per (row, level, output column j) keeps the two window columns j and j+1 in
+// registers and writes the k outputs (j, 0..k-1), so each staged cell is
+// read from shared memory about twice, not four times.  The (row, level)
+// centre or weights come from one float4 broadcast per thread.
+//
+// The blended group lands in shared memory and leaves as one contiguous
+// range (rows b0 .. b0+3 of the output) by a Hopper bulk copy
+// (cp.async.bulk.global.shared::cta); a short last group, or an output that
+// is not 16-byte aligned, is stored by consecutive threads.
+//
+// Shared layout of one stage at L levels (win = row * L + level; the
+// patch's column stride k+2 is odd, so consecutive columns fall in
+// different banks):
+//   cen[win] = Blend::centre(px, py, floor(px), floor(py))   G*L float4
+//   patch[(win * (k+1) + e) * (k+2) + d]                     G*L*(k+1)*(k+2)
+//   outbuf[row * L*k*k + column]                             G*L*k*k
+
+#include <type_traits>
+
+#define WINDOW_ROWS 4  // rows per group
+#define WINDOW_MAX_RADIUS 12
+
+template <int R>
+struct Window {
+  static constexpr int G = WINDOW_ROWS, K = 2 * R + 1, KP = K + 1, KS = K + 2;
+  // floats of one ring stage at L levels
+  static constexpr int stage(int L) { return G * L * (4 + KP * KS + K * K); }
+  static constexpr size_t smem(int L) { return 2 * sizeof(float) * stage(L); }
+  // one thread per staging slot (row, level, e), in whole warps
+  static constexpr int threads(int L) { return (G * L * KP + 31) / 32 * 32; }
+  static constexpr int MAX_THREADS = (G * MAX_LEVELS * KP + 31) / 32 * 32;
+};
+
+__device__ __forceinline__ void cp_async4(float* dst, const float* src, bool in) {
+  const unsigned s = (unsigned)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(s), "l"(src),
+               "r"(in ? 4 : 0)
+               : "memory");
 }
 
-// Dynamic shared memory of a K7/K8 block of `nrows` rows: centres, patches
-// and the row-blended taps T[i][e] (k x (k+1) per window).
-inline size_t window_smem_bytes(int nrows, int num_levels, int radius) {
-  const size_t k = 2 * radius + 1;
-  return sizeof(float) * nrows * num_levels * (4 + (k + 1) * (k + 1) + k * (k + 1));
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+__device__ __forceinline__ void bulk_store(float* dst, const float* src, int bytes) {
+  const unsigned s = (unsigned)__cvta_generic_to_shared(src);
+  asm volatile("cp.async.bulk.global.shared::cta.bulk_group [%0], [%1], %2;\n" ::"l"(dst),
+               "r"(s), "r"(bytes)
+               : "memory");
+  asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+}
+
+// at most N bulk stores still reading shared memory
+template <int N>
+__device__ __forceinline__ void bulk_wait_read() {
+  asm volatile("cp.async.bulk.wait_group.read %0;\n" ::"n"(N) : "memory");
+}
+
+template <int R, class Blend>
+__global__ void __launch_bounds__(Window<R>::MAX_THREADS)
+    windowed_lookup_kernel(const float* __restrict__ coords, Levels lv, int L, long long rows,
+                           long long groups, int bulk_ok, float* __restrict__ out) {
+  using W = Window<R>;
+  constexpr int G = W::G, K = W::K, KP = W::KP, KS = W::KS;
+  extern __shared__ __align__(16) float smem[];
+  const int tid = threadIdx.x;
+  const int cols = L * K * K;  // outputs of a row
+  const int cen_f = G * L * 4, patch_f = cen_f + G * L * KP * KS;  // offsets in a stage
+  const int stage_f = patch_f + G * cols;
+
+  // staging slot (row, level, window column e), the same in every group
+  const int srow = tid / (L * KP);
+  const int srem = tid - srow * (L * KP);
+  const int slev = srem / KP;
+  const int se = srem - slev * KP;
+  const bool son = srow < G;
+  const int swin = srow * L + slev;
+  const int lc = son ? slev : 0;
+  const int s = lv.size[lc];
+  const float* const map = lv.map[lc];
+  const float inv = ldexpf(1.f, -lc);  // exact power of two
+  float2 cv;  // the centre of the next group to stage
+  auto load_centre = [&](long long g) {
+    const long long b = g * G + srow;
+    const long long bc = b < rows ? b : rows - 1;
+    cv = son ? make_float2(coords[2 * bc], coords[2 * bc + 1]) : make_float2(0.f, 0.f);
+  };
+  auto stage_group = [&](long long g, int buf) {
+    if (!son) return;
+    float* base = smem + buf * stage_f;
+    const long long b = g * G + srow;
+    const float px = cv.x * inv, py = cv.y * inv;
+    const float x0f = floorf(px), y0f = floorf(py);
+    if (se == 0) reinterpret_cast<float4*>(base)[swin] = Blend::centre(px, py, x0f, y0f);
+    // tested as floats, so a NaN or far-away centre never reaches an int
+    // cast: such a window gets an origin that leaves all its cells outside
+    const float xx = x0f - (float)R + (float)se;
+    const bool xin = b < rows && xx >= 0.f && xx <= (float)(s - 1);
+    const int yb =
+        ((y0f >= -(float)(R + 1) && y0f <= (float)(s + R)) ? (int)y0f : -(2 * R + 4)) - R;
+    // cell d of this column: map[yb + d][xx]
+    const float* cp = map + (xin ? b * (long long)s * s + (int)xx : 0LL) + (long long)yb * s;
+    float* dst = base + cen_f + (swin * KP + se) * KS;
+#pragma unroll
+    for (int d = 0; d < KP; ++d)
+      cp_async4(dst + d, cp + d * s, xin && (unsigned)(yb + d) < (unsigned)s);
+  };
+
+  // blending item (row, level, output column j), the same in every row
+  const int crow = tid / (L * K);
+  const int crem = tid - crow * (L * K);
+  const int clev = crem / K;
+  const int cj = crem - clev * K;
+  const bool con = crow < G;
+  const int cwin = crow * L + clev;
+  const float fj = (float)(cj - R);
+
+  long long g = blockIdx.x;
+  load_centre(g);
+  stage_group(g, 0);
+  cp_async_commit();
+  long long gn = g + gridDim.x;
+  if (gn < groups) load_centre(gn);
+  for (int n = 0; g < groups; ++n, g = gn, gn += gridDim.x) {
+    const int buf = n & 1;
+    if (gn < groups) {
+      stage_group(gn, buf ^ 1);
+      if (gn + gridDim.x < groups) load_centre(gn + gridDim.x);
+    }
+    cp_async_commit();
+    cp_async_wait<1>();                // this thread's cells of group g are in
+    if (tid == 0) bulk_wait_read<1>();  // outbuf[buf] is no longer being read
+    __syncthreads();
+
+    float* base = smem + buf * stage_f;
+    float* ob = base + patch_f;
+    if (con) {
+      const float4 ce = reinterpret_cast<const float4*>(base)[cwin];
+      const float* p = base + cen_f + (cwin * KP + cj) * KS;
+      float a[KP], c[KP];  // window columns j and j + 1
+#pragma unroll
+      for (int d = 0; d < KP; ++d) {
+        a[d] = p[d];
+        c[d] = p[KS + d];
+      }
+      const float2 wx = Blend::xweights(ce, fj);
+      float* o = ob + crow * cols + (clev * K + cj) * K;
+#pragma unroll
+      for (int i = 0; i < K; ++i) {
+        const float2 wy = Blend::yweights(ce, (float)(i - R));
+        const float t0 = wy.x * a[i] + wy.y * a[i + 1];
+        const float t1 = wy.x * c[i] + wy.y * c[i + 1];
+        o[i] = wx.x * t0 + wx.y * t1;
+      }
+    }
+    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+    __syncthreads();
+
+    const long long b0 = g * G;
+    const int nrows = rows - b0 < G ? (int)(rows - b0) : G;
+    float* dst = out + b0 * cols;
+    if (nrows == G && bulk_ok) {
+      if (tid == 0) bulk_store(dst, ob, G * cols * (int)sizeof(float));
+    } else {
+      for (int q = tid; q < nrows * cols; q += blockDim.x) dst[q] = ob[q];
+    }
+  }
+  if (tid == 0) asm volatile("cp.async.bulk.wait_group 0;\n" ::: "memory");
+}
+
+// f(std::integral_constant<int, radius>()) for radius 0..WINDOW_MAX_RADIUS,
+// the instances K7 and K8 build; cudaErrorInvalidValue for any other.
+template <class F>
+int with_radius(int radius, F&& f) {
+  switch (radius) {
+#define WINDOW_CASE(r) \
+  case r:              \
+    return f(std::integral_constant<int, r>());
+    WINDOW_CASE(0) WINDOW_CASE(1) WINDOW_CASE(2) WINDOW_CASE(3) WINDOW_CASE(4)
+    WINDOW_CASE(5) WINDOW_CASE(6) WINDOW_CASE(7) WINDOW_CASE(8) WINDOW_CASE(9)
+    WINDOW_CASE(10) WINDOW_CASE(11) WINDOW_CASE(12)
+#undef WINDOW_CASE
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
+}
+
+template <int R, class Blend>
+int launch_window(const float* coords, const Levels& lv, int L, long long rows, float* out,
+                  cudaStream_t stream) {
+  using W = Window<R>;
+  static_assert(W::smem(MAX_LEVELS) <= 232448,
+                "two ring stages exceed an H100 block's shared memory");
+  auto kernel = windowed_lookup_kernel<R, Blend>;
+  const size_t smem = W::smem(L);
+  int dev = 0, optin = 0, sms = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+  if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err != cudaSuccess) return (int)err;
+  if (W::smem(MAX_LEVELS) > (size_t)optin) return (int)cudaErrorInvalidConfiguration;
+  static int per_sm[MAX_LEVELS + 1] = {};  // resident blocks per SM, by level count
+  if (per_sm[L] == 0) {
+    if (W::smem(MAX_LEVELS) > 48 * 1024) {  // the largest any level count asks for
+      err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                 (int)W::smem(MAX_LEVELS));
+      if (err != cudaSuccess) return (int)err;
+    }
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm[L], kernel, W::threads(L), smem);
+    if (err != cudaSuccess) return (int)err;
+    if (per_sm[L] < 1) return (int)cudaErrorInvalidConfiguration;
+  }
+  const long long groups = (rows + W::G - 1) / W::G;
+  const long long resident = (long long)per_sm[L] * sms;
+  const unsigned grid = (unsigned)(groups < resident ? groups : resident);
+  const int bulk_ok = ((uintptr_t)out & 15) == 0;
+  kernel<<<grid, W::threads(L), smem, stream>>>(coords, lv, L, rows, groups, bulk_ok, out);
+  return (int)cudaGetLastError();
+}
+
+// The launch of K7 or K8: radius 0..WINDOW_MAX_RADIUS at 1..MAX_LEVELS
+// levels (two ring stages of every such pair fit a block's shared memory:
+// 170 KB at radius 12 and 4 levels); anything else returns an error and
+// launches nothing.
+template <class Blend>
+int launch_window_radius(const float* coords, const float* m0, const float* m1,
+                         const float* m2, const float* m3, int s0, int s1, int s2, int s3,
+                         int num_levels, int radius, long long rows, float* out,
+                         cudaStream_t stream) {
+  if (rows < 1 || num_levels < 1 || num_levels > MAX_LEVELS) return (int)cudaErrorInvalidValue;
+  const Levels lv = {{m0, m1, m2, m3}, {s0, s1, s2, s3}};
+  return with_radius(radius, [&](auto r) {
+    return launch_window<decltype(r)::value, Blend>(coords, lv, num_levels, rows, out, stream);
+  });
+}
+
+// What a launch at (num_levels, radius) takes: rows per group, the largest
+// radius, threads per block and dynamic shared memory per block; the same
+// error as the launch for a pair it refuses.
+inline int window_layout(int num_levels, int radius, int* rows_per_group, int* max_radius,
+                         int* threads, long long* smem_bytes) {
+  *rows_per_group = WINDOW_ROWS;
+  *max_radius = WINDOW_MAX_RADIUS;
+  if (num_levels < 1 || num_levels > MAX_LEVELS) return (int)cudaErrorInvalidValue;
+  return with_radius(radius, [&](auto r) {
+    using W = Window<decltype(r)::value>;
+    *threads = W::threads(num_levels);
+    *smem_bytes = (long long)W::smem(num_levels);
+    return 0;
+  });
 }

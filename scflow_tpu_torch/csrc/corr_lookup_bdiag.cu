@@ -9,66 +9,50 @@
 //   wy[i,h] = max(0, 1 - |(py + i - r) - h|)  (likewise wx),
 // rows first, then columns.  Hopper has no dispatch cost to amortise; what
 // carries over is one pass over all levels: a block stages the window
-// cells of every level of its rows together (stage_windows in
-// corr_common.cuh, (k+1)^2 cells per row and level, zeros outside) and
-// evaluates the two nonzero tent weights per axis on them.  The other
-// cells' weights are exactly 0 (the centre plus an integer offset rounds
-// into [floor + offset, floor + offset + 1]), so the sums are the tent
-// sums.  Held to the plain tent version at K1's atol 1e-4 (the plain
+// cells of every level of its rows together ((k+1)^2 cells per row and
+// level, zeros outside) and evaluates the two nonzero tent weights per axis
+// on them, tent(y - h0) and tent(y - (h0 + 1)) with h0 = floor(py) - r + i.
+// The other cells' weights are exactly 0 (the centre plus an integer offset
+// rounds into [floor + offset, floor + offset + 1]), so the sums are the
+// tent sums.  Held to the plain tent version at K1's atol 1e-4 (the plain
 // version's matrix products may sum with FMAs; this file builds with
 // -fmad=false).
 //
-// Bound on an H100 SXM (3.35 TB/s): memory, as K1 and K7.
+// Bound on an H100 SXM (3.35 TB/s): memory, as K1 and K7 (about 37 us at
+// the flagship shape).
+//
+// Design: the window pipeline of corr_common.cuh, as K7.  The first version
+// (0.29 ms on an H100, 12% of the bound) was issue-bound on run-time index
+// divisions in its three per-element loops and serialised each block's
+// load, blend and store; the radius is now a template argument and the
+// level count divides once per thread, cells arrive by cp.async while the
+// previous group blends, and a group leaves by one bulk copy (times on an
+// H100 in PERF.md).
 
 #include "corr_common.cuh"
 
-#define ROWS 8
-
 __device__ __forceinline__ float tent(float u) { return fmaxf(0.f, 1.f - fabsf(u)); }
 
-__global__ void corr_lookup_bdiag_kernel(const float* __restrict__ coords, Levels lv,
-                                         int num_levels, int radius, long long rows,
-                                         float* __restrict__ out) {
-  extern __shared__ float smem[];
-  const int k = 2 * radius + 1, kp = k + 1;
-  const long long b0 = (long long)blockIdx.x * ROWS;
-  const int nrows = rows - b0 < ROWS ? (int)(rows - b0) : ROWS;
-  const int wins = ROWS * num_levels;
-  float* cen = smem;
-  float* patch = cen + 4 * wins;
-  float* tmp = patch + wins * kp * kp;  // tmp[(win * k + i) * kp + e]
-  stage_windows(coords, lv, num_levels, radius, rows, b0, nrows, cen, patch);
-
-  // rows: tmp[i][e] = wy[i, h0] m[h0][.] + wy[i, h0 + 1] m[h0 + 1][.],
-  // h0 = floor(py) - r + i
-  for (int t = threadIdx.x; t < nrows * num_levels * k * kp; t += blockDim.x) {
-    const int win = t / (k * kp);
-    const int c = t - win * k * kp;
-    const int i = c / kp, e = c - i * kp;
-    const float y = cen[4 * win + 1] + (float)(i - radius);
-    const float h0 = cen[4 * win + 3] + (float)(i - radius);
-    const float* p = patch + win * kp * kp;
-    tmp[t] = tent(y - h0) * p[i * kp + e] + tent(y - (h0 + 1.f)) * p[(i + 1) * kp + e];
+struct BdiagBlend {
+  // the centre as it is: (px, py, floor(px), floor(py))
+  __device__ __forceinline__ static float4 centre(float px, float py, float x0f, float y0f) {
+    return make_float4(px, py, x0f, y0f);
   }
-  __syncthreads();
-
-  const int per_row = num_levels * k * k;
-  for (int t = threadIdx.x; t < nrows * per_row; t += blockDim.x) {
-    const int r = t / per_row;
-    const int c = t - r * per_row;
-    const int l = c / (k * k);
-    const int tap = c - l * k * k;
-    const int j = tap / k, i = tap - j * k;
-    const int win = r * num_levels + l;
-    const float px = cen[4 * win], py = cen[4 * win + 1];
-    const float x = px + (float)(j - radius);
-    const float w0 = cen[4 * win + 2] + (float)(j - radius);
-    const float* row = tmp + (win * k + i) * kp;
-    float v = tent(x - w0) * row[j] + tent(x - (w0 + 1.f)) * row[j + 1];
-    if (isnan(px) || isnan(py)) v = px + py;  // NaN, as the tent form gives
-    out[b0 * per_row + t] = v;
+  // the two nonzero tent weights of window row i (off = i - r):
+  // tent(y - h0), tent(y - (h0 + 1)) with y = py + off, h0 = floor(py) + off
+  __device__ __forceinline__ static float2 yweights(float4 c, float off) {
+    const float y = c.y + off, h0 = c.w + off;
+    return make_float2(tent(y - h0), tent(y - (h0 + 1.f)));
   }
-}
+  // likewise for window column j; NaN where the centre is NaN, as the tent
+  // form gives (fmaxf would turn a NaN weight into 0), so the output is NaN
+  __device__ __forceinline__ static float2 xweights(float4 c, float off) {
+    const float x = c.x + off, w0 = c.z + off;
+    float2 w = make_float2(tent(x - w0), tent(x - (w0 + 1.f)));
+    if (isnan(c.x) || isnan(c.y)) w.x = w.y = c.x + c.y;
+    return w;
+  }
+};
 
 extern "C" int corr_lookup_bdiag_launch(const float* coords, const float* m0,
                                         const float* m1, const float* m2,
@@ -76,13 +60,11 @@ extern "C" int corr_lookup_bdiag_launch(const float* coords, const float* m0,
                                         int s3, int num_levels, int radius,
                                         long long rows, float* out,
                                         cudaStream_t stream) {
-  if (num_levels < 1 || num_levels > MAX_LEVELS || radius < 0)
-    return (int)cudaErrorInvalidValue;
-  Levels lv = {{m0, m1, m2, m3}, {s0, s1, s2, s3}};
-  const size_t smem = window_smem_bytes(ROWS, num_levels, radius);
-  const long long blocks = (rows + ROWS - 1) / ROWS;
-  if (smem > 48 * 1024 || blocks > 0x7fffffffLL) return (int)cudaErrorInvalidConfiguration;
-  corr_lookup_bdiag_kernel<<<(unsigned)blocks, 256, smem, stream>>>(coords, lv, num_levels,
-                                                                   radius, rows, out);
-  return (int)cudaGetLastError();
+  return launch_window_radius<BdiagBlend>(coords, m0, m1, m2, m3, s0, s1, s2, s3, num_levels,
+                                          radius, rows, out, stream);
+}
+
+extern "C" int corr_lookup_bdiag_layout(int num_levels, int radius, int* rows_per_group,
+                                        int* max_radius, int* threads, long long* smem_bytes) {
+  return window_layout(num_levels, radius, rows_per_group, max_radius, threads, smem_bytes);
 }

@@ -17,11 +17,10 @@ from typing import List, Optional, Sequence, Tuple
 
 import torch
 
-from scflow_tpu_torch.ops.cuda.build import CudaKernel
+from scflow_tpu_torch.ops.cuda.build import CudaKernel, build_all, library_path
 
 MAX_LEVELS = 4
 VARIANTS = ("tent", "shift", "bdiag")
-
 _LOOKUP_ARGS = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 6 + [ctypes.c_longlong, ctypes.c_void_p]
 KERNEL = CudaKernel("corr_lookup.cu", "corr_lookup_launch", _LOOKUP_ARGS)
 SHIFT_KERNEL = CudaKernel("corr_lookup_shift.cu", "corr_lookup_shift_launch", _LOOKUP_ARGS)
@@ -32,6 +31,29 @@ BWD_KERNEL = CudaKernel(
     + [ctypes.c_longlong, ctypes.c_void_p],
 )
 FORWARD_KERNELS = {"tent": KERNEL, "shift": SHIFT_KERNEL, "bdiag": BDIAG_KERNEL}
+
+
+def window_layout(variant: str, num_levels: int, radius: int) -> dict:
+    """How K7 ('shift') or K8 ('bdiag') launches at (num_levels, radius), read
+    from its built library (csrc/corr_common.cuh): rows_per_group,
+    max_radius (the largest radius the launch takes), threads per block and
+    smem_bytes of dynamic shared memory per block.  Builds the kernels
+    (needs nvcc); raises RuntimeError for a pair the launch refuses."""
+    source = FORWARD_KERNELS[variant].source
+    build_all()
+    fn = getattr(ctypes.CDLL(str(library_path(source))), f"corr_lookup_{variant}_layout")
+    fn.argtypes = [ctypes.c_int] * 2 + [ctypes.POINTER(ctypes.c_int)] * 3 + [
+        ctypes.POINTER(ctypes.c_longlong)]
+    fn.restype = ctypes.c_int
+    ints = [ctypes.c_int() for _ in range(3)]
+    smem = ctypes.c_longlong()
+    err = fn(num_levels, radius, *map(ctypes.byref, ints), ctypes.byref(smem))
+    if err != 0:
+        raise RuntimeError(f"corr_lookup_{variant}_layout({num_levels}, {radius}): "
+                           f"CUDA error {err}")
+    rows, max_radius, threads = (i.value for i in ints)
+    return {"rows_per_group": rows, "max_radius": max_radius, "threads": threads,
+            "smem_bytes": smem.value}
 
 
 def check_variant(variant: str) -> str:
@@ -140,7 +162,8 @@ def corr_lookup_flat(pyramid: Sequence[torch.Tensor], coords: torch.Tensor,
     """pyramid: level l is (B, S_l*S_l) float32; coords: (B, 2) float32
     window centres (x, y) at level 0.  Returns (B, L*(2r+1)^2) float32,
     level-major, tap index j*(2r+1) + i with j offsetting x.  variant picks
-    the kernel: 'tent' K1, 'shift' K7, 'bdiag' K8."""
+    the kernel: 'tent' K1, 'shift' K7, 'bdiag' K8 (K7 and K8 take radius
+    0-12, `window_layout`'s max_radius, and raise at another)."""
     check_variant(variant)
     if coords.device.type == "cpu":
         return PLAIN[variant](pyramid, coords, radius)

@@ -99,6 +99,24 @@ def test_variant_plain_versions_match_pallas_kernels(variant, case, rng):
     np.testing.assert_allclose(got.numpy(), want, atol=ATOL)
 
 
+@pytest.mark.parametrize("radius,n_levels", [(1, 1), (1, 2), (3, 1), (3, 2), (6, 4), (0, 3)])
+@pytest.mark.parametrize("variant", ["shift", "bdiag"])
+@pytest.mark.parametrize("case", ["random", "border", "integer"])
+def test_variant_plain_versions_match_pallas_kernels_at_other_windows(radius, n_levels,
+                                                                      variant, case, rng):
+    """As above at other radii and level counts: K7 and K8 take the radius
+    as a compile-time window, and their plain versions are what the card
+    holds them to at each of those windows."""
+    levels, flow = _cases(rng)[case]
+    levels = levels[:n_levels]
+    got = corr_lookup([torch.from_numpy(m) for m in levels], torch.from_numpy(flow),
+                      radius=radius, backend="pallas", variant=variant)
+    want = np.asarray(corr_lookup_pallas([jnp.asarray(m) for m in levels], jnp.asarray(flow),
+                                         radius=radius, interpret=True, variant=variant))
+    assert got.shape == want.shape == flow.shape[:3] + (n_levels * (2 * radius + 1) ** 2,)
+    np.testing.assert_allclose(got.numpy(), want, atol=ATOL)
+
+
 def _torch_vjp(levels, flow, g, backend):
     lv = [torch.from_numpy(m).requires_grad_() for m in levels]
     fl = torch.from_numpy(flow).requires_grad_()

@@ -203,6 +203,124 @@ def test_bdiag_kernel_matches_tent_plain(case, cuda):
                                atol=1e-4)
 
 
+# every radius the launch switch of csrc/corr_common.cuh instantiates (0-12,
+# checked against the library below) at every level count
+WINDOW_RADII = range(13)
+WINDOW_SHAPES = [(r, n) for r in WINDOW_RADII for n in range(1, 5)]
+WINDOW_KERNELS = {"shift": k1.SHIFT_KERNEL, "bdiag": k1.BDIAG_KERNEL}
+
+
+def _window_case(rows, sizes, radius, seed=0):
+    """(levels, coords): a quarter each of random, border-straddling and
+    exactly integer centres, then NaN and far-outside ones, on levels of
+    the given sizes."""
+    g = torch.Generator().manual_seed(seed)
+    levels = [torch.randn((rows, s * s), generator=g) for s in sizes]
+    span = float(sizes[0])
+    coords = span * torch.rand((rows, 2), generator=g)
+    q = rows // 4
+    coords[q:2 * q] = (span + 4 * radius + 4) * torch.rand((q, 2), generator=g) - 2 * radius - 2
+    coords[2 * q:3 * q] = torch.randint(-radius - 2, int(span) + radius + 2, (q, 2),
+                                        generator=g).float()
+    tail = coords[3 * q:]
+    tail[0::4] = float("nan")
+    tail[1::4, 0] = float("nan")
+    tail[2::4] = torch.tensor([1e7, -3e6])
+    tail[3::4] = torch.tensor([-1e9, 2.5])
+    return levels, coords.contiguous()
+
+
+def _check_window_kernel(variant, levels, coords, radius, cuda):
+    """K7 bit-identical to its plain version (NaN where it is NaN), K8
+    within K1's atol 1e-4 of the tent plain version; one launch a call."""
+    levels = [m.to(cuda) for m in levels]
+    coords = coords.to(cuda)
+    kernel = WINDOW_KERNELS[variant]
+    before = kernel.launches
+    got = k1.corr_lookup_flat(levels, coords, radius, variant=variant)
+    torch.cuda.synchronize()
+    assert kernel.launches == before + 1
+    want = k1.PLAIN[variant](levels, coords, radius)
+    if variant == "shift":
+        torch.testing.assert_close(got, want, rtol=0, atol=0, equal_nan=True)
+        finite = ~torch.isnan(want).any(dim=1)
+        assert torch.equal(got[finite], want[finite])
+    else:
+        torch.testing.assert_close(got, want, rtol=0, atol=1e-4, equal_nan=True)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("variant", ["shift", "bdiag"])
+@pytest.mark.parametrize("radius,levels", WINDOW_SHAPES)
+def test_window_kernels_every_radius_and_level_count(variant, radius, levels, cuda):
+    """Every radius the launch switch instantiates at every level count, on
+    75 rows (18 groups and a ragged tail of 3)."""
+    levels_, coords = _window_case(75, (10, 5, 3, 2)[:levels], radius, seed=radius)
+    _check_window_kernel(variant, levels_, coords, radius, cuda)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("variant", ["shift", "bdiag"])
+def test_window_layout_matches_the_launch_switch(variant, cuda):
+    """The library's layout covers exactly the radii the tests drive, and
+    refuses the next radius and a fifth level."""
+    for radius, levels in WINDOW_SHAPES:
+        layout = k1.window_layout(variant, levels, radius)
+        assert layout["max_radius"] == max(WINDOW_RADII)
+        assert layout["threads"] % 32 == 0 and 0 < layout["smem_bytes"] <= 227 * 1024
+    for radius, levels in [(max(WINDOW_RADII) + 1, 1), (-1, 2), (4, 5), (4, 0)]:
+        with pytest.raises(RuntimeError, match="CUDA error"):
+            k1.window_layout(variant, levels, radius)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("variant", ["shift", "bdiag"])
+@pytest.mark.parametrize("rows", ["one", "group-1", "group+1"])
+def test_window_kernels_ragged_row_counts(variant, rows, cuda):
+    """One row, one row short of a group, one row past a group (the group
+    size read from the built library)."""
+    group = k1.window_layout(variant, 4, 4)["rows_per_group"]
+    rows = {"one": 1, "group-1": group - 1, "group+1": group + 1}[rows]
+    g = torch.Generator().manual_seed(rows)
+    levels = [torch.randn((rows, s * s), generator=g) for s in (10, 5, 3, 2)]
+    coords = (12.0 * torch.rand((rows, 2), generator=g) - 1.0).contiguous()
+    _check_window_kernel(variant, levels, coords, 4, cuda)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("variant", ["shift", "bdiag"])
+def test_window_kernels_at_the_flagship_level_sizes(variant, cuda):
+    """Levels 32^2..4^2, radius 4, 2 images of 32^2 rows, with NaN,
+    far-outside and integer centres."""
+    levels, coords = _window_case(2 * 32 * 32, (32, 16, 8, 4), 4, seed=5)
+    _check_window_kernel(variant, levels, coords, 4, cuda)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("variant", ["shift", "bdiag"])
+@pytest.mark.parametrize("radius,levels", [("past", 1), ("past", 4), (-1, 2)])
+def test_window_kernels_raise_outside_the_instantiated_set(variant, radius, levels, cuda,
+                                                          monkeypatch):
+    """A radius outside the launch switch ('past': one more than the
+    library's largest) raises from the launch; the plain version never runs
+    for a CUDA tensor."""
+    if radius == "past":
+        radius = k1.window_layout(variant, levels, 0)["max_radius"] + 1
+    def plain_must_not_run(*args, **kwargs):
+        raise AssertionError("the plain version ran for a CUDA tensor")
+
+    monkeypatch.setitem(k1.PLAIN, variant, plain_must_not_run)
+    monkeypatch.setattr(k1, "corr_lookup_flat_plain", plain_must_not_run)
+    monkeypatch.setattr(k1, "corr_lookup_flat_shift_plain", plain_must_not_run)
+    lv, coords = _window_case(16, (6, 3, 2, 1)[:levels], 1)
+    lv = [m.to(cuda) for m in lv]
+    kernel = WINDOW_KERNELS[variant]
+    before = kernel.launches
+    with pytest.raises(RuntimeError, match="CUDA error"):
+        k1.corr_lookup_flat(lv, coords.to(cuda), radius, variant=variant)
+    assert kernel.launches == before
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("want_coords", [True, False])
 @pytest.mark.parametrize("case", ["random", "border", "integer"])
