@@ -2,16 +2,17 @@
 """Smoke run of the PyTorch/CUDA port (scflow_tpu_torch) on one NVIDIA card.
 
     python3 chip_smoke.py
-    python3 chip_smoke.py --lookup-only [--root DIR]   # phases 1-3 and 10 only,
-                                 # of the package in DIR (e.g. a parent commit)
+    python3 chip_smoke.py --lookup-only [--root DIR]   # phases 1-3, 10 and 11
+                                 # only, of the package in DIR (e.g. a parent commit)
 
 Phases, each printing one JSON line; any failure exits non-zero before the
 last line:
   1. device  - the card, its power limit (nvidia-smi), torch and CUDA versions;
   2. build   - nvcc builds every kernel from scflow_tpu_torch/csrc (sm_90a);
                ptxas's registers, shared memory and spills per kernel; no
-               run-time integer division in a loop of any K7/K8 instance
-               (cuobjdump), and the SASS counts of their radius-4 kernels;
+               run-time integer division in a loop of any K1, K7, K8 or K1b
+               instance (cuobjdump), and the SASS counts of their radius-4
+               kernels;
   3. K1      - the corr-lookup kernel against its plain version at the
                flagship shape (65,536 rows, levels 32^2..4^2) and at the
                train step's 16,384 rows, max |d| <= 1e-4, with its time
@@ -51,9 +52,11 @@ last line:
                the same numbers as K1;
  11. K1b     - the lookup's backward at the training shape (16 x 32^2 rows,
                random, border and integer centres) against its plain
-               version, level and flow grads within 1e-4; times (without
-               the flow grad, as the train step runs it), the autograd
-               backward of the 4 F.grid_sample calls, and the bound;
+               version, level and flow grads within 1e-4, the same bits
+               from two launches; times (without the flow grad, as the
+               train step runs it) back-to-back and as device time, the
+               autograd backward of the 4 F.grid_sample calls, the bound,
+               GB/s and share of the bound, registers and shared memory;
  12. train   - make_scflow_train_step(lookup_backend='pallas') at the shipped
                recipe (batch 16, 256^2, 8 iterations, 21-class 1024-face
                uvsphere bank, culling on, fp32 with TF32 off, AdamW + clip
@@ -215,33 +218,47 @@ def sass_counts(lib: Path) -> dict:
     return out
 
 
-# the kernel each lookup runs at radius 4 (K7/K8: that instance of the window
-# pipeline, or a parent's first K7/K8), by a fragment of its mangled name
-LOOKUP_ENTRIES = {"K1": ("corr_lookup_kernel",),
+# the kernel each lookup runs at radius 4 (K1/K7/K8: that instance of the
+# window pipeline, K1b: its instance without the flow gradient; or a parent's
+# first kernel), by a fragment of its mangled name
+LOOKUP_ENTRIES = {"K1": ("ILi4E9TentBlend", "corr_lookup_kernel"),
                   "K7": ("ILi4E10ShiftBlend", "corr_lookup_shift_kernel"),
-                  "K8": ("ILi4E10BdiagBlend", "corr_lookup_bdiag_kernel")}
+                  "K8": ("ILi4E10BdiagBlend", "corr_lookup_bdiag_kernel"),
+                  "K1b": ("lookup_bwd_kernelILi4ELb0E", "corr_lookup_bwd_kernel")}
+# the sources of those kernels, and the mangled-name start of the template
+# each instantiates per radius (a parent's corr_lookup_bwd_kernel is none)
+LOOKUP_SOURCES = {"corr_lookup.cu": "22windowed_lookup_kernelI",
+                  "corr_lookup_shift.cu": "22windowed_lookup_kernelI",
+                  "corr_lookup_bdiag.cu": "22windowed_lookup_kernelI",
+                  "corr_lookup_bwd.cu": "17lookup_bwd_kernelI"}
 
 
-def phase_build():
+def phase_build(strict: bool = True):
     """Builds every kernel; returns ptxas's table.  Requires that no loop of
-    a K7/K8 instance divides integers at run time, and emits the SASS counts
-    of the radius-4 ones."""
+    a K1, K7, K8 or K1b instance divides integers at run time (and, with
+    strict, that each of their sources has such instances: a parent's
+    package may predate them), and emits the SASS counts of the radius-4
+    ones."""
     from scflow_tpu_torch.ops.cuda.build import build_all, library_path
 
     t0 = time.perf_counter()
     logs = build_all()
     seconds = time.perf_counter() - t0
     ptxas = parse_ptxas(logs)
-    sass = {}
-    for src in ("corr_lookup_shift.cu", "corr_lookup_bdiag.cu"):
+    sass, instances = {}, {}
+    tags = [tag for key in LOOKUP_ENTRIES.values() for tag in key]
+    for src, template in LOOKUP_SOURCES.items():
+        instances[src] = 0
         for fname, c in sass_counts(library_path(src)).items():
-            if "windowed_lookup_kernel" in fname:
+            if template in fname:
+                instances[src] += 1
                 require(c["int_div_sequences_in_loops"] == 0 and c["calls_in_loops"] == 0,
                         f"{fname}: no run-time integer division in a loop ({c})")
-            if any(tag in fname for tag in LOOKUP_ENTRIES["K7"] + LOOKUP_ENTRIES["K8"]):
+            if any(tag in fname for tag in tags):
                 sass[fname] = c
+        require(instances[src] > 0 or not strict, f"{src}: no {template} instance")
     emit({"phase": "build", "seconds": seconds, "built": sorted(logs), "ptxas": ptxas,
-          "sass": sass})
+          "instances": instances, "sass": sass})
     return ptxas
 
 
@@ -252,11 +269,14 @@ def _lookup_resources(key: str, ptxas: dict, levels: int = 4, radius: int = 4) -
     does not report it, e.g. a parent's)."""
     from scflow_tpu_torch.ops.cuda import corr_lookup as k1
 
-    dyn = 0
-    if key != "K1":
-        layout = getattr(k1, "window_layout", None)
-        variant = {"K7": "shift", "K8": "bdiag"}[key]
-        dyn = layout(variant, levels, radius)["smem_bytes"] if layout else None
+    try:
+        if key == "K1b":
+            dyn = k1.bwd_layout(levels, radius, False)["smem_bytes"]
+        else:
+            variant = {"K1": "tent", "K7": "shift", "K8": "bdiag"}[key]
+            dyn = k1.window_layout(variant, levels, radius)["smem_bytes"]
+    except AttributeError:  # no such layout function in this package
+        dyn = None
     for entry, res in ptxas.items():
         if any(tag in entry for tag in LOOKUP_ENTRIES[key]):
             return {"entry": entry, **res, "dynamic_smem_bytes": dyn}
@@ -372,7 +392,7 @@ def phase_lookup(dev, ptxas):
     return out
 
 
-def phase_k1b(dev):
+def phase_k1b(dev, ptxas):
     """K1b at the training shape: 16 images at 32^2, so 16,384 rows."""
     from scflow_tpu_torch.ops.cuda import corr_lookup as k1
 
@@ -382,8 +402,12 @@ def phase_k1b(dev):
     errs = {}
     for want_coords in (True, False):
         got, got_c = k1.corr_lookup_flat_bwd(levels, coords, g, want_coords=want_coords)
+        again, again_c = k1.corr_lookup_flat_bwd(levels, coords, g, want_coords=want_coords)
         want, want_c = k1.corr_lookup_flat_bwd_plain(levels, coords, g, want_coords=want_coords)
         torch.cuda.synchronize()
+        require(all(torch.equal(a, b) for a, b in zip(got, again)) and
+                (not want_coords or torch.equal(got_c, again_c)),
+                f"K1b: two launches give the same bits (want_coords={want_coords})")
         errs[want_coords] = max(_max_abs(a, b) for a, b in zip(got, want))
         if want_coords:
             errs["coords"] = _max_abs(got_c, want_c)
@@ -397,21 +421,33 @@ def phase_k1b(dev):
     def library():
         torch.autograd.grad(outs, maps, gs, retain_graph=True)
 
+    def kernel():
+        return k1.corr_lookup_flat_bwd(levels, coords, g, want_coords=False)
+
+    def with_flow_grad():
+        return k1.corr_lookup_flat_bwd(levels, coords, g)
+
     # bytes: g and coords read once, the dense level grads written once
     nbytes = g.numel() * 4 + coords.numel() * 4 + sum(m.numel() * 4 for m in levels)
     cells = rows * sum((2 * 4 + 2) ** 2 for _ in levels)
     bound_ms, bound_by = bound(nbytes, cells * 4 * 5)  # up to 4 taps x (weight, mul, add)
     res = {
         "max_abs_err": err,
-        "ms": median_ms(lambda: k1.corr_lookup_flat_bwd(levels, coords, g, want_coords=False), 20),
+        "ms": median_ms(kernel, 20),
+        "device_ms": device_ms(kernel, 50),
         "plain_ms": median_ms(lambda: k1.corr_lookup_flat_bwd_plain(levels, coords, g,
                                                                     want_coords=False), 3),
         "library_ms": median_ms(library, 5),
+        "library_device_ms": device_ms(library, 5),
         "bound_ms": bound_ms, "bound_by": bound_by,
     }
-    with_coords_ms = median_ms(lambda: k1.corr_lookup_flat_bwd(levels, coords, g), 20)
     emit({"phase": "K1b", "rows": rows, "max_abs_err_by_case": {str(k): v for k, v in errs.items()},
-          "ms_with_flow_grad": with_coords_ms, **res})
+          "ms_with_flow_grad": median_ms(with_flow_grad, 20),
+          "device_ms_with_flow_grad": device_ms(with_flow_grad, 50), **res, "bytes": nbytes,
+          "gb_per_s": nbytes / res["ms"] / 1e6, "share_of_bound": bound_ms / res["ms"],
+          "device_gb_per_s": nbytes / res["device_ms"] / 1e6,
+          "device_share_of_bound": bound_ms / res["device_ms"],
+          "ptxas": _lookup_resources("K1b", ptxas)})
     return res
 
 
@@ -761,7 +797,7 @@ def phase_profile(infer, model, assets, batch, smi):
                if e.device_type == torch.autograd.DeviceType.CUDA}
     top = sorted(kernels.items(), key=lambda kv: -kv[1][0])[:12]
     ours = {name.split("(")[0]: v for name, v in kernels.items()
-            if "corr_lookup_kernel" in name or "raster_v3_kernel" in name}
+            if "lookup_kernel" in name or "raster_v3_kernel" in name}
     emit({"phase": "profile", "stage_ms": stage_ms, "profiled_call_ms": wall_ms,
           "kernel_time_sum_ms": sum(ms for ms, _ in kernels.values()),
           "kernel_names": len(kernels), "ours_ms_count": ours,
@@ -915,7 +951,7 @@ def phase_train(smi):
     top = sorted(kernels.items(), key=lambda kv: -kv[1][0])[:12]
     res["kernel_time_sum_ms"] = sum(ms for ms, _ in kernels.values())
     res["ours_ms_count"] = {name.split("(")[0]: v for name, v in kernels.items()
-                            if "corr_lookup" in name or "raster_v3" in name}
+                            if "lookup_" in name or "raster_v3" in name}
     res["top_kernels_ms_count"] = [[name[:90], ms, n] for name, (ms, n) in top]
 
     # the loss falls over 6 steps at a constant lr 1e-3 (tests/test_train_system.py)
@@ -1112,7 +1148,8 @@ def phase_render(dev, scene, smi):
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--lookup-only", action="store_true",
-                        help="run only the device, build and lookup phases (K1, K7, K8)")
+                        help="run only the device, build and lookup phases (K1, K7, K8, "
+                             "K1b)")
     parser.add_argument("--root", type=Path, default=Path(__file__).resolve().parent,
                         help="the checkout whose scflow_tpu_torch to build and run "
                              "(default: this script's), e.g. an unpacked parent commit")
@@ -1127,15 +1164,16 @@ def main() -> int:
     dev = torch.device("cuda", 0)
     name, smi = phase_device()
     emit({"phase": "package", "path": str(Path(scflow_tpu_torch.__file__).parent)})
-    ptxas = phase_build()
+    ptxas = phase_build(strict=args.root.resolve() == Path(__file__).resolve().parent)
     if args.lookup_only:
         phase_lookup(dev, ptxas)
+        phase_k1b(dev, ptxas)
         emit({"ok": True, "device": {"platform": "gpu", "kind": name,
                                      "count": torch.cuda.device_count()}})
         return 0
     scene = _flagship_scene(dev)
     res = phase_lookup(dev, ptxas)
-    res["K1b"] = phase_k1b(dev)
+    res["K1b"] = phase_k1b(dev, ptxas)
     res["K2"], k2_out = phase_k2(dev, scene)
     res["K3"] = phase_k3(dev, scene, k2_out)
     res["K4"] = phase_k4(dev, scene)

@@ -22,15 +22,16 @@ struct Levels {
 };
 
 // ---------------------------------------------------------------------------
-// The window pipeline of K7 and K8.
+// The window pipeline of K1, K7 and K8.
 //
-// Both kernels read, for each row and level, the (k+1) x (k+1) integer cells
+// The three kernels read, for each row and level, the (k+1) x (k+1) integer cells
 // a window can touch,
 //   P[e][d] = map[floor(py) - r + d][floor(px) - r + e],  0 outside,
 // and blend output (j, i) from P[j..j+1][i..i+1] with two weights per axis:
 //   t0 = wy0 P[j][i] + wy1 P[j][i+1],  t1 = the same on column j+1,
 //   out = wx0 t0 + wx1 t1.
-// The kernels differ only in the weights (the Blend class of each source).
+// The kernels differ only in the weights (the Blend class of each source:
+// TentBlend, ShiftBlend, BdiagBlend).
 // The radius is a template argument, so k, every loop bound and every
 // offset inside the per-element loops are compile-time (a constant divisor
 // compiles to a multiply and a shift).  The level count is a run-time
@@ -72,7 +73,6 @@ struct Levels {
 #include <type_traits>
 
 #define WINDOW_ROWS 4  // rows per group
-#define WINDOW_MAX_RADIUS 12
 
 template <int R>
 struct Window {
@@ -90,6 +90,12 @@ __device__ __forceinline__ void cp_async4(float* dst, const float* src, bool in)
   asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(s), "l"(src),
                "r"(in ? 4 : 0)
                : "memory");
+}
+
+// 16 bytes; both addresses 16-byte aligned
+__device__ __forceinline__ void cp_async16(float* dst, const float* src) {
+  const unsigned s = (unsigned)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s), "l"(src) : "memory");
 }
 
 __device__ __forceinline__ void cp_async_commit() {
@@ -227,49 +233,64 @@ __global__ void __launch_bounds__(Window<R>::MAX_THREADS)
   if (tid == 0) asm volatile("cp.async.bulk.wait_group 0;\n" ::: "memory");
 }
 
-// f(std::integral_constant<int, radius>()) for radius 0..WINDOW_MAX_RADIUS,
-// the instances K7 and K8 build; cudaErrorInvalidValue for any other.
-template <class F>
+// f(std::integral_constant<int, radius>()) for radius R..MaxR, the
+// instances a source builds; cudaErrorInvalidValue for any other radius.
+template <int MaxR, int R = 0, class F>
 int with_radius(int radius, F&& f) {
-  switch (radius) {
-#define WINDOW_CASE(r) \
-  case r:              \
-    return f(std::integral_constant<int, r>());
-    WINDOW_CASE(0) WINDOW_CASE(1) WINDOW_CASE(2) WINDOW_CASE(3) WINDOW_CASE(4)
-    WINDOW_CASE(5) WINDOW_CASE(6) WINDOW_CASE(7) WINDOW_CASE(8) WINDOW_CASE(9)
-    WINDOW_CASE(10) WINDOW_CASE(11) WINDOW_CASE(12)
-#undef WINDOW_CASE
-    default:
-      return (int)cudaErrorInvalidValue;
+  if (radius == R) return f(std::integral_constant<int, R>());
+  if constexpr (R < MaxR)
+    return with_radius<MaxR, R + 1>(radius, f);
+  else
+    return (int)cudaErrorInvalidValue;
+}
+
+// The device's SM count and the shared memory a block may opt in to.
+inline int device_limits(int* sms, int* optin) {
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+  if (err == cudaSuccess) err = cudaDeviceGetAttribute(sms, cudaDevAttrMultiProcessorCount, dev);
+  return (int)err;
+}
+
+// Resident blocks per SM of `kernel` at `threads` and `smem` bytes, the
+// first time a level count asks (cached in per_sm[L]).  The kernel's
+// dynamic shared memory limit is set once, to what the largest level count
+// that fits the device asks (smem_of(L) grows with L), so that every level
+// count that fits launches.
+template <class Kernel, class SmemOf>
+int resident_blocks(Kernel kernel, int* per_sm, int L, int threads, SmemOf smem_of, int optin) {
+  if (per_sm[L] != 0) return 0;
+  size_t most = 0;
+  for (int l = 1; l <= MAX_LEVELS; ++l)
+    if (smem_of(l) <= (size_t)optin) most = smem_of(l);
+  if (most > 48 * 1024) {
+    const cudaError_t err =
+        cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)most);
+    if (err != cudaSuccess) return (int)err;
   }
+  const cudaError_t err =
+      cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm[L], kernel, threads, smem_of(L));
+  if (err != cudaSuccess) return (int)err;
+  return per_sm[L] < 1 ? (int)cudaErrorInvalidConfiguration : 0;
 }
 
 template <int R, class Blend>
 int launch_window(const float* coords, const Levels& lv, int L, long long rows, float* out,
                   cudaStream_t stream) {
   using W = Window<R>;
-  static_assert(W::smem(MAX_LEVELS) <= 232448,
-                "two ring stages exceed an H100 block's shared memory");
   auto kernel = windowed_lookup_kernel<R, Blend>;
   const size_t smem = W::smem(L);
-  int dev = 0, optin = 0, sms = 0;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err == cudaSuccess)
-    err = cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
-  if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  if (err != cudaSuccess) return (int)err;
-  if (W::smem(MAX_LEVELS) > (size_t)optin) return (int)cudaErrorInvalidConfiguration;
+  int sms = 0, optin = 0;
+  int err = device_limits(&sms, &optin);
+  if (err != 0) return err;
+  // two ring stages at this level count must fit a block's shared memory
+  if (smem > (size_t)optin) return (int)cudaErrorInvalidConfiguration;
   static int per_sm[MAX_LEVELS + 1] = {};  // resident blocks per SM, by level count
-  if (per_sm[L] == 0) {
-    if (W::smem(MAX_LEVELS) > 48 * 1024) {  // the largest any level count asks for
-      err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                 (int)W::smem(MAX_LEVELS));
-      if (err != cudaSuccess) return (int)err;
-    }
-    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm[L], kernel, W::threads(L), smem);
-    if (err != cudaSuccess) return (int)err;
-    if (per_sm[L] < 1) return (int)cudaErrorInvalidConfiguration;
-  }
+  err = resident_blocks(kernel, per_sm, L, W::threads(L), [](int l) { return W::smem(l); },
+                        optin);
+  if (err != 0) return err;
   const long long groups = (rows + W::G - 1) / W::G;
   const long long resident = (long long)per_sm[L] * sms;
   const unsigned grid = (unsigned)(groups < resident ? groups : resident);
@@ -278,18 +299,17 @@ int launch_window(const float* coords, const Levels& lv, int L, long long rows, 
   return (int)cudaGetLastError();
 }
 
-// The launch of K7 or K8: radius 0..WINDOW_MAX_RADIUS at 1..MAX_LEVELS
-// levels (two ring stages of every such pair fit a block's shared memory:
-// 170 KB at radius 12 and 4 levels); anything else returns an error and
-// launches nothing.
-template <class Blend>
+// The launch of K1, K7 or K8: radius 0..MaxR at 1..MAX_LEVELS levels where
+// two ring stages fit a block's shared memory (checked at launch for the
+// level count asked); anything else returns an error and launches nothing.
+template <int MaxR, class Blend>
 int launch_window_radius(const float* coords, const float* m0, const float* m1,
                          const float* m2, const float* m3, int s0, int s1, int s2, int s3,
                          int num_levels, int radius, long long rows, float* out,
                          cudaStream_t stream) {
   if (rows < 1 || num_levels < 1 || num_levels > MAX_LEVELS) return (int)cudaErrorInvalidValue;
   const Levels lv = {{m0, m1, m2, m3}, {s0, s1, s2, s3}};
-  return with_radius(radius, [&](auto r) {
+  return with_radius<MaxR>(radius, [&](auto r) {
     return launch_window<decltype(r)::value, Blend>(coords, lv, num_levels, rows, out, stream);
   });
 }
@@ -297,15 +317,19 @@ int launch_window_radius(const float* coords, const float* m0, const float* m1,
 // What a launch at (num_levels, radius) takes: rows per group, the largest
 // radius, threads per block and dynamic shared memory per block; the same
 // error as the launch for a pair it refuses.
-inline int window_layout(int num_levels, int radius, int* rows_per_group, int* max_radius,
-                         int* threads, long long* smem_bytes) {
+template <int MaxR>
+int window_layout(int num_levels, int radius, int* rows_per_group, int* max_radius,
+                  int* threads, long long* smem_bytes) {
   *rows_per_group = WINDOW_ROWS;
-  *max_radius = WINDOW_MAX_RADIUS;
+  *max_radius = MaxR;
   if (num_levels < 1 || num_levels > MAX_LEVELS) return (int)cudaErrorInvalidValue;
-  return with_radius(radius, [&](auto r) {
+  int sms = 0, optin = 0;
+  const int err = device_limits(&sms, &optin);
+  if (err != 0) return err;
+  return with_radius<MaxR>(radius, [&](auto r) {
     using W = Window<decltype(r)::value>;
     *threads = W::threads(num_levels);
     *smem_bytes = (long long)W::smem(num_levels);
-    return 0;
+    return *smem_bytes > optin ? (int)cudaErrorInvalidConfiguration : 0;
   });
 }

@@ -31,6 +31,8 @@
 
 #include "corr_common.cuh"
 
+#define MAX_RADIUS 12  // the instances this source builds: radius 0-12
+
 __device__ __forceinline__ float tent(float u) { return fmaxf(0.f, 1.f - fabsf(u)); }
 
 struct BdiagBlend {
@@ -60,11 +62,12 @@ extern "C" int corr_lookup_bdiag_launch(const float* coords, const float* m0,
                                         int s3, int num_levels, int radius,
                                         long long rows, float* out,
                                         cudaStream_t stream) {
-  return launch_window_radius<BdiagBlend>(coords, m0, m1, m2, m3, s0, s1, s2, s3, num_levels,
-                                          radius, rows, out, stream);
+  return launch_window_radius<MAX_RADIUS, BdiagBlend>(coords, m0, m1, m2, m3, s0, s1, s2, s3,
+                                                  num_levels, radius, rows, out, stream);
 }
 
 extern "C" int corr_lookup_bdiag_layout(int num_levels, int radius, int* rows_per_group,
                                         int* max_radius, int* threads, long long* smem_bytes) {
-  return window_layout(num_levels, radius, rows_per_group, max_radius, threads, smem_bytes);
+  return window_layout<MAX_RADIUS>(num_levels, radius, rows_per_group, max_radius, threads,
+                                   smem_bytes);
 }

@@ -5,32 +5,53 @@
 // forward.  With g the output gradient (row b, level l, tap (j, i)) and the
 // tent weights wx[j,w] = max(0, 1 - |ux|), ux = (px + j - r) - w (likewise
 // wy), it computes
-//   grad_m[h,w] = sum_i wy[i,h] * a[i,w],  a[i,w] = sum_j g[j,i] wx[j,w],
+//   grad_m[h,w] = sum_i wy[i,h] a[i,w],  a[i,w] = sum_j g[j,i] wx[j,w],
 // for every cell of every level (0 where no tap reaches), and, if asked,
 //   d/dcx = sum_l 2^-l sum_{j,i,w} g[j,i] dwx[j,w] t2[i,w],
 //   t2[i,w] = sum_h wy[i,h] m[h,w],  dwx = -sign(ux) where |ux| < 1, else 0
 // (likewise d/dcy with t3[j,h] = sum_w wx[j,w] m[h,w]).  The derivative is
 // 0 at the tent's kinks: an integer window centre (ux = 0) gives 0, as
-// _lookup_bwd's jnp.sign does.
+// _lookup_bwd's jnp.sign does.  A NaN centre makes its row's gradients NaN.
 //
 // Bound on an H100 SXM (3.35 TB/s): memory.  The dense gradient is written
 // whole, every cell of every level: at the training shape (16 x 32^2 =
-// 16,384 rows, levels 32^2..4^2) 16,384 x 1,360 x 4 B = 89 MB, about 27 us;
-// g (21 MB) and the window cells add little.
+// 16,384 rows, levels 32^2..4^2) 16,384 x 1,360 x 4 B = 89 MB, and g is read
+// once (21 MB): about 33 us.  Only the (k+1)^2 cells of each row's window
+// are non-zero (at most a fifth of the 89 MB at that shape), so the kernel
+// is a dense write of mostly zeros behind a little arithmetic.
 //
-// Design: one block per row.  The row's g (L*k*k floats) is staged in
-// shared memory; each thread then owns cells of the dense row and computes
-// its cell's sum from the (at most 2 x 2) taps whose weights reach it, in
-// _lookup_bwd's order (over j, then over i).  Rows never share a cell, so
-// there are no atomics and every write is a coalesced run of the row.  For
-// the flow gradient the row's (k+1)^2 window cells of each level are staged
-// too; a thread per tap forms its two terms, and one thread per level sums
-// its level's taps in tap order, so the result does not depend on timing.
+// Design.  The first K1b (one 256-thread block per row) started each of its
+// 16,384 short blocks with a dependent load of the row's g and a barrier,
+// paid a run-time division per dense cell, stored 4 bytes at a time and
+// left 75-94% of its threads idle on the 8^2 and 4^2 maps.  Here:
+// - the radius is a template argument (0-15, every window K1 launches) and
+//   the level count a run-time one; each thread splits its work once,
+//   before the loops, and walks (row, h, w) incrementally, so no loop
+//   divides at run time (windows are indexed level-major, win = l*G + row,
+//   so every other split divides by a compile-time constant);
+// - blocks are persistent over groups of G rows (8, 4 or 2 by radius):
+//   the group's g (one contiguous range of G*L*k*k floats: 16-byte
+//   cp.async where aligned), centres (and, for the flow gradient, its
+//   window cells, 4-byte cp.async with src-size 0 outside the map) arrive
+//   in one stage of a two-stage ring while the previous group is written;
+// - the window first, then the stream: for each (row, level) the (k+1)^2
+//   non-zero cells are formed once into shared memory, in _lookup_bwd's
+//   order (the sum over j, then over i), and every thread of the block then
+//   writes the dense maps of the group, level by level (a level's G rows
+//   are one contiguous range), zeros outside the window, with 16-byte
+//   streaming stores where S^2 % 4 == 0 and the level is 16-byte aligned
+//   (every flagship level), 4-byte stores otherwise.  One launch writes
+//   every cell: no memset, no scatter, no atomics;
+// - the flow gradient: one thread per tap forms its two terms, and one
+//   thread per (row, level) sums its level's taps in tap order, the row's
+//   levels then in level order (warp shuffles), so two launches give the
+//   same bits.
 // Built with -fmad=false, as the plain version's separate products and sums.
 
 #include "corr_common.cuh"
 
-#define THREADS 256
+#define BWD_THREADS 256
+#define BWD_MAX_RADIUS 15  // the instances this source builds: radius 0-15
 
 struct GradLevels {
   float* map[MAX_LEVELS];
@@ -43,122 +64,312 @@ __device__ __forceinline__ float dtent(float u) {
   return fabsf(u) < 1.f ? (u > 0.f ? -1.f : (u < 0.f ? 1.f : 0.f)) : 0.f;
 }
 
-__global__ void corr_lookup_bwd_kernel(const float* __restrict__ coords,
-                                       const float* __restrict__ grad_out, Levels lv,
-                                       GradLevels gl, int num_levels, int radius,
-                                       float* __restrict__ grad_coords) {
-  extern __shared__ float smem[];
-  __shared__ float cen[MAX_LEVELS][4];  // px, py, floor(px), floor(py)
-  __shared__ float lev_sum[MAX_LEVELS][2];
-  const int k = 2 * radius + 1, kp = k + 1, kk = k * k;
-  const int per_row = num_levels * kk;
-  const long long b = blockIdx.x;
-  float* g = smem;                              // per_row, [l][j][i]
-  float* patch = g + per_row;                   // L * kp * kp
-  float* tap_x = patch + num_levels * kp * kp;  // per_row
-  float* tap_y = tap_x + per_row;               // per_row
+// 2^-l, exactly
+__device__ __forceinline__ float level_scale(int l) { return __int_as_float((127 - l) << 23); }
 
-  const float cx = coords[2 * b], cy = coords[2 * b + 1];
-  const bool nan_row = isnan(cx) || isnan(cy);
-  for (int t = threadIdx.x; t < per_row; t += blockDim.x) g[t] = grad_out[b * per_row + t];
-  if (threadIdx.x < num_levels) {
-    const float inv = ldexpf(1.f, -(int)threadIdx.x);
-    const float px = cx * inv, py = cy * inv;
-    cen[threadIdx.x][0] = px;
-    cen[threadIdx.x][1] = py;
-    cen[threadIdx.x][2] = floorf(px);
-    cen[threadIdx.x][3] = floorf(py);
+// The shared-memory layout at radius R.  Floats of one ring stage at L
+// levels: g (G*L*k*k, padded to 4), the centres (2G), for the flow gradient
+// the window cells of the maps (G*L*(k+1)^2).  Then the formed windows
+// (two buffers of G*L*(k+1)^2), their origins (two buffers of G*L int4:
+// x, y, fill value) and, for the flow gradient, the tap terms (2*G*L*k*k).
+template <int R>
+struct BwdWindow {
+  static constexpr int K = 2 * R + 1, KP = K + 1, KK = K * K, KP2 = KP * KP;
+  // rows per group: 8 up to radius 4 (at the training shape 0.0629 ms of
+  // device time against 0.0660 with 4 rows, H100 700 W), 4 up to radius 9,
+  // then 2, so that two stages fit every window K1 takes (radius 14 at four
+  // levels with the flow gradient: 223 KB)
+  static constexpr int G = R <= 4 ? 8 : (R <= 9 ? 4 : 2);
+  __host__ __device__ static constexpr int gpad(int L) { return (G * L * KK + 3) / 4 * 4; }
+  __host__ __device__ static constexpr int stage(int L, bool c) {
+    return gpad(L) + 2 * G + (c ? G * L * KP2 : 0);
   }
-  __syncthreads();
+  static constexpr size_t smem(int L, bool c) {
+    return sizeof(float) * (2 * stage(L, c) + 2 * G * L * KP2 + 2 * G * L * 4 +
+                            (c ? 2 * G * L * KK : 0));
+  }
+};
 
-  // dense gradient of every level
-  for (int l = 0; l < num_levels; ++l) {
-    const int s = lv.size[l];
-    const float px = cen[l][0], py = cen[l][1];
-    const float x0 = cen[l][2] - (float)radius, y0 = cen[l][3] - (float)radius;
-    const float* gll = g + l * kk;
-    float* dst = gl.map[l] + b * (long long)s * s;
-    for (int c = threadIdx.x; c < s * s; c += blockDim.x) {
-      const int h = c / s, w = c - h * s;
-      const float d = (float)h - y0, e = (float)w - x0;  // place in the window
+template <int R, bool COORDS>
+__global__ void __launch_bounds__(BWD_THREADS)
+    lookup_bwd_kernel(const float* __restrict__ coords, const float* __restrict__ grad_out,
+                      Levels lv, GradLevels gl, int L, long long rows, long long groups,
+                      int vec_g, int vec_out, float* __restrict__ grad_coords) {
+  using W = BwdWindow<R>;
+  constexpr int G = W::G, K = W::K, KP = W::KP, KK = W::KK, KP2 = W::KP2;
+  constexpr int T = BWD_THREADS;
+  extern __shared__ __align__(16) float smem[];
+  __shared__ int lsize[MAX_LEVELS];
+  __shared__ const float* lmap[MAX_LEVELS];
+  const int tid = threadIdx.x;
+  const int nwin = G * L;  // windows of a group, level-major: win = l * G + row
+  const int gsz = G * L * KK;
+  const int gpad = W::gpad(L), stage_f = W::stage(L, COORDS);
+  float* const winbuf = smem + 2 * stage_f;                           // [2][nwin * KP2]
+  int4* const orgbuf = reinterpret_cast<int4*>(winbuf + 2 * nwin * KP2);  // [2][nwin]
+  float* const taps = reinterpret_cast<float*>(orgbuf + 2 * nwin);     // [2][nwin * KK]
+  if (tid < MAX_LEVELS) {
+    lsize[tid] = lv.size[tid];
+    lmap[tid] = lv.map[tid];
+  }
+
+  // This thread's dense-write walk of each level, split once: its first
+  // cell (row, h, w) of the group's level block, and the step between its
+  // chunks (T chunks of V cells) as (rows, h, w); V = 4 where the level
+  // takes 16-byte stores.
+  int r0[MAX_LEVELS], h0[MAX_LEVELS], w0[MAX_LEVELS];
+  int dr[MAX_LEVELS], dh[MAX_LEVELS], dw[MAX_LEVELS];
+#pragma unroll
+  for (int l = 0; l < MAX_LEVELS; ++l) {
+    const int s = l < L ? lv.size[l] : 1, s2 = s * s;
+    const int v = (vec_out >> l) & 1 ? 4 : 1;
+    int c = tid * v;
+    r0[l] = c / s2;
+    c -= r0[l] * s2;
+    h0[l] = c / s;
+    w0[l] = c - h0[l] * s;
+    c = T * v;
+    dr[l] = c / s2;
+    c -= dr[l] * s2;
+    dh[l] = c / s;
+    dw[l] = c - dh[l] * s;
+  }
+  __syncthreads();  // lsize, lmap
+
+  auto stage_group = [&](long long grp, int buf) {
+    float* st = smem + buf * stage_f;
+    const long long b0 = grp * G;
+    const int nrows = rows - b0 < G ? (int)(rows - b0) : G;
+    const float* src = grad_out + b0 * (L * KK);
+    if (vec_g && nrows == G) {
+      for (int q = tid; q < gsz / 4; q += T) cp_async16(st + 4 * q, src + 4 * q);
+    } else {
+      const int valid = nrows * L * KK;
+      for (int q = tid; q < gsz; q += T) cp_async4(st + q, src + (q < valid ? q : 0), q < valid);
+    }
+    if (tid < 2 * G)
+      cp_async4(st + gpad + tid, coords + 2 * b0 + (tid < 2 * nrows ? tid : 0), tid < 2 * nrows);
+    if (COORDS) {
+      // the window cells of the maps, m[floor(py) - R + d][floor(px) - R + e]
+      float* patch = st + gpad + 2 * G;
+      for (int q = tid; q < nwin * KP2; q += T) {
+        const int win = q / KP2, c = q - win * KP2;
+        const int d = c / KP, e = c - d * KP;
+        const int l = win / G, row = win - l * G;
+        const int s = lsize[l];
+        const long long b = b0 + (row < nrows ? row : 0);
+        const float sc = level_scale(l);
+        const float xx = floorf(coords[2 * b] * sc) - (float)R + (float)e;
+        const float yy = floorf(coords[2 * b + 1] * sc) - (float)R + (float)d;
+        const bool in = row < nrows && xx >= 0.f && xx <= (float)(s - 1) && yy >= 0.f &&
+                        yy <= (float)(s - 1);
+        const float* cp = lmap[l] + (in ? b * (long long)s * s + (int)yy * s + (int)xx : 0LL);
+        cp_async4(patch + q, cp, in);
+      }
+    }
+  };
+
+  long long g = blockIdx.x;
+  stage_group(g, 0);
+  cp_async_commit();
+  for (int n = 0; g < groups; ++n, g += gridDim.x) {
+    const int buf = n & 1;
+    const long long gn = g + gridDim.x;
+    if (gn < groups) stage_group(gn, buf ^ 1);
+    cp_async_commit();
+    cp_async_wait<1>();  // this thread's copies of group g are in
+    __syncthreads();
+
+    const float* st = smem + buf * stage_f;
+    const float* xy = st + gpad;
+    float* win = winbuf + buf * nwin * KP2;
+    int4* org = orgbuf + buf * nwin;
+    const long long b0 = g * G;
+    const int nrows = rows - b0 < G ? (int)(rows - b0) : G;
+
+    // each window's origin and the value outside it: 0, or NaN for a NaN
+    // centre; a window that misses the map (or a NaN one) gets an origin
+    // that leaves every cell outside
+    if (tid < nwin) {
+      const int l = tid / G, row = tid - l * G;
+      const float cx = xy[2 * row], cy = xy[2 * row + 1], sc = level_scale(l);
+      const float xo = floorf(cx * sc) - (float)R, yo = floorf(cy * sc) - (float)R;
+      const float hi = (float)(lsize[l] - 1);
+      const bool on = xo + (float)K >= 0.f && xo <= hi && yo + (float)K >= 0.f && yo <= hi;
+      const float fill = (isnan(cx) || isnan(cy)) ? cx + cy : 0.f;
+      org[tid] = on ? make_int4((int)xo, (int)yo, __float_as_int(fill), 0)
+                    : make_int4(-(1 << 30), -(1 << 30), __float_as_int(fill), 0);
+    }
+    // the window's cells: cell (d, e) is map cell (yo + d, xo + e); taps
+    // i in {d-1, d} and j in {e-1, e} reach it, summed over j, then over i
+    for (int q = tid; q < nwin * KP2; q += T) {
+      const int w_ = q / KP2, c = q - w_ * KP2;
+      const int d = c / KP, e = c - d * KP;
+      const int l = w_ / G, row = w_ - l * G;
+      const float sc = level_scale(l);
+      const float px = xy[2 * row] * sc, py = xy[2 * row + 1] * sc;
+      const float w = floorf(px) - (float)R + (float)e, h = floorf(py) - (float)R + (float)d;
+      const float* gw = st + row * (L * KK) + l * KK;  // g[j * K + i]
       float v = 0.f;
-      if (nan_row) {
-        v = cx + cy;
-      } else if (d >= 0.f && d <= (float)k && e >= 0.f && e <= (float)k) {
-        const int di = (int)d, ei = (int)e;
-        for (int i = max(di - 1, 0); i <= min(di, k - 1); ++i) {
-          float a = 0.f;
-          for (int j = max(ei - 1, 0); j <= min(ei, k - 1); ++j)
-            a = a + gll[j * k + i] * tent((px + (float)(j - radius)) - (float)w);
-          v = v + tent((py + (float)(i - radius)) - (float)h) * a;
+#pragma unroll
+      for (int di = 1; di >= 0; --di) {
+        const int i = d - di;
+        if (i < 0 || i >= K) continue;
+        float a = 0.f;
+#pragma unroll
+        for (int dj = 1; dj >= 0; --dj) {
+          const int j = e - dj;
+          if (j < 0 || j >= K) continue;
+          a = a + gw[j * K + i] * tent((px + (float)(j - R)) - w);
+        }
+        v = v + tent((py + (float)(i - R)) - h) * a;
+      }
+      win[q] = v;
+    }
+    if (COORDS) {
+      // each tap's terms of d/dpx and d/dpy: the cells with a nonzero
+      // derivative are the window columns j, j+1 (rows i, i+1)
+      const float* patch = st + gpad + 2 * G;
+      for (int q = tid; q < nwin * KK; q += T) {
+        const int w_ = q / KK, t = q - w_ * KK;
+        const int j = t / K, i = t - j * K;
+        const int l = w_ / G, row = w_ - l * G;
+        const float sc = level_scale(l);
+        const float px = xy[2 * row] * sc, py = xy[2 * row + 1] * sc;
+        const float* p = patch + w_ * KP2;
+        const float x = px + (float)(j - R), y = py + (float)(i - R);
+        const float xw = floorf(px) + (float)(j - R), yh = floorf(py) + (float)(i - R);
+        const float wy0 = tent(y - yh), wy1 = tent(y - (yh + 1.f));
+        const float wx0 = tent(x - xw), wx1 = tent(x - (xw + 1.f));
+        float sx = 0.f, sy = 0.f;
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {  // t2[i, xw + e]
+          const float t2 = wy0 * p[i * KP + j + e] + wy1 * p[(i + 1) * KP + j + e];
+          sx = sx + dtent(x - (xw + (float)e)) * t2;
+        }
+#pragma unroll
+        for (int d = 0; d < 2; ++d) {  // t3[j, yh + d]
+          const float t3 = wx0 * p[(i + d) * KP + j] + wx1 * p[(i + d) * KP + j + 1];
+          sy = sy + dtent(y - (yh + (float)d)) * t3;
+        }
+        const float gv = st[row * (L * KK) + l * KK + t];
+        taps[q] = gv * sx;
+        taps[nwin * KK + q] = gv * sy;
+      }
+    }
+    __syncthreads();
+
+    if (COORDS && tid < 32) {
+      // one lane per window sums its taps in tap order; the row's lane then
+      // sums its levels in level order
+      float sx = 0.f, sy = 0.f;
+      if (tid < nwin) {
+        for (int t = 0; t < KK; ++t) {
+          sx = sx + taps[tid * KK + t];
+          sy = sy + taps[nwin * KK + tid * KK + t];
         }
       }
-      dst[c] = v;
+      float gx = 0.f, gy = 0.f;
+#pragma unroll
+      for (int l = 0; l < MAX_LEVELS; ++l) {
+        const float lx = __shfl_sync(0xffffffffu, sx, (l * G + tid) & 31);
+        const float ly = __shfl_sync(0xffffffffu, sy, (l * G + tid) & 31);
+        if (l < L) {
+          gx = gx + lx * level_scale(l);
+          gy = gy + ly * level_scale(l);
+        }
+      }
+      if (tid < nrows) {
+        const float cx = xy[2 * tid], cy = xy[2 * tid + 1];
+        if (isnan(cx) || isnan(cy)) gx = gy = cx + cy;  // NaN, as the tent form gives
+        grad_coords[2 * (b0 + tid)] = gx;
+        grad_coords[2 * (b0 + tid) + 1] = gy;
+      }
     }
-  }
-  if (grad_coords == nullptr) return;
 
-  // the window cells of every level, zeros outside
-  for (int t = threadIdx.x; t < num_levels * kp * kp; t += blockDim.x) {
-    const int l = t / (kp * kp);
-    const int c = t - l * kp * kp;
-    const int d = c / kp, e = c - d * kp;
-    const int s = lv.size[l];
-    const float yy = cen[l][3] - (float)radius + (float)d;
-    const float xx = cen[l][2] - (float)radius + (float)e;
-    float v = 0.f;
-    if (yy >= 0.f && yy <= (float)(s - 1) && xx >= 0.f && xx <= (float)(s - 1))
-      v = lv.map[l][b * (long long)s * s + (long long)yy * s + (long long)xx];
-    patch[t] = v;
+    // the dense maps of the group, level by level
+#pragma unroll
+    for (int l = 0; l < MAX_LEVELS; ++l) {
+      if (l >= L) break;
+      const int s = lv.size[l];
+      const long long s2 = (long long)s * s;
+      float* dst = gl.map[l] + b0 * s2;
+      const float* wl = win + l * G * KP2;
+      const int4* ol = org + l * G;
+      const bool vec = (vec_out >> l) & 1;
+      const int step = vec ? 4 * T : T;  // cells between this thread's chunks
+      int row = r0[l], h = h0[l], w = w0[l];
+      for (long long off = vec ? 4 * tid : tid; row < nrows; off += step) {
+        const int4 o = ol[row];
+        const float fill = __int_as_float(o.z);
+        const float* wr = wl + row * KP2;
+        float v[4];
+        int hh = h, ww = w;
+#pragma unroll
+        for (int u = 0; u < 4; ++u) {
+          if (u > 0 && !vec) break;
+          const int d = hh - o.y, e = ww - o.x;
+          v[u] = ((unsigned)d <= (unsigned)K && (unsigned)e <= (unsigned)K) ? wr[d * KP + e]
+                                                                           : fill;
+          if (++ww == s) {
+            ww = 0;
+            ++hh;
+          }
+        }
+        if (vec)
+          __stcs(reinterpret_cast<float4*>(dst + off), make_float4(v[0], v[1], v[2], v[3]));
+        else
+          dst[off] = v[0];
+        // the next chunk: T chunks on, carried through w, h and row
+        w += dw[l];
+        if (w >= s) {
+          w -= s;
+          ++h;
+        }
+        h += dh[l];
+        if (h >= s) {
+          h -= s;
+          ++row;
+        }
+        row += dr[l];
+      }
+    }
   }
-  __syncthreads();
+}
 
-  // each tap's terms of d/dpx and d/dpy: the cells with a nonzero
-  // derivative are the window columns j, j+1 (rows i, i+1)
-  for (int t = threadIdx.x; t < per_row; t += blockDim.x) {
-    const int l = t / kk;
-    const int tap = t - l * kk;
-    const int j = tap / k, i = tap - j * k;
-    const float* p = patch + l * kp * kp;
-    const float x = cen[l][0] + (float)(j - radius), y = cen[l][1] + (float)(i - radius);
-    const float w0 = cen[l][2] + (float)(j - radius), h0 = cen[l][3] + (float)(i - radius);
-    const float wy0 = tent(y - h0), wy1 = tent(y - (h0 + 1.f));
-    const float wx0 = tent(x - w0), wx1 = tent(x - (w0 + 1.f));
-    float sx = 0.f, sy = 0.f;
-    for (int e = 0; e < 2; ++e) {  // t2[i, w0 + e]
-      const float t2 = wy0 * p[i * kp + j + e] + wy1 * p[(i + 1) * kp + j + e];
-      sx = sx + dtent(x - (w0 + (float)e)) * t2;
-    }
-    for (int d = 0; d < 2; ++d) {  // t3[j, h0 + d]
-      const float t3 = wx0 * p[(i + d) * kp + j] + wx1 * p[(i + d) * kp + j + 1];
-      sy = sy + dtent(y - (h0 + (float)d)) * t3;
-    }
-    tap_x[t] = g[t] * sx;
-    tap_y[t] = g[t] * sy;
-  }
-  __syncthreads();
-  if (threadIdx.x < num_levels) {
-    const int l = threadIdx.x;
-    float sx = 0.f, sy = 0.f;
-    for (int t = l * kk; t < (l + 1) * kk; ++t) {
-      sx = sx + tap_x[t];
-      sy = sy + tap_y[t];
-    }
-    lev_sum[l][0] = sx;
-    lev_sum[l][1] = sy;
-  }
-  __syncthreads();
-  if (threadIdx.x == 0) {
-    float gx = 0.f, gy = 0.f;
-    for (int l = 0; l < num_levels; ++l) {
-      const float inv = ldexpf(1.f, -l);
-      gx = gx + lev_sum[l][0] * inv;
-      gy = gy + lev_sum[l][1] * inv;
-    }
-    if (nan_row) gx = gy = cx + cy;  // NaN, as the tent form gives
-    grad_coords[2 * b] = gx;
-    grad_coords[2 * b + 1] = gy;
-  }
+template <int R, bool COORDS>
+int launch_bwd(const float* coords, const float* grad_out, const Levels& lv,
+               const GradLevels& gl, int L, long long rows, float* grad_coords,
+               cudaStream_t stream) {
+  using W = BwdWindow<R>;
+  auto kernel = lookup_bwd_kernel<R, COORDS>;
+  const size_t smem = W::smem(L, COORDS);
+  int sms = 0, optin = 0;
+  int err = device_limits(&sms, &optin);
+  if (err != 0) return err;
+  // two ring stages and the windows at this level count must fit a block
+  if (smem > (size_t)optin) return (int)cudaErrorInvalidConfiguration;
+  static int per_sm[MAX_LEVELS + 1] = {};  // resident blocks per SM, by level count
+  err = resident_blocks(kernel, per_sm, L, BWD_THREADS,
+                        [](int l) { return W::smem(l, COORDS); }, optin);
+  if (err != 0) return err;
+  const long long groups = (rows + W::G - 1) / W::G;
+  const long long resident = (long long)per_sm[L] * sms;
+  const unsigned grid = (unsigned)(groups < resident ? groups : resident);
+  const int vec_g = ((uintptr_t)grad_out & 15) == 0 && (W::G * L * W::KK) % 4 == 0;
+  int vec_out = 0;
+  for (int l = 0; l < L; ++l)
+    if ((long long)lv.size[l] * lv.size[l] % 4 == 0 && ((uintptr_t)gl.map[l] & 15) == 0)
+      vec_out |= 1 << l;
+  kernel<<<grid, BWD_THREADS, smem, stream>>>(coords, grad_out, lv, gl, L, rows, groups, vec_g,
+                                              vec_out, grad_coords);
+  return (int)cudaGetLastError();
+}
+
+template <class F>
+int with_bwd_window(int num_levels, int radius, F&& f) {
+  if (num_levels < 1 || num_levels > MAX_LEVELS) return (int)cudaErrorInvalidValue;
+  return with_radius<BWD_MAX_RADIUS>(radius, f);
 }
 
 extern "C" int corr_lookup_bwd_launch(const float* coords, const float* grad_out,
@@ -167,14 +378,34 @@ extern "C" int corr_lookup_bwd_launch(const float* coords, const float* grad_out
                                       float* g0, float* g1, float* g2, float* g3,
                                       int num_levels, int radius, long long rows,
                                       float* grad_coords, cudaStream_t stream) {
-  if (num_levels < 1 || num_levels > MAX_LEVELS || radius < 0)
-    return (int)cudaErrorInvalidValue;
-  Levels lv = {{m0, m1, m2, m3}, {s0, s1, s2, s3}};
-  GradLevels gl = {{g0, g1, g2, g3}};
-  const size_t k = 2 * radius + 1;
-  const size_t smem = sizeof(float) * num_levels * (3 * k * k + (k + 1) * (k + 1));
-  if (smem > 48 * 1024 || rows > 0x7fffffffLL) return (int)cudaErrorInvalidConfiguration;
-  corr_lookup_bwd_kernel<<<(unsigned)rows, THREADS, smem, stream>>>(
-      coords, grad_out, lv, gl, num_levels, radius, grad_coords);
-  return (int)cudaGetLastError();
+  if (rows < 1) return (int)cudaErrorInvalidValue;
+  const Levels lv = {{m0, m1, m2, m3}, {s0, s1, s2, s3}};
+  const GradLevels gl = {{g0, g1, g2, g3}};
+  return with_bwd_window(num_levels, radius, [&](auto r) {
+    constexpr int R = decltype(r)::value;
+    return grad_coords != nullptr
+               ? launch_bwd<R, true>(coords, grad_out, lv, gl, num_levels, rows, grad_coords,
+                                     stream)
+               : launch_bwd<R, false>(coords, grad_out, lv, gl, num_levels, rows, nullptr,
+                                      stream);
+  });
+}
+
+// What a launch at (num_levels, radius, want_coords) takes: rows per group,
+// the largest radius, threads per block and dynamic shared memory per
+// block; the same error as the launch for a window it refuses.
+extern "C" int corr_lookup_bwd_layout(int num_levels, int radius, int want_coords,
+                                      int* rows_per_group, int* max_radius, int* threads,
+                                      long long* smem_bytes) {
+  *max_radius = BWD_MAX_RADIUS;
+  *threads = BWD_THREADS;
+  int sms = 0, optin = 0;
+  const int err = device_limits(&sms, &optin);
+  if (err != 0) return err;
+  return with_bwd_window(num_levels, radius, [&](auto r) {
+    using W = BwdWindow<decltype(r)::value>;
+    *rows_per_group = W::G;
+    *smem_bytes = (long long)W::smem(num_levels, want_coords != 0);
+    return *smem_bytes > optin ? (int)cudaErrorInvalidConfiguration : 0;
+  });
 }

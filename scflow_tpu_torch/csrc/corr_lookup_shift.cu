@@ -32,6 +32,8 @@
 
 #include "corr_common.cuh"
 
+#define MAX_RADIUS 12  // the instances this source builds: radius 0-12
+
 struct ShiftBlend {
   // one pair per axis for the whole window: (1 - fy, fy) and (1 - fx, fx),
   // computed once per row and level as the plain version broadcasts them
@@ -53,11 +55,12 @@ extern "C" int corr_lookup_shift_launch(const float* coords, const float* m0,
                                         int s3, int num_levels, int radius,
                                         long long rows, float* out,
                                         cudaStream_t stream) {
-  return launch_window_radius<ShiftBlend>(coords, m0, m1, m2, m3, s0, s1, s2, s3, num_levels,
-                                          radius, rows, out, stream);
+  return launch_window_radius<MAX_RADIUS, ShiftBlend>(coords, m0, m1, m2, m3, s0, s1, s2, s3,
+                                                  num_levels, radius, rows, out, stream);
 }
 
 extern "C" int corr_lookup_shift_layout(int num_levels, int radius, int* rows_per_group,
                                         int* max_radius, int* threads, long long* smem_bytes) {
-  return window_layout(num_levels, radius, rows_per_group, max_radius, threads, smem_bytes);
+  return window_layout<MAX_RADIUS>(num_levels, radius, rows_per_group, max_radius, threads,
+                                   smem_bytes);
 }

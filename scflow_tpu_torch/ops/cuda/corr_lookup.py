@@ -33,27 +33,42 @@ BWD_KERNEL = CudaKernel(
 FORWARD_KERNELS = {"tent": KERNEL, "shift": SHIFT_KERNEL, "bdiag": BDIAG_KERNEL}
 
 
-def window_layout(variant: str, num_levels: int, radius: int) -> dict:
-    """How K7 ('shift') or K8 ('bdiag') launches at (num_levels, radius), read
-    from its built library (csrc/corr_common.cuh): rows_per_group,
-    max_radius (the largest radius the launch takes), threads per block and
-    smem_bytes of dynamic shared memory per block.  Builds the kernels
-    (needs nvcc); raises RuntimeError for a pair the launch refuses."""
-    source = FORWARD_KERNELS[variant].source
+def _layout(source: str, symbol: str, *args) -> dict:
+    """Calls a layout function of a built library: (args..., rows per group,
+    largest radius, threads, dynamic shared memory) -> dict; raises
+    RuntimeError with the CUDA error for a window the launch refuses."""
     build_all()
-    fn = getattr(ctypes.CDLL(str(library_path(source))), f"corr_lookup_{variant}_layout")
-    fn.argtypes = [ctypes.c_int] * 2 + [ctypes.POINTER(ctypes.c_int)] * 3 + [
+    fn = getattr(ctypes.CDLL(str(library_path(source))), symbol)
+    fn.argtypes = [ctypes.c_int] * len(args) + [ctypes.POINTER(ctypes.c_int)] * 3 + [
         ctypes.POINTER(ctypes.c_longlong)]
     fn.restype = ctypes.c_int
     ints = [ctypes.c_int() for _ in range(3)]
     smem = ctypes.c_longlong()
-    err = fn(num_levels, radius, *map(ctypes.byref, ints), ctypes.byref(smem))
+    err = fn(*args, *map(ctypes.byref, ints), ctypes.byref(smem))
     if err != 0:
-        raise RuntimeError(f"corr_lookup_{variant}_layout({num_levels}, {radius}): "
-                           f"CUDA error {err}")
+        raise RuntimeError(f"{symbol}{args}: CUDA error {err}")
     rows, max_radius, threads = (i.value for i in ints)
     return {"rows_per_group": rows, "max_radius": max_radius, "threads": threads,
             "smem_bytes": smem.value}
+
+
+def window_layout(variant: str, num_levels: int, radius: int) -> dict:
+    """How K1 ('tent'), K7 ('shift') or K8 ('bdiag') launches at (num_levels,
+    radius), read from its built library (csrc/corr_common.cuh):
+    rows_per_group, max_radius (the largest radius the source builds),
+    threads per block and smem_bytes of dynamic shared memory per block.
+    Builds the kernels (needs nvcc); raises RuntimeError for a pair the
+    launch refuses (a radius it does not build, or two ring stages that
+    exceed a block's shared memory)."""
+    return _layout(FORWARD_KERNELS[variant].source, f"corr_lookup_{variant}_layout",
+                   num_levels, radius)
+
+
+def bwd_layout(num_levels: int, radius: int, want_coords: bool) -> dict:
+    """As window_layout, for K1b (csrc/corr_lookup_bwd.cu) with or without
+    the flow gradient."""
+    return _layout(BWD_KERNEL.source, "corr_lookup_bwd_layout", num_levels, radius,
+                   int(want_coords))
 
 
 def check_variant(variant: str) -> str:
@@ -162,8 +177,10 @@ def corr_lookup_flat(pyramid: Sequence[torch.Tensor], coords: torch.Tensor,
     """pyramid: level l is (B, S_l*S_l) float32; coords: (B, 2) float32
     window centres (x, y) at level 0.  Returns (B, L*(2r+1)^2) float32,
     level-major, tap index j*(2r+1) + i with j offsetting x.  variant picks
-    the kernel: 'tent' K1, 'shift' K7, 'bdiag' K8 (K7 and K8 take radius
-    0-12, `window_layout`'s max_radius, and raise at another)."""
+    the kernel: 'tent' K1, 'shift' K7, 'bdiag' K8.  K1 takes radius 0-15,
+    K7 and K8 0-12 (`window_layout`'s max_radius), each at the level counts
+    whose two ring stages fit a block's shared memory; another pair raises
+    RuntimeError from the launch."""
     check_variant(variant)
     if coords.device.type == "cpu":
         return PLAIN[variant](pyramid, coords, radius)
@@ -226,6 +243,8 @@ def corr_lookup_flat_bwd(pyramid: Sequence[torch.Tensor], coords: torch.Tensor,
                          ) -> Tuple[List[torch.Tensor], Optional[torch.Tensor]]:
     """The backward of `corr_lookup_flat` (any variant): K1b for CUDA
     tensors, its plain version for CPU tensors.  grad_out: (B, L*(2r+1)^2).
+    K1b takes radius 0-15 at the level counts `bwd_layout` accepts (every
+    window K1 takes); another raises RuntimeError from the launch.
     Returns (grads of the levels, grad of coords or None)."""
     if coords.device.type == "cpu":
         return corr_lookup_flat_bwd_plain(pyramid, coords, grad_out, radius, want_coords)

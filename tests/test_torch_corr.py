@@ -18,7 +18,7 @@ from scflow_tpu.ops.corr import correlation_pyramid_flat as j_pyramid
 from scflow_tpu.ops.pallas.corr_lookup import corr_lookup_pallas, corr_lookup_pallas_diff
 from scflow_tpu_torch.ops.corr import corr_lookup, correlation_pyramid_flat
 
-from torch_port_helpers import no_tf32  # noqa: F401
+from torch_port_helpers import keep_torch_rng, no_tf32  # noqa: F401
 
 ATOL = 1e-4
 
@@ -117,27 +117,48 @@ def test_variant_plain_versions_match_pallas_kernels_at_other_windows(radius, n_
     np.testing.assert_allclose(got.numpy(), want, atol=ATOL)
 
 
-def _torch_vjp(levels, flow, g, backend):
+@pytest.mark.parametrize("radius", [13, 14, 15])
+@pytest.mark.parametrize("case", ["random", "border", "integer"])
+def test_tent_plain_version_matches_pallas_kernel_at_the_widest_windows(radius, case, rng):
+    """K1 builds radius 0-15 (radius 13-15 only at one level fit the first
+    K1's thread limit and still do); its plain version, what the card
+    holds it to, against the TPU's tent kernel at those windows."""
+    levels, flow = _cases(rng)[case]
+    got = corr_lookup([torch.from_numpy(levels[0])], torch.from_numpy(flow), radius=radius,
+                      backend="pallas")
+    want = np.asarray(corr_lookup_pallas([jnp.asarray(levels[0])], jnp.asarray(flow),
+                                         radius=radius, interpret=True, variant="tent"))
+    assert got.shape == want.shape == flow.shape[:3] + ((2 * radius + 1) ** 2,)
+    np.testing.assert_allclose(got.numpy(), want, atol=ATOL)
+
+
+def _torch_vjp(levels, flow, g, backend, radius=4):
     lv = [torch.from_numpy(m).requires_grad_() for m in levels]
     fl = torch.from_numpy(flow).requires_grad_()
-    out = corr_lookup(lv, fl, backend=backend)
+    out = corr_lookup(lv, fl, radius=radius, backend=backend)
     out.backward(torch.from_numpy(g))
     return out.detach().numpy(), [m.grad.numpy() for m in lv], fl.grad.numpy()
 
 
+@pytest.mark.parametrize("radius,n_levels", [(4, 4), (1, 1), (1, 2), (3, 2), (6, 4), (0, 3),
+                                             (13, 1), (14, 1), (15, 1)])
 @pytest.mark.parametrize("case", ["random", "border", "integer"])
-def test_pallas_backend_grads_match_lookup_bwd(case, rng):
+def test_pallas_backend_grads_match_lookup_bwd(case, radius, n_levels, rng):
     """'pallas' (K1b's plain version on the CPU) against jax.vjp of
     corr_lookup_pallas_diff, whose backward is `_lookup_bwd`: grads into
-    every level and into the flow, 0 at integer centres.  atol 1e-4 on
-    O(1) gradients, the lookup's own bound; the sums run in another order."""
+    every level and into the flow, 0 at integer centres, at the flagship's
+    window (radius 4, 4 levels) and at others K1b builds (its radius is a
+    compile-time window, and this plain version is what the card holds it
+    to at each).  atol 1e-4 on O(1) gradients, the lookup's own bound; the
+    sums run in another order."""
     levels, flow = _cases(rng)[case]
+    levels = levels[:n_levels]
     n, h, w, _ = flow.shape
-    g = rng.normal(size=(n, h, w, 4 * 81)).astype(np.float32)
+    g = rng.normal(size=(n, h, w, n_levels * (2 * radius + 1) ** 2)).astype(np.float32)
     gp_j, gf_j = jax.vjp(
-        lambda p, f: corr_lookup_pallas_diff(p, f, 4, 256, True, "tent"),
+        lambda p, f: corr_lookup_pallas_diff(p, f, radius, 256, True, "tent"),
         tuple(jnp.asarray(m) for m in levels), jnp.asarray(flow))[1](jnp.asarray(g))
-    _, gp_t, gf_t = _torch_vjp(levels, flow, g, "pallas")
+    _, gp_t, gf_t = _torch_vjp(levels, flow, g, "pallas", radius)
     for a, b in zip(gp_t, gp_j):
         np.testing.assert_allclose(a, np.asarray(b), atol=1e-4)
     np.testing.assert_allclose(gf_t, np.asarray(gf_j), atol=1e-4)

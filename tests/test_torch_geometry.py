@@ -15,6 +15,8 @@ from scflow_tpu.ops.resize import interp_taps as j_taps
 from scflow_tpu_torch import geometry as tg
 from scflow_tpu_torch.ops.resize import interp_taps
 
+from torch_port_helpers import keep_torch_rng  # noqa: F401
+
 ATOL = 1e-5
 
 

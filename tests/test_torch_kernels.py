@@ -17,6 +17,8 @@ from scflow_tpu_torch.ops.cuda import rasterize as k2
 from scflow_tpu_torch.render.meshbank import make_synthetic_bank
 from scflow_tpu_torch.render.rasterizer import gather_corner_attrs, gather_tri, project_to_screen
 
+from torch_port_helpers import keep_torch_rng  # noqa: F401
+
 
 @pytest.fixture
 def cuda():
@@ -203,11 +205,21 @@ def test_bdiag_kernel_matches_tent_plain(case, cuda):
                                atol=1e-4)
 
 
-# every radius the launch switch of csrc/corr_common.cuh instantiates (0-12,
-# checked against the library below) at every level count
+# every radius the launch switch of K7/K8 instantiates (0-12, checked against
+# the library below) at every level count
 WINDOW_RADII = range(13)
 WINDOW_SHAPES = [(r, n) for r in WINDOW_RADII for n in range(1, 5)]
-WINDOW_KERNELS = {"shift": k1.SHIFT_KERNEL, "bdiag": k1.BDIAG_KERNEL}
+WINDOW_KERNELS = {"tent": k1.KERNEL, "shift": k1.SHIFT_KERNEL, "bdiag": k1.BDIAG_KERNEL}
+# K1 and K1b build radius 0-15; these radii at every level count cover every
+# (radius, levels) pair the first K1 launched (L * (2r+1)^2 <= 1024: radius
+# <= 15, 10, 8, 7 at 1-4 levels) at its edges, and pairs past them
+TENT_RADII = (0, 1, 4, 7, 8, 10, 11, 13, 14, 15)
+TENT_SHAPES = [(r, n) for r in TENT_RADII for n in range(1, 5)]
+
+
+def _launched_before(radius, levels):
+    """A pair the first K1 (one thread per output column) launched."""
+    return levels * (2 * radius + 1) ** 2 <= 1024
 
 
 def _window_case(rows, sizes, radius, seed=0):
@@ -230,9 +242,14 @@ def _window_case(rows, sizes, radius, seed=0):
     return levels, coords.contiguous()
 
 
+def _plain_must_not_run(*args, **kwargs):
+    raise AssertionError("the plain version ran for a CUDA tensor")
+
+
 def _check_window_kernel(variant, levels, coords, radius, cuda):
-    """K7 bit-identical to its plain version (NaN where it is NaN), K8
-    within K1's atol 1e-4 of the tent plain version; one launch a call."""
+    """K7 bit-identical to its plain version (NaN where it is NaN), K1 and
+    K8 within K1's atol 1e-4 of the tent plain version; one launch a
+    call."""
     levels = [m.to(cuda) for m in levels]
     coords = coords.to(cuda)
     kernel = WINDOW_KERNELS[variant]
@@ -274,7 +291,7 @@ def test_window_layout_matches_the_launch_switch(variant, cuda):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("variant", ["shift", "bdiag"])
+@pytest.mark.parametrize("variant", ["tent", "shift", "bdiag"])
 @pytest.mark.parametrize("rows", ["one", "group-1", "group+1"])
 def test_window_kernels_ragged_row_counts(variant, rows, cuda):
     """One row, one row short of a group, one row past a group (the group
@@ -288,7 +305,7 @@ def test_window_kernels_ragged_row_counts(variant, rows, cuda):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("variant", ["shift", "bdiag"])
+@pytest.mark.parametrize("variant", ["tent", "shift", "bdiag"])
 def test_window_kernels_at_the_flagship_level_sizes(variant, cuda):
     """Levels 32^2..4^2, radius 4, 2 images of 32^2 rows, with NaN,
     far-outside and integer centres."""
@@ -297,7 +314,7 @@ def test_window_kernels_at_the_flagship_level_sizes(variant, cuda):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("variant", ["shift", "bdiag"])
+@pytest.mark.parametrize("variant", ["tent", "shift", "bdiag"])
 @pytest.mark.parametrize("radius,levels", [("past", 1), ("past", 4), (-1, 2)])
 def test_window_kernels_raise_outside_the_instantiated_set(variant, radius, levels, cuda,
                                                           monkeypatch):
@@ -306,12 +323,9 @@ def test_window_kernels_raise_outside_the_instantiated_set(variant, radius, leve
     for a CUDA tensor."""
     if radius == "past":
         radius = k1.window_layout(variant, levels, 0)["max_radius"] + 1
-    def plain_must_not_run(*args, **kwargs):
-        raise AssertionError("the plain version ran for a CUDA tensor")
-
-    monkeypatch.setitem(k1.PLAIN, variant, plain_must_not_run)
-    monkeypatch.setattr(k1, "corr_lookup_flat_plain", plain_must_not_run)
-    monkeypatch.setattr(k1, "corr_lookup_flat_shift_plain", plain_must_not_run)
+    monkeypatch.setitem(k1.PLAIN, variant, _plain_must_not_run)
+    monkeypatch.setattr(k1, "corr_lookup_flat_plain", _plain_must_not_run)
+    monkeypatch.setattr(k1, "corr_lookup_flat_shift_plain", _plain_must_not_run)
     lv, coords = _window_case(16, (6, 3, 2, 1)[:levels], 1)
     lv = [m.to(cuda) for m in lv]
     kernel = WINDOW_KERNELS[variant]
@@ -319,6 +333,143 @@ def test_window_kernels_raise_outside_the_instantiated_set(variant, radius, leve
     with pytest.raises(RuntimeError, match="CUDA error"):
         k1.corr_lookup_flat(lv, coords.to(cuda), radius, variant=variant)
     assert kernel.launches == before
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("radius,levels", TENT_SHAPES)
+def test_tent_kernel_every_window(radius, levels, cuda, monkeypatch):
+    """K1 at every pair of TENT_SHAPES on 75 rows (18 groups and a ragged
+    tail of 3, NaN, far-outside and integer centres): each pair the first
+    K1 launched launches; a pair whose two ring stages exceed a block's
+    shared memory (the library's layout refuses it) raises, without the
+    plain version."""
+    levels_, coords = _window_case(75, (10, 5, 3, 2)[:levels], radius, seed=radius)
+    try:
+        k1.window_layout("tent", levels, radius)
+    except RuntimeError:
+        assert not _launched_before(radius, levels)
+        monkeypatch.setitem(k1.PLAIN, "tent", _plain_must_not_run)
+        before = k1.KERNEL.launches
+        with pytest.raises(RuntimeError, match="CUDA error"):
+            k1.corr_lookup_flat([m.to(cuda) for m in levels_], coords.to(cuda), radius)
+        assert k1.KERNEL.launches == before
+        return
+    _check_window_kernel("tent", levels_, coords, radius, cuda)
+
+
+@pytest.mark.cuda
+def test_tent_layout_takes_every_pair_the_first_k1_took(cuda):
+    """K1's library builds radius 0-15 and accepts every pair L*(2r+1)^2 <=
+    1024; it refuses radius 15 at four levels (about 258 KB of shared
+    memory) and radius 16."""
+    for radius in range(16):
+        for levels in range(1, 5):
+            if _launched_before(radius, levels):
+                layout = k1.window_layout("tent", levels, radius)
+                assert layout["max_radius"] == 15
+                assert layout["smem_bytes"] <= 227 * 1024
+    for radius, levels in [(15, 4), (16, 1), (-1, 1), (4, 5)]:
+        with pytest.raises(RuntimeError, match="CUDA error"):
+            k1.window_layout("tent", levels, radius)
+
+
+def _bwd_grad_out(rows, cols, seed, offset=False):
+    """The output gradient; with offset, a contiguous view 4 bytes past a
+    16-byte boundary (K1b then stages it with 4-byte copies)."""
+    g = torch.randn((rows * cols + 1,), generator=torch.Generator().manual_seed(seed))
+    return (g[1:] if offset else g[:-1]).view(rows, cols)
+
+
+def _check_bwd_kernel(levels, coords, g, radius, want_coords, cuda):
+    """K1b against its plain version at atol 1e-4 (level grads, NaN where
+    they are NaN; the coords grad of every row with a finite centre), one
+    launch a call, the same bits from a second launch, and a NaN centre's
+    rows NaN in every level and in the coords grad."""
+    levels = [m.to(cuda) for m in levels]
+    coords, g = coords.to(cuda), g.to(cuda)
+    before = k1.BWD_KERNEL.launches
+    grads, gc = k1.corr_lookup_flat_bwd(levels, coords, g, radius, want_coords)
+    torch.cuda.synchronize()
+    assert k1.BWD_KERNEL.launches == before + 1
+    again, again_c = k1.corr_lookup_flat_bwd(levels, coords, g, radius, want_coords)
+    want, want_c = k1.corr_lookup_flat_bwd_plain(levels, coords, g, radius, want_coords)
+    nan_rows = torch.isnan(coords).any(dim=1)
+    for a, b, c in zip(grads, want, again):
+        torch.testing.assert_close(a, b, rtol=0, atol=1e-4, equal_nan=True)
+        assert torch.equal(a.nan_to_num(7.0), c.nan_to_num(7.0))
+        assert torch.isnan(a[nan_rows]).all() and not torch.isnan(a[~nan_rows]).any()
+    if want_coords:  # a NaN centre's flow gradient is NaN (the plain version
+        # gives 0 on the axis whose weights' derivative a NaN compare zeroes)
+        torch.testing.assert_close(gc[~nan_rows], want_c[~nan_rows], rtol=0, atol=1e-4)
+        assert torch.isnan(gc[nan_rows]).all()
+        assert torch.equal(gc.nan_to_num(7.0), again_c.nan_to_num(7.0))
+    else:
+        assert gc is None and again_c is None
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("want_coords", [True, False])
+@pytest.mark.parametrize("radius,levels", TENT_SHAPES)
+def test_bwd_kernel_every_window(radius, levels, want_coords, cuda, monkeypatch):
+    """K1b at K1's windows on 75 rows (random, border, integer, NaN and
+    far-outside centres; a 10^2 level of 16-byte stores, 5^2 and 3^2 of
+    4-byte ones, a 2^2 one whose 16-byte chunks span two map rows); every
+    window K1 takes launches, a window the library's layout refuses raises
+    without the plain version."""
+    levels_, coords = _window_case(75, (10, 5, 3, 2)[:levels], radius, seed=radius)
+    g = _bwd_grad_out(75, levels * (2 * radius + 1) ** 2, radius, offset=radius % 2 == 1)
+    try:
+        k1.bwd_layout(levels, radius, want_coords)
+    except RuntimeError:
+        assert not _launched_before(radius, levels)
+        monkeypatch.setattr(k1, "corr_lookup_flat_bwd_plain", _plain_must_not_run)
+        before = k1.BWD_KERNEL.launches
+        with pytest.raises(RuntimeError, match="CUDA error"):
+            k1.corr_lookup_flat_bwd([m.to(cuda) for m in levels_], coords.to(cuda), g.to(cuda),
+                                    radius, want_coords)
+        assert k1.BWD_KERNEL.launches == before
+        return
+    _check_bwd_kernel(levels_, coords, g, radius, want_coords, cuda)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("want_coords", [True, False])
+@pytest.mark.parametrize("rows", ["one", "group-1", "group+1"])
+def test_bwd_kernel_ragged_row_counts(rows, want_coords, cuda):
+    """One row, one short of a group, one past a group (the group size read
+    from the built library)."""
+    group = k1.bwd_layout(4, 4, want_coords)["rows_per_group"]
+    rows = {"one": 1, "group-1": group - 1, "group+1": group + 1}[rows]
+    gen = torch.Generator().manual_seed(rows)
+    levels = [torch.randn((rows, s * s), generator=gen) for s in (10, 5, 3, 2)]
+    coords = (12.0 * torch.rand((rows, 2), generator=gen) - 1.0).contiguous()
+    _check_bwd_kernel(levels, coords, _bwd_grad_out(rows, 4 * 81, rows), 4, want_coords, cuda)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("want_coords", [True, False])
+def test_bwd_kernel_at_the_flagship_level_sizes(want_coords, cuda):
+    """Levels 32^2..4^2, radius 4, 8 images of 32^2 rows (more groups than
+    the resident blocks take at once, so blocks walk the ring), with NaN,
+    far-outside and integer centres."""
+    levels, coords = _window_case(8 * 32 * 32, (32, 16, 8, 4), 4, seed=6)
+    g = _bwd_grad_out(coords.shape[0], 4 * 81, 6)
+    _check_bwd_kernel(levels, coords, g, 4, want_coords, cuda)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("radius,levels", [(16, 1), (-1, 2), (4, 5)])
+def test_bwd_kernel_raises_outside_the_instantiated_set(radius, levels, cuda, monkeypatch):
+    """A radius K1b does not build, or a fifth level, raises from the
+    launch, without the plain version."""
+    monkeypatch.setattr(k1, "corr_lookup_flat_bwd_plain", _plain_must_not_run)
+    lv = [torch.randn((16, s * s), device=cuda) for s in (6, 3, 2, 1, 1)[:levels]]
+    coords = torch.rand((16, 2), device=cuda)
+    g = torch.randn((16, levels * (2 * max(radius, 0) + 1) ** 2), device=cuda)
+    before = k1.BWD_KERNEL.launches
+    with pytest.raises((RuntimeError, ValueError)):
+        k1.corr_lookup_flat_bwd(lv, coords, g, radius)
+    assert k1.BWD_KERNEL.launches == before
 
 
 @pytest.mark.cuda

@@ -33,6 +33,8 @@ from scflow_tpu_torch.ops.resize import interpolate_bilinear
 from scflow_tpu_torch.render.meshbank import make_synthetic_bank
 from scflow_tpu_torch.runtime.optim import build_optimizer, onecycle_lr
 
+from torch_port_helpers import keep_torch_rng  # noqa: F401
+
 
 def _t(a):
     return torch.from_numpy(np.array(a))

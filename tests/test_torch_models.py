@@ -21,7 +21,7 @@ from scflow_tpu_torch.models.motion import ConvGRU, MotionEncoder, XHead
 from scflow_tpu_torch.models.pose_head import MultiClassPoseHead
 from scflow_tpu_torch.models.raft_encoder import RAFTEncoder
 
-from torch_port_helpers import load_port, no_tf32, np_tree  # noqa: F401
+from torch_port_helpers import keep_torch_rng, load_port, no_tf32, np_tree  # noqa: F401
 
 ATOL = 2e-4
 KEY = jax.random.PRNGKey(0)

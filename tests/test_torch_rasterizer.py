@@ -26,7 +26,7 @@ from scflow_tpu_torch.ops import raster_pack as tpk
 from scflow_tpu_torch.ops.cuda import rasterize as trz
 from scflow_tpu_torch.render import rasterizer as trast
 
-from torch_port_helpers import check_maps
+from torch_port_helpers import check_maps, keep_torch_rng  # noqa: F401
 
 INT32_MAX = 2**31 - 1
 

@@ -32,7 +32,7 @@ from scflow_tpu_torch.render.meshbank import make_synthetic_bank
 from scflow_tpu_torch.render.renderer import render_batch
 from scflow_tpu_torch.render.shading import phong_lighting
 
-from torch_port_helpers import check_maps
+from torch_port_helpers import check_maps, keep_torch_rng  # noqa: F401
 
 IMG = 128
 BANK_FIELDS = ("verts", "faces", "face_valid", "colors", "normals", "vert_valid")

@@ -22,7 +22,7 @@ from scflow_tpu_torch.refiners.scflow import SCFlowRefiner
 from scflow_tpu_torch.refiners.system import RenderAssets, make_scflow_infer_fn
 from scflow_tpu_torch.render.meshbank import make_synthetic_bank
 
-from torch_port_helpers import no_tf32, scflow_pair  # noqa: F401
+from torch_port_helpers import keep_torch_rng, no_tf32, scflow_pair  # noqa: F401
 
 N, IMG, NCLASS, ITERS = 2, 128, 3, 3
 SIZE = 160.0  # mm: the spheres cover a good part of the 128^2 crop

@@ -47,7 +47,7 @@ from scflow_tpu_torch.render.meshbank import make_synthetic_bank
 from scflow_tpu_torch.runtime.optim import build_optimizer
 from scflow_tpu_torch.runtime.train_state import TrainState
 
-from torch_port_helpers import no_tf32, scflow_pair_torch_init  # noqa: F401
+from torch_port_helpers import keep_torch_rng, no_tf32, scflow_pair_torch_init  # noqa: F401
 
 N, H, NCLASS, ITERS = 2, 64, 3, 2
 SYM = {"cls_2": {"z": 0}}
@@ -264,3 +264,27 @@ def test_train_step_rejects_unported_or_unknown_options(setup, kw, match):
     with pytest.raises((ValueError, NotImplementedError), match=match):
         make_scflow_train_step(model, setup["render"], setup["loss"], image_size=(H, H),
                                device="cpu", **kw)
+
+
+def test_port_tests_leave_torch_rng_as_found(request):
+    """tests/test_grad_parity.py draws its weights from torch's global RNG
+    unseeded, so the port's tests must leave that RNG as they found it: the
+    seeded helper draws nothing from it, a port module's default
+    initialisation (which does draw) is undone by the autouse fixture, and
+    every port test module imports that fixture."""
+    import re
+    from pathlib import Path
+
+    from scflow_tpu_torch.models.motion import MotionEncoder
+
+    assert "keep_torch_rng" in request.fixturenames
+    before = torch.get_rng_state()
+    scflow_pair_torch_init(NCLASS, 64, 1)
+    assert torch.equal(torch.get_rng_state(), before)
+    with torch.random.fork_rng(devices=[]):  # what keep_torch_rng does
+        MotionEncoder()
+        assert not torch.equal(torch.get_rng_state(), before)
+    assert torch.equal(torch.get_rng_state(), before)
+    for path in sorted(Path(__file__).parent.glob("test_torch_*.py")):
+        assert re.search(r"^from torch_port_helpers import .*\bkeep_torch_rng\b",
+                         path.read_text(), re.M), path.name

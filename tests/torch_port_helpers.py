@@ -1,14 +1,27 @@
 """Shared pieces of the PyTorch-port parity tests: the flax reference and the
-port's module built from one seed, and fp32 settings for both."""
+port's module built from one seed, fp32 settings for both, and the fixture
+that leaves torch's global RNG as each test found it.
 
-import jax
-import jax.numpy as jnp
+JAX and flax are imported inside the functions that need them, so that the
+JAX-free card tests (tests/test_torch_kernels.py) can import this module on
+a machine without JAX."""
+
 import numpy as np
 import pytest
 import torch
-from flax.core import unfreeze
 
 from scflow_tpu_torch.convert import state_dict_from_flax
+
+
+@pytest.fixture(autouse=True)
+def keep_torch_rng():
+    """Restores torch's global (CPU) RNG after the test.  Every port test
+    module imports it: tests elsewhere draw their weights from that RNG
+    without seeding it (tests/test_grad_parity.py), so a port test that
+    seeds it or builds modules with PyTorch's default initialisation would
+    change their weights, by the order the tests happen to run in."""
+    with torch.random.fork_rng(devices=[]):
+        yield
 
 
 @pytest.fixture
@@ -47,6 +60,9 @@ def check_maps(got, want, id_exact: bool = True):
 
 def np_tree(variables):
     """flax variables -> nested dicts of numpy arrays (writable copies)."""
+    import jax
+    from flax.core import unfreeze
+
     return jax.tree_util.tree_map(lambda a: np.array(a), unfreeze(variables))
 
 
@@ -62,7 +78,12 @@ def scflow_pair(num_class: int, img: int, iters: int, seed: int = 0,
     """(flax SCFlowRefiner, numpy variables, port SCFlowRefiner) with the same
     weights.  The pose head's output kernels get normal(0, perturb) noise so
     that the poses, and their feedback into the next lookup, move.
-    model_kw (the detach options) go to both constructors."""
+    model_kw (the detach options) go to both constructors.  The port's
+    module is built under a forked RNG (load_port overwrites every weight),
+    so the global RNG is left as it was."""
+    import jax
+    import jax.numpy as jnp
+
     from scflow_tpu.refiners import SCFlowRefiner as FlaxRefiner
     from scflow_tpu_torch.refiners.scflow import SCFlowRefiner
 
@@ -79,8 +100,10 @@ def scflow_pair(num_class: int, img: int, iters: int, seed: int = 0,
     for name in ("rotation_pred", "translation_pred"):
         k = head[name]["kernel"]
         head[name]["kernel"] = rng.normal(0.0, perturb, k.shape).astype(np.float32)
-    port = load_port(SCFlowRefiner(num_class=num_class, image_size=(img, img),
-                                   iters=iters, **model_kw), variables)
+    with torch.random.fork_rng(devices=[]):
+        port = SCFlowRefiner(num_class=num_class, image_size=(img, img), iters=iters,
+                             **model_kw)
+    port = load_port(port, variables)
     return fmodel, variables, port
 
 
@@ -93,13 +116,16 @@ def scflow_pair_torch_init(num_class: int, img: int, iters: int, seed: int = 0,
     the two packages differ by several percent (their single-pass norm
     statistics over [0, 1] images lose digits); from these they agree
     within the train-step tests' 2e-2, as tests/test_grad_parity.py, which
-    starts from torch weights too, finds for the JAX package."""
+    starts from torch weights too, finds for the JAX package.  The seed
+    acts on a forked RNG: the global one is left as it was."""
     from scflow_tpu.runtime.convert_torch import convert_state_dict_to_variables
     from scflow_tpu_torch.refiners.scflow import SCFlowRefiner
 
     fmodel, template, _ = scflow_pair(num_class, img, iters, seed, 0.0, **model_kw)
-    torch.manual_seed(seed)
-    port = SCFlowRefiner(num_class=num_class, image_size=(img, img), iters=iters, **model_kw)
+    with torch.random.fork_rng(devices=[]):
+        torch.manual_seed(seed)
+        port = SCFlowRefiner(num_class=num_class, image_size=(img, img), iters=iters,
+                             **model_kw)
     g = torch.Generator().manual_seed(seed + 1)
     head = port.decoder.pose_pred
     with torch.no_grad():
