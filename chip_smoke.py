@@ -4,6 +4,7 @@
     python3 chip_smoke.py
     python3 chip_smoke.py --lookup-only [--root DIR]   # phases 1-3, 10 and 11
                                  # only, of the package in DIR (e.g. a parent commit)
+    python3 chip_smoke.py --raster-only [--root DIR]   # phases 1, 2 and 4-7 only
 
 Phases, each printing one JSON line; any failure exits non-zero before the
 last line:
@@ -22,14 +23,21 @@ last line:
                memory;
   4. K2      - the raster kernel against its plain version at the flagship
                shape (64 x 256^2, 21-class 1024-face uvsphere bank, culling
-               on): every map bit-identical; times and bound;
+               on): every map bit-identical; times (back-to-back and device)
+               and bound (K2-K6: the bytes, and 14 operations per (face,
+               pixel) pair inside the face's bounding box; beside it the
+               brute-force count of the pairs walked); its split (probe
+               launches: the test loop with the per-warp rejection alone,
+               and the emit alone from its keys, giving K2's maps) and the
+               surviving (warp, face) pairs, counted on the card and equal
+               to the plain mirror's count;
   5. K3      - the v4 (exact-binned) raster kernel against its plain version
                on the same scene's pack_shaded_exact entries: bit-identical;
                against K2's maps: the same mask, the same winner face and
                depth on all but 2e-3 of the pixels;
   6. K4      - the depth-only kernel against its plain version on the
                scene's depth packs at rasterize()'s 8x128 tiles and 512-face
-               chunks: bit-identical keys;
+               chunks: bit-identical keys; the mirror's surviving share;
   7. K5/K6   - the v1/v2 kernel against its plain version on K2's packs,
                bit-identical, and equal to K2's maps;
   8. slice   - make_scflow_infer_fn(slim) at the bench configuration (batch
@@ -38,7 +46,10 @@ last line:
                checks (finite, orthonormal, poses moved, the first 4 samples
                equal the CPU run of the plain versions to the slice-test
                tolerances, 8 K1 and 1 K2 launches) and refinements/s; then
-               the profile of one call;
+               the profile of one call; then the model's forward with cuDNN
+               TF32 off and on (PyTorch's default; the entry points now
+               compute in full fp32 whatever the flags), its times and the
+               pose difference;
   9. render  - the render surface at the flagship scene, each entry point
                called once with every launch count reset: render_batch v4
                (1 K3) against v3 (1 K2), rasterize 'pallas' (1 K4) against
@@ -491,16 +502,42 @@ def _flagship_scene(dev):
                 faces=faces, face_valid=face_valid, tri_xy=tri_xy, tri_z=tri_z, corner=corner)
 
 
-def _raster_bound(inputs, out, pairs: int, faces_per_pair: int, pixels_per_pair: int):
+def _bbox_pairs(scene) -> int:
+    """The (face, pixel) pairs these inputs need tested: over the faces that
+    are valid and not culled, the pixels of the crop inside each face's
+    screen bounding box (pixel centres at integer coordinates)."""
+    from scflow_tpu_torch.ops.raster_pack import _face_plane_coeffs
+
+    live = _face_plane_coeffs(scene["tri_xy"], scene["tri_z"], scene["face_valid"],
+                              cull_backfaces=True)[9] > 0.5
+    span = []
+    for axis in (0, 1):
+        v = scene["tri_xy"][..., axis]
+        lo = torch.clamp(torch.ceil(v.amin(-1)), min=0)
+        hi = torch.clamp(torch.floor(v.amax(-1)), max=IMG - 1)
+        span.append(torch.clamp(hi - lo + 1, min=0))
+    return int((span[0] * span[1] * live).sum().item())
+
+
+def _raster_bound(inputs, out, scene, walked_pairs: int, faces_per_pair: int):
     """Bytes: each input and the output once.  Operations: 14 fp32 operations
-    (3 affine planes of 4, w2's 2) per face-pixel of every (tile, chunk)
-    pair the kernel walks."""
+    (3 affine planes of 4, w2's 2) per (face, pixel) pair with the pixel
+    inside the face's bounding box (_bbox_pairs): what these inputs need.
+    Also the brute-force design's count, 14 per face-pixel of every (tile,
+    chunk) pair walked, as walked_face_pixel_pairs and walked_bound_ms, so
+    that shares stay comparable with the records made by it."""
     nbytes = sum(a.numel() * a.element_size() for a in inputs) + out.numel() * out.element_size()
-    return bound(nbytes, pairs * faces_per_pair * pixels_per_pair * 14)
+    pairs = scene.setdefault("bbox_pairs", _bbox_pairs(scene))
+    bound_ms, bound_by = bound(nbytes, pairs * 14)
+    return bound_ms, bound_by, {"bytes": nbytes, "bbox_face_pixel_pairs": pairs,
+                                "walked_face_pixel_pairs": walked_pairs * faces_per_pair * 1024,
+                                "walked_bound_ms": bound(nbytes, walked_pairs * faces_per_pair
+                                                         * 1024 * 14)[0]}
 
 
 def _time_kernel(kernel, plain):
-    return {"ms": median_ms(kernel, 20), "plain_ms": median_ms(plain, 1, groups=3)}
+    return {"ms": median_ms(kernel, 20), "device_ms": device_ms(kernel, 20),
+            "plain_ms": median_ms(plain, 1, groups=3)}
 
 
 def phase_k2(dev, scene):
@@ -522,7 +559,7 @@ def phase_k2(dev, scene):
     err = (got - want).abs().max().item()
     require(err == 0.0, f"K2 attrs max |d| {err} == 0")
     pairs = int(active.sum().item())
-    bound_ms, bound_by = _raster_bound((rows, active), got, pairs, k2.FC, k2.TH * k2.TW)
+    bound_ms, bound_by, work = _raster_bound((rows, active), got, scene, pairs, k2.FC)
     res = {
         "max_abs_err": err,
         **_time_kernel(lambda: k2.rasterize_shaded_v3(rows, active, IMG, IMG, bits),
@@ -531,8 +568,37 @@ def phase_k2(dev, scene):
         "bound_ms": bound_ms, "bound_by": bound_by,
     }
     emit({"phase": "K2", "faces": rows.shape[-1], "active_pairs": pairs,
-          "active_pairs_max": active.numel(), "fg_share": fg, "bit_identical": exact, **res})
+          "active_pairs_max": active.numel(), "fg_share": fg, "bit_identical": exact, **work,
+          **res, "split": _k2_split(rows, active, bits, got) if hasattr(k2, "V3_PROBE")
+          else None})
     return res, (rows, active, got)
+
+
+def _k2_split(rows, active, bits, maps):
+    """K2's time in parts (its probe launches, each timed as device_ms): the
+    test loop alone, the emit alone from its keys, and from background keys
+    (its stores without the winners' gathers).  The emit from the test
+    loop's keys must give K2's maps, and the surviving (warp, face) pairs
+    the card counts must equal the plain mirror's count
+    (ops/cuda/rasterize.py)."""
+    from scflow_tpu_torch.ops.cuda import rasterize as k2
+
+    def probe(mode, keys=None):
+        return k2.rasterize_shaded_v3_probe(rows, active, IMG, IMG, bits, mode, keys)
+
+    keys, kept = probe("test")
+    emitted = probe("emit", keys)
+    torch.cuda.synchronize()
+    require(torch.equal(emitted, maps), "K2's emit from the keys gives K2's maps")
+    kept_mirror, tested = k2.count_survivors(rows, active, IMG, IMG, k2.TH, k2.TW, k2.FC, False)
+    require(int(kept.item()) == kept_mirror,
+            f"surviving (warp, face) pairs: card {int(kept.item())}, mirror {kept_mirror}")
+    background = torch.full_like(keys, k2.INT32_MAX)  # no winner: the emit's stores alone
+    return {"test_device_ms": device_ms(lambda: probe("test"), 20),
+            "emit_device_ms": device_ms(lambda: probe("emit", keys), 20),
+            "emit_background_device_ms": device_ms(lambda: probe("emit", background), 20),
+            "warp_face_pairs_tested": tested, "warp_face_pairs_kept": kept_mirror,
+            "kept_share": kept_mirror / tested}
 
 
 def _max_abs(got, want):
@@ -573,7 +639,7 @@ def phase_k3(dev, scene, k2_out):
             f"K3 vs K2: channel tie shares {tie_share}, winner faces {face_share}")
 
     walks = int((seg_count + torch.clamp(ov_counts, max=ov_order.shape[-1])).sum().item())
-    bound_ms, bound_by = _raster_bound(packs, got, walks, 128, 8 * 128)
+    bound_ms, bound_by, work = _raster_bound(packs, got, scene, walks, 128)
     res = {"max_abs_err": _max_abs(got, want),
            **_time_kernel(lambda: k2.rasterize_shaded_v4(*packs, **kw),
                           lambda: k2.rasterize_shaded_v4_plain(*packs, **kw)),
@@ -581,7 +647,7 @@ def phase_k3(dev, scene, k2_out):
     emit({"phase": "K3", "entries": rows.shape[-1], "id_bits": bits, "chunk_walks": walks,
           "overflow_lists": int(ov_counts.sum().item()), "nov": ov_order.shape[-1],
           "k2_active_pairs": int(k2_out[1].sum().item()), "tie_share_vs_k2": tie_share,
-          "winner_face_share_vs_k2": face_share, "bit_identical": True, **res})
+          "winner_face_share_vs_k2": face_share, "bit_identical": True, **work, **res})
     return res
 
 
@@ -600,17 +666,22 @@ def phase_k4(dev, scene):
     fg = (want != k2.INT32_MAX).float().mean().item()
     require(fg > 0.05, f"K4 scene covers {fg} of the pixels")
     pairs = int(active.sum().item())
-    bound_ms, bound_by = _raster_bound((rows, active), got, pairs, fc, 8 * 128)
+    bound_ms, bound_by, work = _raster_bound((rows, active), got, scene, pairs, fc)
     res = {"max_abs_err": _max_abs(got, want),
            **_time_kernel(lambda: k2.rasterize_packed(rows, active, **kw),
                           lambda: k2.rasterize_packed_plain(rows, active, **kw)),
            "library_ms": None, "bound_ms": bound_ms, "bound_by": bound_by}
+    survivors = {}
+    if hasattr(k2, "count_survivors"):  # a parent's package may predate the rejection
+        kept, tested = k2.count_survivors(rows, active, IMG, IMG, 8, 128, fc, True)
+        survivors = {"warp_face_pairs_tested": tested, "warp_face_pairs_kept": kept,
+                     "kept_share": kept / tested}
     emit({"phase": "K4", "fc": fc, "active_pairs": pairs, "active_pairs_max": active.numel(),
-          "fg_share": fg, "bit_identical": True, **res})
+          "fg_share": fg, "bit_identical": True, **survivors, **work, **res})
     return res
 
 
-def phase_k56(dev, k2_out):
+def phase_k56(dev, scene, k2_out):
     """The v1/v2 kernel on K2's packs (fc 128): bit-identical to its plain
     version, and its maps equal K2's."""
     from scflow_tpu_torch.ops import raster_pack as pk
@@ -625,19 +696,22 @@ def phase_k56(dev, k2_out):
         torch.cuda.synchronize()
         require(torch.equal(got, want), f"K{4 + version} bit-identical")
         require(torch.equal(got, v3), f"K{4 + version} maps equal K2's")
-        bound_ms, bound_by = _raster_bound((rows, active), got, int(active.sum().item()), 128,
-                                           8 * 128)
+        bound_ms, bound_by, work = _raster_bound((rows, active), got, scene,
+                                                 int(active.sum().item()), 128)
+
+        def kernel(version=version):
+            return k2.rasterize_shaded(rows, active, IMG, IMG, **kw, version=version)
+
         out[version] = {
-            "max_abs_err": _max_abs(got, want),
-            "ms": median_ms(lambda: k2.rasterize_shaded(rows, active, IMG, IMG, **kw,
-                                                        version=version), 20),
-            "library_ms": None, "bound_ms": bound_ms, "bound_by": bound_by}
+            "max_abs_err": _max_abs(got, want), "ms": median_ms(kernel, 20),
+            "device_ms": device_ms(kernel, 20), "library_ms": None, "bound_ms": bound_ms,
+            "bound_by": bound_by}
     plain_ms = median_ms(lambda: k2.rasterize_shaded_plain(rows, active, IMG, IMG, **kw), 1,
                          groups=3)
     for version in (1, 2):
         out[version]["plain_ms"] = plain_ms
         emit({"phase": f"K{4 + version}", "version": version, "bit_identical": True,
-              "equal_to_k2": True, **out[version]})
+              "equal_to_k2": True, **work, **out[version]})
     return out
 
 
@@ -754,7 +828,50 @@ def phase_slice(smi):
           "ms_per_call": 1e3 * dt / calls, "refinements_per_s": BATCH * calls / dt,
           "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9, "card": smi})
     phase_profile(infer, model, assets, batch, smi)
+    phase_tf32(model, assets, batch, smi)
     return launches
+
+
+def phase_tf32(model, assets, batch, smi):
+    """The model's forward (encoders and decoder, on one render) with cuDNN
+    TF32 off and on (PyTorch's default), timed by CUDA events in turns
+    (off, on, on, off), and the difference of the final poses: what a user
+    would get from the global default, which make_scflow_infer_fn no longer
+    follows.  The phase sets the flag around its own calls only."""
+    from scflow_tpu_torch.refiners.system import render_and_normalize
+
+    b = {k: torch.as_tensor(v, device=assets.verts.device) for k, v in batch.items()}
+    saved = torch.backends.cudnn.allow_tf32
+    ms, poses = {False: [], True: []}, {}
+    try:
+        with torch.inference_mode():
+            images, depths, _ = render_and_normalize(
+                assets, b["ref_rotations"], b["ref_translations"], b["k"], b["labels"],
+                (IMG, IMG), backend="auto", cull_backfaces=True)
+
+            def forward():
+                return model(images, b["real_images"], b["ref_rotations"], b["ref_translations"],
+                             depths, b["k"], b["labels"], output_sequences=False,
+                             pose_only=True, lookup_backend="auto")
+
+            for tf32 in (False, True, True, False):
+                torch.backends.cudnn.allow_tf32 = tf32
+                out = forward()  # warm-up: cuDNN plans for this setting
+                ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+                ev[0].record()
+                for _ in range(3):
+                    out = forward()
+                ev[1].record()
+                torch.cuda.synchronize()
+                ms[tf32].append(ev[0].elapsed_time(ev[1]) / 3)
+                poses[tf32] = (out["rotations"][-1], out["translations"][-1])
+    finally:
+        torch.backends.cudnn.allow_tf32 = saved
+    d_rot = (poses[True][0] - poses[False][0]).abs().max().item()
+    d_t = (poses[True][1] - poses[False][1]).abs().max().item()
+    require(math.isfinite(d_rot) and math.isfinite(d_t), "TF32 poses finite")
+    emit({"phase": "tf32", "forward_ms_tf32_off": ms[False], "forward_ms_tf32_on": ms[True],
+          "rot_max_abs_diff": d_rot, "trans_max_abs_diff": d_t, "card": smi})
 
 
 def phase_profile(infer, model, assets, batch, smi):
@@ -1150,6 +1267,8 @@ def main() -> int:
     parser.add_argument("--lookup-only", action="store_true",
                         help="run only the device, build and lookup phases (K1, K7, K8, "
                              "K1b)")
+    parser.add_argument("--raster-only", action="store_true",
+                        help="run only the device, build and raster kernel phases (K2-K6)")
     parser.add_argument("--root", type=Path, default=Path(__file__).resolve().parent,
                         help="the checkout whose scflow_tpu_torch to build and run "
                              "(default: this script's), e.g. an unpacked parent commit")
@@ -1172,12 +1291,20 @@ def main() -> int:
                                      "count": torch.cuda.device_count()}})
         return 0
     scene = _flagship_scene(dev)
+    if args.raster_only:
+        _, k2_out = phase_k2(dev, scene)
+        phase_k3(dev, scene, k2_out)
+        phase_k4(dev, scene)
+        phase_k56(dev, scene, k2_out)
+        emit({"ok": True, "device": {"platform": "gpu", "kind": name,
+                                     "count": torch.cuda.device_count()}})
+        return 0
     res = phase_lookup(dev, ptxas)
     res["K1b"] = phase_k1b(dev, ptxas)
     res["K2"], k2_out = phase_k2(dev, scene)
     res["K3"] = phase_k3(dev, scene, k2_out)
     res["K4"] = phase_k4(dev, scene)
-    k56 = phase_k56(dev, k2_out)
+    k56 = phase_k56(dev, scene, k2_out)
     res["K5"], res["K6"] = k56[1], k56[2]
     del k2_out
     launches = phase_slice(smi)

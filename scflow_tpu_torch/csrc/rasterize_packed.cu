@@ -14,17 +14,26 @@
 // crop allows and th = H or tw = W where it does not (a 192^2 crop tiles as
 // 24 tiles of 8 x 192, a 100^2 crop is one 100 x 100 tile).
 //
-// Bound on an H100 SXM: the arithmetic, 14 fp32 operations per face-pixel
-// of every active (tile, chunk) pair, against the output's 4 bytes per
-// pixel.  chip_smoke.py counts both from its scene.
+// Bound on an H100 SXM: the bytes.  The work these inputs need is 14 fp32
+// operations per (face, pixel) pair with the pixel inside the face's
+// bounding box, a few MFLOP at the flagship scene, against the rows, the
+// chunk flags and the 4-byte keys: about 21 MB, 0.006 ms at 3.35 TB/s.
+// chip_smoke.py counts both from its scene.
 //
-// Design: blockIdx.y is the tile, blockIdx.z the image, and blockIdx.x
-// one of the ceil(th*tw / 1024) blocks that split the tile's pixels, 256
-// threads with 4 pixels each and their keys in registers.  Each block
-// walks every chunk of its tile and skips the inactive ones (in place of
-// the TPU kernel's lax.cond), staging a chunk 128 faces at a time (11 rows,
-// 5.5 KB of shared memory, whatever fc is) and testing the valid row as the
-// TPU kernel does.  The keys are written once at the end.
+// Design: blockIdx.y is the tile, blockIdx.z the image, and blockIdx.x one
+// of the 8 x 128 pieces that split the tile, 256 threads with 4
+// neighbouring pixels each and their keys in registers, each warp on an
+// 8 x 16 rectangle (padding pixels of a piece that overhangs its tile are
+// left out of the rectangle and never written).  Each block walks every
+// chunk of its tile and skips the inactive ones (in place of the TPU
+// kernel's lax.cond), staging up to 512 faces of a chunk at once (11 rows,
+// 22.5 KB of shared memory: one piece and two barriers for rasterize()'s
+// fc = 512, where the brute-force design took four).  Each warp rejects the
+// faces that are invalid or cannot cover its rectangle and runs the
+// per-pixel test on the rest (raster_common.cuh): 1.1% of the (warp, face)
+// pairs at the flagship scene, so the rejection itself now takes most of
+// the time.  The keys are written once at the end, 16 bytes per thread
+// where the pixels allow.
 
 #include "raster_common.cuh"
 
@@ -38,25 +47,24 @@ raster_packed_kernel(const float* __restrict__ rows, const int* __restrict__ act
   const int tile = blockIdx.y, n = blockIdx.z, T = gridDim.y, NC = F / fc;
   const float* rn = rows + (size_t)n * ROWS_IN * F;
   const int* act = active + ((size_t)n * T + tile) * NC;
-  __shared__ float coef[COEF_ROWS][RC_PIECE];
+  __shared__ __align__(16) float coef[COEF_ROWS][RC_STAGE];
 
-  float px[RC_PPT], py[RC_PPT];
-  int x[RC_PPT], y[RC_PPT], best[RC_PPT];
-  bool in[RC_PPT];
-  rc_tile_pixels(tile, W / tw, th, tw, px, py, x, y, in);
+  const RcPixels p = rc_tile_pixels(tile, W / tw, th, tw);
+  const RcRect rect = rc_warp_rect(p);
+  int best[RC_PPT];
 #pragma unroll
   for (int k = 0; k < RC_PPT; ++k) best[k] = INT_MAX;
 
   for (int c = 0; c < NC; ++c) {
     if (act[c] == 0) continue;  // the same for every thread of the block
-    for (int f0 = c * fc; f0 < (c + 1) * fc; f0 += RC_PIECE)
-      rc_test_piece<COEF_ROWS>(coef, rn, F, f0, px, py, best, id_mask);
+    for (int f0 = c * fc; f0 < (c + 1) * fc; f0 += RC_STAGE)
+      rc_test_faces<COEF_ROWS, RC_STAGE>(coef, rn, F, f0,
+                                               min(RC_STAGE, (c + 1) * fc - f0), rect, p, best,
+                                               id_mask);
   }
 
-  int* on = out + (size_t)n * H * W;
-#pragma unroll
-  for (int k = 0; k < RC_PPT; ++k)
-    if (in[k]) on[(size_t)y[k] * W + x[k]] = best[k];
+  int* o = out + (size_t)n * H * W + (size_t)p.y * W + p.x;
+  rc_store4<int, int4>(o, best, rc_vec_ok(o, 0, p), p.in);
 }
 
 extern "C" int raster_packed_launch(const float* rows, const int* active, int* out, int N,

@@ -17,14 +17,18 @@
 // (N, 16, H, W) maps, as K2's (keys, maps and rounding:
 // csrc/raster_common.cuh).  Tiles are th x tw pixels of any shape.
 //
-// Bound on an H100 SXM: the arithmetic, 14 fp32 operations per face-pixel
-// of every active (tile, chunk) pair, against the 64 bytes per pixel of
-// output; at fc = 128 the active pairs are K2's.
+// Bound on an H100 SXM: the bytes, as K2's (the rows, the chunk flags and
+// 64 bytes per pixel of output); the work these inputs need, 14 fp32
+// operations per (face, pixel) pair inside the face's bounding box, is a
+// few MFLOP.
 //
-// Design: K4's (one block per 1024 pixels of a tile, every chunk tested
-// against active, chunks staged 128 faces at a time with the valid row),
-// then K2's epilogue: each thread copies its winner's record from global
-// memory and writes the 16 maps.
+// Design: K4's (one block per 8 x 128 piece of a tile, every chunk tested
+// against active, up to 512 faces staged at once with the valid row, each
+// warp testing per pixel only the faces that can cover its 8 x 16
+// rectangle: raster_common.cuh), then K2's epilogue: each thread copies its
+// winners' records from global memory and writes the 16 maps, 16 bytes per
+// store where the pixels allow.  The per-chunk flags are read as they were:
+// their redesign is open (ROADMAP).
 
 #include "raster_common.cuh"
 
@@ -38,27 +42,25 @@ raster_v12_kernel(const float* __restrict__ rows, const int* __restrict__ active
   const int tile = blockIdx.y, n = blockIdx.z, T = gridDim.y, NC = F / fc;
   const float* rn = rows + (size_t)n * ROWS_IN * F;
   const int* act = active + ((size_t)n * T + tile) * NC;
-  __shared__ float coef[COEF_ROWS][RC_PIECE];
+  __shared__ __align__(16) float coef[COEF_ROWS][RC_STAGE];
 
-  float px[RC_PPT], py[RC_PPT];
-  int x[RC_PPT], y[RC_PPT], best[RC_PPT];
-  bool in[RC_PPT];
-  rc_tile_pixels(tile, W / tw, th, tw, px, py, x, y, in);
+  const RcPixels p = rc_tile_pixels(tile, W / tw, th, tw);
+  const RcRect rect = rc_warp_rect(p);
+  int best[RC_PPT];
 #pragma unroll
   for (int k = 0; k < RC_PPT; ++k) best[k] = INT_MAX;
 
   for (int c = 0; c < NC; ++c) {
     if (act[c] == 0) continue;  // the same for every thread of the block
-    for (int f0 = c * fc; f0 < (c + 1) * fc; f0 += RC_PIECE)
-      rc_test_piece<COEF_ROWS>(coef, rn, F, f0, px, py, best, id_mask);
+    for (int f0 = c * fc; f0 < (c + 1) * fc; f0 += RC_STAGE)
+      rc_test_faces<COEF_ROWS, RC_STAGE>(coef, rn, F, f0,
+                                               min(RC_STAGE, (c + 1) * fc - f0), rect, p, best,
+                                               id_mask);
   }
 
   const size_t plane = (size_t)H * W;
-  float* on = out + (size_t)n * 16 * plane;
-#pragma unroll
-  for (int k = 0; k < RC_PPT; ++k)
-    if (in[k])
-      rc_emit_maps(rn, F, best[k], id_mask, px[k], py[k], on + (size_t)y[k] * W + x[k], plane);
+  float* o = out + (size_t)n * 16 * plane + (size_t)p.y * W + p.x;
+  rc_emit_maps(rn, F, best, id_mask, p, o, plane, rc_vec_ok(o, plane, p));
 }
 
 extern "C" int raster_v12_launch(const float* rows, const int* active, float* out, int N,

@@ -17,15 +17,18 @@
 // chunks are walked in; a chunk listed in both the range and the overflow
 // list is tested twice to the same effect.
 //
-// Bound on an H100 SXM: the arithmetic, 14 fp32 operations per entry-pixel
-// of every chunk a tile walks, against the 64 bytes per pixel of output;
-// chip_smoke.py counts the (tile, chunk) pairs of its scene.
+// Bound on an H100 SXM: the bytes, the entry rows, the tile lists and the
+// 64 bytes per pixel of output; the work these inputs need, 14 fp32
+// operations per (face, pixel) pair inside the face's bounding box, is a
+// few MFLOP (chip_smoke.py counts both, and the (tile, chunk) pairs walked).
 //
-// Design: K5/K6's blocks (1024 pixels of one tile each, chunks staged 128
-// entries at a time), with the tile's range and overflow list read from
-// global memory by each block in place of the TPU's scalar prefetch; a
-// chunk id outside [0, E/fc) is skipped.  The valid row is not read: dead
-// entries carry w0 == -1.
+// Design: K5/K6's blocks (an 8 x 128 piece of one tile each, a chunk staged
+// at once, each warp testing per pixel only the entries that can cover its
+// 8 x 16 rectangle: raster_common.cuh), with the tile's range and overflow
+// list read from global memory by each block in place of the TPU's scalar
+// prefetch; a chunk id outside [0, E/fc) is skipped.  The valid row is not
+// read: dead entries carry w0 == -1 and are rejected.  The overflow walk is
+// as it was: its redesign is open (ROADMAP).
 
 #include "raster_common.cuh"
 
@@ -40,35 +43,35 @@ raster_v4_kernel(const float* __restrict__ rows, const int* __restrict__ seg_sta
   const int tile = blockIdx.y, n = blockIdx.z, T = gridDim.y, NC = F / fc;
   const size_t t = (size_t)n * T + tile;
   const float* rn = rows + (size_t)n * ROWS_IN * F;
-  __shared__ float coef[COEF_ROWS][RC_PIECE];
+  __shared__ __align__(16) float coef[COEF_ROWS][RC_STAGE];
 
-  float px[RC_PPT], py[RC_PPT];
-  int x[RC_PPT], y[RC_PPT], best[RC_PPT];
-  bool in[RC_PPT];
-  rc_tile_pixels(tile, W / tw, th, tw, px, py, x, y, in);
+  const RcPixels p = rc_tile_pixels(tile, W / tw, th, tw);
+  const RcRect rect = rc_warp_rect(p);
+  int best[RC_PPT];
 #pragma unroll
   for (int k = 0; k < RC_PPT; ++k) best[k] = INT_MAX;
 
   const int s0 = seg_start[t], sc = seg_count[t];
   for (int c = s0; c < s0 + sc; ++c) {
     if (c < 0 || c >= NC) continue;
-    for (int f0 = c * fc; f0 < (c + 1) * fc; f0 += RC_PIECE)
-      rc_test_piece<COEF_ROWS>(coef, rn, F, f0, px, py, best, id_mask);
+    for (int f0 = c * fc; f0 < (c + 1) * fc; f0 += RC_STAGE)
+      rc_test_faces<COEF_ROWS, RC_STAGE>(coef, rn, F, f0,
+                                               min(RC_STAGE, (c + 1) * fc - f0), rect, p, best,
+                                               id_mask);
   }
   const int m = min(ov_counts[t], nov);
   for (int i = 0; i < m; ++i) {
     const int c = ov_order[t * nov + i];
     if (c < 0 || c >= NC) continue;
-    for (int f0 = c * fc; f0 < (c + 1) * fc; f0 += RC_PIECE)
-      rc_test_piece<COEF_ROWS>(coef, rn, F, f0, px, py, best, id_mask);
+    for (int f0 = c * fc; f0 < (c + 1) * fc; f0 += RC_STAGE)
+      rc_test_faces<COEF_ROWS, RC_STAGE>(coef, rn, F, f0,
+                                               min(RC_STAGE, (c + 1) * fc - f0), rect, p, best,
+                                               id_mask);
   }
 
   const size_t plane = (size_t)H * W;
-  float* on = out + (size_t)n * 16 * plane;
-#pragma unroll
-  for (int k = 0; k < RC_PPT; ++k)
-    if (in[k])
-      rc_emit_maps(rn, F, best[k], id_mask, px[k], py[k], on + (size_t)y[k] * W + x[k], plane);
+  float* o = out + (size_t)n * 16 * plane + (size_t)p.y * W + p.x;
+  rc_emit_maps(rn, F, best, id_mask, p, o, plane, rc_vec_ok(o, plane, p));
 }
 
 extern "C" int raster_v4_launch(const float* rows, const int* seg_start, const int* seg_count,

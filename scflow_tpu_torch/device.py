@@ -1,5 +1,6 @@
-"""Device resolution shared by every entry point."""
+"""Device resolution and float32 precision shared by every entry point."""
 
+import contextlib
 from typing import Optional, Union
 
 import torch
@@ -34,3 +35,20 @@ def resolve_backend(name: str, device: torch.device) -> str:
     if name == "auto":
         return "pallas" if torch.device(device).type == "cuda" else "xla"
     return name
+
+
+@contextlib.contextmanager
+def full_fp32():
+    """Run float32 convolutions and matmuls in full float32, whatever the
+    caller's global flags: PyTorch lets cuDNN use TF32 by default
+    (torch.backends.cudnn.allow_tf32 is True), which keeps about three
+    decimal digits.  Both flags are restored on exit.
+    torch.backends.cudnn.flags(allow_tf32=False) is no substitute: its other
+    arguments default to enabled=False, which turns cuDNN off."""
+    saved = (torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32)
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        yield
+    finally:
+        torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = saved

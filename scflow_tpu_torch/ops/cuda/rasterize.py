@@ -12,6 +12,12 @@ Each wrapper runs its plain version (`*_plain`) for CPU tensors; for CUDA
 tensors it checks its inputs and launches the kernel, or raises.  The plain
 versions repeat the kernels' arithmetic operation for operation, so on the
 card kernel and plain version agree bit for bit.
+
+The kernels skip, per warp, the faces that cannot cover any of its pixels
+(csrc/raster_common.cuh); `rect_keeps` mirrors that rejection, with the same
+formula and constants, for the tests and for chip_smoke.py's count of the
+surviving (warp, face) pairs (`count_survivors`).  Nothing on the main path
+uses the mirror: the plain versions test every face.
 """
 
 import ctypes
@@ -22,11 +28,18 @@ from scflow_tpu_torch.ops.cuda.build import CudaKernel
 
 INT32_MAX = 2**31 - 1
 TH, TW, FC = 8, 128, 128  # K2's tile and face chunk, compiled into its kernel
-PIECE = 128  # faces a kernel stages at once; every fc is a multiple of it
+PIECE = 128  # every fc is a multiple of it
+# a block covers an 8 x 128 piece of its tile, a warp 8 x 16 pixels of it
+BLOCK_H, BLOCK_W, WARP_W = 8, 128, 16
+# the rejection's relative margin, absolute margin and cap (raster_common.cuh)
+REJECT_REL, REJECT_ABS, REJECT_CAP = 2.0**-18, 2.0**-100, 2.0**100
 _P, _I = ctypes.c_void_p, ctypes.c_int
 
 # K2
 V3_KERNEL = CudaKernel("rasterize_v3.cu", "raster_v3_launch", [_P] * 3 + [_I] * 6)
+# K2 in parts (chip_smoke.py's split of its time); counted apart from K2
+V3_PROBE = CudaKernel("rasterize_v3.cu", "raster_v3_probe_launch", [_P] * 5 + [_I] * 7)
+PROBE_MODES = {"test": 1, "emit": 2}
 # K3
 V4_KERNEL = CudaKernel("rasterize_v4.cu", "raster_v4_launch", [_P] * 6 + [_I] * 9)
 # K4
@@ -34,6 +47,82 @@ PACKED_KERNEL = CudaKernel("rasterize_packed.cu", "raster_packed_launch", [_P] *
 # K5 and K6: one kernel, one launch count per version
 V12_KERNELS = {v: CudaKernel("rasterize_v12.cu", "raster_v12_launch", [_P] * 3 + [_I] * 9)
                for v in (1, 2)}
+
+
+def _rect_max(a, b, c, x0, x1, y0, y1):
+    """The largest value of a px + b py + c over the rectangle: at the
+    corner the coefficients' signs pick (NaN for a NaN coefficient)."""
+    return a * torch.where(a > 0, x1, x0) + b * torch.where(b > 0, y1, y0) + c
+
+
+def rect_keeps(coef, x0, x1, y0, y1):
+    """The kernels' per-warp rejection (raster_common.cuh, rc_rect_keeps),
+    operation for operation in float64.  coef (6, ...) float32: rows 0-5 of
+    the packed faces (w0 = a0 px + b0 py + c0, w1 likewise); x0, x1, y0, y1
+    float64, broadcasting against coef[0]: a rectangle of pixel centres
+    (inclusive).  False where one of w0, w1 and w2 = 1 - w0 - w1 stays below
+    minus its margin over the whole rectangle, so that the float32
+    per-pixel test cannot let the face cover any of its pixels: the margin
+    is REJECT_REL of |a| max|x| + |b| max|y| + |c| (for w2, of the sum of
+    w0's and w1's plus 1) plus REJECT_ABS, and a function whose sum reaches
+    REJECT_CAP, or is NaN, rejects nothing.  Invalid faces (w0 == -1) are
+    always rejected."""
+    a0, b0, c0, a1, b1, c1 = (coef[i].double() for i in range(6))
+    ax = torch.maximum(x0.abs(), x1.abs())
+    ay = torch.maximum(y0.abs(), y1.abs())
+    s0 = a0.abs() * ax + b0.abs() * ay + c0.abs()
+    s1 = a1.abs() * ax + b1.abs() * ay + c1.abs()
+    s2 = (s0 + s1) + 1.0
+    m0 = _rect_max(a0, b0, c0, x0, x1, y0, y1)
+    m1 = _rect_max(a1, b1, c1, x0, x1, y0, y1)
+    m2 = _rect_max(-(a0 + a1), -(b0 + b1), (1.0 - c0) - c1, x0, x1, y0, y1)
+    out = torch.zeros(m0.shape, dtype=torch.bool, device=m0.device)
+    for sv, m in ((s0, m0), (s1, m1), (s2, m2)):
+        out |= (sv < REJECT_CAP) & (m < -(REJECT_REL * sv + REJECT_ABS))
+    return ~out
+
+
+def warp_rects(h: int, w: int, th: int, tw: int, dev=None):
+    """The kernels' warp rectangles of an h x w crop tiled th x tw: x0, x1,
+    y0, y1, each (tiles, slots) int64, slot s of a tile being warp s % 8 of
+    its 8 x 128 piece s // 8 (row-major).  A rectangle bounds the warp's
+    pixels inside the tile; a slot with none has x0 > x1."""
+    ys, xs = torch.meshgrid(torch.arange(h, device=dev), torch.arange(w, device=dev),
+                            indexing="ij")
+    bxn = -(-tw // BLOCK_W)
+    slots = -(-th // BLOCK_H) * bxn * (BLOCK_W // WARP_W)
+    ly, lx = ys % th, xs % tw
+    slot = (((ly // BLOCK_H) * bxn + lx // BLOCK_W) * (BLOCK_W // WARP_W)
+            + (lx % BLOCK_W) // WARP_W)
+    idx = (((ys // th) * (w // tw) + xs // tw) * slots + slot).reshape(-1)
+    size = (h // th) * (w // tw) * slots
+    big = torch.full((size,), INT32_MAX, dtype=torch.int64, device=dev)
+    lo = [big.scatter_reduce(0, idx, v.reshape(-1), "amin") for v in (xs, ys)]
+    hi = [(-big).scatter_reduce(0, idx, v.reshape(-1), "amax") for v in (xs, ys)]
+    return tuple(v.reshape(-1, slots) for v in (lo[0], hi[0], lo[1], hi[1]))
+
+
+def count_survivors(rows, active, h: int, w: int, th: int, tw: int, fc: int,
+                    use_valid: bool):
+    """(kept, tested): over every active (tile, chunk) pair, the (warp,
+    face) pairs a kernel tests against its warps' rectangles (the warps
+    with pixels times fc) and those that survive, valid where use_valid,
+    and kept by rect_keeps.  K2's probe counts the same on the card."""
+    x0, x1, y0, y1 = (v.double() for v in warp_rects(h, w, th, tw, rows.device))
+    has = x0 <= x1
+    act = active.reshape(rows.shape[0], -1, active.shape[-1])
+    kept = tested = 0
+    for i in range(rows.shape[0]):
+        t, c = act[i].nonzero(as_tuple=True)
+        faces = (c[:, None] * fc + torch.arange(fc, device=rows.device)).reshape(-1)
+        coef = rows[i, :11, faces].reshape(11, -1, 1, fc)  # (11, pairs, 1, fc)
+        keep = rect_keeps(coef[:6], *(v[t][:, :, None] for v in (x0, x1, y0, y1)))
+        keep &= has[t][:, :, None]
+        if use_valid:
+            keep &= coef[10] > 0.5
+        kept += int(keep.sum())
+        tested += int(has[t].sum()) * fc
+    return kept, tested
 
 
 def _pixel_grid(h: int, w: int, th: int, tw: int, dev):
@@ -190,6 +279,33 @@ def rasterize_shaded_v3(rows: torch.Tensor, active: torch.Tensor, h: int, w: int
     V3_KERNEL.launch(rows.device, rows.data_ptr(), active.data_ptr(), out.data_ptr(),
                      n, f, h, w, f // FC, (1 << id_bits) - 1)
     return out
+
+
+def rasterize_shaded_v3_probe(rows: torch.Tensor, active: torch.Tensor, h: int, w: int,
+                              id_bits: int, mode: str, keys: torch.Tensor = None):
+    """K2 in parts, for chip_smoke.py's split of its time; CUDA tensors only,
+    launches counted on V3_PROBE.  mode 'test' (the test loop alone) ->
+    (keys (N, H, W) int32, the surviving (warp, face) pairs as an int64
+    tensor of one element); 'emit' -> K2's maps from the given keys (16-byte
+    aligned)."""
+    if mode not in PROBE_MODES:
+        raise ValueError(f"rasterize_shaded_v3_probe: mode must be one of {list(PROBE_MODES)}")
+    n, f = rows.shape[0], rows.shape[-1]
+    ints = {"active": (active, (n, h // TH, w // TW, f // FC))}
+    if mode == "emit":
+        ints["keys"] = (keys, (n, h, w))
+    _check("rasterize_shaded_v3_probe", rows, 32, ints, h, w, TH, TW, FC, id_bits)
+    if mode == "emit" and keys.data_ptr() % 16:
+        raise ValueError("rasterize_shaded_v3_probe: keys must be 16-byte aligned")
+    kept = torch.zeros(1, dtype=torch.int64, device=rows.device)
+    if mode == "emit":
+        out = torch.empty((n, 16, h, w), dtype=torch.float32, device=rows.device)
+    else:
+        out, keys = None, torch.empty((n, h, w), dtype=torch.int32, device=rows.device)
+    V3_PROBE.launch(rows.device, rows.data_ptr(), active.data_ptr(),
+                    0 if out is None else out.data_ptr(), keys.data_ptr(), kept.data_ptr(),
+                    n, f, h, w, f // FC, (1 << id_bits) - 1, PROBE_MODES[mode])
+    return (keys, kept) if out is None else out
 
 
 def rasterize_shaded(rows: torch.Tensor, active: torch.Tensor, h: int, w: int,

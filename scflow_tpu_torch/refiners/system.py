@@ -13,7 +13,7 @@ from typing import Any, Dict, NamedTuple, Optional, Tuple
 import numpy as np
 import torch
 
-from scflow_tpu_torch.device import resolve_backend, resolve_device
+from scflow_tpu_torch.device import full_fp32, resolve_backend, resolve_device
 from scflow_tpu_torch.geometry import filter_flow_by_mask, flow_from_pose_and_depth
 from scflow_tpu_torch.losses.basic import l1_loss, raft_loss
 from scflow_tpu_torch.losses.point_matching import (disentangle_point_matching_loss,
@@ -70,12 +70,16 @@ def loss_assets_from_bank(bank, symmetry_types: dict, mesh_diameter=None,
 
 
 def render_and_normalize(render_assets: RenderAssets, ref_rotations, ref_translations,
-                         k, labels, image_size: Tuple[int, int], chunk: int = 64,
-                         backend: str = "xla", cull_backfaces: bool = False,
-                         norm_mean=NORM_MEAN, norm_std=NORM_STD):
+                         k, labels, image_size: Tuple[int, int], norm_mean=NORM_MEAN,
+                         norm_std=NORM_STD, chunk: int = 64, backend: str = "xla",
+                         augment_fn=None, augment_key=None, cull_backfaces: bool = False):
     """Render at the reference pose and normalize as the data pipeline does
     ((image - mean/255) / (std/255) on [0, 1] images).  Returns (images
-    (N, H, W, 3), depths (N, H, W), masks (N, H, W))."""
+    (N, H, W, 3), depths (N, H, W), masks (N, H, W)).  The arguments come in
+    the JAX function's order; render augmentations (augment_fn, augment_key)
+    are not ported and raise."""
+    if augment_fn is not None or augment_key is not None:
+        raise NotImplementedError("render augmentations are not ported")
     h, w = image_size
     out = render_batch(*render_assets, ref_rotations, ref_translations, k, labels,
                        h, w, chunk=chunk, backend=backend, cull_backfaces=cull_backfaces)
@@ -192,7 +196,9 @@ def make_scflow_train_step(
     in place and returns it; donate=False leaves the given state as it was
     and returns an updated copy.  Render augmentations are not ported
     (the shipped configuration has none), so augment_seed, their seed in
-    the JAX signature, has nothing to seed."""
+    the JAX signature, has nothing to seed.  The step computes in full
+    float32 (device.full_fp32), whatever the global TF32 flags, and leaves
+    them as it found them."""
     if render_augmentations is not None:
         raise NotImplementedError("render augmentations are not ported")
     dev = resolve_device(device)
@@ -205,14 +211,18 @@ def make_scflow_train_step(
     loss_kwargs = dict(loss_kwargs or {})
 
     def step(state: TrainState, batch: Dict) -> Tuple[TrainState, Dict[str, torch.Tensor]]:
+        with full_fp32():
+            return _step(state, batch)
+
+    def _step(state: TrainState, batch: Dict) -> Tuple[TrainState, Dict[str, torch.Tensor]]:
         if not donate:
             state = copy.deepcopy(state)
         b = {k: torch.as_tensor(batch[k], dtype=dt, device=dev) for k, dt in _TRAIN_KEYS.items()}
         with torch.no_grad():
             rendered, depths, masks = render_and_normalize(
                 render_assets, b["ref_rotations"], b["ref_translations"], b["k"], b["labels"],
-                image_size, chunk=render_chunk, backend=render_backend,
-                cull_backfaces=render_cull_backfaces, norm_mean=norm_mean, norm_std=norm_std)
+                image_size, norm_mean, norm_std, chunk=render_chunk, backend=render_backend,
+                cull_backfaces=render_cull_backfaces)
             gt_flow = flow_from_pose_and_depth(
                 b["ref_rotations"], b["ref_translations"], b["gt_rotations"],
                 b["gt_translations"], depths, b["k"], invalid_num=max_flow)
@@ -248,7 +258,9 @@ def make_scflow_infer_fn(model, render_assets: RenderAssets,
     through the kernels on a card and the brute-force path on the CPU
     (device.resolve_backend); lookup_backend likewise picks the corr
     lookup's kernels or its tensor form, and lookup_variant the kernel
-    ('tent' K1, 'shift' K7, 'bdiag' K8; ops/corr.py::corr_lookup)."""
+    ('tent' K1, 'shift' K7, 'bdiag' K8; ops/corr.py::corr_lookup).  A call
+    computes in full float32 (device.full_fp32), whatever the global TF32
+    flags, and leaves them as it found them."""
     dev = resolve_device(device)
     resolve_backend(render_backend, dev)  # an unknown name raises here
     _check_lookup(lookup_backend, lookup_variant, dev)
@@ -261,7 +273,7 @@ def make_scflow_infer_fn(model, render_assets: RenderAssets,
         return torch.as_tensor(x, dtype=dtype, device=dev)
 
     def infer(batch: Dict) -> Dict[str, torch.Tensor]:
-        with torch.inference_mode():
+        with torch.inference_mode(), full_fp32():
             R = as_tensor(batch["ref_rotations"], torch.float32)
             t = as_tensor(batch["ref_translations"], torch.float32)
             K = as_tensor(batch["k"], torch.float32)

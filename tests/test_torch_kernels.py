@@ -17,7 +17,7 @@ from scflow_tpu_torch.ops.cuda import rasterize as k2
 from scflow_tpu_torch.render.meshbank import make_synthetic_bank
 from scflow_tpu_torch.render.rasterizer import gather_corner_attrs, gather_tri, project_to_screen
 
-from torch_port_helpers import keep_torch_rng  # noqa: F401
+from torch_port_helpers import adversarial_raster_corners, keep_torch_rng  # noqa: F401
 
 
 @pytest.fixture
@@ -565,6 +565,103 @@ def test_v4_kernel_matches_plain_bit_for_bit(dup, cuda):
     want = k2.rasterize_shaded_v4_plain(*packs, **kw)
     assert want[:, 1].mean() > 0.1
     assert torch.equal(got, want)
+
+
+# (kernel, crop, tiles th x tw, chunk fc, culling): every raster kernel on
+# the adversarial scene, at K2's 8x128 tiles, at fc 512, on 8x192 tiles (a
+# 192^2 crop) and on one 100x100 tile, where blocks overhang their tile, and
+# the tile-generic kernels on one 5x5 and one 99x99 tile, where H*W is odd
+# and the maps' channel planes are not 16-byte aligned
+ADVERSARIAL_CASES = [
+    ("K2", 128, 8, 128, 128, False), ("K2", 256, 8, 128, 128, True),
+    ("K3", 128, 8, 128, 128, False), ("K3", 256, 8, 128, 128, True),
+    ("K4", 128, 8, 128, 512, False), ("K4", 192, 8, 192, 128, True),
+    ("K4", 100, 100, 100, 128, False),
+    ("K5", 128, 8, 128, 512, True), ("K5", 100, 100, 100, 128, False),
+    ("K6", 192, 8, 192, 128, False), ("K6", 256, 8, 128, 128, True),
+    ("K3", 5, 5, 5, 128, False), ("K3", 99, 99, 99, 128, True),
+    ("K4", 5, 5, 5, 128, True), ("K4", 99, 99, 99, 128, False),
+    ("K5", 5, 5, 5, 128, True), ("K5", 99, 99, 99, 128, False),
+    ("K6", 5, 5, 5, 128, False), ("K6", 99, 99, 99, 128, True),
+]
+
+
+def _misaligned(rows):
+    """A contiguous copy of rows whose data starts 4 bytes past a 16-byte
+    boundary."""
+    buf = torch.empty(rows.numel() + 4, dtype=rows.dtype, device=rows.device)
+    start = next(i for i in range(4) if (buf.data_ptr() + 4 * i) % 16 == 4)
+    out = buf[start:start + rows.numel()].view(rows.shape)
+    out.copy_(rows)
+    return out
+
+
+def _adversarial_case(kernel, img, th, tw, fc, cull, device, misalign=False):
+    """(kernel call, plain call, launch counter) on the adversarial scene;
+    misalign hands the kernel rows that are not 16-byte aligned."""
+    tri_xy, tri_z, fv, corner = (a.to(device) for a in adversarial_raster_corners(img))
+    place = _misaligned if misalign else (lambda t: t)
+    if kernel == "K3":
+        packs = pk.pack_shaded_exact(tri_xy, tri_z, fv, corner, img, img, th, tw, fc,
+                                     cull_backfaces=cull)[:5]
+        packs = (place(packs[0]),) + tuple(packs[1:])
+        kw = dict(h=img, w=img, th=th, tw=tw, fc=fc, id_bits=pk.id_bits_for(packs[0].shape[-1]))
+        return (lambda: k2.rasterize_shaded_v4(*packs, **kw),
+                lambda: k2.rasterize_shaded_v4_plain(*packs, **kw), k2.V4_KERNEL)
+    if kernel == "K4":
+        rows, active, _ = pk.pack_faces_and_bin(tri_xy, tri_z, fv, img, img, th, tw, fc,
+                                                cull_backfaces=cull)
+        rows = place(rows)
+        kw = dict(h=img, w=img, th=th, tw=tw, fc=fc, id_bits=pk.id_bits_for(rows.shape[-1]))
+        return (lambda: k2.rasterize_packed(rows, active, **kw),
+                lambda: k2.rasterize_packed_plain(rows, active, **kw), k2.PACKED_KERNEL)
+    rows, active, _ = pk.pack_shaded_and_bin(tri_xy, tri_z, fv, corner, img, img, th, tw, fc,
+                                             cull_backfaces=cull)
+    rows = place(rows)
+    bits = pk.id_bits_for(rows.shape[-1])
+    if kernel == "K2":
+        return (lambda: k2.rasterize_shaded_v3(rows, active, img, img, bits),
+                lambda: k2.rasterize_shaded_v3_plain(rows, active, img, img, bits),
+                k2.V3_KERNEL)
+    version = int(kernel[1]) - 4
+    return (lambda: k2.rasterize_shaded(rows, active, img, img, th, tw, fc, bits,
+                                        version=version),
+            lambda: k2.rasterize_shaded_plain(rows, active, img, img, th, tw, fc, bits),
+            k2.V12_KERNELS[version])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kernel,img,th,tw,fc,cull", ADVERSARIAL_CASES)
+def test_raster_kernels_on_the_adversarial_scene_bit_for_bit(kernel, img, th, tw, fc, cull,
+                                                             cuda):
+    """K2-K6 skip, per warp, the faces that cannot cover its pixels: on a
+    scene of slivers, edge-on faces, faces on tile and warp borders, huge
+    faces and a face over a whole tile, every key and map still equals the
+    plain version's, which tests every face."""
+    run, plain, counter = _adversarial_case(kernel, img, th, tw, fc, cull, cuda)
+    before = counter.launches
+    got = run()
+    torch.cuda.synchronize()
+    assert counter.launches == before + 1
+    want = plain()
+    assert torch.equal(got, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kernel,img,th,tw,fc,cull", [
+    ("K2", 128, 8, 128, 128, True), ("K3", 99, 99, 99, 128, False),
+    ("K4", 192, 8, 192, 512, True), ("K5", 100, 100, 100, 128, True),
+    ("K6", 128, 8, 128, 128, False)])
+def test_raster_kernels_take_rows_off_16_byte_boundaries(kernel, img, th, tw, fc, cull, cuda):
+    """Contiguous rows that start 4 bytes past a 16-byte boundary are staged
+    with 4-byte loads and give the plain version's keys and maps bit for
+    bit."""
+    run, plain, counter = _adversarial_case(kernel, img, th, tw, fc, cull, cuda, misalign=True)
+    before = counter.launches
+    got = run()
+    torch.cuda.synchronize()
+    assert counter.launches == before + 1
+    assert torch.equal(got, plain())
 
 
 @pytest.mark.cuda

@@ -134,3 +134,55 @@ def scflow_pair_torch_init(num_class: int, img: int, iters: int, seed: int = 0,
     variables = np_tree(convert_state_dict_to_variables(
         {k: v.numpy() for k, v in port.state_dict().items()}, template))
     return fmodel, variables, port.eval()
+
+
+def adversarial_raster_corners(img: int, n: int = 2, seed: int = 0):
+    """Projected corners (N, F, 3, 2), corner depths (N, F, 3), face_valid
+    (N, F) and corner [normal, colour] attributes (N, F, 3, 6) of a scene
+    made to catch a face test that drops or adds a face: edges through
+    pixel centres, slivers and edge-on faces, faces whose corners sit on or
+    next to tile (8 x 128) and warp (8 x 16) borders, one far face covering
+    the whole crop and a near one covering the first 8 x 128 tile, faces
+    with corners near +-1e4, invalid ones (face_valid False, a corner
+    behind the camera, zero area), and both windings.  Float32, CPU."""
+    rng = np.random.default_rng(seed)
+    parts = []
+
+    def add(tri):
+        parts.append(np.asarray(tri, np.float64).reshape(-1, 3, 2))
+
+    for _ in range(n):
+        base = rng.integers(0, img, (96, 1, 2)) + rng.choice([0.0, 0.5], (96, 1, 2))
+        add(base + rng.integers(-6, 7, (96, 3, 2)) * rng.choice([0.5, 1.0], (96, 1, 1)))
+        # slivers, exactly edge-on and nearly edge-on faces
+        p0 = rng.uniform(-8, img + 8, (96, 2))
+        d = rng.normal(size=(96, 2)) * rng.uniform(4, img, (96, 1))
+        perp = np.stack([-d[:, 1], d[:, 0]], -1) / np.linalg.norm(d, axis=1, keepdims=True)
+        eps = rng.choice([0.0, 1e-6, 1e-3, 1e-2, 0.3], (96, 1))
+        add(np.stack([p0, p0 + d, p0 + 0.5 * d + eps * perp], 1))
+        # corners on tile and warp borders, or a hair beside them
+        gx = rng.integers(0, img // 16 + 1, (96, 3)) * 16.0
+        gy = rng.integers(0, img // 8 + 1, (96, 3)) * 8.0
+        jit = rng.choice([0.0, 0.5, -0.5, 1e-4, -1e-4, -1.0], (96, 3, 2))
+        add(np.stack([gx, gy], -1) + jit)
+        # huge faces with corners near +-1e4 (large coefficients that cancel)
+        add(rng.choice([-1e4, 1e4], (32, 3, 2)) + rng.uniform(-img, 2 * img, (32, 3, 2)))
+        # one far face over the whole crop, one near face over the first tile
+        add([[-10.0, -10.0], [3.0 * img, -10.0], [-10.0, 3.0 * img]])
+        add([[-1.0, -1.0], [300.0, -1.0], [-1.0, 20.0]])
+        # medium faces anywhere
+        c = rng.uniform(0, img, (94, 1, 2))
+        add(c + rng.normal(size=(94, 3, 2)) * rng.uniform(2, 30, (94, 1, 1)))
+    tri = np.concatenate(parts).reshape(n, -1, 3, 2)
+    f = tri.shape[1]
+    flip = rng.random((n, f)) < 0.5  # both windings, so culling drops about half
+    tri[flip] = tri[flip][:, ::-1]
+    z = rng.uniform(300, 500, (n, f, 3))
+    z[:, 320] = 900.0  # the whole-crop face lies behind the rest
+    z[:, 321] = 200.0  # the first-tile face in front of them
+    z[rng.random((n, f)) < 0.02, 0] = -1.0  # a corner behind the camera
+    valid = rng.random((n, f)) > 0.03
+    valid[1:, 320] = False  # images after the first keep a background
+    attrs = rng.uniform(-1, 1, (n, f, 3, 6))
+    return tuple(torch.from_numpy(a.astype(t)) for a, t in
+                 ((tri, np.float32), (z, np.float32), (valid, bool), (attrs, np.float32)))
