@@ -20,7 +20,10 @@ last line:
                (back-to-back calls) and device time (calls queued behind a
                device sleep), the plain time, F.grid_sample's times, the
                bound, GB/s and share of the bound, registers and shared
-               memory;
+               memory; then the same on the maps rounded to bfloat16 (phase
+               "K1_bf16": K1's bf16 instance against the plain version on
+               the same bf16 maps, F.grid_sample on them, the bound with
+               2-byte cells);
   4. K2      - the raster kernel against its plain version at the flagship
                shape (64 x 256^2, 21-class 1024-face uvsphere bank, culling
                on): every map bit-identical; times (back-to-back and device)
@@ -40,7 +43,7 @@ last line:
                chunks: bit-identical keys; the mirror's surviving share;
   7. K5/K6   - the v1/v2 kernel against its plain version on K2's packs,
                bit-identical, and equal to K2's maps;
-  8. slice   - make_scflow_infer_fn(slim) at the bench configuration (batch
+  8. slice   - make_scflow_infer_fn(slim=True) at the bench configuration (batch
                64, 256^2, 8 iterations, 21 classes, fp32, TF32 off, seeded
                random weights): one call with every launch count reset, then
                checks (finite, orthonormal, poses moved, the first 4 samples
@@ -58,9 +61,10 @@ last line:
                with backend 'auto' (the brute-force path, no kernel) against
                the CPU run; ms per call of each;
  10. K7/K8   - the shift and bdiag lookup kernels on K1's inputs (both
-               shapes, run with K1 in phase 3): K7 bit-identical to its
-               plain version, K8 within 1e-4 of the tent plain version;
-               the same numbers as K1;
+               shapes and both map dtypes, run with K1 in phase 3): K7 bit-
+               identical to its plain version, K8 within 1e-4 of the tent
+               plain version; the same numbers as K1 ("K7_bf16",
+               "K8_bf16" on bf16 maps);
  11. K1b     - the lookup's backward at the training shape (16 x 32^2 rows,
                random, border and integer centres) against its plain
                version, level and flow grads within 1e-4, the same bits
@@ -68,6 +72,22 @@ last line:
                train step runs it) back-to-back and as device time, the
                autograd backward of the 4 F.grid_sample calls, the bound,
                GB/s and share of the bound, registers and shared memory;
+               then "K1b_bf16" on the bf16 maps: level grads bf16, within
+               one bf16 ulp of the plain version's (the share that differs
+               printed), the flow grad within 1e-4, the bound with 2-byte
+               level grads;
+  9a. slice_bf16 - phase 8 with the same seeded weights in bf16
+               (SCFlowRefiner(dtype=torch.bfloat16), bench.py's dtype): 8
+               launches of K1's bf16 instance and 1 K2 per call, nothing
+               else; finite, orthonormal poses; the first 4 samples against
+               the CPU run of the plain versions at bf16 (|card - CPU| <=
+               2 |card bf16 - card fp32| + the slice tolerances);
+               refinements/s, ms per call, the stages (its profile line:
+               render, encoders, decoder and the GRU's part) and the pose
+               difference against the fp32 call beside TF32's;
+  9b. infer_full - make_scflow_infer_fn(slim=False), its default, at batch
+               4: final masks (N, H, W) and flow (N, H, W, 2), finite and
+               equal to the CPU run (masks atol 1e-3, flow 2e-2 px);
  12. train   - make_scflow_train_step(lookup_backend='pallas') at the shipped
                recipe (batch 16, 256^2, 8 iterations, 21-class 1024-face
                uvsphere bank, culling on, fp32 with TF32 off, AdamW + clip
@@ -82,7 +102,15 @@ last line:
                3 iterations (loss rtol 1e-3, worst per-leaf gradient rel L2
                <= 2e-2); ms per step, samples/s, forward/backward/optimizer
                ms (CUDA events), peak memory and the profiler's top kernels;
- 13. the kernels line, then the device line the chip harness reads.
+ 12c. train_bf16 - phase 12 with a bf16 model of the same weights: 1 K2, 8
+               of K1's and 8 of K1b's bf16 instances per step ('shift' and
+               'bdiag' steps: 8 of K7's / K8's), float32 parameters,
+               gradients and statistics, the falling loss, ms per step,
+               samples/s, peak memory, and a bf16 card step against a bf16
+               CPU step at batch 2, 128^2, 3 iterations (loss and all
+               gradients within the CPU's own bf16-to-fp32 distance);
+ 13. the kernels line (float32 and bf16 instances), then the device line
+     the chip harness reads.
 Imports no JAX.  Needs one card; without one it exits non-zero at once.
 """
 
@@ -230,12 +258,22 @@ def sass_counts(lib: Path) -> dict:
 
 
 # the kernel each lookup runs at radius 4 (K1/K7/K8: that instance of the
-# window pipeline, K1b: its instance without the flow gradient; or a parent's
-# first kernel), by a fragment of its mangled name
-LOOKUP_ENTRIES = {"K1": ("ILi4E9TentBlend", "corr_lookup_kernel"),
-                  "K7": ("ILi4E10ShiftBlend", "corr_lookup_shift_kernel"),
-                  "K8": ("ILi4E10BdiagBlend", "corr_lookup_bdiag_kernel"),
-                  "K1b": ("lookup_bwd_kernelILi4ELb0E", "corr_lookup_bwd_kernel")}
+# window pipeline, K1b: its instance without the flow gradient; "_bf16": the
+# instance for bfloat16 maps; or a parent's kernel of before the cell type
+# was a template argument, or its first kernel), by a fragment of its
+# mangled name
+LOOKUP_ENTRIES = {"K1": ("ILi4E9TentBlendfE", "ILi4E9TentBlendEv", "corr_lookup_kernel"),
+                  "K7": ("ILi4E10ShiftBlendfE", "ILi4E10ShiftBlendEv",
+                         "corr_lookup_shift_kernel"),
+                  "K8": ("ILi4E10BdiagBlendfE", "ILi4E10BdiagBlendEv",
+                         "corr_lookup_bdiag_kernel"),
+                  "K1b": ("lookup_bwd_kernelILi4ELb0EfE", "lookup_bwd_kernelILi4ELb0EEv",
+                          "corr_lookup_bwd_kernel"),
+                  "K1_bf16": ("ILi4E9TentBlend13__nv_bfloat16E",),
+                  "K7_bf16": ("ILi4E10ShiftBlend13__nv_bfloat16E",),
+                  "K8_bf16": ("ILi4E10BdiagBlend13__nv_bfloat16E",),
+                  "K1b_bf16": ("lookup_bwd_kernelILi4ELb0E13__nv_bfloat16E",)}
+VARIANT_OF = {"K1": "tent", "K7": "shift", "K8": "bdiag"}
 # the sources of those kernels, and the mangled-name start of the template
 # each instantiates per radius (a parent's corr_lookup_bwd_kernel is none)
 LOOKUP_SOURCES = {"corr_lookup.cu": "22windowed_lookup_kernelI",
@@ -280,13 +318,14 @@ def _lookup_resources(key: str, ptxas: dict, levels: int = 4, radius: int = 4) -
     does not report it, e.g. a parent's)."""
     from scflow_tpu_torch.ops.cuda import corr_lookup as k1
 
+    base, bf16 = key.split("_")[0], key.endswith("_bf16")
+    kw = {"dtype": torch.bfloat16} if bf16 else {}
     try:
-        if key == "K1b":
-            dyn = k1.bwd_layout(levels, radius, False)["smem_bytes"]
+        if base == "K1b":
+            dyn = k1.bwd_layout(levels, radius, False, **kw)["smem_bytes"]
         else:
-            variant = {"K1": "tent", "K7": "shift", "K8": "bdiag"}[key]
-            dyn = k1.window_layout(variant, levels, radius)["smem_bytes"]
-    except AttributeError:  # no such layout function in this package
+            dyn = k1.window_layout(VARIANT_OF[base], levels, radius, **kw)["smem_bytes"]
+    except (AttributeError, TypeError):  # no such layout function in this package
         dyn = None
     for entry, res in ptxas.items():
         if any(tag in entry for tag in LOOKUP_ENTRIES[key]):
@@ -312,10 +351,11 @@ def _flagship_lookup_inputs(dev, n: int = None):
 
 
 def _lookup_bound(levels, coords, radius: int = 4):
-    """Bytes: coords once, the output once, and the map cells these windows
-    touch with a non-zero weight (x from floor(x) - r to ceil(x) + r, inside
-    the map).  Operations: 3 lerps of 3 flops (a weight, 2 mul, 1 add) per
-    output element."""
+    """Bytes: coords once, the output once (float32), and the map cells
+    these windows touch with a non-zero weight (x from floor(x) - r to
+    ceil(x) + r, inside the map), at the maps' cell size (4 bytes, or 2 for
+    bfloat16 maps).  Operations: 3 lerps of 3 flops (a weight, 2 mul, 1 add)
+    per output element."""
     rows = coords.shape[0]
     cells = 0
     for lvl, m in enumerate(levels):
@@ -326,7 +366,7 @@ def _lookup_bound(levels, coords, radius: int = 4):
         span = torch.clamp(hi - lo + 1, min=0)
         cells += int((span[:, 0] * span[:, 1]).sum().item())
     out_elems = rows * len(levels) * (2 * radius + 1) ** 2
-    nbytes = coords.numel() * 4 + out_elems * 4 + cells * 4
+    nbytes = coords.numel() * 4 + out_elems * 4 + cells * levels[0].element_size()
     return (*bound(nbytes, out_elems * 9), nbytes)
 
 
@@ -341,22 +381,32 @@ def _grid_sample_lookup(levels, coords, radius: int = 4):
         c = coords / 2.0**lvl
         gx = (c[:, 0, None, None] + offs[:, None]).expand(-1, k, k)  # [b, j, i]: j offsets x
         gy = (c[:, 1, None, None] + offs[None, :]).expand(-1, k, k)
-        grid = torch.stack([2 * gx / (s - 1) - 1, 2 * gy / (s - 1) - 1], -1).contiguous()
+        grid = torch.stack([2 * gx / (s - 1) - 1, 2 * gy / (s - 1) - 1], -1)
+        grid = grid.to(m.dtype).contiguous()  # grid_sample takes the maps' dtype
         maps = m.view(-1, 1, s, s)
         calls.append(lambda maps=maps, grid=grid: torch.nn.functional.grid_sample(
             maps, grid, mode="bilinear", padding_mode="zeros", align_corners=True))
     return calls
 
 
+def _map_dtypes(k1):
+    """The map dtypes the package's lookups take: float32, and bfloat16
+    where it builds the bf16 instances (a parent's package may not)."""
+    return (torch.float32, torch.bfloat16) if hasattr(k1, "KERNEL_BF16") else (torch.float32,)
+
+
 def phase_lookup(dev, ptxas):
     """K1 (tent), K7 (shift) and K8 (bdiag) on the same inputs, at the
-    flagship's 65,536 rows and at the train step's 16,384: each against its
-    plain version, timed beside the same F.grid_sample calls and bound.  ms
-    and library_ms time back-to-back calls (median_ms, as every kernel's ms);
-    device_ms and library_device_ms the same calls queued behind a device
-    sleep (device_ms).  Each line adds the achieved GB/s and share of the
-    bound by both times, and ptxas's registers and shared memory.  Returns
-    the flagship numbers for the kernels line."""
+    flagship's 65,536 rows and at the train step's 16,384, on float32 maps
+    and on the same maps rounded to bfloat16 (the bf16 instances, keys
+    "K1_bf16", ...): each against its plain version on the same maps (K7 bit
+    for bit, K1 and K8 within 1e-4), timed beside the same F.grid_sample
+    calls (on the maps' dtype) and bound.  ms and library_ms time
+    back-to-back calls (median_ms, as every kernel's ms); device_ms and
+    library_device_ms the same calls queued behind a device sleep
+    (device_ms).  Each line adds the achieved GB/s and share of the bound by
+    both times, and ptxas's registers and shared memory.  Returns the
+    flagship numbers for the kernels line."""
     from scflow_tpu_torch.ops.cuda import corr_lookup as k1
 
     variants = (("K1", "tent", k1.corr_lookup_flat_plain, 1e-4),
@@ -364,102 +414,147 @@ def phase_lookup(dev, ptxas):
                 ("K8", "bdiag", k1.corr_lookup_flat_plain, 1e-4))
     out = {}
     for n, shape in ((BATCH, "flagship"), (TRAIN_BATCH, "train_shape")):
-        levels, coords = _flagship_lookup_inputs(dev, n)
+        levels32, coords = _flagship_lookup_inputs(dev, n)
         rows = coords.shape[0]
-        calls = _grid_sample_lookup(levels, coords)
-        tent = k1.corr_lookup_flat_plain(levels, coords)
-        lib = torch.cat([f().reshape(rows, -1) for f in calls], dim=1)
-        lib_err = (lib - tent).abs().max().item()
-        library_ms = sum(median_ms(f, 10) for f in calls)
-        library_device_ms = sum(device_ms(f, 20) for f in calls)
-        bound_ms, bound_by, nbytes = _lookup_bound(levels, coords)
-        for key, variant, plain, tol in variants:
-            got = k1.corr_lookup_flat(levels, coords, variant=variant)
-            want = plain(levels, coords)
-            torch.cuda.synchronize()
-            err = _max_abs(got, want)
-            if tol == 0.0:
-                require(torch.equal(got, want), f"{key} bit-identical at {rows} rows "
-                                                f"(max |d| {err})")
-            require(math.isfinite(err) and err <= tol, f"{key} max |d| {err} <= {tol}")
+        for dtype in _map_dtypes(k1):
+            suffix = "_bf16" if dtype == torch.bfloat16 else ""
+            levels = [m.to(dtype) for m in levels32]
+            calls = _grid_sample_lookup(levels, coords)
+            tent = k1.corr_lookup_flat_plain(levels, coords)
+            lib = torch.cat([f().reshape(rows, -1).float() for f in calls], dim=1)
+            lib_err = (lib - tent).abs().max().item()
+            library_ms = sum(median_ms(f, 10) for f in calls)
+            library_device_ms = sum(device_ms(f, 20) for f in calls)
+            bound_ms, bound_by, nbytes = _lookup_bound(levels, coords)
+            for key, variant, plain, tol in variants:
+                key += suffix
+                got = k1.corr_lookup_flat(levels, coords, variant=variant)
+                want = plain(levels, coords)
+                torch.cuda.synchronize()
+                err = _max_abs(got, want)
+                if tol == 0.0:
+                    require(torch.equal(got, want), f"{key} bit-identical at {rows} rows "
+                                                    f"(max |d| {err})")
+                require(math.isfinite(err) and err <= tol, f"{key} max |d| {err} <= {tol}")
 
-            def kernel():
-                return k1.corr_lookup_flat(levels, coords, variant=variant)
+                def kernel():
+                    return k1.corr_lookup_flat(levels, coords, variant=variant)
 
-            res = {"max_abs_err": err, "ms": median_ms(kernel, 20),
-                   "device_ms": device_ms(kernel, 50),
-                   "plain_ms": median_ms(lambda: plain(levels, coords), 3),
-                   "library_ms": library_ms, "bound_ms": bound_ms, "bound_by": bound_by}
-            if shape == "flagship":
-                out[key] = res
-            emit({"phase": key, "variant": variant, "shape": shape, "rows": rows,
-                  "tolerance": tol, "grid_sample_max_abs_diff_vs_tent": lib_err, **res,
-                  "library_device_ms": library_device_ms, "bytes": nbytes,
-                  "gb_per_s": nbytes / res["ms"] / 1e6, "share_of_bound": bound_ms / res["ms"],
-                  "device_gb_per_s": nbytes / res["device_ms"] / 1e6,
-                  "device_share_of_bound": bound_ms / res["device_ms"],
-                  "ptxas": _lookup_resources(key, ptxas)})
-        del levels, coords, calls, tent, lib
+                res = {"max_abs_err": err, "ms": median_ms(kernel, 20),
+                       "device_ms": device_ms(kernel, 50),
+                       "plain_ms": median_ms(lambda: plain(levels, coords), 3),
+                       "library_ms": library_ms, "bound_ms": bound_ms, "bound_by": bound_by}
+                if shape == "flagship":
+                    out[key] = res
+                emit({"phase": key, "variant": variant, "maps": str(dtype), "shape": shape,
+                      "rows": rows, "tolerance": tol,
+                      "grid_sample_max_abs_diff_vs_tent": lib_err, **res,
+                      "library_device_ms": library_device_ms, "bytes": nbytes,
+                      "gb_per_s": nbytes / res["ms"] / 1e6,
+                      "share_of_bound": bound_ms / res["ms"],
+                      "device_gb_per_s": nbytes / res["device_ms"] / 1e6,
+                      "device_share_of_bound": bound_ms / res["device_ms"],
+                      "ptxas": _lookup_resources(key, ptxas)})
+            del levels, calls, tent, lib
+        del levels32, coords
     return out
 
 
+def _bf16_ulp_excess(got, want):
+    """Level grads on bf16 maps: the largest |got - want| in units of one
+    bf16 ulp of the larger magnitude (1e-6 of slack where the terms cancel
+    to about 0), and the share of elements that differ at all."""
+    a, b = got.float(), want.float()
+    ulp = torch.ldexp(torch.ones_like(a), torch.frexp(torch.maximum(a.abs(), b.abs()))[1] - 8)
+    d = (a - b).abs()
+    return ((d - 1e-6) / ulp).max().item(), (d > 0).float().mean().item()
+
+
 def phase_k1b(dev, ptxas):
-    """K1b at the training shape: 16 images at 32^2, so 16,384 rows."""
+    """K1b at the training shape: 16 images at 32^2, so 16,384 rows, on
+    float32 maps ("K1b": level and flow grads within 1e-4 of the plain
+    version) and on the same maps rounded to bfloat16 ("K1b_bf16": bf16
+    level grads within one bf16 ulp of the plain version's, each rounded
+    once from its float32 sum; the share that differs; the flow grad within
+    1e-4); the same bits from two launches.  Returns {key: numbers}."""
     from scflow_tpu_torch.ops.cuda import corr_lookup as k1
 
-    levels, coords = _flagship_lookup_inputs(dev, TRAIN_BATCH)
+    levels32, coords = _flagship_lookup_inputs(dev, TRAIN_BATCH)
     rows = coords.shape[0]
     g = torch.randn((rows, 4 * 81), generator=torch.Generator().manual_seed(3)).to(dev)
-    errs = {}
-    for want_coords in (True, False):
-        got, got_c = k1.corr_lookup_flat_bwd(levels, coords, g, want_coords=want_coords)
-        again, again_c = k1.corr_lookup_flat_bwd(levels, coords, g, want_coords=want_coords)
-        want, want_c = k1.corr_lookup_flat_bwd_plain(levels, coords, g, want_coords=want_coords)
-        torch.cuda.synchronize()
-        require(all(torch.equal(a, b) for a, b in zip(got, again)) and
-                (not want_coords or torch.equal(got_c, again_c)),
-                f"K1b: two launches give the same bits (want_coords={want_coords})")
-        errs[want_coords] = max(_max_abs(a, b) for a, b in zip(got, want))
-        if want_coords:
-            errs["coords"] = _max_abs(got_c, want_c)
-    err = max(errs.values())
-    require(math.isfinite(err) and err <= 1e-4, f"K1b max |d| {errs} <= 1e-4")
-    # the autograd backward of the 4 F.grid_sample calls into the maps
-    maps = [m.detach().clone().requires_grad_() for m in levels]
-    outs = [f() for f in _grid_sample_lookup(maps, coords)]
-    gs = [gi.reshape(o.shape).contiguous() for gi, o in zip(g.split(81, dim=1), outs)]
+    out = {}
+    for dtype in _map_dtypes(k1):
+        key = "K1b_bf16" if dtype == torch.bfloat16 else "K1b"
+        levels = [m.to(dtype) for m in levels32]
+        errs, ulps = {}, {}
+        for want_coords in (True, False):
+            got, got_c = k1.corr_lookup_flat_bwd(levels, coords, g, want_coords=want_coords)
+            again, again_c = k1.corr_lookup_flat_bwd(levels, coords, g, want_coords=want_coords)
+            want, want_c = k1.corr_lookup_flat_bwd_plain(levels, coords, g,
+                                                         want_coords=want_coords)
+            torch.cuda.synchronize()
+            require(all(torch.equal(a, b) for a, b in zip(got, again)) and
+                    (not want_coords or torch.equal(got_c, again_c)),
+                    f"{key}: two launches give the same bits (want_coords={want_coords})")
+            require(all(a.dtype == dtype for a in got), f"{key}: level grads in {dtype}")
+            errs[want_coords] = max(_max_abs(a, b) for a, b in zip(got, want))
+            if dtype == torch.bfloat16:
+                ex = [_bf16_ulp_excess(a, b) for a, b in zip(got, want)]
+                ulps[want_coords] = {"max_ulps": max(e[0] for e in ex),
+                                     "share_differing": [e[1] for e in ex]}
+                require(ulps[want_coords]["max_ulps"] <= 1.0,
+                        f"{key} level grads within one bf16 ulp: {ulps[want_coords]}")
+            if want_coords:
+                errs["coords"] = _max_abs(got_c, want_c)
+                require(math.isfinite(errs["coords"]) and errs["coords"] <= 1e-4,
+                        f"{key} flow grad max |d| {errs['coords']} <= 1e-4")
+        err = max(errs.values())
+        require(math.isfinite(err) and (dtype == torch.bfloat16 or err <= 1e-4),
+                f"{key} max |d| {errs} <= 1e-4")
+        # the autograd backward of the 4 F.grid_sample calls into the maps
+        maps = [m.detach().clone().requires_grad_() for m in levels]
+        outs = [f() for f in _grid_sample_lookup(maps, coords)]
+        gs = [gi.reshape(o.shape).to(o.dtype).contiguous()
+              for gi, o in zip(g.split(81, dim=1), outs)]
 
-    def library():
-        torch.autograd.grad(outs, maps, gs, retain_graph=True)
+        def library():
+            torch.autograd.grad(outs, maps, gs, retain_graph=True)
 
-    def kernel():
-        return k1.corr_lookup_flat_bwd(levels, coords, g, want_coords=False)
+        def kernel():
+            return k1.corr_lookup_flat_bwd(levels, coords, g, want_coords=False)
 
-    def with_flow_grad():
-        return k1.corr_lookup_flat_bwd(levels, coords, g)
+        def with_flow_grad():
+            return k1.corr_lookup_flat_bwd(levels, coords, g)
 
-    # bytes: g and coords read once, the dense level grads written once
-    nbytes = g.numel() * 4 + coords.numel() * 4 + sum(m.numel() * 4 for m in levels)
-    cells = rows * sum((2 * 4 + 2) ** 2 for _ in levels)
-    bound_ms, bound_by = bound(nbytes, cells * 4 * 5)  # up to 4 taps x (weight, mul, add)
-    res = {
-        "max_abs_err": err,
-        "ms": median_ms(kernel, 20),
-        "device_ms": device_ms(kernel, 50),
-        "plain_ms": median_ms(lambda: k1.corr_lookup_flat_bwd_plain(levels, coords, g,
-                                                                    want_coords=False), 3),
-        "library_ms": median_ms(library, 5),
-        "library_device_ms": device_ms(library, 5),
-        "bound_ms": bound_ms, "bound_by": bound_by,
-    }
-    emit({"phase": "K1b", "rows": rows, "max_abs_err_by_case": {str(k): v for k, v in errs.items()},
-          "ms_with_flow_grad": median_ms(with_flow_grad, 20),
-          "device_ms_with_flow_grad": device_ms(with_flow_grad, 50), **res, "bytes": nbytes,
-          "gb_per_s": nbytes / res["ms"] / 1e6, "share_of_bound": bound_ms / res["ms"],
-          "device_gb_per_s": nbytes / res["device_ms"] / 1e6,
-          "device_share_of_bound": bound_ms / res["device_ms"],
-          "ptxas": _lookup_resources("K1b", ptxas)})
-    return res
+        # bytes: g and coords read once, the dense level grads (the maps'
+        # dtype) written once
+        nbytes = g.numel() * 4 + coords.numel() * 4 + sum(m.numel() * m.element_size()
+                                                          for m in levels)
+        cells = rows * sum((2 * 4 + 2) ** 2 for _ in levels)
+        bound_ms, bound_by = bound(nbytes, cells * 4 * 5)  # up to 4 taps x (weight, mul, add)
+        res = {
+            "max_abs_err": err,
+            "ms": median_ms(kernel, 20),
+            "device_ms": device_ms(kernel, 50),
+            "plain_ms": median_ms(lambda: k1.corr_lookup_flat_bwd_plain(levels, coords, g,
+                                                                        want_coords=False), 3),
+            "library_ms": median_ms(library, 5),
+            "library_device_ms": device_ms(library, 5),
+            "bound_ms": bound_ms, "bound_by": bound_by,
+        }
+        emit({"phase": key, "maps": str(dtype), "rows": rows,
+              "max_abs_err_by_case": {str(k): v for k, v in errs.items()},
+              "bf16_ulps_by_case": {str(k): v for k, v in ulps.items()},
+              "ms_with_flow_grad": median_ms(with_flow_grad, 20),
+              "device_ms_with_flow_grad": device_ms(with_flow_grad, 50), **res,
+              "bytes": nbytes, "gb_per_s": nbytes / res["ms"] / 1e6,
+              "share_of_bound": bound_ms / res["ms"],
+              "device_gb_per_s": nbytes / res["device_ms"] / 1e6,
+              "device_share_of_bound": bound_ms / res["device_ms"],
+              "ptxas": _lookup_resources(key, ptxas)})
+        out[key] = res
+        del levels, maps, outs
+    return out
 
 
 def quat_to_matrix(q: torch.Tensor) -> torch.Tensor:
@@ -715,8 +810,9 @@ def phase_k56(dev, scene, k2_out):
     return out
 
 
-def seeded_model():
-    """The bench network with weights from a seeded generator: lecun-normal
+def seeded_model(dtype=None):
+    """The bench network (in `dtype`: None float32, or torch.bfloat16) with
+    weights from a seeded generator, the same for either dtype: lecun-normal
     convs and linears, zero biases, default norms; the pose head's output
     weights get normal(0, HEAD_STD) so that the poses move.  Larger output
     weights (0.02, as the parity tests use at 3 iterations) make the
@@ -725,7 +821,7 @@ def seeded_model():
     could be compared."""
     from scflow_tpu_torch.refiners.scflow import SCFlowRefiner
 
-    model = SCFlowRefiner(num_class=NCLASS, image_size=(IMG, IMG), iters=ITERS)
+    model = SCFlowRefiner(num_class=NCLASS, image_size=(IMG, IMG), iters=ITERS, dtype=dtype)
     g = torch.Generator().manual_seed(0)
     head = model.decoder.pose_pred
     with torch.no_grad():
@@ -759,9 +855,13 @@ def kernel_counters():
     from scflow_tpu_torch.ops.cuda import corr_lookup as k1
     from scflow_tpu_torch.ops.cuda import rasterize as k2
 
-    return {"K1": k1.KERNEL, "K2": k2.V3_KERNEL, "K3": k2.V4_KERNEL, "K4": k2.PACKED_KERNEL,
-            "K5": k2.V12_KERNELS[1], "K6": k2.V12_KERNELS[2], "K7": k1.SHIFT_KERNEL,
-            "K8": k1.BDIAG_KERNEL, "K1b": k1.BWD_KERNEL}
+    counters = {"K1": k1.KERNEL, "K2": k2.V3_KERNEL, "K3": k2.V4_KERNEL,
+                "K4": k2.PACKED_KERNEL, "K5": k2.V12_KERNELS[1], "K6": k2.V12_KERNELS[2],
+                "K7": k1.SHIFT_KERNEL, "K8": k1.BDIAG_KERNEL, "K1b": k1.BWD_KERNEL}
+    if hasattr(k1, "KERNEL_BF16"):  # the bf16 instances, counted apart
+        counters.update(K1_bf16=k1.KERNEL_BF16, K7_bf16=k1.SHIFT_KERNEL_BF16,
+                        K8_bf16=k1.BDIAG_KERNEL_BF16, K1b_bf16=k1.BWD_KERNEL_BF16)
+    return counters
 
 
 def counted(fn):
@@ -791,7 +891,7 @@ def phase_slice(smi):
     batch = bench_batch()
     assets = RenderAssets.from_bank(bank)
     infer = make_scflow_infer_fn(model, assets, image_size=(IMG, IMG),
-                                 render_cull_backfaces=True)
+                                 render_cull_backfaces=True, slim=True)
     torch.cuda.reset_peak_memory_stats()
     infer(batch)  # warm-up: cuDNN plans, allocator
     torch.cuda.synchronize()
@@ -808,7 +908,7 @@ def phase_slice(smi):
 
     ref_infer = make_scflow_infer_fn(cpu_model, RenderAssets.from_bank(bank, device="cpu"),
                                      image_size=(IMG, IMG), render_backend="pallas",
-                                     render_cull_backfaces=True, device="cpu")
+                                     render_cull_backfaces=True, slim=True, device="cpu")
     ref = ref_infer({k: v[:4] for k, v in batch.items()})
     d_rot = float(np.abs(R[:4] - ref["rotations"].numpy()).max())
     t_ref = ref["translations"].numpy()
@@ -827,9 +927,10 @@ def phase_slice(smi):
           "cpu_rot_max_abs_diff": d_rot, "cpu_trans_tolerance_excess": t_excess,
           "ms_per_call": 1e3 * dt / calls, "refinements_per_s": BATCH * calls / dt,
           "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9, "card": smi})
-    phase_profile(infer, model, assets, batch, smi)
-    phase_tf32(model, assets, batch, smi)
-    return launches
+    stage_ms = phase_profile(infer, model, assets, batch, smi)
+    tf32 = phase_tf32(model, assets, batch, smi)
+    return launches, dict(R=R, t=t, ms_per_call=1e3 * dt / calls, stage_ms=stage_ms,
+                          tf32=tf32)
 
 
 def phase_tf32(model, assets, batch, smi):
@@ -872,22 +973,38 @@ def phase_tf32(model, assets, batch, smi):
     require(math.isfinite(d_rot) and math.isfinite(d_t), "TF32 poses finite")
     emit({"phase": "tf32", "forward_ms_tf32_off": ms[False], "forward_ms_tf32_on": ms[True],
           "rot_max_abs_diff": d_rot, "trans_max_abs_diff": d_t, "card": smi})
+    return {"forward_ms_tf32_on": ms[True], "rot_max_abs_diff": d_rot,
+            "trans_max_abs_diff": d_t}
 
 
 def phase_profile(infer, model, assets, batch, smi):
     """Where one call's time goes: render, encoders and decoder timed with
-    CUDA events (median of 3 after a warm-up), and, from torch.profiler over
+    CUDA events (median of 3 after a warm-up; "gru", the decoder's ConvGRU
+    calls summed, is part of "decoder"), and, from torch.profiler over
     one call, each kernel's summed device time and count.  The sum over
     kernels can exceed the device timeline (cuDNN's kernels overlap), so it
     is no busy share."""
     from torch.profiler import ProfilerActivity, profile
 
+    from scflow_tpu_torch.device import full_fp32
     from scflow_tpu_torch.refiners.system import render_and_normalize
 
     b = {k: torch.as_tensor(v, device=assets.verts.device) for k, v in batch.items()}
-    times = {"render": [], "encoders": [], "decoder": []}
-    with torch.inference_mode():
+    times = {"render": [], "encoders": [], "decoder": [], "gru": []}
+    gru_ev = []  # (start, end) events of each ConvGRU call, inside the decoder
+    gru = model.decoder.gru
+
+    def gru_start(*_):
+        gru_ev.append([torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)])
+        gru_ev[-1][0].record()
+
+    def gru_end(*_):
+        gru_ev[-1][1].record()
+
+    hooks = [gru.register_forward_pre_hook(gru_start), gru.register_forward_hook(gru_end)]
+    with torch.inference_mode(), full_fp32():
         for _ in range(4):
+            gru_ev.clear()
             ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
             ev[0].record()
             images, depths, _ = render_and_normalize(
@@ -903,6 +1020,9 @@ def phase_profile(infer, model, assets, batch, smi):
             torch.cuda.synchronize()
             for name, a, z in zip(times, ev, ev[1:]):
                 times[name].append(a.elapsed_time(z))
+            times["gru"].append(sum(a.elapsed_time(z) for a, z in gru_ev))
+    for h in hooks:
+        h.remove()
     stage_ms = {k: statistics.median(v[1:]) for k, v in times.items()}
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
@@ -915,10 +1035,12 @@ def phase_profile(infer, model, assets, batch, smi):
     top = sorted(kernels.items(), key=lambda kv: -kv[1][0])[:12]
     ours = {name.split("(")[0]: v for name, v in kernels.items()
             if "lookup_kernel" in name or "raster_v3_kernel" in name}
-    emit({"phase": "profile", "stage_ms": stage_ms, "profiled_call_ms": wall_ms,
+    emit({"phase": "profile", "model_dtype": str(model.dtype), "stage_ms": stage_ms,
+          "profiled_call_ms": wall_ms,
           "kernel_time_sum_ms": sum(ms for ms, _ in kernels.values()),
           "kernel_names": len(kernels), "ours_ms_count": ours,
           "top_kernels_ms_count": [[name[:90], ms, n] for name, (ms, n) in top], "card": smi})
+    return stage_ms
 
 
 # the shipped recipe (configs/refine_models/scflow.py)
@@ -929,17 +1051,18 @@ LR_CONFIG = dict(policy="OneCycle", max_lr=4e-4, total_steps=100100, pct_start=0
                  anneal_strategy="linear")
 
 
-def train_model(image: int, iters: int):
-    """The shipped network (detach_depth_for_xy=True) with PyTorch's default
-    initialisation from a seed; the pose head's output weights get
-    normal(0, 0.005) so that the poses move.  PyTorch's initialisation,
-    smaller than the lecun-normal one of seeded_model, keeps the float32
-    gradients of two devices within the 2e-2 the card-CPU check allows."""
+def train_model(image: int, iters: int, dtype=None):
+    """The shipped network (detach_depth_for_xy=True) in `dtype` with
+    PyTorch's default initialisation from a seed (the same weights for
+    either dtype); the pose head's output weights get normal(0, 0.005) so
+    that the poses move.  PyTorch's initialisation, smaller than the
+    lecun-normal one of seeded_model, keeps the float32 gradients of two
+    devices within the 2e-2 the card-CPU check allows."""
     from scflow_tpu_torch.refiners.scflow import SCFlowRefiner
 
     torch.manual_seed(0)
     model = SCFlowRefiner(num_class=NCLASS, image_size=(image, image), iters=iters,
-                          detach_depth_for_xy=True)
+                          detach_depth_for_xy=True, dtype=dtype)
     g = torch.Generator().manual_seed(1)
     head = model.decoder.pose_pred
     with torch.no_grad():
@@ -1018,8 +1141,6 @@ def phase_train(smi):
     """The train step at the shipped recipe through the kernels."""
     import copy
 
-    from torch.profiler import ProfilerActivity, profile
-
     from scflow_tpu_torch.render.meshbank import make_synthetic_bank
 
     bank = make_synthetic_bank(NCLASS, kind="uvsphere", size=80.0)
@@ -1060,16 +1181,7 @@ def phase_train(smi):
     res["stage_ms"] = _train_stages(state, assets, loss_assets, batch)
     res["peak_mem_gb"] = torch.cuda.max_memory_allocated() / 1e9
 
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        step(state, batch)
-        torch.cuda.synchronize()
-    kernels = {e.key: (e.device_time_total / 1e3, e.count) for e in prof.key_averages()
-               if e.device_type == torch.autograd.DeviceType.CUDA}
-    top = sorted(kernels.items(), key=lambda kv: -kv[1][0])[:12]
-    res["kernel_time_sum_ms"] = sum(ms for ms, _ in kernels.values())
-    res["ours_ms_count"] = {name.split("(")[0]: v for name, v in kernels.items()
-                            if "lookup_" in name or "raster_v3" in name}
-    res["top_kernels_ms_count"] = [[name[:90], ms, n] for name, (ms, n) in top]
+    res.update(_step_profile(step, state, batch))
 
     # the loss falls over 6 steps at a constant lr 1e-3 (tests/test_train_system.py)
     fall_state, fall_step, _, _ = _train_setup(copy.deepcopy(state0.model), bank, IMG,
@@ -1086,7 +1198,26 @@ def phase_train(smi):
     emit({"phase": "train", "batch": TRAIN_BATCH, "image": IMG, "iters": ITERS,
           "classes": NCLASS, "launches_per_step": {"K1": ITERS, "K1b": ITERS, "K2": 1},
           **res, "card": smi})
-    return launches
+    return launches, loss
+
+
+def _step_profile(step, state, batch):
+    """torch.profiler over one train step: the summed device time of its
+    kernels (against ms_per_step: how far the host holds the card back; the
+    sum can exceed the timeline where kernels overlap), ours, the top 12."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        step(state, batch)
+        torch.cuda.synchronize()
+    kernels = {e.key: (e.device_time_total / 1e3, e.count) for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA}
+    top = sorted(kernels.items(), key=lambda kv: -kv[1][0])[:12]
+    return {"kernel_time_sum_ms": sum(ms for ms, _ in kernels.values()),
+            "kernel_launches": sum(n for _, n in kernels.values()),
+            "ours_ms_count": {name.split("(")[0]: v for name, v in kernels.items()
+                              if "lookup_" in name or "raster_v3" in name},
+            "top_kernels_ms_count": [[name[:90], ms, n] for name, (ms, n) in top]}
 
 
 def _train_stages(state, assets, loss_assets, batch):
@@ -1152,6 +1283,244 @@ def _train_card_vs_cpu(bank):
     return {"loss_card": float(card_logs["loss"]), "loss_cpu": float(cpu_logs["loss"]),
             "loss_rel_diff": loss_rel, "worst_grad_rel_l2": worst, "worst_leaf": leaf,
             "leaves": len(want)}
+
+
+def _pose_dist(R, t, R_ref, t_ref):
+    """Largest |dR| and |dt| between two batches of poses (numpy)."""
+    return float(np.abs(R - R_ref).max()), float(np.abs(t - t_ref).max())
+
+
+def phase_slice_bf16(smi, fp32):
+    """make_scflow_infer_fn(slim=True) at the bench configuration with the
+    seeded weights of the fp32 slice in bf16 (SCFlowRefiner(dtype=
+    torch.bfloat16), bench.py's dtype): one call with every launch count
+    reset (8 launches of K1's bf16 instance, 1 K2, nothing else); finite,
+    orthonormal, moved poses; the first 4 samples against a CPU run of the
+    plain versions at bf16 (lookup 'pallas', K1's plain version) within the
+    form of bound tests/test_torch_bf16_system.py states: |card - CPU| <= 2
+    x |card bf16 - card fp32| + the fp32 tolerances (rotations 2e-3;
+    translations 2e-2 + 2e-3 |t|); refinements/s, ms per call, the stages
+    (profile line) and the pose difference against the fp32 call, beside
+    the TF32 phase's."""
+    from scflow_tpu_torch.refiners.scflow import SCFlowRefiner
+    from scflow_tpu_torch.refiners.system import RenderAssets, make_scflow_infer_fn
+    from scflow_tpu_torch.render.meshbank import make_synthetic_bank
+
+    bank = make_synthetic_bank(NCLASS, kind="uvsphere", size=80.0)
+    model = seeded_model(torch.bfloat16)
+    batch = bench_batch()
+    assets = RenderAssets.from_bank(bank)
+    infer = make_scflow_infer_fn(model, assets, image_size=(IMG, IMG),
+                                 render_cull_backfaces=True, slim=True)
+    torch.cuda.reset_peak_memory_stats()
+    infer(batch)  # warm-up
+    torch.cuda.synchronize()
+    out, launches = counted(lambda: infer(batch))
+    require(only(launches, K1_bf16=ITERS, K2=1), f"bf16 launches per call {launches}")
+    require(out["rotations"].dtype == out["translations"].dtype == torch.float32,
+            "bf16 model: float32 poses")
+    require(all(p.dtype == torch.float32 for p in model.parameters()) and
+            all(b.dtype in (torch.float32, torch.int64) for b in model.buffers()),
+            "bf16 model: float32 parameters and BatchNorm statistics")
+    R, t = out["rotations"].cpu().numpy(), out["translations"].cpu().numpy()
+    require(np.isfinite(R).all() and np.isfinite(t).all(), "bf16: finite poses")
+    ortho = float(np.abs(np.einsum("nji,njk->nik", R, R) - np.eye(3)).max())
+    require(ortho < 1e-4, f"bf16: |R^T R - I| {ortho} < 1e-4")
+    moved = float(np.abs(t - batch["ref_translations"]).max())
+    require(moved > 1.0, "bf16: poses moved")
+    vs_fp32 = _pose_dist(R, t, fp32["R"], fp32["t"])
+
+    cpu_model = SCFlowRefiner(num_class=NCLASS, image_size=(IMG, IMG), iters=ITERS,
+                              dtype=torch.bfloat16)
+    cpu_model.load_state_dict(model.state_dict())
+    ref = make_scflow_infer_fn(cpu_model, RenderAssets.from_bank(bank, device="cpu"),
+                               image_size=(IMG, IMG), render_backend="pallas",
+                               render_cull_backfaces=True, lookup_backend="pallas", slim=True,
+                               device="cpu")({k: v[:4] for k, v in batch.items()})
+    R_ref, t_ref = ref["rotations"].numpy(), ref["translations"].numpy()
+    d_rot, d_t = _pose_dist(R[:4], t[:4], R_ref, t_ref)
+    d32_rot, d32_t = _pose_dist(R[:4], t[:4], fp32["R"][:4], fp32["t"][:4])
+    rot_ok = d_rot <= 2 * d32_rot + 2e-3
+    t_excess = float((np.abs(t[:4] - t_ref) - 2 * d32_t
+                      - (2e-2 + 2e-3 * np.abs(t_ref))).max())
+    require(rot_ok and t_excess <= 0,
+            f"bf16 card vs CPU: rot |d| {d_rot} (bf16-fp32 {d32_rot}), t excess {t_excess}")
+
+    calls = 10
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        infer(batch)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    stage_ms = phase_profile(infer, model, assets, batch, smi)
+    emit({"phase": "slice_bf16", "batch": BATCH, "image": IMG, "iters": ITERS,
+          "classes": NCLASS, "launches_per_call": launches, "orthonormality_err": ortho,
+          "max_translation_move": moved, "cpu_rot_max_abs_diff": d_rot,
+          "cpu_trans_tolerance_excess": t_excess,
+          "rot_max_abs_diff_vs_fp32": vs_fp32[0], "trans_max_abs_diff_vs_fp32": vs_fp32[1],
+          "tf32_rot_max_abs_diff": fp32["tf32"]["rot_max_abs_diff"],
+          "tf32_trans_max_abs_diff": fp32["tf32"]["trans_max_abs_diff"],
+          "ms_per_call": 1e3 * dt / calls, "refinements_per_s": BATCH * calls / dt,
+          "fp32_ms_per_call": fp32["ms_per_call"], "stage_ms": stage_ms,
+          "fp32_stage_ms": fp32["stage_ms"],
+          "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9, "card": smi})
+    return {"K1_bf16": launches["K1_bf16"]}
+
+
+def phase_infer_full(smi):
+    """make_scflow_infer_fn(slim=False), the default, at batch 4 of the bench
+    configuration (fp32, seeded weights): the final masks (N, H, W) and flow
+    (N, H, W, 2) beside the pose, finite, against the CPU run within the
+    slice tolerances (poses as the slice phase; masks atol 1e-3, flow atol
+    2e-2 px, tests/test_torch_bf16_system.py's bounds); 8 K1 and 1 K2."""
+    from scflow_tpu_torch.refiners.scflow import SCFlowRefiner
+    from scflow_tpu_torch.refiners.system import RenderAssets, make_scflow_infer_fn
+    from scflow_tpu_torch.render.meshbank import make_synthetic_bank
+
+    n = 4
+    bank = make_synthetic_bank(NCLASS, kind="uvsphere", size=80.0)
+    model = seeded_model()
+    batch = {k: v[:n] for k, v in bench_batch().items()}
+    infer = make_scflow_infer_fn(model, RenderAssets.from_bank(bank), image_size=(IMG, IMG),
+                                 render_cull_backfaces=True)
+    infer(batch)
+    out, launches = counted(lambda: infer(batch))
+    require(only(launches, K1=ITERS, K2=1), f"slim=False launches {launches}")
+    require(set(out) == {"rotations", "translations", "masks", "flow"}
+            and tuple(out["masks"].shape) == (n, IMG, IMG)
+            and tuple(out["flow"].shape) == (n, IMG, IMG, 2)
+            and all(bool(torch.isfinite(v).all()) for v in out.values()),
+            f"slim=False outputs {({k: tuple(v.shape) for k, v in out.items()})}")
+    cpu_model = SCFlowRefiner(num_class=NCLASS, image_size=(IMG, IMG), iters=ITERS)
+    cpu_model.load_state_dict(model.state_dict())
+    ref = make_scflow_infer_fn(cpu_model, RenderAssets.from_bank(bank, device="cpu"),
+                               image_size=(IMG, IMG), render_backend="pallas",
+                               render_cull_backfaces=True, device="cpu")(batch)
+    got = {k: v.cpu() for k, v in out.items()}
+    diff = {k: (got[k] - ref[k]).abs().max().item() for k in got}
+    t_excess = float(((got["translations"] - ref["translations"]).abs()
+                      - (2e-2 + 2e-3 * ref["translations"].abs())).max())
+    require(diff["rotations"] <= 2e-3 and t_excess <= 0 and diff["masks"] <= 1e-3
+            and diff["flow"] <= 2e-2, f"slim=False card vs CPU: {diff}, t excess {t_excess}")
+    emit({"phase": "infer_full", "batch": n, "launches_per_call": launches,
+          "max_abs_diff_vs_cpu": diff, "trans_tolerance_excess": t_excess,
+          "flow_max_abs": got["flow"].abs().max().item(),
+          "mask_mean": got["masks"].mean().item(), "card": smi})
+
+
+def phase_train_bf16(smi, fp32_loss):
+    """The train step at the shipped recipe with a bf16 model (the same
+    seeded weights and batch as the fp32 phase, whose counted step's loss
+    is fp32_loss): one step with every launch count reset (1 K2, 8 of K1's
+    and 8 of K1b's bf16 instances, nothing else; finite loss; float32
+    parameters, gradients and BatchNorm statistics); one step each with
+    'shift' and 'bdiag' from the same state (8 of K7's or K8's bf16
+    instance; the loss within the tent loss's own distance from the fp32
+    phase's: the variants' float32 sums differ from tent's in the last
+    bits, and a bf16 network turns that into bf16 roundings, where the
+    fp32 phase holds 1e-4); the loss
+    falling over 6 steps at lr 1e-3; ms per step, samples/s, peak memory;
+    a card step against a CPU step at batch 2, 128^2, 3 iterations."""
+    import copy
+
+    from scflow_tpu_torch.render.meshbank import make_synthetic_bank
+
+    bank = make_synthetic_bank(NCLASS, kind="uvsphere", size=80.0)
+    state0, step, assets, loss_assets = _train_setup(train_model(IMG, ITERS, torch.bfloat16),
+                                                     bank, IMG)
+    batch = train_batch(assets, TRAIN_BATCH, IMG)
+    torch.cuda.reset_peak_memory_stats()
+    state0, _ = step(state0, batch)  # warm-up
+    torch.cuda.synchronize()
+    (state, logs), c = counted(lambda: step(copy.deepcopy(state0), batch))
+    require(only(c, K1_bf16=ITERS, K1b_bf16=ITERS, K2=1), f"bf16 train step launches {c}")
+    loss = float(logs["loss"])
+    require(math.isfinite(loss) and math.isfinite(float(logs["grad_norm"])), f"loss {loss}")
+    require(all(p.dtype == torch.float32 and p.grad.dtype == torch.float32
+                for p in state.model.parameters()) and
+            all(b.dtype in (torch.float32, torch.int64) for b in state.model.buffers()),
+            "bf16 train step: float32 parameters, gradients and BatchNorm statistics")
+    launches = {"K1_bf16": c["K1_bf16"], "K1b_bf16": c["K1b_bf16"]}
+    res = {"loss": loss, "grad_norm": float(logs["grad_norm"])}
+    for key, variant in (("K7_bf16", "shift"), ("K8_bf16", "bdiag")):
+        vstep = _train_setup(state0.model, bank, IMG, lookup_variant=variant)[1]
+        (_, vlogs), c = counted(lambda: vstep(copy.deepcopy(state0), batch))
+        require(only(c, K1b_bf16=ITERS, K2=1, **{key: ITERS}),
+                f"bf16 {variant} train step launches {c}")
+        launches[key] = c[key]
+        rel, bf16_rel = abs(float(vlogs["loss"]) / loss - 1), abs(loss / fp32_loss - 1)
+        require(rel <= bf16_rel, f"bf16 {variant} loss {float(vlogs['loss'])} vs tent {loss} "
+                                 f"(rel {rel}; bf16 vs fp32 tent {bf16_rel})")
+        res[f"{variant}_loss_rel_diff"] = rel
+        res["loss_rel_diff_vs_fp32"] = bf16_rel
+    del state
+    state = copy.deepcopy(state0)
+    steps = 5
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(steps):
+        state, _ = step(state, batch)
+    torch.cuda.synchronize()
+    dt = (time.perf_counter() - t0) / steps
+    res.update(ms_per_step=1e3 * dt, samples_per_s=TRAIN_BATCH / dt,
+               stage_ms=_train_stages(state, assets, loss_assets, batch),
+               peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9)
+    res.update(_step_profile(step, state, batch))
+    fall_state, fall_step, _, _ = _train_setup(copy.deepcopy(state0.model), bank, IMG,
+                                               lr_cfg=None, optimizer=dict(
+                                                   type="AdamW", lr=1e-3, weight_decay=1e-4))
+    losses = []
+    for _ in range(6):
+        fall_state, flogs = fall_step(fall_state, batch)
+        losses.append(float(flogs["loss"]))
+    require(all(map(math.isfinite, losses)) and losses[-1] < losses[0], f"bf16 losses {losses}")
+    res["losses_lr_1e-3"] = losses
+    del fall_state, state
+    res["card_vs_cpu"] = _train_card_vs_cpu_bf16(bank)
+    emit({"phase": "train_bf16", "batch": TRAIN_BATCH, "image": IMG, "iters": ITERS,
+          "classes": NCLASS, "launches_per_step": launches, **res, "card": smi})
+    return launches
+
+
+def _train_card_vs_cpu_bf16(bank):
+    """One bf16 step on the card and one on the CPU (the plain versions)
+    from the same weights and batch at batch 2, 128^2, 3 iterations, with a
+    float32 CPU step as the yardstick (tests/test_torch_bf16_train.py's
+    form of bound): loss |card/CPU - 1| <= 2 |CPU bf16/CPU fp32 - 1| + 1e-3,
+    and all gradients together within rel L2 of the CPU bf16 ones no larger
+    than the CPU's own bf16-to-fp32 distance."""
+    import copy
+
+    n, image, iters = 2, 128, 3
+    models = {"card": train_model(image, iters, torch.bfloat16)}
+    models["cpu"] = copy.deepcopy(models["card"])
+    models["cpu32"] = train_model(image, iters)
+    card_state, card_step, card_assets, _ = _train_setup(models["card"], bank, image,
+                                                         render_backend="pallas")
+    batch = train_batch(card_assets, n, image, seed=1)
+    logs = {"card": card_step(card_state, batch)[1]}
+    for key in ("cpu", "cpu32"):
+        state, cpu_step, _, _ = _train_setup(models[key], bank, image, "cpu",
+                                             render_backend="pallas")
+        logs[key] = cpu_step(state, batch)[1]
+    torch.cuda.synchronize()
+    flat = {k: torch.cat([p.grad.detach().cpu().double().ravel()
+                          for _, p in sorted(m.named_parameters())]) for k, m in models.items()}
+
+    def rel(a, b):
+        return float((flat[a] - flat[b]).norm() / flat[b].norm())
+
+    loss = {k: float(v["loss"]) for k, v in logs.items()}
+    loss_rel = abs(loss["card"] / loss["cpu"] - 1)
+    loss_bound = 2 * abs(loss["cpu"] / loss["cpu32"] - 1) + 1e-3
+    grad_rel, grad_bound = rel("card", "cpu"), rel("cpu", "cpu32")
+    require(loss_rel <= loss_bound and grad_rel <= grad_bound,
+            f"bf16 card vs CPU step: loss rel {loss_rel} (bound {loss_bound}), gradients rel "
+            f"L2 {grad_rel} (bound {grad_bound})")
+    return {"loss": loss, "loss_rel_diff": loss_rel, "loss_bound": loss_bound,
+            "grad_rel_l2": grad_rel, "grad_rel_l2_bf16_vs_fp32_cpu": grad_bound,
+            "grad_rel_l2_card_bf16_vs_cpu_fp32": rel("card", "cpu32")}
 
 
 def _render_close(got, want, what: str):
@@ -1280,6 +1649,7 @@ def main() -> int:
     import scflow_tpu_torch  # noqa: F401  (fails at once outside the repo)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
     dev = torch.device("cuda", 0)
     name, smi = phase_device()
     emit({"phase": "package", "path": str(Path(scflow_tpu_torch.__file__).parent)})
@@ -1300,17 +1670,21 @@ def main() -> int:
                                      "count": torch.cuda.device_count()}})
         return 0
     res = phase_lookup(dev, ptxas)
-    res["K1b"] = phase_k1b(dev, ptxas)
+    res.update(phase_k1b(dev, ptxas))
     res["K2"], k2_out = phase_k2(dev, scene)
     res["K3"] = phase_k3(dev, scene, k2_out)
     res["K4"] = phase_k4(dev, scene)
     k56 = phase_k56(dev, scene, k2_out)
     res["K5"], res["K6"] = k56[1], k56[2]
     del k2_out
-    launches = phase_slice(smi)
+    launches, fp32_slice = phase_slice(smi)
     launches.update(phase_render(dev, scene, smi))
     del scene
-    launches.update(phase_train(smi))
+    launches.update(phase_slice_bf16(smi, fp32_slice))
+    phase_infer_full(smi)
+    train_launches, fp32_loss = phase_train(smi)
+    launches.update(train_launches)
+    launches.update(phase_train_bf16(smi, fp32_loss))
     src = "scflow_tpu_torch/csrc/"
     tpu = "scflow_tpu/ops/pallas/"
     table = [
@@ -1328,6 +1702,14 @@ def main() -> int:
          "corr_lookup.py:41 (_kernel_bdiag)"),
         ("K1b", "corr_lookup backward", "corr_lookup_bwd.cu",
          "corr_lookup.py:346 (_lookup_bwd, the XLA backward of corr_lookup_pallas_diff)"),
+        ("K1_bf16", "corr_lookup on bf16 maps", "corr_lookup.cu",
+         "corr_lookup.py:230 (_kernel, bf16 levels)"),
+        ("K7_bf16", "corr_lookup(variant='shift') on bf16 maps", "corr_lookup_shift.cu",
+         "corr_lookup.py:147 (_kernel_shift, bf16 levels)"),
+        ("K8_bf16", "corr_lookup(variant='bdiag') on bf16 maps", "corr_lookup_bdiag.cu",
+         "corr_lookup.py:41 (_kernel_bdiag, bf16 levels)"),
+        ("K1b_bf16", "corr_lookup backward on bf16 maps", "corr_lookup_bwd.cu",
+         "corr_lookup.py:346 (_lookup_bwd, bf16 levels: level grads in bf16)"),
     ]
     emit({"kernels": [
         {"name": f"{key} {fn}", "route": "cuda", "source": src + file, "replaces": tpu + where,

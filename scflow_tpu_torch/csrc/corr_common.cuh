@@ -10,16 +10,30 @@
 
 #pragma once
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
 
 #define MAX_LEVELS 4
 
-struct Levels {
-  const float* map[MAX_LEVELS];
+// the maps of one launch, of one cell type: float or __nv_bfloat16
+template <class T>
+struct LevelsT {
+  const T* map[MAX_LEVELS];
   int size[MAX_LEVELS];
 };
+using Levels = LevelsT<float>;
+
+template <class T>
+__host__ __device__ constexpr bool is_bf16() {
+  return sizeof(T) == 2;
+}
+
+// a bfloat16 is the top half of a float: both halves of a 4-byte word of
+// two cells, exactly (the low half is the cell at the lower address)
+__device__ __forceinline__ float bf16_lo(uint32_t w) { return __uint_as_float(w << 16); }
+__device__ __forceinline__ float bf16_hi(uint32_t w) { return __uint_as_float(w & 0xffff0000u); }
 
 // ---------------------------------------------------------------------------
 // The window pipeline of K1, K7 and K8.
@@ -69,30 +83,117 @@ struct Levels {
 //   cen[win] = Blend::centre(px, py, floor(px), floor(py))   G*L float4
 //   patch[(win * (k+1) + e) * (k+2) + d]                     G*L*(k+1)*(k+2)
 //   outbuf[row * L*k*k + column]                             G*L*k*k
+//
+// bfloat16 maps (the bf16 instances of K1, K7 and K8).  cp.async moves 4,
+// 8 or 16 bytes, never 2, so a cell arrives as half of an aligned 4-byte
+// word, beside its x-neighbour.  A window row of k+1 cells then starts on
+// the word's low or high half: at the parity of its first cell's element
+// index (b*S*S + y*S + x0 - r, with the level 4-byte aligned), which for an
+// odd S changes from row to row.  So the row is staged as r+2 words, the
+// k+3 cells from the even index at or before the first cell, one thread per
+// (row, level, word column w) and one 4-byte cp.async per window row d;
+// the stage holds, in place of the float patch,
+//   org[win] = (x0 - r, y0 - r, parity of row 0, row exists)   G*L int4
+//   raw[(win * (k+1) + d) * (r+2) + w]                       G*L*(k+1)*(r+2) words
+// A word with a cell inside the map comes whole (its other half may lie in
+// the next map row or the previous one: still inside the level), except
+// that a word holding the level's last element at its low half, with the
+// high half past the end, comes as 2 bytes (src-size 2, the rest
+// zero-filled); a word with no cell inside the map is not read (src-size
+// 0).  The blend reads its two window columns straight from the words: for
+// row d, column j is half (j + parity_d) & 1 of word (j + parity_d) / 2, a
+// bf16 is the top half of a float (exact, a shift), and a cell outside the
+// map (the other half of a word read for its neighbour) is selected to 0;
+// from there the blend is the float one, on exact fp32 cells.  (A first
+// version upcast the words into a float patch in a pass of its own, one
+// thread per word column, then blended from it: 0.078 ms of device time
+// for K1 at 65,536 rows, against the float32 instance's 0.067; PERF.md.)
 
 #include <type_traits>
 
 #define WINDOW_ROWS 4  // rows per group
 
-template <int R>
+template <int R, class T = float>
 struct Window {
   static constexpr int G = WINDOW_ROWS, K = 2 * R + 1, KP = K + 1, KS = K + 2;
-  // floats of one ring stage at L levels
-  static constexpr int stage(int L) { return G * L * (4 + KP * KS + K * K); }
+  // staging slots per window: window columns (float) or 4-byte word columns
+  static constexpr int NW = R + 2;
+  static constexpr int SC = is_bf16<T>() ? NW : KP;
+  // 4-byte units per window of the origins (bf16) and of the staged cells
+  static constexpr int ORG = is_bf16<T>() ? 4 : 0;
+  static constexpr int RAW = is_bf16<T>() ? KP * NW : KP * KS;
+  // 4-byte units of one ring stage at L levels
+  static constexpr int stage(int L) { return G * L * (4 + ORG + RAW + K * K); }
   static constexpr size_t smem(int L) { return 2 * sizeof(float) * stage(L); }
-  // one thread per staging slot (row, level, e), in whole warps
+  // one thread per float staging slot (row, level, e), in whole warps: as
+  // many as the blend's (row, level, j), and more than the bf16 slots
   static constexpr int threads(int L) { return (G * L * KP + 31) / 32 * 32; }
   static constexpr int MAX_THREADS = (G * MAX_LEVELS * KP + 31) / 32 * 32;
 };
 
-__device__ __forceinline__ void cp_async4(float* dst, const float* src, bool in) {
+__device__ __forceinline__ void cp_async4(void* dst, const void* src, bool in) {
   const unsigned s = (unsigned)__cvta_generic_to_shared(dst);
   asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(s), "l"(src),
                "r"(in ? 4 : 0)
                : "memory");
 }
 
-// 16 bytes; both addresses 16-byte aligned
+// 4 bytes to shared memory, of which the first `bytes` (0, 2 or 4) are read
+// from src and the rest are zero; src 4-byte aligned
+__device__ __forceinline__ void cp_async_word(void* dst, const void* src, int bytes) {
+  const unsigned s = (unsigned)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(s), "l"(src), "r"(bytes)
+               : "memory");
+}
+
+// Stage the r+2 words of window column w for rows d = 0..k of one window
+// (bf16 maps; see the layout note above), and with w = 0 its origin.
+// b: the row (on: b < rows), s: the level's size.
+template <int R>
+__device__ __forceinline__ void stage_words(int4* org, uint32_t* raw, const __nv_bfloat16* map,
+                                            long long b, bool on, long long rows, int s,
+                                            float x0f, float y0f, int w) {
+  constexpr int KP = 2 * R + 2, NW = R + 2;
+  // tested as floats, so a NaN or far-away centre never reaches an int cast
+  const int xs = (x0f >= -(float)(R + 2) && x0f <= (float)(s + R)) ? (int)x0f - R : -(4 * R + 8);
+  const int yb = ((y0f >= -(float)(R + 1) && y0f <= (float)(s + R)) ? (int)y0f : -(2 * R + 4)) - R;
+  const long long total = rows * (long long)s * s;  // elements of the level
+  long long first = b * (long long)s * s + (long long)yb * s + xs;  // cell (yb + d, xs)
+  if (w == 0) *org = make_int4(xs, yb, (int)(first & 1), on);
+#pragma unroll
+  for (int d = 0; d < KP; ++d) {
+    const int par = (int)(first & 1);
+    const long long lo = first - par + 2 * w;  // element index of the word's low half
+    const int e = 2 * w - par;                  // its window column
+    const bool row_in = on && (unsigned)(yb + d) < (unsigned)s;
+    const bool any = row_in && ((unsigned)(xs + e) < (unsigned)s ||
+                                (unsigned)(xs + e + 1) < (unsigned)s);
+    const int bytes = any ? (lo + 2 <= total ? 4 : 2) : 0;
+    cp_async_word(raw + d * NW + w, map + (any ? lo : 0), bytes);
+    first += s;
+  }
+}
+
+// Window columns j and j + 1 of one bf16 window, rows d = 0..k, as fp32
+// cells (0 outside the map) into a[] and c[]: from the words staged by
+// stage_words and the window's origin o.
+template <int R>
+__device__ __forceinline__ void columns_from_words(float* a, float* c, const uint32_t* raw,
+                                                   int4 o, int s, int j) {
+  constexpr int KP = 2 * R + 2, NW = R + 2;
+  const bool ja = (unsigned)(o.x + j) < (unsigned)s, jc = (unsigned)(o.x + j + 1) < (unsigned)s;
+#pragma unroll
+  for (int d = 0; d < KP; ++d) {
+    const int q = j + (o.z ^ (d * s & 1));  // j's place in the staged row
+    const uint32_t w0 = raw[d * NW + (q >> 1)], w1 = raw[d * NW + (q >> 1) + 1];
+    const bool row_in = o.w && (unsigned)(o.y + d) < (unsigned)s;
+    const float va = (q & 1) ? bf16_hi(w0) : bf16_lo(w0);
+    const float vc = (q & 1) ? bf16_lo(w1) : bf16_hi(w0);
+    a[d] = row_in && ja ? va : 0.f;
+    c[d] = row_in && jc ? vc : 0.f;
+  }
+}
+
 __device__ __forceinline__ void cp_async16(float* dst, const float* src) {
   const unsigned s = (unsigned)__cvta_generic_to_shared(dst);
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s), "l"(src) : "memory");
@@ -121,28 +222,32 @@ __device__ __forceinline__ void bulk_wait_read() {
   asm volatile("cp.async.bulk.wait_group.read %0;\n" ::"n"(N) : "memory");
 }
 
-template <int R, class Blend>
+template <int R, class Blend, class T>
 __global__ void __launch_bounds__(Window<R>::MAX_THREADS)
-    windowed_lookup_kernel(const float* __restrict__ coords, Levels lv, int L, long long rows,
-                           long long groups, int bulk_ok, float* __restrict__ out) {
-  using W = Window<R>;
-  constexpr int G = W::G, K = W::K, KP = W::KP, KS = W::KS;
+    windowed_lookup_kernel(const float* __restrict__ coords, LevelsT<T> lv, int L,
+                           long long rows, long long groups, int bulk_ok,
+                           float* __restrict__ out) {
+  using W = Window<R, T>;
+  constexpr int G = W::G, K = W::K, KP = W::KP, KS = W::KS, SC = W::SC;
+  constexpr bool BF = is_bf16<T>();
   extern __shared__ __align__(16) float smem[];
   const int tid = threadIdx.x;
   const int cols = L * K * K;  // outputs of a row
-  const int cen_f = G * L * 4, patch_f = cen_f + G * L * KP * KS;  // offsets in a stage
-  const int stage_f = patch_f + G * cols;
+  // offsets in a stage: centres, (bf16) origins, cells, outputs
+  const int cen_f = G * L * 4, raw_f = cen_f + G * L * W::ORG;
+  const int patch_f = raw_f + G * L * W::RAW, stage_f = patch_f + G * cols;
 
-  // staging slot (row, level, window column e), the same in every group
-  const int srow = tid / (L * KP);
-  const int srem = tid - srow * (L * KP);
-  const int slev = srem / KP;
-  const int se = srem - slev * KP;
+  // staging slot (row, level, window column e, or word column w for bf16
+  // maps), the same in every group
+  const int srow = tid / (L * SC);
+  const int srem = tid - srow * (L * SC);
+  const int slev = srem / SC;
+  const int se = srem - slev * SC;
   const bool son = srow < G;
   const int swin = srow * L + slev;
   const int lc = son ? slev : 0;
   const int s = lv.size[lc];
-  const float* const map = lv.map[lc];
+  const T* const map = lv.map[lc];
   const float inv = ldexpf(1.f, -lc);  // exact power of two
   float2 cv;  // the centre of the next group to stage
   auto load_centre = [&](long long g) {
@@ -157,18 +262,24 @@ __global__ void __launch_bounds__(Window<R>::MAX_THREADS)
     const float px = cv.x * inv, py = cv.y * inv;
     const float x0f = floorf(px), y0f = floorf(py);
     if (se == 0) reinterpret_cast<float4*>(base)[swin] = Blend::centre(px, py, x0f, y0f);
-    // tested as floats, so a NaN or far-away centre never reaches an int
-    // cast: such a window gets an origin that leaves all its cells outside
-    const float xx = x0f - (float)R + (float)se;
-    const bool xin = b < rows && xx >= 0.f && xx <= (float)(s - 1);
-    const int yb =
-        ((y0f >= -(float)(R + 1) && y0f <= (float)(s + R)) ? (int)y0f : -(2 * R + 4)) - R;
-    // cell d of this column: map[yb + d][xx]
-    const float* cp = map + (xin ? b * (long long)s * s + (int)xx : 0LL) + (long long)yb * s;
-    float* dst = base + cen_f + (swin * KP + se) * KS;
+    if constexpr (BF) {
+      stage_words<R>(reinterpret_cast<int4*>(base + cen_f) + swin,
+                     reinterpret_cast<uint32_t*>(base + raw_f) + swin * W::RAW, map, b, b < rows,
+                     rows, s, x0f, y0f, se);
+    } else {
+      // tested as floats, so a NaN or far-away centre never reaches an int
+      // cast: such a window gets an origin that leaves all its cells outside
+      const float xx = x0f - (float)R + (float)se;
+      const bool xin = b < rows && xx >= 0.f && xx <= (float)(s - 1);
+      const int yb =
+          ((y0f >= -(float)(R + 1) && y0f <= (float)(s + R)) ? (int)y0f : -(2 * R + 4)) - R;
+      // cell d of this column: map[yb + d][xx]
+      const float* cp = map + (xin ? b * (long long)s * s + (int)xx : 0LL) + (long long)yb * s;
+      float* dst = base + raw_f + (swin * KP + se) * KS;
 #pragma unroll
-    for (int d = 0; d < KP; ++d)
-      cp_async4(dst + d, cp + d * s, xin && (unsigned)(yb + d) < (unsigned)s);
+      for (int d = 0; d < KP; ++d)
+        cp_async4(dst + d, cp + d * s, xin && (unsigned)(yb + d) < (unsigned)s);
+    }
   };
 
   // blending item (row, level, output column j), the same in every row
@@ -201,12 +312,18 @@ __global__ void __launch_bounds__(Window<R>::MAX_THREADS)
     float* ob = base + patch_f;
     if (con) {
       const float4 ce = reinterpret_cast<const float4*>(base)[cwin];
-      const float* p = base + cen_f + (cwin * KP + cj) * KS;
       float a[KP], c[KP];  // window columns j and j + 1
+      if constexpr (BF) {
+        columns_from_words<R>(a, c, reinterpret_cast<const uint32_t*>(base + raw_f) + cwin * W::RAW,
+                              reinterpret_cast<const int4*>(base + cen_f)[cwin],
+                              lv.size[clev], cj);
+      } else {
+        const float* p = base + raw_f + (cwin * KP + cj) * KS;
 #pragma unroll
-      for (int d = 0; d < KP; ++d) {
-        a[d] = p[d];
-        c[d] = p[KS + d];
+        for (int d = 0; d < KP; ++d) {
+          a[d] = p[d];
+          c[d] = p[KS + d];
+        }
       }
       const float2 wx = Blend::xweights(ce, fj);
       float* o = ob + crow * cols + (clev * K + cj) * K;
@@ -276,11 +393,11 @@ int resident_blocks(Kernel kernel, int* per_sm, int L, int threads, SmemOf smem_
   return per_sm[L] < 1 ? (int)cudaErrorInvalidConfiguration : 0;
 }
 
-template <int R, class Blend>
-int launch_window(const float* coords, const Levels& lv, int L, long long rows, float* out,
+template <int R, class Blend, class T>
+int launch_window(const float* coords, const LevelsT<T>& lv, int L, long long rows, float* out,
                   cudaStream_t stream) {
-  using W = Window<R>;
-  auto kernel = windowed_lookup_kernel<R, Blend>;
+  using W = Window<R, T>;
+  auto kernel = windowed_lookup_kernel<R, Blend, T>;
   const size_t smem = W::smem(L);
   int sms = 0, optin = 0;
   int err = device_limits(&sms, &optin);
@@ -299,26 +416,29 @@ int launch_window(const float* coords, const Levels& lv, int L, long long rows, 
   return (int)cudaGetLastError();
 }
 
-// The launch of K1, K7 or K8: radius 0..MaxR at 1..MAX_LEVELS levels where
-// two ring stages fit a block's shared memory (checked at launch for the
-// level count asked); anything else returns an error and launches nothing.
-template <int MaxR, class Blend>
-int launch_window_radius(const float* coords, const float* m0, const float* m1,
-                         const float* m2, const float* m3, int s0, int s1, int s2, int s3,
-                         int num_levels, int radius, long long rows, float* out,
-                         cudaStream_t stream) {
+// The launch of K1, K7 or K8 on maps of cell type T: radius 0..MaxR at
+// 1..MAX_LEVELS levels where two ring stages fit a block's shared memory
+// (checked at launch for the level count asked); anything else returns an
+// error and launches nothing.  bf16 maps must start on 4-byte boundaries
+// (the wrapper checks it).
+template <int MaxR, class Blend, class T>
+int launch_window_radius(const float* coords, const T* m0, const T* m1, const T* m2,
+                         const T* m3, int s0, int s1, int s2, int s3, int num_levels,
+                         int radius, long long rows, float* out, cudaStream_t stream) {
   if (rows < 1 || num_levels < 1 || num_levels > MAX_LEVELS) return (int)cudaErrorInvalidValue;
-  const Levels lv = {{m0, m1, m2, m3}, {s0, s1, s2, s3}};
+  const LevelsT<T> lv = {{m0, m1, m2, m3}, {s0, s1, s2, s3}};
   return with_radius<MaxR>(radius, [&](auto r) {
-    return launch_window<decltype(r)::value, Blend>(coords, lv, num_levels, rows, out, stream);
+    return launch_window<decltype(r)::value, Blend, T>(coords, lv, num_levels, rows, out,
+                                                       stream);
   });
 }
 
-// What a launch at (num_levels, radius) takes: rows per group, the largest
-// radius, threads per block and dynamic shared memory per block; the same
-// error as the launch for a pair it refuses.
+// What a launch at (num_levels, radius) on float (bf16 = 0) or bfloat16
+// maps takes: rows per group, the largest radius, threads per block and
+// dynamic shared memory per block; the same error as the launch for a pair
+// it refuses.
 template <int MaxR>
-int window_layout(int num_levels, int radius, int* rows_per_group, int* max_radius,
+int window_layout(int num_levels, int radius, int bf16, int* rows_per_group, int* max_radius,
                   int* threads, long long* smem_bytes) {
   *rows_per_group = WINDOW_ROWS;
   *max_radius = MaxR;
@@ -327,9 +447,34 @@ int window_layout(int num_levels, int radius, int* rows_per_group, int* max_radi
   const int err = device_limits(&sms, &optin);
   if (err != 0) return err;
   return with_radius<MaxR>(radius, [&](auto r) {
-    using W = Window<decltype(r)::value>;
-    *threads = W::threads(num_levels);
-    *smem_bytes = (long long)W::smem(num_levels);
+    constexpr int R = decltype(r)::value;
+    *threads = Window<R>::threads(num_levels);
+    *smem_bytes = bf16 ? (long long)Window<R, __nv_bfloat16>::smem(num_levels)
+                       : (long long)Window<R>::smem(num_levels);
     return *smem_bytes > optin ? (int)cudaErrorInvalidConfiguration : 0;
   });
 }
+
+// The extern "C" launch and layout functions of one source: `name`_launch
+// (float maps), `name`_bf16_launch (bfloat16 maps) and `name`_layout.
+#define WINDOW_ENTRY_POINTS(launch, launch_bf16, layout, MaxR, Blend)                          \
+  extern "C" int launch(const float* coords, const float* m0, const float* m1,                 \
+                        const float* m2, const float* m3, int s0, int s1, int s2, int s3,      \
+                        int num_levels, int radius, long long rows, float* out,                \
+                        cudaStream_t stream) {                                                  \
+    return launch_window_radius<MaxR, Blend>(coords, m0, m1, m2, m3, s0, s1, s2, s3,           \
+                                             num_levels, radius, rows, out, stream);           \
+  }                                                                                             \
+  extern "C" int launch_bf16(const float* coords, const __nv_bfloat16* m0,                     \
+                             const __nv_bfloat16* m1, const __nv_bfloat16* m2,                 \
+                             const __nv_bfloat16* m3, int s0, int s1, int s2, int s3,          \
+                             int num_levels, int radius, long long rows, float* out,           \
+                             cudaStream_t stream) {                                             \
+    return launch_window_radius<MaxR, Blend>(coords, m0, m1, m2, m3, s0, s1, s2, s3,           \
+                                             num_levels, radius, rows, out, stream);           \
+  }                                                                                             \
+  extern "C" int layout(int num_levels, int radius, int bf16, int* rows_per_group,             \
+                        int* max_radius, int* threads, long long* smem_bytes) {                \
+    return window_layout<MaxR>(num_levels, radius, bf16, rows_per_group, max_radius, threads,  \
+                               smem_bytes);                                                     \
+  }

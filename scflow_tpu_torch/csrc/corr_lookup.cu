@@ -39,6 +39,12 @@
 // and the value is the same.  Built without -fmad=false, as the first K1:
 // the plain version sums tent weights over whole rows, and the two are held
 // within atol 1e-4.
+//
+// bfloat16 maps (the JAX package's dtype=bf16 pyramid): corr_lookup_bf16_launch
+// runs the same pipeline on 2-byte cells, staged as aligned 4-byte words
+// and upcast exactly to fp32 in shared memory (corr_common.cuh), so the
+// blends and the fp32 output are the fp32 kernel's on the upcast cells, as
+// the TPU kernel's `m_ref[...].astype(jnp.float32)`.
 
 #include "corr_common.cuh"
 
@@ -64,16 +70,7 @@ struct TentBlend {
   }
 };
 
-extern "C" int corr_lookup_launch(const float* coords, const float* m0, const float* m1,
-                                  const float* m2, const float* m3, int s0, int s1, int s2,
-                                  int s3, int num_levels, int radius, long long rows, float* out,
-                                  cudaStream_t stream) {
-  return launch_window_radius<MAX_RADIUS, TentBlend>(coords, m0, m1, m2, m3, s0, s1, s2, s3,
-                                                     num_levels, radius, rows, out, stream);
-}
-
-extern "C" int corr_lookup_tent_layout(int num_levels, int radius, int* rows_per_group,
-                                       int* max_radius, int* threads, long long* smem_bytes) {
-  return window_layout<MAX_RADIUS>(num_levels, radius, rows_per_group, max_radius, threads,
-                                   smem_bytes);
-}
+// corr_lookup_launch (float maps), corr_lookup_bf16_launch (bfloat16 maps)
+// and corr_lookup_tent_layout
+WINDOW_ENTRY_POINTS(corr_lookup_launch, corr_lookup_bf16_launch,
+                    corr_lookup_tent_layout, MAX_RADIUS, TentBlend)

@@ -29,6 +29,10 @@
 // previous group blends, and a group leaves by one bulk copy (times on an
 // H100 in PERF.md).
 
+// bfloat16 maps: corr_lookup_bdiag_bf16_launch runs the same pipeline on cells upcast
+// exactly to fp32 (corr_common.cuh's 2-byte staging), as the TPU kernel
+// reads its bf16 levels.
+
 #include "corr_common.cuh"
 
 #define MAX_RADIUS 12  // the instances this source builds: radius 0-12
@@ -56,18 +60,7 @@ struct BdiagBlend {
   }
 };
 
-extern "C" int corr_lookup_bdiag_launch(const float* coords, const float* m0,
-                                        const float* m1, const float* m2,
-                                        const float* m3, int s0, int s1, int s2,
-                                        int s3, int num_levels, int radius,
-                                        long long rows, float* out,
-                                        cudaStream_t stream) {
-  return launch_window_radius<MAX_RADIUS, BdiagBlend>(coords, m0, m1, m2, m3, s0, s1, s2, s3,
-                                                  num_levels, radius, rows, out, stream);
-}
-
-extern "C" int corr_lookup_bdiag_layout(int num_levels, int radius, int* rows_per_group,
-                                        int* max_radius, int* threads, long long* smem_bytes) {
-  return window_layout<MAX_RADIUS>(num_levels, radius, rows_per_group, max_radius, threads,
-                                   smem_bytes);
-}
+// corr_lookup_bdiag_launch (float maps), corr_lookup_bdiag_bf16_launch (bfloat16 maps)
+// and corr_lookup_bdiag_layout
+WINDOW_ENTRY_POINTS(corr_lookup_bdiag_launch, corr_lookup_bdiag_bf16_launch,
+                    corr_lookup_bdiag_layout, MAX_RADIUS, BdiagBlend)

@@ -47,14 +47,27 @@
 //   levels then in level order (warp shuffles), so two launches give the
 //   same bits.
 // Built with -fmad=false, as the plain version's separate products and sums.
+//
+// bfloat16 maps (corr_lookup_bwd_bf16_launch): `_lookup_bwd` returns each
+// level's gradient in the map's dtype, `.astype(corr.dtype)` of its fp32
+// sums, and reads the map upcast for the flow gradient.  So the bf16
+// instance sums in fp32 as above and rounds each dense value once, to
+// nearest even (__float2bfloat16_rn), storing 8 values per 16-byte store
+// where S^2 % 8 == 0 and the level is 16-byte aligned (2-byte stores
+// otherwise): the dense stores, most of the bound, halve.  For the flow
+// gradient the window cells arrive as the forward kernels stage them, in
+// aligned 4-byte words (cp.async has no 2-byte form), and are upcast into a
+// float patch before the tap terms read them.  g, the centres and the flow
+// gradient stay fp32.
 
 #include "corr_common.cuh"
 
 #define BWD_THREADS 256
 #define BWD_MAX_RADIUS 15  // the instances this source builds: radius 0-15
 
-struct GradLevels {
-  float* map[MAX_LEVELS];
+template <class T>
+struct GradLevelsT {
+  T* map[MAX_LEVELS];
 };
 
 __device__ __forceinline__ float tent(float u) { return fmaxf(0.f, 1.f - fabsf(u)); }
@@ -67,14 +80,68 @@ __device__ __forceinline__ float dtent(float u) {
 // 2^-l, exactly
 __device__ __forceinline__ float level_scale(int l) { return __int_as_float((127 - l) << 23); }
 
-// The shared-memory layout at radius R.  Floats of one ring stage at L
-// levels: g (G*L*k*k, padded to 4), the centres (2G), for the flow gradient
-// the window cells of the maps (G*L*(k+1)^2).  Then the formed windows
-// (two buffers of G*L*(k+1)^2), their origins (two buffers of G*L int4:
-// x, y, fill value) and, for the flow gradient, the tap terms (2*G*L*k*k).
+// bfloat16 maps: the window (origin floor(px) - R, floor(py) - R) of row b
+// (on: b exists) as the forward kernels stage it (corr_common.cuh), one
+// word (row d, word column w) per call.  xs and yb as floats, tested before
+// any int cast, so a NaN or far-away centre reads nothing.
 template <int R>
+__device__ __forceinline__ void word_of(long long b, bool on, int s, float x0f, float y0f, int d,
+                                        int w, long long* lo, int* e, bool* row_in, int* xs) {
+  const bool xok = x0f >= -(float)(R + 2) && x0f <= (float)(s + R);
+  const float yf = y0f - (float)R + (float)d;
+  *row_in = on && xok && yf >= 0.f && yf <= (float)(s - 1);
+  *xs = *row_in ? (int)x0f - R : 0;
+  const long long first = *row_in ? b * (long long)s * s + (long long)(int)yf * s + *xs : 0;
+  const int par = (int)(first & 1);
+  *lo = first - par + 2 * w;
+  *e = 2 * w - par;
+}
+
+template <int R>
+__device__ __forceinline__ void stage_word_r(uint32_t* dst, const __nv_bfloat16* map, long long b,
+                                             bool on, long long rows, int s, float x0f, float y0f,
+                                             int d, int w) {
+  long long lo;
+  int e, xs;
+  bool row_in;
+  word_of<R>(b, on, s, x0f, y0f, d, w, &lo, &e, &row_in, &xs);
+  const bool any =
+      row_in && ((unsigned)(xs + e) < (unsigned)s || (unsigned)(xs + e + 1) < (unsigned)s);
+  const long long total = rows * (long long)s * s;
+  cp_async_word(dst, map + (any ? lo : 0), any ? (lo + 2 <= total ? 4 : 2) : 0);
+}
+
+// row d of a window's float cells (cells[e], e = 0..k) from its word w
+template <int R>
+__device__ __forceinline__ void upcast_word_r(float* cells, uint32_t word, long long b, bool on,
+                                              int s, float x0f, float y0f, int d, int w) {
+  constexpr int KP = 2 * R + 2;
+  long long lo;
+  int e, xs;
+  bool row_in;
+  word_of<R>(b, on, s, x0f, y0f, d, w, &lo, &e, &row_in, &xs);
+  if (e >= 0 && e < KP)
+    cells[e] = row_in && (unsigned)(xs + e) < (unsigned)s ? bf16_lo(word) : 0.f;
+  if (e + 1 < KP)
+    cells[e + 1] = row_in && (unsigned)(xs + e + 1) < (unsigned)s ? bf16_hi(word) : 0.f;
+}
+
+// The shared-memory layout at radius R on maps of cell type T.  Floats of
+// one ring stage at L levels: g (G*L*k*k, padded to 4), the centres (2G),
+// for the flow gradient the window cells of the maps (G*L*(k+1)^2; for
+// bfloat16 maps the 4-byte words that hold them, G*L*(k+1)*(r+2), as the
+// forward kernels stage them: corr_common.cuh).  Then the formed windows
+// (two buffers of G*L*(k+1)^2), their origins (two buffers of G*L int4:
+// x, y, fill value), for the flow gradient the tap terms (2*G*L*k*k) and,
+// for bfloat16 maps, the window cells upcast to float (G*L*(k+1)^2).
+template <int R, class T = float>
 struct BwdWindow {
-  static constexpr int K = 2 * R + 1, KP = K + 1, KK = K * K, KP2 = KP * KP;
+  static constexpr int K = 2 * R + 1, KP = K + 1, KK = K * K, KP2 = KP * KP, NW = R + 2;
+  static constexpr bool BF = is_bf16<T>();
+  // 4-byte units of one window's staged cells
+  static constexpr int RAW = BF ? KP * NW : KP2;
+  // cells per 16-byte store of the dense gradient
+  static constexpr int VW = 16 / sizeof(T);
   // rows per group: 8 up to radius 4 (at the training shape 0.0629 ms of
   // device time against 0.0660 with 4 rows, H100 700 W), 4 up to radius 9,
   // then 2, so that two stages fit every window K1 takes (radius 14 at four
@@ -82,25 +149,26 @@ struct BwdWindow {
   static constexpr int G = R <= 4 ? 8 : (R <= 9 ? 4 : 2);
   __host__ __device__ static constexpr int gpad(int L) { return (G * L * KK + 3) / 4 * 4; }
   __host__ __device__ static constexpr int stage(int L, bool c) {
-    return gpad(L) + 2 * G + (c ? G * L * KP2 : 0);
+    return gpad(L) + 2 * G + (c ? G * L * RAW : 0);
   }
   static constexpr size_t smem(int L, bool c) {
     return sizeof(float) * (2 * stage(L, c) + 2 * G * L * KP2 + 2 * G * L * 4 +
-                            (c ? 2 * G * L * KK : 0));
+                            (c ? 2 * G * L * KK : 0) + (c && BF ? G * L * KP2 : 0));
   }
 };
 
-template <int R, bool COORDS>
+template <int R, bool COORDS, class C>
 __global__ void __launch_bounds__(BWD_THREADS)
     lookup_bwd_kernel(const float* __restrict__ coords, const float* __restrict__ grad_out,
-                      Levels lv, GradLevels gl, int L, long long rows, long long groups,
+                      LevelsT<C> lv, GradLevelsT<C> gl, int L, long long rows, long long groups,
                       int vec_g, int vec_out, float* __restrict__ grad_coords) {
-  using W = BwdWindow<R>;
-  constexpr int G = W::G, K = W::K, KP = W::KP, KK = W::KK, KP2 = W::KP2;
-  constexpr int T = BWD_THREADS;
+  using W = BwdWindow<R, C>;
+  constexpr int G = W::G, K = W::K, KP = W::KP, KK = W::KK, KP2 = W::KP2, NW = W::NW;
+  constexpr int T = BWD_THREADS, VW = W::VW;
+  constexpr bool BF = W::BF;
   extern __shared__ __align__(16) float smem[];
   __shared__ int lsize[MAX_LEVELS];
-  __shared__ const float* lmap[MAX_LEVELS];
+  __shared__ const C* lmap[MAX_LEVELS];
   const int tid = threadIdx.x;
   const int nwin = G * L;  // windows of a group, level-major: win = l * G + row
   const int gsz = G * L * KK;
@@ -108,6 +176,7 @@ __global__ void __launch_bounds__(BWD_THREADS)
   float* const winbuf = smem + 2 * stage_f;                           // [2][nwin * KP2]
   int4* const orgbuf = reinterpret_cast<int4*>(winbuf + 2 * nwin * KP2);  // [2][nwin]
   float* const taps = reinterpret_cast<float*>(orgbuf + 2 * nwin);     // [2][nwin * KK]
+  float* const fpatch = taps + 2 * nwin * KK;  // bf16, flow gradient: [nwin * KP2]
   if (tid < MAX_LEVELS) {
     lsize[tid] = lv.size[tid];
     lmap[tid] = lv.map[tid];
@@ -115,14 +184,14 @@ __global__ void __launch_bounds__(BWD_THREADS)
 
   // This thread's dense-write walk of each level, split once: its first
   // cell (row, h, w) of the group's level block, and the step between its
-  // chunks (T chunks of V cells) as (rows, h, w); V = 4 where the level
-  // takes 16-byte stores.
+  // chunks (T chunks of V cells) as (rows, h, w); V = VW (4 floats or 8
+  // bfloat16s) where the level takes 16-byte stores.
   int r0[MAX_LEVELS], h0[MAX_LEVELS], w0[MAX_LEVELS];
   int dr[MAX_LEVELS], dh[MAX_LEVELS], dw[MAX_LEVELS];
 #pragma unroll
   for (int l = 0; l < MAX_LEVELS; ++l) {
     const int s = l < L ? lv.size[l] : 1, s2 = s * s;
-    const int v = (vec_out >> l) & 1 ? 4 : 1;
+    const int v = (vec_out >> l) & 1 ? VW : 1;
     int c = tid * v;
     r0[l] = c / s2;
     c -= r0[l] * s2;
@@ -149,7 +218,21 @@ __global__ void __launch_bounds__(BWD_THREADS)
     }
     if (tid < 2 * G)
       cp_async4(st + gpad + tid, coords + 2 * b0 + (tid < 2 * nrows ? tid : 0), tid < 2 * nrows);
-    if (COORDS) {
+    if constexpr (COORDS && BF) {
+      // the 4-byte words that hold the window cells: window win, row d,
+      // word column w (corr_common.cuh's bf16 staging)
+      uint32_t* raw = reinterpret_cast<uint32_t*>(st + gpad + 2 * G);
+      for (int q = tid; q < nwin * KP * NW; q += T) {
+        const int win = q / (KP * NW), c = q - win * (KP * NW);
+        const int d = c / NW, w = c - d * NW;
+        const int l = win / G, row = win - l * G;
+        const int s = lsize[l];
+        const long long b = b0 + (row < nrows ? row : 0);
+        const float sc = level_scale(l);
+        stage_word_r<R>(raw + win * W::RAW + d * NW + w, lmap[l], b, row < nrows, rows, s,
+                        floorf(coords[2 * b] * sc), floorf(coords[2 * b + 1] * sc), d, w);
+      }
+    } else if constexpr (COORDS) {
       // the window cells of the maps, m[floor(py) - R + d][floor(px) - R + e]
       float* patch = st + gpad + 2 * G;
       for (int q = tid; q < nwin * KP2; q += T) {
@@ -187,6 +270,21 @@ __global__ void __launch_bounds__(BWD_THREADS)
     const long long b0 = g * G;
     const int nrows = rows - b0 < G ? (int)(rows - b0) : G;
 
+    if constexpr (COORDS && BF) {
+      // upcast the window cells of the group, 0 outside the map
+      const uint32_t* raw = reinterpret_cast<const uint32_t*>(xy + 2 * G);
+      for (int q = tid; q < nwin * KP * NW; q += T) {
+        const int wn = q / (KP * NW), c = q - wn * (KP * NW);
+        const int d = c / NW, w = c - d * NW;
+        const int l = wn / G, row = wn - l * G;
+        const int s = lsize[l];
+        const long long b = b0 + (row < nrows ? row : 0);
+        const float sc = level_scale(l);
+        upcast_word_r<R>(fpatch + wn * KP2 + d * KP, raw[wn * W::RAW + d * NW + w], b,
+                         row < nrows, s, floorf(xy[2 * row] * sc), floorf(xy[2 * row + 1] * sc),
+                         d, w);
+      }
+    }
     // each window's origin and the value outside it: 0, or NaN for a NaN
     // centre; a window that misses the map (or a NaN one) gets an origin
     // that leaves every cell outside
@@ -226,10 +324,11 @@ __global__ void __launch_bounds__(BWD_THREADS)
       }
       win[q] = v;
     }
+    if constexpr (COORDS && BF) __syncthreads();  // the upcast cells
     if (COORDS) {
       // each tap's terms of d/dpx and d/dpy: the cells with a nonzero
       // derivative are the window columns j, j+1 (rows i, i+1)
-      const float* patch = st + gpad + 2 * G;
+      const float* patch = BF ? fpatch : st + gpad + 2 * G;
       for (int q = tid; q < nwin * KK; q += T) {
         const int w_ = q / KK, t = q - w_ * KK;
         const int j = t / K, i = t - j * K;
@@ -293,20 +392,20 @@ __global__ void __launch_bounds__(BWD_THREADS)
       if (l >= L) break;
       const int s = lv.size[l];
       const long long s2 = (long long)s * s;
-      float* dst = gl.map[l] + b0 * s2;
+      C* dst = gl.map[l] + b0 * s2;
       const float* wl = win + l * G * KP2;
       const int4* ol = org + l * G;
       const bool vec = (vec_out >> l) & 1;
-      const int step = vec ? 4 * T : T;  // cells between this thread's chunks
+      const int step = vec ? VW * T : T;  // cells between this thread's chunks
       int row = r0[l], h = h0[l], w = w0[l];
-      for (long long off = vec ? 4 * tid : tid; row < nrows; off += step) {
+      for (long long off = vec ? VW * tid : tid; row < nrows; off += step) {
         const int4 o = ol[row];
         const float fill = __int_as_float(o.z);
         const float* wr = wl + row * KP2;
-        float v[4];
+        float v[VW];
         int hh = h, ww = w;
 #pragma unroll
-        for (int u = 0; u < 4; ++u) {
+        for (int u = 0; u < VW; ++u) {
           if (u > 0 && !vec) break;
           const int d = hh - o.y, e = ww - o.x;
           v[u] = ((unsigned)d <= (unsigned)K && (unsigned)e <= (unsigned)K) ? wr[d * KP + e]
@@ -316,10 +415,25 @@ __global__ void __launch_bounds__(BWD_THREADS)
             ++hh;
           }
         }
-        if (vec)
-          __stcs(reinterpret_cast<float4*>(dst + off), make_float4(v[0], v[1], v[2], v[3]));
-        else
-          dst[off] = v[0];
+        if constexpr (BF) {
+          // each value rounded once, to nearest even, from its float sum
+          if (vec) {
+            uint32_t pk[4];
+#pragma unroll
+            for (int u = 0; u < 4; ++u) {
+              const __nv_bfloat162 two = __floats2bfloat162_rn(v[2 * u], v[2 * u + 1]);
+              pk[u] = *reinterpret_cast<const uint32_t*>(&two);
+            }
+            __stcs(reinterpret_cast<uint4*>(dst + off), make_uint4(pk[0], pk[1], pk[2], pk[3]));
+          } else {
+            dst[off] = __float2bfloat16_rn(v[0]);
+          }
+        } else {
+          if (vec)
+            __stcs(reinterpret_cast<float4*>(dst + off), make_float4(v[0], v[1], v[2], v[3]));
+          else
+            dst[off] = v[0];
+        }
         // the next chunk: T chunks on, carried through w, h and row
         w += dw[l];
         if (w >= s) {
@@ -337,12 +451,12 @@ __global__ void __launch_bounds__(BWD_THREADS)
   }
 }
 
-template <int R, bool COORDS>
-int launch_bwd(const float* coords, const float* grad_out, const Levels& lv,
-               const GradLevels& gl, int L, long long rows, float* grad_coords,
+template <int R, bool COORDS, class C>
+int launch_bwd(const float* coords, const float* grad_out, const LevelsT<C>& lv,
+               const GradLevelsT<C>& gl, int L, long long rows, float* grad_coords,
                cudaStream_t stream) {
-  using W = BwdWindow<R>;
-  auto kernel = lookup_bwd_kernel<R, COORDS>;
+  using W = BwdWindow<R, C>;
+  auto kernel = lookup_bwd_kernel<R, COORDS, C>;
   const size_t smem = W::smem(L, COORDS);
   int sms = 0, optin = 0;
   int err = device_limits(&sms, &optin);
@@ -359,7 +473,7 @@ int launch_bwd(const float* coords, const float* grad_out, const Levels& lv,
   const int vec_g = ((uintptr_t)grad_out & 15) == 0 && (W::G * L * W::KK) % 4 == 0;
   int vec_out = 0;
   for (int l = 0; l < L; ++l)
-    if ((long long)lv.size[l] * lv.size[l] % 4 == 0 && ((uintptr_t)gl.map[l] & 15) == 0)
+    if ((long long)lv.size[l] * lv.size[l] % W::VW == 0 && ((uintptr_t)gl.map[l] & 15) == 0)
       vec_out |= 1 << l;
   kernel<<<grid, BWD_THREADS, smem, stream>>>(coords, grad_out, lv, gl, L, rows, groups, vec_g,
                                               vec_out, grad_coords);
@@ -372,15 +486,14 @@ int with_bwd_window(int num_levels, int radius, F&& f) {
   return with_radius<BWD_MAX_RADIUS>(radius, f);
 }
 
-extern "C" int corr_lookup_bwd_launch(const float* coords, const float* grad_out,
-                                      const float* m0, const float* m1, const float* m2,
-                                      const float* m3, int s0, int s1, int s2, int s3,
-                                      float* g0, float* g1, float* g2, float* g3,
-                                      int num_levels, int radius, long long rows,
-                                      float* grad_coords, cudaStream_t stream) {
+template <class C>
+int launch_bwd_radius(const float* coords, const float* grad_out, const C* m0, const C* m1,
+                      const C* m2, const C* m3, int s0, int s1, int s2, int s3, C* g0, C* g1,
+                      C* g2, C* g3, int num_levels, int radius, long long rows,
+                      float* grad_coords, cudaStream_t stream) {
   if (rows < 1) return (int)cudaErrorInvalidValue;
-  const Levels lv = {{m0, m1, m2, m3}, {s0, s1, s2, s3}};
-  const GradLevels gl = {{g0, g1, g2, g3}};
+  const LevelsT<C> lv = {{m0, m1, m2, m3}, {s0, s1, s2, s3}};
+  const GradLevelsT<C> gl = {{g0, g1, g2, g3}};
   return with_bwd_window(num_levels, radius, [&](auto r) {
     constexpr int R = decltype(r)::value;
     return grad_coords != nullptr
@@ -391,10 +504,33 @@ extern "C" int corr_lookup_bwd_launch(const float* coords, const float* grad_out
   });
 }
 
-// What a launch at (num_levels, radius, want_coords) takes: rows per group,
-// the largest radius, threads per block and dynamic shared memory per
-// block; the same error as the launch for a window it refuses.
-extern "C" int corr_lookup_bwd_layout(int num_levels, int radius, int want_coords,
+// float maps and level gradients
+extern "C" int corr_lookup_bwd_launch(const float* coords, const float* grad_out,
+                                      const float* m0, const float* m1, const float* m2,
+                                      const float* m3, int s0, int s1, int s2, int s3,
+                                      float* g0, float* g1, float* g2, float* g3,
+                                      int num_levels, int radius, long long rows,
+                                      float* grad_coords, cudaStream_t stream) {
+  return launch_bwd_radius(coords, grad_out, m0, m1, m2, m3, s0, s1, s2, s3, g0, g1, g2, g3,
+                           num_levels, radius, rows, grad_coords, stream);
+}
+
+// bfloat16 maps and level gradients (4-byte aligned); grad_out, coords and
+// the flow gradient stay float
+extern "C" int corr_lookup_bwd_bf16_launch(
+    const float* coords, const float* grad_out, const __nv_bfloat16* m0, const __nv_bfloat16* m1,
+    const __nv_bfloat16* m2, const __nv_bfloat16* m3, int s0, int s1, int s2, int s3,
+    __nv_bfloat16* g0, __nv_bfloat16* g1, __nv_bfloat16* g2, __nv_bfloat16* g3, int num_levels,
+    int radius, long long rows, float* grad_coords, cudaStream_t stream) {
+  return launch_bwd_radius(coords, grad_out, m0, m1, m2, m3, s0, s1, s2, s3, g0, g1, g2, g3,
+                           num_levels, radius, rows, grad_coords, stream);
+}
+
+// What a launch at (num_levels, radius, want_coords) on float (bf16 = 0) or
+// bfloat16 maps takes: rows per group, the largest radius, threads per block
+// and dynamic shared memory per block; the same error as the launch for a
+// window it refuses.
+extern "C" int corr_lookup_bwd_layout(int num_levels, int radius, int want_coords, int bf16,
                                       int* rows_per_group, int* max_radius, int* threads,
                                       long long* smem_bytes) {
   *max_radius = BWD_MAX_RADIUS;
@@ -403,9 +539,10 @@ extern "C" int corr_lookup_bwd_layout(int num_levels, int radius, int want_coord
   const int err = device_limits(&sms, &optin);
   if (err != 0) return err;
   return with_bwd_window(num_levels, radius, [&](auto r) {
-    using W = BwdWindow<decltype(r)::value>;
-    *rows_per_group = W::G;
-    *smem_bytes = (long long)W::smem(num_levels, want_coords != 0);
+    constexpr int R = decltype(r)::value;
+    *rows_per_group = BwdWindow<R>::G;
+    *smem_bytes = bf16 ? (long long)BwdWindow<R, __nv_bfloat16>::smem(num_levels, want_coords != 0)
+                       : (long long)BwdWindow<R>::smem(num_levels, want_coords != 0);
     return *smem_bytes > optin ? (int)cudaErrorInvalidConfiguration : 0;
   });
 }

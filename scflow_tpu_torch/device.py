@@ -39,16 +39,24 @@ def resolve_backend(name: str, device: torch.device) -> str:
 
 @contextlib.contextmanager
 def full_fp32():
-    """Run float32 convolutions and matmuls in full float32, whatever the
-    caller's global flags: PyTorch lets cuDNN use TF32 by default
+    """The entry points' precision: float32 convolutions and matmuls in full
+    float32, and bfloat16 matmuls reduced in float32 and rounded once, as the
+    JAX package's bf16 products (an einsum with preferred_element_type
+    float32, then a cast).  PyTorch lets cuDNN use TF32 by default
     (torch.backends.cudnn.allow_tf32 is True), which keeps about three
-    decimal digits.  Both flags are restored on exit.
-    torch.backends.cudnn.flags(allow_tf32=False) is no substitute: its other
-    arguments default to enabled=False, which turns cuDNN off."""
-    saved = (torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32)
+    decimal digits, and lets cuBLAS reduce bf16 GEMMs in reduced precision
+    (torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction).
+    All three flags are restored on exit.  torch.backends.cudnn.flags(
+    allow_tf32=False) is no substitute: its other arguments default to
+    enabled=False, which turns cuDNN off."""
+    matmul = torch.backends.cuda.matmul
+    saved = (torch.backends.cudnn.allow_tf32, matmul.allow_tf32,
+             matmul.allow_bf16_reduced_precision_reduction)
     torch.backends.cudnn.allow_tf32 = False
-    torch.backends.cuda.matmul.allow_tf32 = False
+    matmul.allow_tf32 = False
+    matmul.allow_bf16_reduced_precision_reduction = False
     try:
         yield
     finally:
-        torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = saved
+        (torch.backends.cudnn.allow_tf32, matmul.allow_tf32,
+         matmul.allow_bf16_reduced_precision_reduction) = saved

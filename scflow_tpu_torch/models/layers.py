@@ -1,7 +1,17 @@
 """Building blocks (NCHW): mmcv-style ConvModule, a single-pass
 InstanceNorm and a BatchNorm with flax's arithmetic.  Port of
 scflow_tpu/models/layers.py; module and parameter names follow the
-reference's mmcv state dicts (conv, bn / in / gn)."""
+reference's mmcv state dicts (conv, bn / in / gn).
+
+`dtype` is the JAX package's computation dtype, with flax's meaning:
+parameters stay float32 in the module; a conv or linear layer with
+dtype=torch.bfloat16 casts its input, weight and bias to bfloat16 at the
+call, takes the product (float32 accumulation, one rounding) and adds the
+bias in bfloat16, as nn.Conv / nn.Dense(dtype=bf16) do; a norm computes its
+statistics and affine math in float32 on the upcast input and rounds the
+output once to `dtype`.  None is float32, the modules' original arithmetic.
+Explicit casts, not torch.autocast: autocast keeps its own op lists and a
+cast cache, and would not follow flax op for op."""
 
 from typing import Optional
 
@@ -19,20 +29,43 @@ _ACTS = {
 }
 
 
+def conv2d(conv: nn.Conv2d, x: torch.Tensor, dtype: Optional[torch.dtype] = None
+           ) -> torch.Tensor:
+    """`conv` on x in `dtype` (flax nn.Conv(dtype=...)); None runs the module
+    as it is."""
+    if dtype is None:
+        return conv(x)
+    y = F.conv2d(x.to(dtype), conv.weight.to(dtype), None, conv.stride, conv.padding,
+                 conv.dilation, conv.groups)
+    return y if conv.bias is None else y + conv.bias.to(dtype)[:, None, None]
+
+
+def linear(layer: nn.Linear, x: torch.Tensor, dtype: Optional[torch.dtype] = None
+           ) -> torch.Tensor:
+    """`layer` on x in `dtype` (flax nn.Dense(dtype=...)); None promotes x to
+    the float32 parameters, as nn.Dense with dtype None does."""
+    if dtype is None:
+        return layer(x.to(layer.weight.dtype))
+    return F.linear(x.to(dtype), layer.weight.to(dtype)) + layer.bias.to(dtype)
+
+
 class InstanceNorm(nn.Module):
     """Per-sample, per-channel normalization over H, W without affine
     parameters, with the JAX package's single-pass variance
-    max(E[x^2] - mean^2, 0) (not torch's two-pass InstanceNorm2d)."""
+    max(E[x^2] - mean^2, 0) (not torch's two-pass InstanceNorm2d).  The
+    statistics are float32 whatever x's dtype, and the output takes x's
+    dtype, as the JAX module does."""
 
     def __init__(self, eps: float = 1e-5):
         super().__init__()
         self.eps = eps
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        mean = x.mean(dim=(2, 3), keepdim=True)
-        sq = (x * x).mean(dim=(2, 3), keepdim=True)
+        xf = x.float()
+        mean = xf.mean(dim=(2, 3), keepdim=True)
+        sq = (xf * xf).mean(dim=(2, 3), keepdim=True)
         var = torch.clamp(sq - mean * mean, min=0.0)
-        return (x - mean) * torch.rsqrt(var + self.eps)
+        return ((xf - mean) * torch.rsqrt(var + self.eps)).to(x.dtype)
 
 
 class BatchNorm(nn.Module):
@@ -43,11 +76,14 @@ class BatchNorm(nn.Module):
     `momentum` is flax's: running = momentum * running + (1 - momentum) *
     batch (torch's 0.1 means the same update).  train=True normalizes by the
     batch statistics and updates the running ones in place; train=False
-    uses the running ones."""
+    uses the running ones.  With dtype the statistics and the affine math
+    run in float32 on x upcast (the running statistics stay float32) and the
+    output is cast to dtype."""
 
-    def __init__(self, channels: int, eps: float = 1e-5, momentum: float = 0.9):
+    def __init__(self, channels: int, eps: float = 1e-5, momentum: float = 0.9,
+                 dtype: Optional[torch.dtype] = None):
         super().__init__()
-        self.eps, self.momentum = eps, momentum
+        self.eps, self.momentum, self.dtype = eps, momentum, dtype
         self.weight = nn.Parameter(torch.ones(channels))
         self.bias = nn.Parameter(torch.zeros(channels))
         self.register_buffer("running_mean", torch.zeros(channels))
@@ -55,6 +91,8 @@ class BatchNorm(nn.Module):
         self.register_buffer("num_batches_tracked", torch.tensor(0, dtype=torch.long))
 
     def forward(self, x: torch.Tensor, train: bool = False) -> torch.Tensor:
+        if self.dtype is not None:
+            x = x.float()
         if train:
             mean = x.mean(dim=(0, 2, 3))
             var = torch.clamp((x * x).mean(dim=(0, 2, 3)) - mean * mean, min=0.0)
@@ -66,7 +104,24 @@ class BatchNorm(nn.Module):
         else:
             mean, var = self.running_mean, self.running_var
         mul = torch.rsqrt(var + self.eps) * self.weight
-        return (x - mean[:, None, None]) * mul[:, None, None] + self.bias[:, None, None]
+        y = (x - mean[:, None, None]) * mul[:, None, None] + self.bias[:, None, None]
+        return y if self.dtype is None else y.to(self.dtype)
+
+
+class GroupNorm(nn.GroupNorm):
+    """nn.GroupNorm (the state dict of the reference's GN layers); with dtype,
+    flax's nn.GroupNorm(dtype=...): float32 statistics and affine math on x
+    upcast, the output cast to dtype."""
+
+    def __init__(self, num_groups: int, channels: int, eps: float = 1e-5,
+                 dtype: Optional[torch.dtype] = None):
+        super().__init__(num_groups, channels, eps=eps)
+        self.dtype = dtype
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if self.dtype is None:
+            return super().forward(x)
+        return super().forward(x.float()).to(self.dtype)
 
 
 def apply_norm(norm: nn.Module, x: torch.Tensor, train: bool) -> torch.Tensor:
@@ -74,32 +129,34 @@ def apply_norm(norm: nn.Module, x: torch.Tensor, train: bool) -> torch.Tensor:
     return norm(x, train) if isinstance(norm, BatchNorm) else norm(x)
 
 
-def make_norm(kind: str, channels: int) -> nn.Module:
+def make_norm(kind: str, channels: int, dtype: Optional[torch.dtype] = None) -> nn.Module:
     if kind == "BN":
-        return BatchNorm(channels)
+        return BatchNorm(channels, dtype=dtype)
     if kind == "IN":
         return InstanceNorm()
     if kind == "GN":
-        return nn.GroupNorm(32, channels, eps=1e-5)
+        return GroupNorm(32, channels, eps=1e-5, dtype=dtype)
     raise ValueError(f"unknown norm {kind}")
 
 
 class ConvModule(nn.Module):
-    """conv -> norm -> act; the conv has a bias only when no norm follows."""
+    """conv -> norm -> act; the conv has a bias only when no norm follows.
+    dtype: the computation dtype (module docstring)."""
 
     def __init__(self, in_channels: int, out_channels: int, kernel_size,
                  stride: int = 1, padding=0, norm: Optional[str] = None,
-                 act: Optional[str] = "relu"):
+                 act: Optional[str] = "relu", dtype: Optional[torch.dtype] = None):
         super().__init__()
+        self.dtype = dtype
         self.conv = nn.Conv2d(in_channels, out_channels, kernel_size, stride,
                               padding, bias=norm is None)
         self.norm_name = NORM_ABBR[norm] if norm else None
         if norm:
-            self.add_module(self.norm_name, make_norm(norm, out_channels))
+            self.add_module(self.norm_name, make_norm(norm, out_channels, dtype))
         self.act = _ACTS[act]
 
     def forward(self, x: torch.Tensor, train: bool = False) -> torch.Tensor:
-        x = self.conv(x)
+        x = conv2d(self.conv, x, self.dtype)
         if self.norm_name:
             x = apply_norm(getattr(self, self.norm_name), x, train)
         return self.act(x)

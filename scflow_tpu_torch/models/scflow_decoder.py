@@ -17,6 +17,18 @@ options are detach_flow, detach_pose and detach_depth_for_xy; the JAX
 package's detach_mask acts on a carried mask that only mask_flow and
 mask_corr read, and those (off in the shipped configuration) are not
 ported, so the port carries no mask.  Not ported either: init_flow.
+
+dtype (None: float32; torch.bfloat16: the JAX package's bf16) is the
+computation dtype of every module of the update, as the JAX decoder's
+`_update_cfg` passes it, and of the pyramid (`correlation_pyramid_flat(...,
+out_dtype=dtype)`).  The tensors keep the JAX dtypes: the pyramid levels
+are bf16, so the lookup launches the bf16 instance of its kernel (K1, K7 or
+K8 on a card, and K1b in training, whose level gradients come back bf16);
+its output, the flow carry and the motion encoder's output are float32;
+h_feat, the delta flow and the head's mask are bf16; the pose deltas, R, t
+and all pose, flow and geometry math float32; flow_from_pred is built from
+(fs + df) in float32, and the full-resolution masks are float32 (the
+resize's float32 matrices promote the bf16 mask, as jnp.einsum does).
 """
 
 from typing import Dict, Optional, Tuple
@@ -59,22 +71,23 @@ def _flow_seq_from_poses(points_obj, valid, R_seq, t_seq, K, invalid_num: float)
 class SCFlowDecoder(nn.Module):
     def __init__(self, num_class: int = 21, image_size: Tuple[int, int] = (256, 256),
                  iters: int = 8, detach_flow: bool = True, detach_pose: bool = True,
-                 detach_depth_for_xy: bool = False):
+                 detach_depth_for_xy: bool = False, dtype: Optional[torch.dtype] = None):
         super().__init__()
         self.iters = iters
         self.detach_flow = detach_flow
         self.detach_pose = detach_pose
         self.detach_depth_for_xy = detach_depth_for_xy
-        self.encoder = MotionEncoder()
-        self.gru = ConvGRU(H_CHANNELS, CXT_CHANNELS + MotionEncoder.out_channels)
-        self.flow_pred = XHead(H_CHANNELS, 256, 2, kind="flow")
-        self.mask_pred = XHead(H_CHANNELS, 256, 1, kind="mask")
-        self.delta_flow_encoder = nn.Sequential(ConvModule(2, 128, 7, padding=3),
-                                                ConvModule(128, 64, 3, padding=1))
-        self.mask_encoder = nn.Sequential(ConvModule(1, 64, 3, padding=1),
-                                          ConvModule(64, 32, 3, padding=1))
+        self.dtype = dtype
+        self.encoder = MotionEncoder(dtype)
+        self.gru = ConvGRU(H_CHANNELS, CXT_CHANNELS + MotionEncoder.out_channels, dtype)
+        self.flow_pred = XHead(H_CHANNELS, 256, 2, kind="flow", dtype=dtype)
+        self.mask_pred = XHead(H_CHANNELS, 256, 1, kind="mask", dtype=dtype)
+        self.delta_flow_encoder = nn.Sequential(ConvModule(2, 128, 7, padding=3, dtype=dtype),
+                                                ConvModule(128, 64, 3, padding=1, dtype=dtype))
+        self.mask_encoder = nn.Sequential(ConvModule(1, 64, 3, padding=1, dtype=dtype),
+                                          ConvModule(64, 32, 3, padding=1, dtype=dtype))
         feat_size = (image_size[0] // 8, image_size[1] // 8)
-        self.pose_pred = MultiClassPoseHead(num_class, H_CHANNELS + 64 + 32, feat_size)
+        self.pose_pred = MultiClassPoseHead(num_class, H_CHANNELS + 64 + 32, feat_size, dtype)
 
     def _tap_geometry(self, img_h: int, img_w: int, device, dtype):
         """Rows/cols the 1/scale downsample reads, their pixel grid
@@ -114,7 +127,8 @@ class SCFlowDecoder(nn.Module):
         iters = self.iters if iters is None else iters
         n, img_h, img_w = depth.shape
         pyramid = correlation_pyramid_flat(feat_render.permute(0, 2, 3, 1),
-                                           feat_real.permute(0, 2, 3, 1), NUM_LEVELS)
+                                           feat_real.permute(0, 2, 3, 1), NUM_LEVELS,
+                                           out_dtype=self.dtype)
         ridx, cidx, pix, (wy_lo, wy_hi, wx_lo, wx_hi) = self._tap_geometry(
             img_h, img_w, depth.device, depth.dtype)
         if pose_only:
@@ -141,6 +155,7 @@ class SCFlowDecoder(nn.Module):
             d_rot, d_trans = self.pose_pred(
                 torch.cat([h_feat, self.delta_flow_encoder(delta_flow),
                            self.mask_encoder(mask)], dim=1), label)
+            d_rot, d_trans = d_rot.to(R.dtype), d_trans.to(R.dtype)  # float32, as JAX casts
             if self.detach_pose:
                 R, t = R.detach(), t.detach()
             R, t = apply_delta_pose(d_rot, d_trans, R, t,

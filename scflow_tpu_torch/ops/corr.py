@@ -16,7 +16,7 @@ differentiable on both backends:
 """
 
 import math
-from typing import List, Sequence
+from typing import List, Optional, Sequence
 
 import torch
 import torch.nn.functional as F
@@ -29,15 +29,34 @@ from scflow_tpu_torch.ops.cuda.corr_lookup import (check_variant, corr_lookup_fl
 
 
 def correlation_pyramid_flat(feat1: torch.Tensor, feat2: torch.Tensor,
-                             num_levels: int = 4) -> List[torch.Tensor]:
+                             num_levels: int = 4, out_dtype: Optional[torch.dtype] = None
+                             ) -> List[torch.Tensor]:
     """feat1, feat2: (N, H, W, C) -> levels (N*H*W, S_l*S_l), S_l = H / 2^l,
-    level 0 = <feat1[n, s], feat2[n, t]> / sqrt(C), then 2x2 average pools."""
+    level 0 = <feat1[n, s], feat2[n, t]> / sqrt(C), then 2x2 average pools.
+
+    out_dtype (the JAX function's): None is float32 on float32 features.
+    With out_dtype bfloat16, as the JAX package does, the products
+    accumulate in float32, the division by sqrt(C) is float32, and the
+    level rounds once to bfloat16.  Where 1/sqrt(C) is a power of two (C =
+    256: 2^-4) it is folded into feat1 before one bf16 GEMM, float32
+    accumulation, one rounding (exact: a power of two scales a bf16 value
+    without rounding, and commutes with the final rounding); for other C
+    the product is formed in float32 and cast.  The pooled levels average
+    in float32 and round once, as the JAX package's bf16 matmuls with the
+    exact 0.25 pool matrix do (avg_pool2d accumulates bf16 in float32)."""
     n, h, w, c = feat1.shape
     if h != w or h % 2 ** (num_levels - 1):
         raise ValueError(f"square maps divisible by 2^{num_levels - 1} needed, "
                          f"got {h}x{w}")
-    corr = torch.matmul(feat1.reshape(n, h * w, c),
-                        feat2.reshape(n, h * w, c).transpose(1, 2)) / math.sqrt(c)
+    f1 = feat1.reshape(n, h * w, c)
+    f2t = feat2.reshape(n, h * w, c).transpose(1, 2)
+    scale = 1.0 / math.sqrt(c)
+    if out_dtype is None:
+        corr = torch.matmul(f1, f2t) / math.sqrt(c)
+    elif math.frexp(scale)[0] == 0.5:  # a power of two
+        corr = torch.matmul(f1.to(out_dtype) * scale, f2t.to(out_dtype))
+    else:
+        corr = (torch.matmul(f1.float(), f2t.float()) / math.sqrt(c)).to(out_dtype)
     pyramid = [corr.reshape(n * h * w, h * w)]
     s = h
     for _ in range(num_levels - 1):
@@ -90,7 +109,10 @@ def corr_lookup(pyramid: Sequence[torch.Tensor], flow: torch.Tensor, radius: int
     versions on CPU tensors), 'xla' the tent tensor formulation, 'auto'
     'pallas' on a card and 'xla' on the CPU.  variant 'tent' | 'shift' |
     'bdiag' picks the forward kernel and means nothing on 'xla', where any
-    other than 'tent' raises."""
+    other than 'tent' raises.  On bfloat16 levels the output is float32 on
+    both backends: 'pallas' upcasts the cells, as the Pallas kernels do;
+    'xla' also rounds the tent weights to bfloat16 first, as the JAX
+    package's XLA lookup does (its einsums take the map's dtype)."""
     check_variant(variant)
     backend = resolve_backend(backend, flow.device)
     if backend == "xla" and variant != "tent":
@@ -100,5 +122,6 @@ def corr_lookup(pyramid: Sequence[torch.Tensor], flow: torch.Tensor, radius: int
     if backend == "pallas":
         out = _KernelLookup.apply(coords.contiguous(), radius, variant, *pyramid)
     else:
-        out = corr_lookup_flat_plain(pyramid, coords, radius, tent=_JaxTent.apply)
+        out = corr_lookup_flat_plain(pyramid, coords, radius, tent=_JaxTent.apply,
+                                     round_weights=True)
     return out.reshape(n, h, w, -1)

@@ -9,6 +9,15 @@ plain version for CPU tensors; there is no other route.  Each variant keeps
 its own plain version: 'shift' its one-hot-rows-then-blend formulation,
 'tent' and 'bdiag' the tent formulation, which the TPU's bdiag kernel
 computes as well (same weights, same sums, another matmul layout).
+
+Maps are float32 or bfloat16 (the JAX package's dtype=bf16 pyramid), each
+kernel built for both: a bf16 map launches the bf16 instance, which upcasts
+each cell exactly to float32 and computes as the float32 one, as the Pallas
+kernels read `m_ref[...].astype(float32)`.  Window centres, the output and
+its gradient stay float32; K1b's level gradients come back in the map's
+dtype, summed in float32 and rounded once (`_lookup_bwd`'s
+`.astype(corr.dtype)`).  Each instance counts its own launches, so a bf16
+map that reached a float32 kernel would show.
 """
 
 import ctypes
@@ -21,16 +30,35 @@ from scflow_tpu_torch.ops.cuda.build import CudaKernel, build_all, library_path
 
 MAX_LEVELS = 4
 VARIANTS = ("tent", "shift", "bdiag")
+MAP_DTYPES = (torch.float32, torch.bfloat16)
 _LOOKUP_ARGS = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 6 + [ctypes.c_longlong, ctypes.c_void_p]
+_BWD_ARGS = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 4 + [ctypes.c_void_p] * 4
+             + [ctypes.c_int] * 2 + [ctypes.c_longlong, ctypes.c_void_p])
+# float32 maps
 KERNEL = CudaKernel("corr_lookup.cu", "corr_lookup_launch", _LOOKUP_ARGS)
 SHIFT_KERNEL = CudaKernel("corr_lookup_shift.cu", "corr_lookup_shift_launch", _LOOKUP_ARGS)
 BDIAG_KERNEL = CudaKernel("corr_lookup_bdiag.cu", "corr_lookup_bdiag_launch", _LOOKUP_ARGS)
-BWD_KERNEL = CudaKernel(
-    "corr_lookup_bwd.cu", "corr_lookup_bwd_launch",
-    [ctypes.c_void_p] * 6 + [ctypes.c_int] * 4 + [ctypes.c_void_p] * 4 + [ctypes.c_int] * 2
-    + [ctypes.c_longlong, ctypes.c_void_p],
-)
+BWD_KERNEL = CudaKernel("corr_lookup_bwd.cu", "corr_lookup_bwd_launch", _BWD_ARGS)
+# bfloat16 maps: the same sources' bf16 instances
+KERNEL_BF16 = CudaKernel("corr_lookup.cu", "corr_lookup_bf16_launch", _LOOKUP_ARGS)
+SHIFT_KERNEL_BF16 = CudaKernel("corr_lookup_shift.cu", "corr_lookup_shift_bf16_launch",
+                               _LOOKUP_ARGS)
+BDIAG_KERNEL_BF16 = CudaKernel("corr_lookup_bdiag.cu", "corr_lookup_bdiag_bf16_launch",
+                               _LOOKUP_ARGS)
+BWD_KERNEL_BF16 = CudaKernel("corr_lookup_bwd.cu", "corr_lookup_bwd_bf16_launch", _BWD_ARGS)
 FORWARD_KERNELS = {"tent": KERNEL, "shift": SHIFT_KERNEL, "bdiag": BDIAG_KERNEL}
+FORWARD_KERNELS_BF16 = {"tent": KERNEL_BF16, "shift": SHIFT_KERNEL_BF16,
+                        "bdiag": BDIAG_KERNEL_BF16}
+
+
+def forward_kernel(variant: str, dtype: torch.dtype = torch.float32) -> CudaKernel:
+    """The kernel a lookup of `variant` on maps of `dtype` launches."""
+    return (FORWARD_KERNELS_BF16 if dtype == torch.bfloat16 else FORWARD_KERNELS)[variant]
+
+
+def bwd_kernel(dtype: torch.dtype = torch.float32) -> CudaKernel:
+    """The K1b instance for maps of `dtype`."""
+    return BWD_KERNEL_BF16 if dtype == torch.bfloat16 else BWD_KERNEL
 
 
 def _layout(source: str, symbol: str, *args) -> dict:
@@ -52,23 +80,25 @@ def _layout(source: str, symbol: str, *args) -> dict:
             "smem_bytes": smem.value}
 
 
-def window_layout(variant: str, num_levels: int, radius: int) -> dict:
+def window_layout(variant: str, num_levels: int, radius: int,
+                  dtype: torch.dtype = torch.float32) -> dict:
     """How K1 ('tent'), K7 ('shift') or K8 ('bdiag') launches at (num_levels,
-    radius), read from its built library (csrc/corr_common.cuh):
-    rows_per_group, max_radius (the largest radius the source builds),
-    threads per block and smem_bytes of dynamic shared memory per block.
-    Builds the kernels (needs nvcc); raises RuntimeError for a pair the
-    launch refuses (a radius it does not build, or two ring stages that
-    exceed a block's shared memory)."""
+    radius) on maps of `dtype`, read from its built library
+    (csrc/corr_common.cuh): rows_per_group, max_radius (the largest radius
+    the source builds), threads per block and smem_bytes of dynamic shared
+    memory per block.  Builds the kernels (needs nvcc); raises RuntimeError
+    for a pair the launch refuses (a radius it does not build, or two ring
+    stages that exceed a block's shared memory)."""
     return _layout(FORWARD_KERNELS[variant].source, f"corr_lookup_{variant}_layout",
-                   num_levels, radius)
+                   num_levels, radius, int(dtype == torch.bfloat16))
 
 
-def bwd_layout(num_levels: int, radius: int, want_coords: bool) -> dict:
+def bwd_layout(num_levels: int, radius: int, want_coords: bool,
+               dtype: torch.dtype = torch.float32) -> dict:
     """As window_layout, for K1b (csrc/corr_lookup_bwd.cu) with or without
     the flow gradient."""
     return _layout(BWD_KERNEL.source, "corr_lookup_bwd_layout", num_levels, radius,
-                   int(want_coords))
+                   int(want_coords), int(dtype == torch.bfloat16))
 
 
 def check_variant(variant: str) -> str:
@@ -88,6 +118,13 @@ def _level_sizes(pyramid: Sequence[torch.Tensor], rows: int):
     return sizes
 
 
+def _upcast(m: torch.Tensor, coords: torch.Tensor) -> torch.Tensor:
+    """A level's cells in the coordinates' float type (float32; float64 in
+    float64 checks): a bfloat16 map's cells exactly, as the kernels read
+    them."""
+    return m.to(torch.promote_types(m.dtype, coords.dtype))
+
+
 def _tent(u: torch.Tensor) -> torch.Tensor:
     return torch.clamp(1.0 - torch.abs(u), min=0.0)
 
@@ -100,18 +137,25 @@ def _tent_weights(p: torch.Tensor, s: int, radius: int, tent=_tent) -> torch.Ten
 
 
 def corr_lookup_flat_plain(pyramid: Sequence[torch.Tensor], coords: torch.Tensor,
-                           radius: int = 4, tent=_tent) -> torch.Tensor:
+                           radius: int = 4, tent=_tent, round_weights: bool = False
+                           ) -> torch.Tensor:
     """The tent formulation of scflow_tpu/ops/corr.py::corr_lookup on flat
     levels: out[b, j*k + i] = sum_{h,w} wy[b,i,h] wx[b,j,w] m[b,h,w] with
-    wx[b,j,w] = tent(x_b / 2^l + j - r - w), j offsetting x.  `tent` is
-    max(0, 1 - |u|); ops/corr.py passes one with JAX's subgradients."""
+    wx[b,j,w] = tent(x_b / 2^l + j - r - w), j offsetting x, in float32 on
+    the map's cells upcast exactly (a bf16 map's cells as the Pallas kernel
+    reads them).  `tent` is max(0, 1 - |u|); ops/corr.py passes one with
+    JAX's subgradients.  round_weights rounds the weights to the map's dtype
+    first, as the JAX package's XLA lookup does (ops/corr.py::corr_lookup:
+    `wy.astype(m.dtype)`); a no-op on float32 maps."""
     b = coords.shape[0]
     k = 2 * radius + 1
     outs = []
     for lvl, (m, s) in enumerate(zip(pyramid, _level_sizes(pyramid, b))):
         wx = _tent_weights(coords[:, 0] / 2.0**lvl, s, radius, tent)
         wy = _tent_weights(coords[:, 1] / 2.0**lvl, s, radius, tent)
-        tmp = torch.bmm(wy, m.reshape(b, s, s))  # (B, i, w)
+        if round_weights:
+            wx, wy = (w.to(m.dtype).to(w.dtype) for w in (wx, wy))
+        tmp = torch.bmm(wy, _upcast(m, coords).reshape(b, s, s))  # (B, i, w)
         out = torch.bmm(wx, tmp.transpose(1, 2))  # (B, j, i)
         outs.append(out.reshape(b, k * k))
     return torch.cat(outs, dim=-1)
@@ -147,7 +191,7 @@ def corr_lookup_flat_shift_plain(pyramid: Sequence[torch.Tensor], coords: torch.
         py = coords[:, 1] / 2.0**lvl
         x0, y0 = torch.floor(px), torch.floor(py)
         fx, fy = (px - x0)[:, None, None], (py - y0)[:, None, None]
-        v = _window_cells(m, s, x0, y0, radius)  # (B, d, e)
+        v = _window_cells(_upcast(m, coords), s, x0, y0, radius)  # (B, d, e)
         tmp = (1.0 - fy) * v[:, :-1] + fy * v[:, 1:]  # (B, i, e)
         out = (1.0 - fx) * tmp[:, :, :-1] + fx * tmp[:, :, 1:]  # (B, i, j)
         outs.append(out.transpose(1, 2).reshape(b, k * k))
@@ -159,6 +203,9 @@ PLAIN = {"tent": corr_lookup_flat_plain, "shift": corr_lookup_flat_shift_plain,
 
 
 def _check_inputs(pyramid, coords, extra=()):
+    """The level sizes of a kernel launch; raises unless coords and `extra`
+    are contiguous float32, the levels contiguous and all float32 or all
+    bfloat16 (bf16 ones starting on 4-byte boundaries), on one device."""
     b = coords.shape[0]
     if coords.shape != (b, 2):
         raise ValueError(f"coords must be (B, 2), got {tuple(coords.shape)}")
@@ -166,21 +213,29 @@ def _check_inputs(pyramid, coords, extra=()):
         raise ValueError(f"1..{MAX_LEVELS} pyramid levels supported, got {len(pyramid)}")
     sizes = _level_sizes(pyramid, b)
     for t in (coords, *pyramid, *extra):
-        if t.device != coords.device or t.dtype != torch.float32 or not t.is_contiguous():
-            raise ValueError("the corr-lookup kernels need contiguous float32 tensors "
-                             "on one device")
+        if t.device != coords.device or not t.is_contiguous():
+            raise ValueError("the corr-lookup kernels need contiguous tensors on one device")
+    if any(t.dtype != torch.float32 for t in (coords, *extra)):
+        raise ValueError("the corr-lookup kernels need float32 coords and gradients")
+    dtype = pyramid[0].dtype
+    if dtype not in MAP_DTYPES or any(m.dtype != dtype for m in pyramid):
+        raise ValueError(f"the levels must all be float32 or all bfloat16, got "
+                         f"{[m.dtype for m in pyramid]}")
+    if dtype == torch.bfloat16 and any(m.data_ptr() % 4 for m in pyramid):
+        raise ValueError("bfloat16 levels must start on a 4-byte boundary")
     return sizes
 
 
 def corr_lookup_flat(pyramid: Sequence[torch.Tensor], coords: torch.Tensor,
                      radius: int = 4, variant: str = "tent") -> torch.Tensor:
-    """pyramid: level l is (B, S_l*S_l) float32; coords: (B, 2) float32
-    window centres (x, y) at level 0.  Returns (B, L*(2r+1)^2) float32,
-    level-major, tap index j*(2r+1) + i with j offsetting x.  variant picks
-    the kernel: 'tent' K1, 'shift' K7, 'bdiag' K8.  K1 takes radius 0-15,
-    K7 and K8 0-12 (`window_layout`'s max_radius), each at the level counts
-    whose two ring stages fit a block's shared memory; another pair raises
-    RuntimeError from the launch."""
+    """pyramid: level l is (B, S_l*S_l), float32 or bfloat16 (every level
+    alike); coords: (B, 2) float32 window centres (x, y) at level 0.
+    Returns (B, L*(2r+1)^2) float32, level-major, tap index j*(2r+1) + i
+    with j offsetting x.  variant picks the kernel: 'tent' K1, 'shift' K7,
+    'bdiag' K8, each in the instance of the maps' dtype.  K1 takes radius
+    0-15, K7 and K8 0-12 (`window_layout`'s max_radius), each at the level
+    counts whose two ring stages fit a block's shared memory; another pair
+    raises RuntimeError from the launch."""
     check_variant(variant)
     if coords.device.type == "cpu":
         return PLAIN[variant](pyramid, coords, radius)
@@ -195,9 +250,9 @@ def corr_lookup_flat(pyramid: Sequence[torch.Tensor], coords: torch.Tensor,
         return out
     pad = MAX_LEVELS - len(pyramid)
     ptrs = [m.data_ptr() for m in pyramid] + [None] * pad
-    FORWARD_KERNELS[variant].launch(coords.device, coords.data_ptr(), *ptrs,
-                                    *(sizes + [0] * pad), len(pyramid), radius, b,
-                                    out.data_ptr())
+    kernel = forward_kernel(variant, pyramid[0].dtype)
+    kernel.launch(coords.device, coords.data_ptr(), *ptrs, *(sizes + [0] * pad), len(pyramid),
+                  radius, b, out.data_ptr())
     return out
 
 
@@ -208,7 +263,9 @@ def corr_lookup_flat_bwd_plain(pyramid: Sequence[torch.Tensor], coords: torch.Te
     """`_lookup_bwd` in tensor code: grad_m[h,w] = sum_i wy[i,h] sum_j
     g[j,i] wx[j,w]; d/dcx = sum_l 2^-l sum g[j,i] dwx[j,w] t2[i,w] with
     t2 = wy m and dwx = -sign(ux) where |ux| < 1 (0 at the kinks), likewise
-    d/dcy.  Returns (grads of the levels, grad of coords or None)."""
+    d/dcy, in float32 on the cells upcast; the level grads are rounded once
+    to the map's dtype.  Returns (grads of the levels, grad of coords or
+    None)."""
     b = coords.shape[0]
     k = 2 * radius + 1
     g = grad_out.reshape(b, len(pyramid), k, k)  # [b, l, j, i]
@@ -224,9 +281,9 @@ def corr_lookup_flat_bwd_plain(pyramid: Sequence[torch.Tensor], coords: torch.Te
         wx, wy = _tent(ux), _tent(uy)  # (B, k, S)
         gl = g[:, lvl]  # (B, j, i)
         a = torch.bmm(gl.transpose(1, 2), wx)  # (B, i, w)
-        grads.append(torch.bmm(wy.transpose(1, 2), a).reshape(b, s * s))
+        grads.append(torch.bmm(wy.transpose(1, 2), a).reshape(b, s * s).to(m.dtype))
         if want_coords:
-            mm = m.reshape(b, s, s)
+            mm = _upcast(m, coords).reshape(b, s, s)
             dwx = torch.where(torch.abs(ux) < 1.0, -torch.sign(ux), torch.zeros_like(ux))
             dwy = torch.where(torch.abs(uy) < 1.0, -torch.sign(uy), torch.zeros_like(uy))
             t2 = torch.bmm(wy, mm)  # (B, i, w)
@@ -242,7 +299,9 @@ def corr_lookup_flat_bwd(pyramid: Sequence[torch.Tensor], coords: torch.Tensor,
                          grad_out: torch.Tensor, radius: int = 4, want_coords: bool = True
                          ) -> Tuple[List[torch.Tensor], Optional[torch.Tensor]]:
     """The backward of `corr_lookup_flat` (any variant): K1b for CUDA
-    tensors, its plain version for CPU tensors.  grad_out: (B, L*(2r+1)^2).
+    tensors (the instance of the maps' dtype), its plain version for CPU
+    tensors.  grad_out: (B, L*(2r+1)^2) float32; the level grads come back
+    in the maps' dtype, the coords grad in float32.
     K1b takes radius 0-15 at the level counts `bwd_layout` accepts (every
     window K1 takes); another raises RuntimeError from the launch.
     Returns (grads of the levels, grad of coords or None)."""
@@ -261,8 +320,9 @@ def corr_lookup_flat_bwd(pyramid: Sequence[torch.Tensor], coords: torch.Tensor,
     if b == 0:
         return grads, gc
     pad = MAX_LEVELS - len(pyramid)
-    BWD_KERNEL.launch(coords.device, coords.data_ptr(), grad_out.data_ptr(),
-                      *([m.data_ptr() for m in pyramid] + [None] * pad), *(sizes + [0] * pad),
-                      *([t.data_ptr() for t in grads] + [None] * pad), len(pyramid), radius, b,
-                      gc.data_ptr() if want_coords else None)
+    bwd_kernel(pyramid[0].dtype).launch(
+        coords.device, coords.data_ptr(), grad_out.data_ptr(),
+        *([m.data_ptr() for m in pyramid] + [None] * pad), *(sizes + [0] * pad),
+        *([t.data_ptr() for t in grads] + [None] * pad), len(pyramid), radius, b,
+        gc.data_ptr() if want_coords else None)
     return grads, gc

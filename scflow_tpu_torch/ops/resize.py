@@ -44,12 +44,14 @@ def _interp_matrix(n_in: int, n_out: int) -> np.ndarray:
 
 def interpolate_bilinear(x: torch.Tensor, scale: float) -> torch.Tensor:
     """x (N, H, W, C) -> (N, int(H * scale), int(W * scale), C), bilinear with
-    align_corners=True."""
+    align_corners=True.  The float32 matrices promote a bfloat16 x to
+    float32, as jnp.einsum does."""
     n, h, w, c = x.shape
     h_out, w_out = int(h * scale), int(w * scale)
     if (h_out, w_out) == (h, w):
         return x
-    mh = torch.from_numpy(_interp_matrix(h, h_out)).to(x.device, x.dtype)
-    mw = torch.from_numpy(_interp_matrix(w, w_out)).to(x.device, x.dtype)
-    x = torch.einsum("oh,nhwc->nowc", mh, x)
+    dtype = torch.promote_types(x.dtype, torch.float32)
+    mh = torch.from_numpy(_interp_matrix(h, h_out)).to(x.device, dtype)
+    mw = torch.from_numpy(_interp_matrix(w, w_out)).to(x.device, dtype)
+    x = torch.einsum("oh,nhwc->nowc", mh, x.to(dtype))
     return torch.einsum("pw,nowc->nopc", mw, x)

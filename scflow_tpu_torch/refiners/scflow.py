@@ -17,17 +17,26 @@ class SCFlowRefiner(nn.Module):
 
     def __init__(self, num_class: int = 21, image_size: Tuple[int, int] = (256, 256),
                  iters: int = 8, detach_flow: bool = True, detach_pose: bool = True,
-                 detach_depth_for_xy: bool = False):
+                 detach_depth_for_xy: bool = False, dtype: Optional[torch.dtype] = None):
         """The detach options default as in the JAX package; the shipped
         configuration (configs/refine_models/scflow.py) sets
-        detach_depth_for_xy=True."""
+        detach_depth_for_xy=True.  dtype is the JAX package's computation
+        dtype: None computes in float32, torch.bfloat16 in bf16 (bench.py's
+        flagship dtype), passed to both encoders and the decoder.  Either
+        way the parameters and BatchNorm statistics stay float32 (so the
+        optimizer and convert.py are the same for both) and the poses come
+        back float32."""
         super().__init__()
-        self.render_encoder = RAFTEncoder(256, norm="IN")
-        self.context = RAFTEncoder(H_CHANNELS + CXT_CHANNELS, norm="BN")
+        if dtype not in (None, torch.float32, torch.bfloat16):
+            raise ValueError(f"dtype must be None, torch.float32 or torch.bfloat16, got {dtype}")
+        dtype = None if dtype == torch.float32 else dtype
+        self.dtype = dtype
+        self.render_encoder = RAFTEncoder(256, norm="IN", dtype=dtype)
+        self.context = RAFTEncoder(H_CHANNELS + CXT_CHANNELS, norm="BN", dtype=dtype)
         self.decoder = SCFlowDecoder(num_class=num_class, image_size=image_size,
                                      iters=iters, detach_flow=detach_flow,
                                      detach_pose=detach_pose,
-                                     detach_depth_for_xy=detach_depth_for_xy)
+                                     detach_depth_for_xy=detach_depth_for_xy, dtype=dtype)
 
     def extract_feat(self, render_images: torch.Tensor, real_images: torch.Tensor,
                      train: bool = False):

@@ -3,8 +3,11 @@ or -> sequence losses -> optimizer update (training).
 
 Port of scflow_tpu/refiners/system.py: RenderAssets, LossAssets,
 render_and_normalize, render_depth, scflow_sequence_losses,
-make_scflow_train_step and make_scflow_infer_fn with slim=True (final pose
-only).
+make_scflow_train_step and make_scflow_infer_fn (the JAX signature: the
+final pose, and with slim=False the final mask and flow).  Both entry points
+run a model of either dtype (SCFlowRefiner(dtype=torch.bfloat16) computes in
+bf16); rendering, the gt flow, the losses, the clip and AdamW are float32
+either way.
 """
 
 import copy
@@ -198,7 +201,11 @@ def make_scflow_train_step(
     (the shipped configuration has none), so augment_seed, their seed in
     the JAX signature, has nothing to seed.  The step computes in full
     float32 (device.full_fp32), whatever the global TF32 flags, and leaves
-    them as it found them."""
+    them as it found them.  A bf16 model (SCFlowRefiner(dtype=
+    torch.bfloat16)) computes its network in bf16, the kernels' bf16
+    instances included (K1 or K7/K8 and K1b), while the gt flow, the
+    losses, the clip and AdamW stay float32 and the gradients arrive
+    float32 on the float32 parameters."""
     if render_augmentations is not None:
         raise NotImplementedError("render augmentations are not ported")
     dev = resolve_device(device)
@@ -244,12 +251,26 @@ def make_scflow_train_step(
 
 
 def make_scflow_infer_fn(model, render_assets: RenderAssets,
-                         image_size: Tuple[int, int] = (256, 256), render_chunk: int = 64,
-                         render_backend: str = "auto", render_cull_backfaces: bool = False,
-                         lookup_backend: str = "auto", lookup_variant: str = "tent",
-                         device=None):
-    """Returns infer(batch) -> {"rotations" (N, 3, 3), "translations" (N, 3)},
-    the final pose of the slim path, in the patch-intrinsics frame.
+                         image_size: Tuple[int, int] = (256, 256), norm_mean=NORM_MEAN,
+                         norm_std=NORM_STD, iters: Optional[int] = None,
+                         render_chunk: int = 64, render_backend: str = "auto",
+                         render_cull_backfaces: bool = False, lookup_backend: str = "auto",
+                         unroll: bool = False, slim: bool = False,
+                         lookup_variant: str = "tent", device=None):
+    """Returns infer(batch) -> {"rotations" (N, 3, 3), "translations" (N, 3)}
+    in the patch-intrinsics frame, the final pose; with slim=False (the
+    default, as in JAX) also "masks" (N, H, W) and "flow" (N, H, W, 2), the
+    final iteration's full-resolution mask and predicted flow, which the
+    TensorBoard panels and serving read.  slim=True is the pose-only path of
+    the reference's test-time forward: no dense depth lift, no
+    full-resolution reconstructions.
+
+    The arguments are the JAX function's, in its order, then lookup_variant
+    and device.  norm_mean and norm_std normalize the rendered images as
+    render_and_normalize does; iters overrides the model's iteration count.
+    unroll picks the JAX decoder's loop form (lax.scan or a Python loop) and
+    means nothing here, where the recurrence is one Python loop; it must be
+    a bool, and unlike JAX a 1-iteration call does not override it.
 
     batch holds real_images (N, H, W, 3), ref_rotations (N, 3, 3),
     ref_translations (N, 3), k (N, 3, 3) and labels (N,), as numpy arrays or
@@ -258,9 +279,15 @@ def make_scflow_infer_fn(model, render_assets: RenderAssets,
     through the kernels on a card and the brute-force path on the CPU
     (device.resolve_backend); lookup_backend likewise picks the corr
     lookup's kernels or its tensor form, and lookup_variant the kernel
-    ('tent' K1, 'shift' K7, 'bdiag' K8; ops/corr.py::corr_lookup).  A call
-    computes in full float32 (device.full_fp32), whatever the global TF32
-    flags, and leaves them as it found them."""
+    ('tent' K1, 'shift' K7, 'bdiag' K8; ops/corr.py::corr_lookup), in the
+    instance of the model's dtype.  A call computes in full float32
+    (device.full_fp32), or in bf16 with float32 accumulation for a bf16
+    model, whatever the global TF32 and bf16-reduction flags, and leaves
+    them as it found them."""
+    if not isinstance(unroll, bool):
+        raise TypeError(f"unroll must be a bool, got {unroll!r}")
+    if iters is not None and (not isinstance(iters, int) or iters < 1):
+        raise ValueError(f"iters must be a positive int or None, got {iters!r}")
     dev = resolve_device(device)
     resolve_backend(render_backend, dev)  # an unknown name raises here
     _check_lookup(lookup_backend, lookup_variant, dev)
@@ -280,12 +307,16 @@ def make_scflow_infer_fn(model, render_assets: RenderAssets,
             labels = as_tensor(batch["labels"], torch.int64)
             real = as_tensor(batch["real_images"], torch.float32)
             rendered, depths, _ = render_and_normalize(
-                render_assets, R, t, K, labels, image_size, chunk=render_chunk,
-                backend=render_backend, cull_backfaces=render_cull_backfaces)
-            out = model(rendered, real, R, t, depths, K, labels, output_sequences=False,
-                        pose_only=True, lookup_backend=lookup_backend,
+                render_assets, R, t, K, labels, image_size, norm_mean, norm_std,
+                chunk=render_chunk, backend=render_backend,
+                cull_backfaces=render_cull_backfaces)
+            out = model(rendered, real, R, t, depths, K, labels, iters=iters,
+                        output_sequences=False, pose_only=slim, lookup_backend=lookup_backend,
                         lookup_variant=lookup_variant)
-            return {"rotations": out["rotations"][-1],
-                    "translations": out["translations"][-1]}
+            res = {"rotations": out["rotations"][-1], "translations": out["translations"][-1]}
+            if not slim:
+                res["masks"] = out["masks"][-1]
+                res["flow"] = out["flow_from_pred"][-1]
+            return res
 
     return infer

@@ -1,6 +1,7 @@
 """Kernels K1, K7, K8 (the corr lookup's variants), K1b (its backward) and
 K2-K6 (the raster kernels) against their plain PyTorch versions, and the
-CPU/CUDA dispatch of their wrappers.
+CPU/CUDA dispatch of their wrappers.  The lookups and K1b run on float32
+and on bfloat16 maps (their bf16 instances).
 
 Tests marked `cuda` need a card and skip without one.  This file imports no
 JAX, so on a machine with only PyTorch and a card it runs as
@@ -99,8 +100,10 @@ def _v4_scene(device, dup):
 
 def _all_launches():
     return (k1.KERNEL.launches, k1.SHIFT_KERNEL.launches, k1.BDIAG_KERNEL.launches,
-            k1.BWD_KERNEL.launches, k2.V3_KERNEL.launches, k2.V4_KERNEL.launches,
-            k2.PACKED_KERNEL.launches, k2.V12_KERNELS[1].launches, k2.V12_KERNELS[2].launches)
+            k1.BWD_KERNEL.launches, k1.KERNEL_BF16.launches, k1.SHIFT_KERNEL_BF16.launches,
+            k1.BDIAG_KERNEL_BF16.launches, k1.BWD_KERNEL_BF16.launches, k2.V3_KERNEL.launches,
+            k2.V4_KERNEL.launches, k2.PACKED_KERNEL.launches, k2.V12_KERNELS[1].launches,
+            k2.V12_KERNELS[2].launches)
 
 
 def test_cpu_tensors_run_the_plain_versions_without_launching():
@@ -681,3 +684,216 @@ def test_raster_kernels_reject_bad_input(cuda):
     packs, kw = _v4_scene(cuda, 8)
     with pytest.raises(ValueError):  # an int64 overflow list
         k2.rasterize_shaded_v4(*packs[:4], packs[4].long(), **kw)
+
+
+# ---------------------------------------------------------------------------
+# bfloat16 maps: the bf16 instances of K1, K7, K8 and K1b
+
+def _bf16(levels):
+    """The same seeded levels rounded to bfloat16."""
+    return [m.to(torch.bfloat16) for m in levels]
+
+
+def _corner_rows(coords, size0):
+    """The last three rows' centres on the maps' last column and row (the
+    last element of each level), at integer and fractional positions."""
+    coords = coords.clone()
+    coords[-3:] = torch.tensor([[size0 - 1.0, size0 - 1.0], [size0 - 0.5, size0 - 1.0],
+                                [size0 - 1.25, size0 - 0.75]])
+    return coords
+
+
+def test_cpu_bf16_maps_run_the_plain_versions_without_launching():
+    """On the CPU a bf16 map runs the plain versions, on its cells upcast:
+    the same output as the float32 plain version on the upcast levels, and
+    level grads rounded from the float32 ones."""
+    levels, coords = _lookup_case("random")
+    lv16 = _bf16(levels)
+    up = [m.float() for m in lv16]
+    before = _all_launches()
+    for variant in k1.VARIANTS:
+        got = k1.corr_lookup_flat(lv16, coords, variant=variant)
+        assert got.dtype == torch.float32
+        assert torch.equal(got, k1.PLAIN[variant](up, coords))
+    g = torch.randn((coords.shape[0], 4 * 81), generator=torch.Generator().manual_seed(1))
+    grads, gc = k1.corr_lookup_flat_bwd(lv16, coords, g)
+    want, want_c = k1.corr_lookup_flat_bwd_plain(up, coords, g)
+    assert all(a.dtype == torch.bfloat16 and torch.equal(a, b.to(torch.bfloat16))
+               for a, b in zip(grads, want))
+    assert torch.equal(gc, want_c)
+    assert _all_launches() == before
+
+
+def _bf16_ulp(x):
+    """One bfloat16 ulp at |x| (8 significant bits)."""
+    _, e = torch.frexp(x.float().abs())
+    return torch.ldexp(torch.ones_like(x, dtype=torch.float32), e - 8)
+
+
+def _assert_within_bf16_ulp(got, want):
+    """Level grads: each element within one bf16 ulp of the plain version's
+    (the two float32 sums, in another order, round to neighbours at most),
+    or within 1e-6 where the terms cancel to about zero; NaN where NaN."""
+    assert got.dtype == want.dtype == torch.bfloat16
+    nan = torch.isnan(want)
+    assert torch.equal(torch.isnan(got), nan)
+    a, b = got.float()[~nan], want.float()[~nan]
+    d = (a - b).abs()
+    assert bool((d <= torch.maximum(_bf16_ulp(a), _bf16_ulp(b)) + 1e-6).all()), d.max()
+
+
+def _check_bf16_window_kernel(variant, levels, coords, radius, cuda, monkeypatch):
+    """The bf16 instance of K1/K7/K8 on bf16 maps against the plain version
+    on the same maps: K7 bit for bit, K1 and K8 within 1e-4 (float32 on
+    exact cells); one launch of the bf16 instance, none of the float32 one,
+    and no plain version."""
+    lv = [m.to(cuda) for m in _bf16(levels)]
+    coords = coords.to(cuda)
+    want = k1.PLAIN[variant](lv, coords, radius)
+    monkeypatch.setitem(k1.PLAIN, variant, _plain_must_not_run)
+    monkeypatch.setattr(k1, "corr_lookup_flat_plain", _plain_must_not_run)
+    monkeypatch.setattr(k1, "corr_lookup_flat_shift_plain", _plain_must_not_run)
+    kernel, other = k1.FORWARD_KERNELS_BF16[variant], k1.FORWARD_KERNELS[variant]
+    before, before_other = kernel.launches, other.launches
+    got = k1.corr_lookup_flat(lv, coords, radius, variant=variant)
+    torch.cuda.synchronize()
+    assert (kernel.launches, other.launches) == (before + 1, before_other)
+    assert got.dtype == torch.float32
+    if variant == "shift":
+        torch.testing.assert_close(got, want, rtol=0, atol=0, equal_nan=True)
+    else:
+        torch.testing.assert_close(got, want, rtol=0, atol=1e-4, equal_nan=True)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("variant", ["tent", "shift", "bdiag"])
+@pytest.mark.parametrize("radius", range(16))
+@pytest.mark.parametrize("sizes", [(10, 5, 3, 2), (32, 16, 8, 4)])
+def test_bf16_window_kernels_every_radius(variant, radius, sizes, cuda, monkeypatch):
+    """Radius 0-15 (K7/K8 build 0-12) at 4 levels on 75 rows: odd and even
+    window x starts (random, border, integer, NaN and far centres), odd map
+    sizes (5, 3: the start's parity changes from row to row) and an odd
+    element count (75 x 5^2: the level's last element sits alone in its
+    word), with the last rows on each map's last column and row.  A window
+    the library's layout refuses raises without the plain version."""
+    levels, coords = _window_case(75, sizes, radius, seed=radius)
+    coords = _corner_rows(coords, sizes[0])
+    try:
+        k1.window_layout(variant, 4, radius, torch.bfloat16)
+    except RuntimeError:
+        assert radius > k1.window_layout(variant, 1, 0)["max_radius"] or \
+            not _launched_before(radius, 4)
+        monkeypatch.setitem(k1.PLAIN, variant, _plain_must_not_run)
+        kernel = k1.FORWARD_KERNELS_BF16[variant]
+        before = kernel.launches
+        with pytest.raises(RuntimeError, match="CUDA error"):
+            k1.corr_lookup_flat([m.to(cuda) for m in _bf16(levels)], coords.to(cuda), radius,
+                                variant=variant)
+        assert kernel.launches == before
+        return
+    _check_bf16_window_kernel(variant, levels, coords, radius, cuda, monkeypatch)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("variant", ["tent", "shift", "bdiag"])
+@pytest.mark.parametrize("levels", [1, 2, 3])
+def test_bf16_window_kernels_every_level_count(variant, levels, cuda, monkeypatch):
+    lv, coords = _window_case(75, (9, 5, 3)[:levels], 3, seed=levels)
+    _check_bf16_window_kernel(variant, lv, _corner_rows(coords, 9), 3, cuda, monkeypatch)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("variant", ["tent", "shift", "bdiag"])
+@pytest.mark.parametrize("rows", ["one", "group-1", "group+1"])
+def test_bf16_window_kernels_ragged_row_counts(variant, rows, cuda, monkeypatch):
+    group = k1.window_layout(variant, 4, 4, torch.bfloat16)["rows_per_group"]
+    rows = {"one": 1, "group-1": group - 1, "group+1": group + 1}[rows]
+    g = torch.Generator().manual_seed(rows)
+    levels = [torch.randn((rows, s * s), generator=g) for s in (9, 5, 3, 1)]
+    coords = (11.0 * torch.rand((rows, 2), generator=g) - 1.0).contiguous()
+    _check_bf16_window_kernel(variant, levels, coords, 4, cuda, monkeypatch)
+
+
+@pytest.mark.cuda
+def test_bf16_layout_takes_every_pair_the_first_k1_took(cuda):
+    """The bf16 instances take every (radius, levels) pair the float32 ones
+    take below L*(2r+1)^2 <= 1024."""
+    for variant in k1.VARIANTS:
+        top = k1.window_layout(variant, 1, 0)["max_radius"]
+        for radius in range(top + 1):
+            for levels in range(1, 5):
+                if _launched_before(radius, levels):
+                    layout = k1.window_layout(variant, levels, radius, torch.bfloat16)
+                    assert layout["smem_bytes"] <= 227 * 1024
+                    bwd = k1.bwd_layout(levels, radius, True, torch.bfloat16)
+                    assert bwd["smem_bytes"] <= 227 * 1024
+
+
+@pytest.mark.cuda
+def test_bf16_levels_off_4_byte_boundaries_raise(cuda):
+    levels, coords = _lookup_case("random")
+    lv = [m.to(cuda) for m in _bf16(levels)]
+    flat = torch.empty(lv[0].numel() + 1, dtype=torch.bfloat16, device=cuda)
+    off = flat[1:].view(lv[0].shape)
+    off.copy_(lv[0])
+    with pytest.raises(ValueError, match="4-byte"):
+        k1.corr_lookup_flat([off] + lv[1:], coords.to(cuda))
+    with pytest.raises(ValueError, match="float32 or all bfloat16"):
+        k1.corr_lookup_flat([lv[0].float()] + lv[1:], coords.to(cuda))
+    with pytest.raises(ValueError, match="float32 coords"):
+        k1.corr_lookup_flat(lv, coords.to(cuda).to(torch.bfloat16))
+
+
+def _check_bf16_bwd_kernel(levels, coords, g, radius, want_coords, cuda, monkeypatch):
+    """K1b's bf16 instance on bf16 maps: level grads bf16 within one bf16
+    ulp of the plain version's (each rounded once from a float32 sum), the
+    flow grad within 1e-4 for every finite centre; the same bits from a
+    second launch; one launch of the bf16 instance, none of the float32
+    one, no plain version."""
+    lv = [m.to(cuda) for m in _bf16(levels)]
+    coords, g = coords.to(cuda), g.to(cuda)
+    want, want_c = k1.corr_lookup_flat_bwd_plain(lv, coords, g, radius, want_coords)
+    monkeypatch.setattr(k1, "corr_lookup_flat_bwd_plain", _plain_must_not_run)
+    before = (k1.BWD_KERNEL_BF16.launches, k1.BWD_KERNEL.launches)
+    grads, gc = k1.corr_lookup_flat_bwd(lv, coords, g, radius, want_coords)
+    torch.cuda.synchronize()
+    assert (k1.BWD_KERNEL_BF16.launches, k1.BWD_KERNEL.launches) == (before[0] + 1, before[1])
+    again, again_c = k1.corr_lookup_flat_bwd(lv, coords, g, radius, want_coords)
+    nan_rows = torch.isnan(coords).any(dim=1)
+    for a, b, c in zip(grads, want, again):
+        _assert_within_bf16_ulp(a, b)
+        assert torch.equal(a.float().nan_to_num(7.0), c.float().nan_to_num(7.0))
+    if want_coords:
+        assert gc.dtype == torch.float32
+        torch.testing.assert_close(gc[~nan_rows], want_c[~nan_rows], rtol=0, atol=1e-4)
+        assert torch.isnan(gc[nan_rows]).all()
+        assert torch.equal(gc.nan_to_num(7.0), again_c.nan_to_num(7.0))
+    else:
+        assert gc is None
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("want_coords", [True, False])
+@pytest.mark.parametrize("radius", [0, 1, 2, 4, 7, 9, 10, 14, 15])
+@pytest.mark.parametrize("sizes", [(10, 5, 3, 2), (32, 16, 8, 4)])
+def test_bf16_bwd_kernel(radius, sizes, want_coords, cuda, monkeypatch):
+    """K1b on bf16 maps at radius 0-15 (each group size: 8, 4 and 2 rows),
+    4 levels where they fit a block, else 1: 75 rows of random, border,
+    integer, NaN and far centres, the last rows on the maps' last column;
+    10^2 and 32^2..8^2 levels take 16-byte stores of 8 values, 5^2, 3^2
+    and 2^2 2-byte ones; an output gradient off 16 bytes on odd radii."""
+    levels = 4 if _launched_before(radius, 4) else 1
+    lv, coords = _window_case(75, sizes[:levels], radius, seed=radius)
+    coords = _corner_rows(coords, sizes[0])
+    g = _bwd_grad_out(75, levels * (2 * radius + 1) ** 2, radius, offset=radius % 2 == 1)
+    _check_bf16_bwd_kernel(lv, coords, g, radius, want_coords, cuda, monkeypatch)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("want_coords", [True, False])
+def test_bf16_bwd_kernel_at_the_train_shape(want_coords, cuda, monkeypatch):
+    """Levels 32^2..4^2, radius 4, 16 images of 32^2 rows: the train step's
+    16,384 rows."""
+    lv, coords = _window_case(16 * 32 * 32, (32, 16, 8, 4), 4, seed=7)
+    g = _bwd_grad_out(coords.shape[0], 4 * 81, 7)
+    _check_bf16_bwd_kernel(lv, coords, g, 4, want_coords, cuda, monkeypatch)

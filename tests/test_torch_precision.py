@@ -110,7 +110,7 @@ def test_infer_poses_do_not_follow_the_global_tf32_flag(restore_flags):
             lin.weight.copy_(0.005 * torch.randn(lin.weight.shape,
                                                  generator=torch.Generator().manual_seed(1)))
     infer = make_scflow_infer_fn(model, RenderAssets.from_bank(make_synthetic_bank(NCLASS)),
-                                 image_size=(img, img), render_cull_backfaces=True)
+                                 image_size=(img, img), render_cull_backfaces=True, slim=True)
     poses = {}
     for cudnn in (False, True):
         _set_flags(cudnn, False)

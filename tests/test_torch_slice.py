@@ -94,7 +94,7 @@ def test_infer_fn_matches_jax(models, batch, monkeypatch, no_tf32):
     assets = RenderAssets.from_bank(make_synthetic_bank(NCLASS, kind="sphere", size=SIZE, subdivisions=2),
                                     device="cpu")
     infer = make_scflow_infer_fn(port, assets, image_size=(IMG, IMG), render_backend="pallas",
-                                 render_cull_backfaces=True, device="cpu")
+                                 render_cull_backfaces=True, slim=True, device="cpu")
     got = infer(batch)
     assert got["rotations"].shape == (N, 3, 3) and got["translations"].shape == (N, 3)
     _assert_poses(got["rotations"].numpy(), got["translations"].numpy(),
@@ -111,7 +111,7 @@ def test_infer_fn_brute_force_render_matches_jax(models, batch, no_tf32):
     want = j_infer(variables, {k: jnp.asarray(v) for k, v in batch.items()})
     assets = RenderAssets.from_bank(make_synthetic_bank(NCLASS, kind="sphere", size=SIZE, subdivisions=2),
                                     device="cpu")
-    got = make_scflow_infer_fn(port, assets, image_size=(IMG, IMG), device="cpu")(batch)
+    got = make_scflow_infer_fn(port, assets, image_size=(IMG, IMG), slim=True, device="cpu")(batch)
     _assert_poses(got["rotations"].numpy(), got["translations"].numpy(),
                   np.asarray(want["rotations"]), np.asarray(want["translations"]))
 
