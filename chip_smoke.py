@@ -5,6 +5,7 @@
     python3 chip_smoke.py --lookup-only [--root DIR]   # phases 1-3, 10 and 11
                                  # only, of the package in DIR (e.g. a parent commit)
     python3 chip_smoke.py --raster-only [--root DIR]   # phases 1, 2 and 4-7 only
+    python3 chip_smoke.py --raft-only [--root DIR]     # phases 1, 2 and 14 only
 
 Phases, each printing one JSON line; any failure exits non-zero before the
 last line:
@@ -109,8 +110,36 @@ last line:
                samples/s, peak memory, and a bf16 card step against a bf16
                CPU step at batch 2, 128^2, 3 iterations (loss and all
                gradients within the CPU's own bf16-to-fp32 distance);
- 13. the kernels line (float32 and bf16 instances), then the device line
-     the chip harness reads.
+ 14. the RAFT baseline (configs/refine_models/raft.py: RAFTRefinerFlowMask,
+     256-channel encoders, h/context 128, 12 iterations, seeded weights):
+     raft - make_raft_infer_fn(lookup 'pallas', pnp_backend 'device', the
+               shipped test_cfg's PnP: occ_thresh 0.5, 1000 points,
+               reprojection error 3 px, 64 hypotheses) at batch 64, 256^2,
+               21 classes, culling on, fp32, on train_batch's scene: 12 K1
+               and 1 K2 per call, nothing else; finite flow, occlusion in
+               [0, 1], orthonormal poses; the first 4 samples' flow and
+               occlusion against the CPU run of the plain versions (atol
+               2e-2 px, 1e-3); the device PnP recovering the gt pose from
+               the gt flow (|dR| <= 2e-3, 1 mm); the card's RANSAC equal to
+               the CPU's on shared hypothesis indices with 30% outliers
+               (|dR| <= 1e-3, 0.5 mm, the same ok, inliers differing on <=
+               1%); ms per call, refinements/s, the stages (render,
+               encoders, decoder, PnP), the profile;
+     raft_bf16 - one call with the weights in bf16 (12 K1 bf16 instances, 1
+               K2), its flow and occlusion against the fp32 call's, ms;
+     raft_val - make_raft_val_step on the same model and batch (12 K1, 1
+               K2), finite metrics;
+     raft_train - make_raft_train_step at the shipped recipe (batch 16,
+               256^2, 12 iterations, AdamW 4e-4 + OneCycle + clip 1.0,
+               lookup 'pallas'): exactly 12 K1, 12 K1b (no flow gradient)
+               and 1 K2 per step; ms per step, samples/s, the stages, the
+               profile, the loss falling over the recipe's first 6 steps,
+               a card step against a CPU step at batch 2, 128^2, 3
+               iterations (loss rtol 1e-3, worst per-leaf gradient rel L2
+               <= 2e-2);
+ 15. the kernels line (float32 and bf16 instances; "raft_launches": each
+     kernel's launches per RAFT call or step), then the device line the
+     chip harness reads.
 Imports no JAX.  Needs one card; without one it exits non-zero at once.
 """
 
@@ -1181,7 +1210,7 @@ def phase_train(smi):
     res["stage_ms"] = _train_stages(state, assets, loss_assets, batch)
     res["peak_mem_gb"] = torch.cuda.max_memory_allocated() / 1e9
 
-    res.update(_step_profile(step, state, batch))
+    res.update(_profile_call(lambda: step(state, batch)))
 
     # the loss falls over 6 steps at a constant lr 1e-3 (tests/test_train_system.py)
     fall_state, fall_step, _, _ = _train_setup(copy.deepcopy(state0.model), bank, IMG,
@@ -1199,25 +1228,6 @@ def phase_train(smi):
           "classes": NCLASS, "launches_per_step": {"K1": ITERS, "K1b": ITERS, "K2": 1},
           **res, "card": smi})
     return launches, loss
-
-
-def _step_profile(step, state, batch):
-    """torch.profiler over one train step: the summed device time of its
-    kernels (against ms_per_step: how far the host holds the card back; the
-    sum can exceed the timeline where kernels overlap), ours, the top 12."""
-    from torch.profiler import ProfilerActivity, profile
-
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        step(state, batch)
-        torch.cuda.synchronize()
-    kernels = {e.key: (e.device_time_total / 1e3, e.count) for e in prof.key_averages()
-               if e.device_type == torch.autograd.DeviceType.CUDA}
-    top = sorted(kernels.items(), key=lambda kv: -kv[1][0])[:12]
-    return {"kernel_time_sum_ms": sum(ms for ms, _ in kernels.values()),
-            "kernel_launches": sum(n for _, n in kernels.values()),
-            "ours_ms_count": {name.split("(")[0]: v for name, v in kernels.items()
-                              if "lookup_" in name or "raster_v3" in name},
-            "top_kernels_ms_count": [[name[:90], ms, n] for name, (ms, n) in top]}
 
 
 def _train_stages(state, assets, loss_assets, batch):
@@ -1257,21 +1267,26 @@ def _train_stages(state, assets, loss_assets, batch):
     return {k: statistics.median(v[1:]) for k, v in times.items()}
 
 
-def _train_card_vs_cpu(bank):
+def _train_card_vs_cpu(bank, raft: bool = False):
     """One step on the card and one on the CPU (the plain versions: render
     'pallas' runs the plain v3 raster there, the lookup plain K1 and K1b)
-    from the same weights and batch, at batch 2, 128^2, 3 iterations."""
+    from the same weights and batch, at batch 2, 128^2, 3 iterations; the
+    SCFlow recipe, or with raft the RAFT one."""
     import copy
 
     n, image, iters = 2, 128, 3
-    model = train_model(image, iters)
+    if raft:
+        model, setup = raft_train_model(iters), _raft_train_setup
+    else:
+        model = train_model(image, iters)
+
+        def setup(*args):
+            return _train_setup(*args, render_backend="pallas")[:3]
     cpu_model = copy.deepcopy(model)
-    card_state, card_step, card_assets, _ = _train_setup(model, bank, image,
-                                                         render_backend="pallas")
+    card_state, card_step, card_assets = setup(model, bank, image)
     batch = train_batch(card_assets, n, image, seed=1)
     _, card_logs = card_step(card_state, batch)
-    cpu_state, cpu_step, _, _ = _train_setup(cpu_model, bank, image, "cpu",
-                                             render_backend="pallas")
+    cpu_state, cpu_step, _ = setup(cpu_model, bank, image, "cpu")
     _, cpu_logs = cpu_step(cpu_state, batch)
     torch.cuda.synchronize()
     got = {k: p.grad.cpu() for k, p in card_state.model.named_parameters()}
@@ -1279,7 +1294,8 @@ def _train_card_vs_cpu(bank):
     worst, leaf = _worst_grad_rel(got, want)
     loss_rel = abs(float(card_logs["loss"]) / float(cpu_logs["loss"]) - 1)
     require(loss_rel <= 1e-3 and worst <= 2e-2,
-            f"card vs CPU step: loss rel {loss_rel}, worst gradient rel {worst} ({leaf})")
+            f"card vs CPU step (raft {raft}): loss rel {loss_rel}, worst gradient rel {worst} "
+            f"({leaf})")
     return {"loss_card": float(card_logs["loss"]), "loss_cpu": float(cpu_logs["loss"]),
             "loss_rel_diff": loss_rel, "worst_grad_rel_l2": worst, "worst_leaf": leaf,
             "leaves": len(want)}
@@ -1466,7 +1482,7 @@ def phase_train_bf16(smi, fp32_loss):
     res.update(ms_per_step=1e3 * dt, samples_per_s=TRAIN_BATCH / dt,
                stage_ms=_train_stages(state, assets, loss_assets, batch),
                peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9)
-    res.update(_step_profile(step, state, batch))
+    res.update(_profile_call(lambda: step(state, batch)))
     fall_state, fall_step, _, _ = _train_setup(copy.deepcopy(state0.model), bank, IMG,
                                                lr_cfg=None, optimizer=dict(
                                                    type="AdamW", lr=1e-3, weight_decay=1e-4))
@@ -1521,6 +1537,413 @@ def _train_card_vs_cpu_bf16(bank):
     return {"loss": loss, "loss_rel_diff": loss_rel, "loss_bound": loss_bound,
             "grad_rel_l2": grad_rel, "grad_rel_l2_bf16_vs_fp32_cpu": grad_bound,
             "grad_rel_l2_card_bf16_vs_cpu_fp32": rel("card", "cpu32")}
+
+
+# ---- the RAFT baseline (configs/refine_models/raft.py) ----
+
+RAFT_ITERS = 12  # the shipped decoder's and test_cfg's iterations
+# apis.py:112-119 from the shipped test_cfg (sample_points num 1000, occ_thresh
+# 0.5, the default reprojection error 3.0), num_hypotheses the solver's default
+RAFT_PNP = dict(occ_thresh=0.5, num_points=1000, reprojection_error=3.0, num_hypotheses=64)
+RAFT_CLIP = 1.0  # configs/refine_models/raft.py optimizer_config
+
+
+def raft_model(dtype=None, iters: int = RAFT_ITERS):
+    """The shipped RAFTRefinerFlowMask (256-channel feature encoders, h and
+    context 128) in `dtype` with seeded_model's weights: lecun-normal convs,
+    zero biases, default norms, the flow head's output conv normal(0,
+    HEAD_STD), so that each of the 12 iterations moves the flow by about a
+    tenth of a pixel and two devices stay comparable."""
+    from scflow_tpu_torch.refiners.raft import RAFTRefinerFlowMask
+
+    model = RAFTRefinerFlowMask(iters=iters, dtype=dtype)
+    g = torch.Generator().manual_seed(0)
+    head = model.decoder.flow_pred.predict_layer
+    with torch.no_grad():
+        for mod in model.modules():
+            if isinstance(mod, torch.nn.Conv2d):
+                std = HEAD_STD if mod is head else 1.0 / math.sqrt(mod.weight[0].numel())
+                mod.weight.copy_(std * torch.randn(mod.weight.shape, generator=g))
+                if mod.bias is not None:
+                    mod.bias.zero_()
+    return model
+
+
+def _raft_infer(model, assets, device=None, **kw):
+    """make_raft_infer_fn of the raft cell: 256^2, culling on, the kernels'
+    render and lookup (their plain versions on the CPU)."""
+    from scflow_tpu_torch.refiners.system import make_raft_infer_fn
+
+    return make_raft_infer_fn(model, assets, image_size=(IMG, IMG), render_backend="pallas",
+                              render_cull_backfaces=True, lookup_backend="pallas",
+                              device=device, **kw)
+
+
+def _raft_stages(model, assets, batch):
+    """Median of 3 (after a warm-up) of one call's parts by CUDA events:
+    render, encoders, decoder (12 iterations, the last upsampled), PnP."""
+    from scflow_tpu_torch.device import full_fp32
+    from scflow_tpu_torch.refiners.flow_pose import solve_poses_from_flow_device
+    from scflow_tpu_torch.refiners.system import render_and_normalize
+
+    dev = assets.verts.device
+    b = {k: torch.as_tensor(v, device=dev) for k, v in batch.items()}
+    names = ("render", "encoders", "decoder", "pnp")
+    times = {k: [] for k in names}
+    with torch.inference_mode(), full_fp32():
+        for _ in range(4):
+            ev = [torch.cuda.Event(enable_timing=True) for _ in range(5)]
+            ev[0].record()
+            images, depths, _ = render_and_normalize(
+                assets, b["ref_rotations"], b["ref_translations"], b["k"], b["labels"],
+                (IMG, IMG), backend="pallas", cull_backfaces=True)
+            ev[1].record()
+            feats = model.extract_feat(images, b["real_images"])
+            ev[2].record()
+            n, _, h, w = feats[1].shape
+            out = model.decoder(feats[0], feats[1], torch.zeros((n, h, w, 2), device=dev),
+                                feats[2], feats[3], lookup_backend="pallas",
+                                output_sequences=False)
+            ev[3].record()
+            solve_poses_from_flow_device(out["flow"][-1], depths, b["ref_rotations"],
+                                         b["ref_translations"], b["k"],
+                                         occlusion=out["occlusion"][-1], **RAFT_PNP)
+            ev[4].record()
+            torch.cuda.synchronize()
+            for name, a, z in zip(names, ev, ev[1:]):
+                times[name].append(a.elapsed_time(z))
+    return {k: statistics.median(v[1:]) for k, v in times.items()}
+
+
+def _profile_call(fn):
+    """torch.profiler over one call of fn: the summed device time of its
+    kernels (against the call's time: how far the host holds the card back;
+    the sum can exceed the timeline where kernels overlap), launches, ours,
+    the top 12 kernels (time, count)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    kernels = {e.key: (e.device_time_total / 1e3, e.count) for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA}
+    top = sorted(kernels.items(), key=lambda kv: -kv[1][0])[:12]
+    return {"kernel_time_sum_ms": sum(ms for ms, _ in kernels.values()),
+            "kernel_launches": sum(n for _, n in kernels.values()),
+            "ours_ms_count": {name.split("(")[0]: v for name, v in kernels.items()
+                              if "lookup_" in name or "raster_v3" in name},
+            "top_kernels_ms_count": [[name[:90], ms, n] for name, (ms, n) in top]}
+
+
+def _raft_gt_scene(batch, depths):
+    """The gt flow from the reference to the gt pose on the rendered depth
+    (tensors on the depth's device) and an occlusion confidence drawn
+    uniformly from (0.5, 1) where the render covers: a constant one would
+    tie, and the stable top-k would then take the object's top rows only,
+    a strip on which the solve is ill-conditioned."""
+    from scflow_tpu_torch.geometry import flow_from_pose_and_depth
+
+    dev = depths.device
+    b = {k: torch.as_tensor(v, device=dev) for k, v in batch.items()}
+    flow = flow_from_pose_and_depth(b["ref_rotations"], b["ref_translations"], b["gt_rotations"],
+                                    b["gt_translations"], depths, b["k"])
+    conf = 0.5 + 0.5 * torch.rand(depths.shape, generator=torch.Generator().manual_seed(4))
+    return b, flow, torch.where(depths > 0, conf.to(dev), torch.zeros_like(depths))
+
+
+def _raft_pnp_gates(batch, depths):
+    """Gate 2: the card's device PnP recovers the gt pose from the gt flow
+    (every sample: |dR| <= 2e-3, |dt| <= 1 mm at about 700 mm).  Gate 3:
+    on the same hypothesis indices (drawn once on the CPU), with 30% of the
+    correspondences moved 10-40 px off, the card's ransac_from_indices
+    equals the CPU's (|dR| <= 1e-3, |dt| <= 0.5 mm, the same ok, inliers
+    differing on <= 1% of the points)."""
+    from scflow_tpu_torch import pnp
+    from scflow_tpu_torch.geometry import coords_grid, lift_depth_to_object_points
+    from scflow_tpu_torch.refiners.flow_pose import solve_poses_from_flow_device
+
+    b, flow, occ = _raft_gt_scene(batch, depths)
+    R, t, ok = solve_poses_from_flow_device(flow, depths, b["ref_rotations"],
+                                            b["ref_translations"], b["k"], occlusion=occ,
+                                            **RAFT_PNP)
+    rot_err = (R - b["gt_rotations"]).abs().amax().item()
+    t_err = (t - b["gt_translations"]).abs().amax().item()
+    require(bool(ok.all()) and rot_err <= 2e-3 and t_err <= 1.0,
+            f"gt flow -> gt pose: ok {int(ok.sum())}/{len(ok)}, |dR| {rot_err}, |dt| {t_err}")
+    pnp_ms = median_ms(lambda: solve_poses_from_flow_device(
+        flow, depths, b["ref_rotations"], b["ref_translations"], b["k"], occlusion=occ,
+        **RAFT_PNP), 3, groups=3)
+
+    # gate 3: the selected correspondences with outliers, shared indices
+    n, h, w = depths.shape
+    pts, valid = lift_depth_to_object_points(depths, b["k"], b["ref_rotations"],
+                                             b["ref_translations"])
+    score = torch.where(valid, occ, torch.full_like(occ, -float("inf"))).reshape(n, -1)
+    idx = torch.sort(score, dim=-1, descending=True, stable=True).indices[:, :1000]
+    tgt = (coords_grid(h, w, flow.dtype, flow.device)[None] + flow).reshape(n, -1, 2)
+    p3 = pts.reshape(n, -1, 3).gather(1, idx[..., None].expand(-1, -1, 3)).cpu()
+    p2 = tgt.gather(1, idx[..., None].expand(-1, -1, 2)).cpu()
+    val = valid.reshape(n, -1).gather(1, idx).cpu()
+    g = torch.Generator().manual_seed(5)
+    out = torch.rand(p2.shape[:2], generator=g) < 0.3
+    off = (torch.rand(p2.shape, generator=g) * 30 + 10) * torch.sign(torch.randn(p2.shape,
+                                                                                  generator=g))
+    p2 = torch.where(out[..., None], p2 + off, p2)
+    hyp = pnp.sample_hypotheses(val, 64, 6, g)
+    K = b["k"].cpu()
+    cpu = pnp.ransac_from_indices(p3, p2, K, val, hyp)
+    card = pnp.ransac_from_indices(p3.cuda(), p2.cuda(), K.cuda(), val.cuda(), hyp.cuda())
+    d_rot = (card.rotation.cpu() - cpu.rotation).abs().amax().item()
+    d_t = (card.translation.cpu() - cpu.translation).abs().amax().item()
+    inl = (card.inliers.cpu() != cpu.inliers).float().mean().item()
+    same_ok = bool(torch.equal(card.ok.cpu(), cpu.ok))
+    require(same_ok and d_rot <= 1e-3 and d_t <= 0.5 and inl <= 1e-2,
+            f"card vs CPU RANSAC on shared indices: ok equal {same_ok}, |dR| {d_rot}, "
+            f"|dt| {d_t}, inliers differing {inl}")
+    return {"gt_flow_pose_rot_max_abs_err": rot_err, "gt_flow_pose_trans_max_abs_err_mm": t_err,
+            "pnp_ms_batch": pnp_ms, "shared_index_card_vs_cpu": {
+                "rot_max_abs_diff": d_rot, "trans_max_abs_diff_mm": d_t,
+                "inlier_diff_share": inl, "ok": int(card.ok.sum())}}
+
+
+def phase_raft(smi):
+    """make_raft_infer_fn at the shipped configuration through the kernels
+    (lookup 'pallas', device PnP): one call with every launch count reset
+    (12 K1, 1 K2, nothing else); finite flow, occlusion in [0, 1],
+    orthonormal poses; gate 1, the first 4 samples' flow and occlusion
+    against a CPU run of the plain versions (flow atol 2e-2 px, occlusion
+    atol 1e-3: the infer_full phase's bounds); gates 2 and 3
+    (_raft_pnp_gates); ms per call, refinements/s, the stages and the
+    profile."""
+    from scflow_tpu_torch.refiners.system import RenderAssets
+    from scflow_tpu_torch.render.meshbank import make_synthetic_bank
+
+    bank = make_synthetic_bank(NCLASS, kind="uvsphere", size=80.0)
+    assets = RenderAssets.from_bank(bank)
+    model = raft_model()
+    batch = train_batch(assets, BATCH, IMG, seed=2)
+    infer = _raft_infer(model, assets, pnp_backend="device", pnp_cfg=RAFT_PNP)
+    torch.cuda.reset_peak_memory_stats()
+    infer(batch)  # warm-up
+    torch.cuda.synchronize()
+    out, launches = counted(lambda: infer(batch))
+    require(only(launches, K1=RAFT_ITERS, K2=1), f"raft launches per call {launches}")
+    flow, occ = out["flow"], out["occlusion"]
+    require(tuple(flow.shape) == (BATCH, IMG, IMG, 2) and tuple(occ.shape) == (BATCH, IMG, IMG)
+            and bool(torch.isfinite(flow).all()) and 0 <= occ.min() and occ.max() <= 1,
+            f"raft outputs {tuple(flow.shape)} {tuple(occ.shape)}")
+    R = out["rotations"]
+    ortho = (R.transpose(1, 2) @ R - torch.eye(3, device=R.device)).abs().amax().item()
+    require(ortho < 1e-4 and bool(torch.isfinite(out["translations"]).all()),
+            f"raft poses: |R^T R - I| {ortho}")
+
+    cpu_model = raft_model()  # the same seeded weights
+    ref = _raft_infer(cpu_model, RenderAssets.from_bank(bank, device="cpu"), "cpu")(
+        {k: v[:4] for k, v in batch.items()})
+    d_flow = (flow[:4].cpu() - ref["flow"]).abs().max().item()
+    d_occ = (occ[:4].cpu() - ref["occlusion"]).abs().max().item()
+    require(d_flow <= 2e-2 and d_occ <= 1e-3, f"raft card vs CPU: flow {d_flow}, occ {d_occ}")
+
+    calls = 10
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        infer(batch)
+    torch.cuda.synchronize()
+    dt = (time.perf_counter() - t0) / calls
+    res = {"launches_per_call": launches, "orthonormality_err": ortho,
+           "flow_max_abs": flow.abs().max().item(), "occlusion_mean": occ.mean().item(),
+           "pnp_ok": int(out["pnp_ok"].sum()), "cpu_flow_max_abs_diff": d_flow,
+           "cpu_occlusion_max_abs_diff": d_occ, "ms_per_call": 1e3 * dt,
+           "refinements_per_s": BATCH / dt,
+           "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+           "stage_ms": _raft_stages(model, assets, batch)}
+    res.update(_profile_call(lambda: infer(batch)))
+    res.update(_raft_pnp_gates(batch, out["rendered_depths"]))
+    emit({"phase": "raft", "batch": BATCH, "image": IMG, "iters": RAFT_ITERS,
+          "classes": NCLASS, "pnp_cfg": RAFT_PNP, **res, "card": smi})
+    return launches, {"flow": flow, "occ": occ, "ms_per_call": 1e3 * dt, "model": model,
+                      "batch": batch, "assets": assets}
+
+
+def phase_raft_bf16(smi, fp32):
+    """One make_raft_infer_fn call with the raft phase's weights in bf16: 12
+    launches of K1's bf16 instance and 1 K2, nothing else; the flow and
+    occlusion against the fp32 call's (max and mean |d|); ms per call."""
+    from scflow_tpu_torch.refiners.system import RenderAssets
+    from scflow_tpu_torch.render.meshbank import make_synthetic_bank
+
+    assets = RenderAssets.from_bank(make_synthetic_bank(NCLASS, kind="uvsphere", size=80.0))
+    infer = _raft_infer(raft_model(torch.bfloat16), assets, pnp_backend="device",
+                        pnp_cfg=RAFT_PNP)
+    batch = fp32["batch"]
+    infer(batch)
+    out, launches = counted(lambda: infer(batch))
+    require(only(launches, K1_bf16=RAFT_ITERS, K2=1), f"raft bf16 launches {launches}")
+    require(out["flow"].dtype == torch.float32 and bool(torch.isfinite(out["flow"]).all()),
+            "raft bf16: finite float32 flow")
+    d = (out["flow"] - fp32["flow"]).abs()
+    d_occ = (out["occlusion"].float() - fp32["occ"]).abs()
+    calls = 10
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        infer(batch)
+    torch.cuda.synchronize()
+    dt = (time.perf_counter() - t0) / calls
+    emit({"phase": "raft_bf16", "batch": BATCH, "launches_per_call": launches,
+          "flow_max_abs_diff_vs_fp32": d.max().item(), "flow_mean_abs_diff_vs_fp32":
+          d.mean().item(), "occlusion_max_abs_diff_vs_fp32": d_occ.max().item(),
+          "ms_per_call": 1e3 * dt, "refinements_per_s": BATCH / dt,
+          "fp32_ms_per_call": fp32["ms_per_call"], "card": smi})
+    return {"K1_bf16": launches["K1_bf16"]}
+
+
+def phase_raft_val(smi, fp32):
+    """One make_raft_val_step call on the raft phase's model and batch: 12
+    K1 and 1 K2; every metric finite, the pixel shares in [0, 1]."""
+    from scflow_tpu_torch.refiners.system import make_raft_val_step
+
+    step = make_raft_val_step(fp32["model"], fp32["assets"], image_size=(IMG, IMG),
+                              render_backend="pallas", render_cull_backfaces=True,
+                              lookup_backend="pallas")
+    step(fp32["batch"])
+    metrics, launches = counted(lambda: step(fp32["batch"]))
+    require(only(launches, K1=RAFT_ITERS, K2=1), f"raft val launches {launches}")
+    m = {k: v.item() for k, v in metrics.items()}
+    require(len(m) == 9 and all(map(math.isfinite, m.values())) and
+            all(0 <= v <= 1 for k, v in m.items() if k.endswith("px")), f"raft val {m}")
+    emit({"phase": "raft_val", "batch": BATCH, "launches_per_call": launches, "metrics": m,
+          "ms_per_call": median_ms(lambda: step(fp32["batch"]), 1, groups=3), "card": smi})
+
+
+def phase_raft_all(smi):
+    """The RAFT phases in order; {kernel: launches} on the RAFT path (K1 and
+    K2 per fp32 call, K1_bf16 per bf16 call, K1b per train step)."""
+    launches, fp32 = phase_raft(smi)
+    launches.update(phase_raft_bf16(smi, fp32))
+    phase_raft_val(smi, fp32)
+    del fp32
+    launches.update(phase_raft_train(smi))
+    return {k: v for k, v in launches.items() if v}
+
+
+def _raft_train_setup(model, bank, image: int, device=None, lr_cfg=LR_CONFIG,
+                      optimizer=OPTIMIZER, **step_kw):
+    """(TrainState, step, render assets) of the shipped RAFT recipe (AdamW
+    4e-4 + OneCycle + clip 1.0, the kernels' lookup) on `device`."""
+    from scflow_tpu_torch.refiners.system import RenderAssets, make_raft_train_step
+    from scflow_tpu_torch.runtime.optim import build_optimizer
+    from scflow_tpu_torch.runtime.train_state import TrainState
+
+    assets = RenderAssets.from_bank(bank, device=device)
+    tx, _ = build_optimizer(model.parameters(), optimizer, lr_cfg, grad_clip=RAFT_CLIP)
+    step = make_raft_train_step(model, assets, image_size=(image, image),
+                                render_backend="pallas", render_cull_backfaces=True,
+                                lookup_backend="pallas", device=device, **step_kw)
+    return TrainState(model, tx), step, assets
+
+
+def raft_train_model(iters: int):
+    """The shipped RAFTRefinerFlowMask with PyTorch's initialisation from a
+    seed (train_model's reason)."""
+    from scflow_tpu_torch.refiners.raft import RAFTRefinerFlowMask
+
+    torch.manual_seed(0)
+    return RAFTRefinerFlowMask(iters=iters)
+
+
+def phase_raft_train(smi):
+    """make_raft_train_step at the shipped recipe (batch 16, 256^2, 12
+    iterations, lookup 'pallas'): one step with every launch count reset
+    (exactly 12 K1, 12 K1b, 1 K2); ms per step, samples/s, the stages by
+    CUDA events, the profile, peak memory; the loss falling over the
+    recipe's first 6 steps; a card step against a CPU step at batch 2,
+    128^2, 3 iterations (loss rtol 1e-3, worst per-leaf gradient rel L2 <=
+    2e-2)."""
+    import copy
+
+    from scflow_tpu_torch.render.meshbank import make_synthetic_bank
+
+    bank = make_synthetic_bank(NCLASS, kind="uvsphere", size=80.0)
+    state0, step, assets = _raft_train_setup(raft_train_model(RAFT_ITERS), bank, IMG)
+    batch = train_batch(assets, TRAIN_BATCH, IMG)
+    torch.cuda.reset_peak_memory_stats()
+    state0, _ = step(state0, batch)  # warm-up
+    torch.cuda.synchronize()
+    (_, logs), c = counted(lambda: step(copy.deepcopy(state0), batch))
+    require(only(c, K1=RAFT_ITERS, K1b=RAFT_ITERS, K2=1), f"raft train step launches {c}")
+    loss = float(logs["loss"])
+    require(math.isfinite(loss) and math.isfinite(float(logs["grad_norm"])), f"loss {loss}")
+    res = {"launches_per_step": c, "loss": loss, "grad_norm": float(logs["grad_norm"]),
+           "log_keys": len(logs)}
+    state = copy.deepcopy(state0)
+    steps = 5
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(steps):
+        state, _ = step(state, batch)
+    torch.cuda.synchronize()
+    dt = (time.perf_counter() - t0) / steps
+    res.update(ms_per_step=1e3 * dt, samples_per_s=TRAIN_BATCH / dt,
+               stage_ms=_raft_train_stages(state, assets, batch),
+               peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9)
+    res.update(_profile_call(lambda: step(state, batch)))
+    # the loss falls over 6 steps of the shipped recipe from the first step
+    # (OneCycle's warm-up: lr 1.6e-5 and rising); at a constant 1e-3, as the
+    # SCFlow phase runs, this network's loss rose (426 -> 679 over 6 steps)
+    fall_state, fall_step, _ = _raft_train_setup(copy.deepcopy(state0.model), bank, IMG)
+    losses = []
+    for _ in range(6):
+        fall_state, flogs = fall_step(fall_state, batch)
+        losses.append(float(flogs["loss"]))
+    require(all(map(math.isfinite, losses)) and losses[-1] < losses[0], f"raft losses {losses}")
+    res["losses_shipped_recipe"] = losses
+    del fall_state, state
+    res["card_vs_cpu"] = _train_card_vs_cpu(bank, raft=True)
+    emit({"phase": "raft_train", "batch": TRAIN_BATCH, "image": IMG, "iters": RAFT_ITERS,
+          "classes": NCLASS, **res, "card": smi})
+    return {"K1b": c["K1b"]}
+
+
+def _raft_train_stages(state, assets, batch):
+    """Median of 3 (after a warm-up) of the step's parts by CUDA events:
+    render + gt flow, forward + losses, backward, optimizer update."""
+    from scflow_tpu_torch.geometry import filter_flow_by_mask, flow_from_pose_and_depth
+    from scflow_tpu_torch.losses.basic import l1_loss, raft_loss
+    from scflow_tpu_torch.refiners.system import render_and_normalize
+
+    dev = assets.verts.device
+    b = {k: torch.as_tensor(v, device=dev) for k, v in batch.items()}
+    names = ("render", "forward", "backward", "optimizer")
+    times = {k: [] for k in names}
+    for _ in range(4):
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(5)]
+        ev[0].record()
+        with torch.no_grad():
+            img, depths, masks = render_and_normalize(
+                assets, b["ref_rotations"], b["ref_translations"], b["k"], b["labels"],
+                (IMG, IMG), backend="pallas", cull_backfaces=True)
+            gt = filter_flow_by_mask(flow_from_pose_and_depth(
+                b["ref_rotations"], b["ref_translations"], b["gt_rotations"],
+                b["gt_translations"], depths, b["k"]), b["gt_masks"])
+            gt_occ = (gt.sum(-1) < 400.0).float()
+        ev[1].record()
+        out = state.model(img, b["real_images"], train=True, lookup_backend="pallas")
+        T = out["flow"].shape[0]
+        loss = sum(0.8 ** (T - 1 - i) * (raft_loss(out["flow"][i], gt, valid=masks)
+                                         + 100.0 * l1_loss(out["occlusion"][i], gt_occ))
+                   for i in range(T))
+        ev[2].record()
+        state.tx.zero_grad()
+        loss.backward()
+        ev[3].record()
+        state.apply_gradients()
+        ev[4].record()
+        torch.cuda.synchronize()
+        for name, a, z in zip(names, ev, ev[1:]):
+            times[name].append(a.elapsed_time(z))
+    return {k: statistics.median(v[1:]) for k, v in times.items()}
 
 
 def _render_close(got, want, what: str):
@@ -1638,6 +2061,8 @@ def main() -> int:
                              "K1b)")
     parser.add_argument("--raster-only", action="store_true",
                         help="run only the device, build and raster kernel phases (K2-K6)")
+    parser.add_argument("--raft-only", action="store_true",
+                        help="run only the device, build and RAFT phases")
     parser.add_argument("--root", type=Path, default=Path(__file__).resolve().parent,
                         help="the checkout whose scflow_tpu_torch to build and run "
                              "(default: this script's), e.g. an unpacked parent commit")
@@ -1657,6 +2082,11 @@ def main() -> int:
     if args.lookup_only:
         phase_lookup(dev, ptxas)
         phase_k1b(dev, ptxas)
+        emit({"ok": True, "device": {"platform": "gpu", "kind": name,
+                                     "count": torch.cuda.device_count()}})
+        return 0
+    if args.raft_only:
+        phase_raft_all(smi)
         emit({"ok": True, "device": {"platform": "gpu", "kind": name,
                                      "count": torch.cuda.device_count()}})
         return 0
@@ -1685,6 +2115,7 @@ def main() -> int:
     train_launches, fp32_loss = phase_train(smi)
     launches.update(train_launches)
     launches.update(phase_train_bf16(smi, fp32_loss))
+    raft_launches = phase_raft_all(smi)
     src = "scflow_tpu_torch/csrc/"
     tpu = "scflow_tpu/ops/pallas/"
     table = [
@@ -1713,7 +2144,8 @@ def main() -> int:
     ]
     emit({"kernels": [
         {"name": f"{key} {fn}", "route": "cuda", "source": src + file, "replaces": tpu + where,
-         "launches": launches[key], **res[key]}
+         "launches": launches[key], **({"raft_launches": raft_launches[key]}
+                                       if key in raft_launches else {}), **res[key]}
         for key, fn, file, where in table], "card": smi})
     emit({"ok": True, "device": {"platform": "gpu", "kind": name,
                                  "count": torch.cuda.device_count()}})

@@ -1,9 +1,11 @@
-"""Weight bridge: a flax SCFlowRefiner variables tree -> a PyTorch state dict.
+"""Weight bridge: a flax refiner's variables tree -> a PyTorch state dict.
 
 `state_dict_from_flax(variables)` takes the JAX package's
-{"params", "batch_stats"} tree (leaves as numpy arrays) and returns a state
-dict that `scflow_tpu_torch.refiners.scflow.SCFlowRefiner` loads with
-strict=True.  The name mapping is this package's own copy of the one in
+{"params", "batch_stats"} tree (leaves as numpy arrays) of an
+SCFlowRefiner, RAFTRefinerFlow or RAFTRefinerFlowMask (with a shared or a
+separate real-image encoder) and returns a state dict that the port's
+module of the same name (`refiners/scflow.py`, `refiners/raft.py`) loads
+with strict=True.  The name mapping is this package's own copy of the one in
 scflow_tpu/runtime/convert_torch.py (flax module path -> the reference's
 mmcv key); the transposes run the other way: HWIO -> OIHW, (I, O) -> (O, I).
 """
@@ -64,7 +66,7 @@ def _torch_prefix(path: Tuple[str, ...]) -> str:
 
 
 def _norm_kind(path: Tuple[str, ...], encoder_norm: str, cxt_norm: str) -> str:
-    if path[0] == "render_encoder":
+    if path[0] in ("render_encoder", "real_encoder"):
         return encoder_norm
     if "pose_pred" in path:
         return "GN"
@@ -87,8 +89,10 @@ def _leaves(tree: Dict[str, Any], prefix: Tuple[str, ...] = ()):
 
 def state_dict_from_flax(variables: Dict[str, Any], encoder_norm: str = "IN",
                          cxt_norm: str = "BN") -> Dict[str, torch.Tensor]:
-    """variables: {"params": ..., "batch_stats": ...} of a flax
-    SCFlowRefiner (nested dicts of numpy arrays)."""
+    """variables: {"params": ..., "batch_stats": ...} of a flax refiner
+    (nested dicts of numpy arrays).  encoder_norm is the norm of the feature
+    encoders (render_encoder and, where separate, real_encoder), cxt_norm
+    that of the context encoder, as the refiners' fields name them."""
     sd = {}
     for coll, leaf_map in (("params", _LEAF_PARAM), ("batch_stats", _LEAF_STATS)):
         for path, leaf in _leaves(variables.get(coll, {})):

@@ -1,13 +1,14 @@
 """Pose, camera and flow geometry (batched, on tensors).
 
 Ports of scflow_tpu/geometry: rotation.py::rotmat_from_ortho6d,
-se3.py::apply_delta_pose, camera.py::coords_grid and
-lift_depth_to_object_points(_at), flow.py::flow_from_object_points(_at),
-flow_from_pose_and_depth and filter_flow_by_mask.  Same arithmetic and
+rotmat_from_axis_angle and axis_angle_from_rotmat, se3.py::apply_delta_pose,
+camera.py::coords_grid and lift_depth_to_object_points(_at),
+flow.py::flow_from_object_points(_at), flow_from_pose_and_depth,
+filter_flow_by_mask, filter_flow_by_depth and cal_epe.  Same arithmetic and
 layouts (pixel grids in (x, y) order, NHWC maps).
 """
 
-from typing import Tuple
+from typing import Dict, Optional, Tuple
 
 import torch
 
@@ -25,6 +26,37 @@ def rotmat_from_ortho6d(o6d: torch.Tensor) -> torch.Tensor:
     z = _normalize(torch.linalg.cross(x, o6d[..., 3:6]))
     y = torch.linalg.cross(z, x)
     return torch.stack([x, y, z], dim=-1)
+
+
+def rotmat_from_axis_angle(rvec: torch.Tensor) -> torch.Tensor:
+    """Rodrigues: axis-angle (..., 3) -> rotation (..., 3, 3), in the JAX
+    function's form, I + sin(t) K + (1 - cos(t)) K^2 with the axis
+    rvec / max(t, 1e-12), so that t -> 0 gives I."""
+    theta = torch.linalg.norm(rvec, dim=-1, keepdim=True)
+    axis = rvec / torch.clamp(theta, min=_EPS)
+    x, y, z = axis.unbind(-1)
+    zero = torch.zeros_like(x)
+    K = torch.stack([zero, -z, y, z, zero, -x, -y, x, zero], dim=-1).reshape(
+        rvec.shape[:-1] + (3, 3))
+    t = theta[..., None]
+    return torch.eye(3, dtype=rvec.dtype, device=rvec.device) + torch.sin(t) * K + (
+        1 - torch.cos(t)) * (K @ K)
+
+
+def axis_angle_from_rotmat(R: torch.Tensor) -> torch.Tensor:
+    """Inverse Rodrigues (..., 3, 3) -> (..., 3), the JAX function's branch
+    formulas: theta = arccos((tr R - 1) / 2) clipped to [-1, 1], the skew
+    part scaled by theta / (2 sin theta) where sin theta > 1e-6, else by
+    0.5 (the small-angle limit; near theta = pi the skew part vanishes and
+    so does the vector, as in JAX)."""
+    cos = torch.clamp((R.diagonal(dim1=-2, dim2=-1).sum(-1) - 1) / 2, -1.0, 1.0)
+    theta = torch.arccos(cos)
+    v = torch.stack([R[..., 2, 1] - R[..., 1, 2], R[..., 0, 2] - R[..., 2, 0],
+                     R[..., 1, 0] - R[..., 0, 1]], dim=-1)
+    sin = torch.sin(theta)[..., None]
+    scale = torch.where(sin > 1e-6, theta[..., None] / torch.clamp(2 * sin, min=_EPS),
+                        torch.full_like(sin, 0.5))
+    return v * scale
 
 
 def apply_delta_pose(
@@ -167,3 +199,54 @@ def filter_flow_by_mask(flow: torch.Tensor, gt_mask: torch.Tensor,
     already_invalid = (flow[..., 0] >= invalid_num) & (flow[..., 1] >= invalid_num)
     bad = (sampled < 0.9) | already_invalid
     return torch.where(bad[..., None], torch.full_like(flow, invalid_num), flow)
+
+
+def filter_flow_by_depth(flow: torch.Tensor, depth1: torch.Tensor, depth0: torch.Tensor,
+                         invalid_num: float = 400.0, thr: float = 0.2) -> torch.Tensor:
+    """Invalidate the flow (N, H, W, 2) of image 0 whose target's depth in
+    image 1, sampled bilinearly (align_corners=True, zeros outside), differs
+    from depth0 by thr or more relative to depth0 + 0.1; already invalid flow
+    stays invalid.  The JAX function's documented intent (`already_invalid
+    | ~consistent`), not the reference's AND, which is a no-op."""
+    n, h, w, _ = flow.shape
+    coords = coords_grid(h, w, flow.dtype, flow.device)[None] + flow
+    gx = coords[..., 0] * 2.0 / max(w - 1, 1) - 1.0
+    gy = coords[..., 1] * 2.0 / max(h - 1, 1) - 1.0
+    px = (gx + 1.0) * 0.5 * (w - 1)  # grid_sample's unnormalization, align_corners=True
+    py = (gy + 1.0) * 0.5 * (h - 1)
+    d1 = torch.where(depth1 > 0, depth1, torch.zeros_like(depth1))
+    d0 = torch.where(depth0 > 0, depth0, torch.zeros_like(depth0))
+    warped = sample_bilinear_zeros(d1[..., None].to(flow.dtype),
+                                   torch.stack([px, py], -1).reshape(n, -1, 2)).reshape(n, h, w)
+    consistent = torch.abs(d0 - warped) / (d0 + 0.1) < thr
+    already_invalid = (flow[..., 0] >= invalid_num) & (flow[..., 1] >= invalid_num)
+    bad = already_invalid | ~consistent
+    return torch.where(bad[..., None], torch.full_like(flow, invalid_num), flow)
+
+
+def cal_epe(flow_tgt: torch.Tensor, flow_pred: torch.Tensor, mask: Optional[torch.Tensor],
+            max_flow: float = 400.0, reduction: str = "mean", threshs=(1, 3, 5)):
+    """End-point error and the share of valid pixels under each threshold
+    (flows (N, H, W, 2); mask (N, H, W) or None; valid: |flow_tgt| <
+    max_flow and mask >= 0.5).  reduction 'none': the masked error map;
+    'mean': {"mean", "1px", ...} per sample; 'total_mean': over the batch."""
+    mag = torch.sqrt(torch.sum(flow_tgt ** 2, dim=-1))
+    valid = mag < max_flow
+    if mask is not None:
+        valid = valid & (mask >= 0.5)
+    err = torch.sqrt(torch.sum((flow_tgt - flow_pred) ** 2, dim=-1))
+    validf = valid.to(err.dtype)
+    if reduction == "none":
+        return err * validf
+    if reduction == "mean":
+        dims = (-1, -2)
+    elif reduction == "total_mean":
+        dims = tuple(range(err.ndim))
+    else:
+        raise ValueError(reduction)
+    total = validf.sum(dim=dims) + 1e-10
+    out: Dict[str, torch.Tensor] = {"mean": (err * validf).sum(dim=dims) / total}
+    err_masked = torch.where(valid, err, torch.full_like(err, float("inf")))
+    for t in threshs:
+        out[f"{t}px"] = (err_masked < t).sum(dim=dims) / total
+    return out

@@ -4,10 +4,12 @@ or -> sequence losses -> optimizer update (training).
 Port of scflow_tpu/refiners/system.py: RenderAssets, LossAssets,
 render_and_normalize, render_depth, scflow_sequence_losses,
 make_scflow_train_step and make_scflow_infer_fn (the JAX signature: the
-final pose, and with slim=False the final mask and flow).  Both entry points
-run a model of either dtype (SCFlowRefiner(dtype=torch.bfloat16) computes in
-bf16); rendering, the gt flow, the losses, the clip and AdamW are float32
-either way.
+final pose, and with slim=False the final mask and flow), and the RAFT
+baseline's make_raft_train_step, make_raft_infer_fn (the flow, and with
+pnp_backend='device' the pose from it) and make_raft_val_step.  Every entry
+point runs a model of either dtype (dtype=torch.bfloat16 computes the
+network in bf16); rendering, the gt flow, the losses, PnP, the clip and
+AdamW are float32 either way.
 """
 
 import copy
@@ -17,11 +19,13 @@ import numpy as np
 import torch
 
 from scflow_tpu_torch.device import full_fp32, resolve_backend, resolve_device
-from scflow_tpu_torch.geometry import filter_flow_by_mask, flow_from_pose_and_depth
+from scflow_tpu_torch.geometry import (cal_epe, filter_flow_by_depth, filter_flow_by_mask,
+                                       flow_from_pose_and_depth)
 from scflow_tpu_torch.losses.basic import l1_loss, raft_loss
 from scflow_tpu_torch.losses.point_matching import (disentangle_point_matching_loss,
                                                     sym_mask_from_types)
 from scflow_tpu_torch.ops.cuda.corr_lookup import check_variant
+from scflow_tpu_torch.refiners.flow_pose import solve_poses_from_flow_device
 from scflow_tpu_torch.render.rasterizer import rasterize
 from scflow_tpu_torch.render.renderer import render_batch
 from scflow_tpu_torch.runtime.train_state import TrainState
@@ -320,3 +324,229 @@ def make_scflow_infer_fn(model, render_assets: RenderAssets,
             return res
 
     return infer
+
+
+def _raft_setup(model, render_assets: RenderAssets, render_backend: str, lookup_backend: str,
+                lookup_variant: str, device):
+    """Check the names, move the model to the device and return a batch
+    reader: the batch's keys of the train step's, numpy arrays or tensors,
+    as tensors of their dtypes there."""
+    dev = resolve_device(device)
+    resolve_backend(render_backend, dev)
+    _check_lookup(lookup_backend, lookup_variant, dev)
+    model.to(dev)
+    if render_assets.verts.device != dev:
+        raise ValueError(f"render assets are on {render_assets.verts.device}, the model on {dev}")
+
+    def read(batch: Dict) -> Dict[str, torch.Tensor]:
+        return {k: torch.as_tensor(batch[k], dtype=dt, device=dev)
+                for k, dt in _TRAIN_KEYS.items() if k in batch}
+
+    return read
+
+
+def _gt_flow(b: Dict[str, torch.Tensor], depths: torch.Tensor, max_flow: float) -> torch.Tensor:
+    return flow_from_pose_and_depth(b["ref_rotations"], b["ref_translations"],
+                                    b["gt_rotations"], b["gt_translations"], depths, b["k"],
+                                    invalid_num=max_flow)
+
+
+def make_raft_train_step(
+    model,
+    render_assets: RenderAssets,
+    image_size: Tuple[int, int] = (256, 256),
+    norm_mean=NORM_MEAN,
+    norm_std=NORM_STD,
+    max_flow: float = 400.0,
+    filter_invalid_flow_by_mask: bool = True,
+    filter_invalid_flow_by_depth: bool = False,
+    gamma: float = 0.8,
+    flow_weight: float = 1.0,
+    occlusion_weight: float = 100.0,
+    render_chunk: int = 64,
+    render_backend: str = "auto",
+    render_cull_backfaces: bool = False,
+    lookup_backend: str = "xla",
+    donate: bool = True,
+    render_augmentations: Optional[Any] = None,
+    augment_seed: int = 0,
+    lookup_variant: str = "tent",
+    device=None,
+):
+    """Returns step(state, batch) -> (state, log_vars) for a RAFT refiner
+    (refiners/raft.py), the JAX function's step (reference
+    raft_refiner_flow_mask.py:169-222): render at the reference pose, the gt
+    flow to the gt pose on the rendered depth (no gradient), filtered by
+    the gt mask and, with filter_invalid_flow_by_depth, by the depth
+    rendered at the gt pose; the occlusion target is the SIGNED sum of the
+    gt flow's components < max_flow (the reference's training target; the
+    val step uses the magnitude).  The network runs in training mode
+    (BatchNorm on batch statistics), the loss is, over the T iterations
+    with weight gamma^(T-1-i), flow_weight x raft_loss(flow_i, gt flow,
+    rendered mask) + occlusion_weight x l1_loss(occlusion_i, target); then
+    backward, clip + AdamW (state.tx).  log_vars: seq_{i}_flow_loss,
+    seq_{i}_occ_loss (mask model), loss_flow, loss_occ, loss and
+    grad_norm (the global norm before the clip, fp32), as 0-d tensors.
+
+    batch: real_images, ref_rotations, ref_translations, gt_rotations,
+    gt_translations, labels, k, gt_masks.  The defaults are JAX's, so the
+    lookup is its tensor form ('xla'); lookup_backend='pallas' runs K1
+    forward and K1b backward (no flow gradient: the decoder detaches the
+    flow).  donate, device, lookup_variant, precision (device.full_fp32)
+    and dtypes as in make_scflow_train_step; render augmentations are not
+    ported and raise, so augment_seed seeds nothing."""
+    if render_augmentations is not None:
+        raise NotImplementedError("render augmentations are not ported")
+    read = _raft_setup(model, render_assets, render_backend, lookup_backend, lookup_variant,
+                       device)
+
+    def step(state: TrainState, batch: Dict) -> Tuple[TrainState, Dict[str, torch.Tensor]]:
+        with full_fp32():
+            return _step(state, batch)
+
+    def _step(state: TrainState, batch: Dict) -> Tuple[TrainState, Dict[str, torch.Tensor]]:
+        if not donate:
+            state = copy.deepcopy(state)
+        b = read(batch)
+        with torch.no_grad():
+            rendered, depths, masks = render_and_normalize(
+                render_assets, b["ref_rotations"], b["ref_translations"], b["k"], b["labels"],
+                image_size, norm_mean, norm_std, chunk=render_chunk, backend=render_backend,
+                cull_backfaces=render_cull_backfaces)
+            gt_flow = _gt_flow(b, depths, max_flow)
+            if filter_invalid_flow_by_mask:
+                gt_flow = filter_flow_by_mask(gt_flow, b["gt_masks"], max_flow)
+            if filter_invalid_flow_by_depth:
+                gt_depths = render_depth(render_assets, b["gt_rotations"], b["gt_translations"],
+                                         b["k"], b["labels"], image_size, chunk=render_chunk,
+                                         backend=render_backend,
+                                         cull_backfaces=render_cull_backfaces)
+                gt_flow = filter_flow_by_depth(gt_flow, gt_depths, depths, max_flow)
+            gt_occ = (torch.sum(gt_flow, dim=-1) < max_flow).to(torch.float32)
+        out = state.model(rendered, b["real_images"], train=True, lookup_backend=lookup_backend,
+                          lookup_variant=lookup_variant)
+        T = out["flow"].shape[0]
+        log_vars: Dict[str, torch.Tensor] = {}
+        loss_flow = loss_occ = 0.0
+        for i in range(T):
+            wi = gamma ** (T - 1 - i)
+            lf = raft_loss(out["flow"][i], gt_flow, valid=masks, max_flow=max_flow) * flow_weight
+            loss_flow = loss_flow + wi * lf
+            log_vars[f"seq_{i}_flow_loss"] = lf
+            if "occlusion" in out:
+                lo = l1_loss(out["occlusion"][i], gt_occ) * occlusion_weight
+                loss_occ = loss_occ + wi * lo
+                log_vars[f"seq_{i}_occ_loss"] = lo
+        loss = loss_flow + loss_occ
+        log_vars.update(loss_flow=loss_flow, loss=loss)
+        if "occlusion" in out:
+            log_vars["loss_occ"] = loss_occ
+        state.tx.zero_grad()
+        loss.backward()
+        log_vars = {k: v.detach() for k, v in log_vars.items()}
+        log_vars["grad_norm"] = state.apply_gradients()
+        return state, log_vars
+
+    return step
+
+
+PNP_BACKENDS = ("host", "device")
+
+
+def make_raft_infer_fn(model, render_assets: RenderAssets,
+                       image_size: Tuple[int, int] = (256, 256), norm_mean=NORM_MEAN,
+                       norm_std=NORM_STD, iters: Optional[int] = None, render_chunk: int = 64,
+                       render_backend: str = "auto", render_cull_backfaces: bool = False,
+                       lookup_backend: str = "auto", pnp_backend: str = "host",
+                       pnp_cfg: Optional[Dict[str, Any]] = None, lookup_variant: str = "tent",
+                       device=None):
+    """Returns infer(batch) -> {"flow" (N, H, W, 2), "occlusion" (N, H, W)
+    (mask model), "rendered_depths", "rendered_masks" (N, H, W)}: the final
+    iteration's full-resolution flow from the rendered to the real image,
+    and the render the host PnP (flow_pose.solve_poses_from_flow) reads.
+    Only the final iteration is upsampled (the decoder's
+    output_sequences=False), which is what JAX's jitted call computes.
+
+    pnp_backend 'device' also solves the pose on the card
+    (flow_pose.solve_poses_from_flow_device with pnp_cfg: occ_thresh,
+    num_points, num_hypotheses, reprojection_error, generator) and adds
+    "rotations" (N, 3, 3), "translations" (N, 3) and "pnp_ok" (N,);
+    'host' leaves the pose to the caller; any other name raises.
+
+    batch: real_images, ref_rotations, ref_translations, k, labels.  The
+    arguments are the JAX function's, in its order, then lookup_variant and
+    device (None: CUDA), with make_scflow_infer_fn's rules for the
+    backends, the device and the precision (device.full_fp32)."""
+    if pnp_backend not in PNP_BACKENDS:
+        raise ValueError(f"unknown pnp_backend {pnp_backend!r}; expected one of {PNP_BACKENDS}")
+    if iters is not None and (not isinstance(iters, int) or iters < 1):
+        raise ValueError(f"iters must be a positive int or None, got {iters!r}")
+    pnp_cfg = dict(pnp_cfg or {})
+    read = _raft_setup(model, render_assets, render_backend, lookup_backend, lookup_variant,
+                       device)
+    model.eval()
+
+    def infer(batch: Dict) -> Dict[str, torch.Tensor]:
+        with torch.inference_mode(), full_fp32():
+            b = read(batch)
+            rendered, depths, masks = render_and_normalize(
+                render_assets, b["ref_rotations"], b["ref_translations"], b["k"], b["labels"],
+                image_size, norm_mean, norm_std, chunk=render_chunk, backend=render_backend,
+                cull_backfaces=render_cull_backfaces)
+            out = model(rendered, b["real_images"], iters=iters, lookup_backend=lookup_backend,
+                        lookup_variant=lookup_variant, output_sequences=False)
+            res = {"flow": out["flow"][-1], "rendered_depths": depths, "rendered_masks": masks}
+            if "occlusion" in out:
+                res["occlusion"] = out["occlusion"][-1]
+            if pnp_backend == "device":
+                R, t, ok = solve_poses_from_flow_device(
+                    res["flow"], depths, b["ref_rotations"], b["ref_translations"], b["k"],
+                    occlusion=res.get("occlusion"), **pnp_cfg)
+                res.update(rotations=R, translations=t, pnp_ok=ok)
+            return res
+
+    return infer
+
+
+def make_raft_val_step(model, render_assets: RenderAssets,
+                       image_size: Tuple[int, int] = (256, 256), norm_mean=NORM_MEAN,
+                       norm_std=NORM_STD, max_flow: float = 400.0, iters: Optional[int] = None,
+                       render_backend: str = "auto", render_cull_backfaces: bool = False,
+                       lookup_backend: str = "auto", lookup_variant: str = "tent",
+                       device=None):
+    """Returns val_step(batch) -> metrics (0-d tensors), the JAX function's
+    (reference raft_refiner_flow_mask.py:241-283): the final flow's EPE
+    against the gt flow over the batch (epe_mean, epe_1px, epe_3px,
+    epe_5px), with gt_masks in the batch the same against the gt flow
+    filtered by the mask (epe_noc_*), and for the mask model "occ", the
+    mean |target - occlusion| with the target the flow MAGNITUDE < max_flow
+    (of the filtered flow where there are gt_masks).  batch: as the train
+    step's, gt_masks optional.  Arguments and rules as make_raft_infer_fn's
+    (JAX's val step renders with the default chunk and takes none)."""
+    read = _raft_setup(model, render_assets, render_backend, lookup_backend, lookup_variant,
+                       device)
+    model.eval()
+
+    def val_step(batch: Dict) -> Dict[str, torch.Tensor]:
+        with torch.inference_mode(), full_fp32():
+            b = read(batch)
+            rendered, depths, _ = render_and_normalize(
+                render_assets, b["ref_rotations"], b["ref_translations"], b["k"], b["labels"],
+                image_size, norm_mean, norm_std, backend=render_backend,
+                cull_backfaces=render_cull_backfaces)
+            out = model(rendered, b["real_images"], iters=iters, lookup_backend=lookup_backend,
+                        lookup_variant=lookup_variant, output_sequences=False)
+            flow = out["flow"][-1]
+            gt_flow = _gt_flow(b, depths, max_flow)
+            metrics = {f"epe_{k}": v for k, v in cal_epe(gt_flow, flow, None, max_flow=max_flow,
+                                                         reduction="total_mean").items()}
+            if "gt_masks" in b:
+                gt_flow = filter_flow_by_mask(gt_flow, b["gt_masks"], max_flow)
+                metrics.update({f"epe_noc_{k}": v for k, v in cal_epe(
+                    gt_flow, flow, None, max_flow=max_flow, reduction="total_mean").items()})
+            occ_gt = (torch.sqrt(torch.sum(gt_flow ** 2, dim=-1)) < max_flow).to(torch.float32)
+            if "occlusion" in out:
+                metrics["occ"] = torch.abs(occ_gt - out["occlusion"][-1]).mean()
+            return metrics
+
+    return val_step

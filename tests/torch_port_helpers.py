@@ -131,8 +131,9 @@ def scflow_pair_torch_init(num_class: int, img: int, iters: int, seed: int = 0,
     with torch.no_grad():
         for lin in (head.rotation_pred, head.translation_pred):
             lin.weight.copy_(perturb * torch.randn(lin.weight.shape, generator=g))
+    norms = {k: model_kw[k] for k in ("encoder_norm", "cxt_norm") if k in model_kw}
     variables = np_tree(convert_state_dict_to_variables(
-        {k: v.numpy() for k, v in port.state_dict().items()}, template))
+        {k: v.numpy() for k, v in port.state_dict().items()}, template, **norms))
     return fmodel, variables, port.eval()
 
 
@@ -186,3 +187,67 @@ def adversarial_raster_corners(img: int, n: int = 2, seed: int = 0):
     attrs = rng.uniform(-1, 1, (n, f, 3, 6))
     return tuple(torch.from_numpy(a.astype(t)) for a, t in
                  ((tri, np.float32), (z, np.float32), (valid, bool), (attrs, np.float32)))
+
+
+def lecun_variables(fmodel, seed: int, *init_args):
+    """Variables of the shapes fmodel.init gives (traced by jax.eval_shape,
+    nothing compiled), filled from a numpy seed as flax initialises them:
+    lecun-normal kernels, zero biases, unit norm scales and variances, zero
+    means.  Nested dicts of numpy arrays."""
+    import jax
+    from flax.core import unfreeze
+
+    shapes = unfreeze(jax.eval_shape(fmodel.init, jax.random.PRNGKey(0), *init_args))
+    rng = np.random.default_rng(seed)
+
+    def fill(path, leaf):
+        name = path[-1].key
+        if name == "kernel":
+            fan_in = int(np.prod(leaf.shape[:-1]))
+            return rng.normal(0.0, 1.0 / np.sqrt(fan_in), leaf.shape).astype(np.float32)
+        if name in ("scale", "var"):
+            return np.ones(leaf.shape, np.float32)
+        return np.zeros(leaf.shape, np.float32)
+
+    return jax.tree_util.tree_map_with_path(fill, shapes)
+
+
+def raft_pair(img: int, iters: int, seed: int = 0, mask: bool = True, **model_kw):
+    """(flax RAFT refiner, numpy variables, the port's refiner) with the same
+    weights (lecun_variables, carried across by the weight bridge):
+    RAFTRefinerFlowMask (mask=True) or RAFTRefinerFlow, model_kw (for
+    example seperate_encoder, encoder_norm, cxt_norm) to both.  The port's
+    module is built under a forked RNG."""
+    import jax.numpy as jnp
+
+    from scflow_tpu.refiners import raft as jraft
+    from scflow_tpu_torch.refiners import raft
+
+    name = "RAFTRefinerFlowMask" if mask else "RAFTRefinerFlow"
+    fmodel = getattr(jraft, name)(iters=iters, **model_kw)
+    z = jnp.zeros((1, img, img, 3))
+    variables = lecun_variables(fmodel, seed, z, z)
+    with torch.random.fork_rng(devices=[]):
+        port = getattr(raft, name)(iters=iters, **model_kw)
+    norms = {k: model_kw[k] for k in ("encoder_norm", "cxt_norm") if k in model_kw}
+    return fmodel, variables, load_port(port, variables, **norms)
+
+
+def raft_pair_torch_init(img: int, iters: int, seed: int = 0, mask: bool = True, **model_kw):
+    """As raft_pair, with the port's own (PyTorch default) initialisation
+    from torch.manual_seed(seed), carried to flax by the JAX package's
+    convert_state_dict_to_variables (scflow_pair_torch_init's reason: the
+    train-step tests' gradient bounds hold from these weights).  The global
+    RNG is left as it was."""
+    from scflow_tpu.runtime.convert_torch import convert_state_dict_to_variables
+    from scflow_tpu_torch.refiners import raft
+
+    fmodel, template, _ = raft_pair(img, iters, seed, mask, **model_kw)
+    name = "RAFTRefinerFlowMask" if mask else "RAFTRefinerFlow"
+    with torch.random.fork_rng(devices=[]):
+        torch.manual_seed(seed)
+        port = getattr(raft, name)(iters=iters, **model_kw)
+    norms = {k: model_kw[k] for k in ("encoder_norm", "cxt_norm") if k in model_kw}
+    variables = np_tree(convert_state_dict_to_variables(
+        {k: v.numpy() for k, v in port.state_dict().items()}, template, **norms))
+    return fmodel, variables, port.eval()
