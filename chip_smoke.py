@@ -2,10 +2,13 @@
 """Smoke run of the PyTorch/CUDA port (scflow_tpu_torch) on one NVIDIA card.
 
     python3 chip_smoke.py
-    python3 chip_smoke.py --lookup-only [--root DIR]   # phases 1-3, 10 and 11
-                                 # only, of the package in DIR (e.g. a parent commit)
-    python3 chip_smoke.py --raster-only [--root DIR]   # phases 1, 2 and 4-7 only
-    python3 chip_smoke.py --raft-only [--root DIR]     # phases 1, 2 and 14 only
+    python3 chip_smoke.py --phases GROUP[,GROUP...] [--root DIR]
+
+--phases runs phases 1 and 2 and then only the named groups, in the order
+given, of the package in DIR (default: this checkout; e.g. an unpacked
+parent commit), without the kernels line: lookup (phases 3, 10 and 11),
+raster (4-7), slice (8), raft (14) and options (16 and 17; with slice
+before it, 17 prints its pose difference from the slice's call).
 
 Phases, each printing one JSON line; any failure exits non-zero before the
 last line:
@@ -65,7 +68,10 @@ last line:
                shapes and both map dtypes, run with K1 in phase 3): K7 bit-
                identical to its plain version, K8 within 1e-4 of the tent
                plain version; the same numbers as K1 ("K7_bf16",
-               "K8_bf16" on bf16 maps);
+               "K8_bf16" on bf16 maps); at the flagship shape also at radius 3
+               (RAFT-S's and the option set's window: "K1_r3", "K7_r3",
+               "K8_r3" and their "_bf16_r3" instances), bound and
+               F.grid_sample at radius 3;
  11. K1b     - the lookup's backward at the training shape (16 x 32^2 rows,
                random, border and integer centres) against its plain
                version, level and flow grads within 1e-4, the same bits
@@ -76,7 +82,8 @@ last line:
                then "K1b_bf16" on the bf16 maps: level grads bf16, within
                one bf16 ulp of the plain version's (the share that differs
                printed), the flow grad within 1e-4, the bound with 2-byte
-               level grads;
+               level grads; then both again at radius 3 ("K1b_r3",
+               "K1b_bf16_r3");
   9a. slice_bf16 - phase 8 with the same seeded weights in bf16
                (SCFlowRefiner(dtype=torch.bfloat16), bench.py's dtype): 8
                launches of K1's bf16 instance and 1 K2 per call, nothing
@@ -137,13 +144,34 @@ last line:
                a card step against a CPU step at batch 2, 128^2, 3
                iterations (loss rtol 1e-3, worst per-leaf gradient rel L2
                <= 2e-2);
+ 16. raft_small - RAFT-S (RAFT_SMALL: the RAFT paper's small model,
+               Bottleneck encoders, h 96 / context 64, radius 3, the Conv GRU,
+               bilinear upsampling) through the raft phases' entry points and
+               shapes: 12 K1 (radius 3) and 1 K2 per call, the first 4
+               samples' flow and occlusion against the CPU (2e-2 px, 1e-3),
+               ms, stages; one bf16 call (12 K1 bf16; 4 samples within twice
+               the CPU's bf16-to-fp32 distance of its bf16 run); the train step at the
+               RAFT recipe (12 K1, 12 K1b at radius 3, 1 K2), ms, stages, the
+               loss falling over 6 steps, a card step against a CPU step;
+ 17. scflow_options - the SCFlow option set (SCFLOW_OPTIONS: separate
+               encoders, radius 3, mask_flow and mask_corr with the mask not
+               detached, fused GRU gates, the 'linear' depth transform, the
+               quaternion head) at the slice's configuration: 8 K1 (radius 3)
+               and 1 K2 per call, the first 4 samples against the CPU (the
+               slice's bounds), ms, stages, the pose difference from the
+               slice's call on the same inputs; the train step at batch 16 (8
+               K1, 8 K1b at radius 3, 1 K2), ms, stages, a card step against
+               a CPU step;
  15. the kernels line (float32 and bf16 instances; "raft_launches": each
-     kernel's launches per RAFT call or step), then the device line the
-     chip harness reads.
+     kernel's launches per RAFT call or step; "radius_3": the radius-3
+     instance's numbers from phases 3/10/11 and its launches per call or
+     step on phases 16 and 17), then the device line the chip harness
+     reads.
 Imports no JAX.  Needs one card; without one it exits non-zero at once.
 """
 
 import argparse
+import itertools
 import json
 import math
 import re
@@ -342,11 +370,12 @@ def phase_build(strict: bool = True):
 
 def _lookup_resources(key: str, ptxas: dict, levels: int = 4, radius: int = 4) -> dict:
     """ptxas's registers, spills and static shared memory of the kernel that
-    key runs at radius 4, and the dynamic shared memory its launch asks for
-    at 4 levels, as the built library reports it (None for a package that
-    does not report it, e.g. a parent's)."""
+    key (without its radius suffix) runs at `radius`, and the dynamic shared
+    memory its launch asks for at 4 levels, as the built library reports it
+    (None for a package that does not report it, e.g. a parent's)."""
     from scflow_tpu_torch.ops.cuda import corr_lookup as k1
 
+    key = key.split("_r")[0]
     base, bf16 = key.split("_")[0], key.endswith("_bf16")
     kw = {"dtype": torch.bfloat16} if bf16 else {}
     try:
@@ -356,8 +385,9 @@ def _lookup_resources(key: str, ptxas: dict, levels: int = 4, radius: int = 4) -
             dyn = k1.window_layout(VARIANT_OF[base], levels, radius, **kw)["smem_bytes"]
     except (AttributeError, TypeError):  # no such layout function in this package
         dyn = None
+    tags = [tag.replace("ILi4E", f"ILi{radius}E") for tag in LOOKUP_ENTRIES[key]]
     for entry, res in ptxas.items():
-        if any(tag in entry for tag in LOOKUP_ENTRIES[key]):
+        if any(tag in entry for tag in tags):
             return {"entry": entry, **res, "dynamic_smem_bytes": dyn}
     return {"entry": None, "dynamic_smem_bytes": dyn}
 
@@ -442,23 +472,25 @@ def phase_lookup(dev, ptxas):
                 ("K7", "shift", k1.corr_lookup_flat_shift_plain, 0.0),
                 ("K8", "bdiag", k1.corr_lookup_flat_plain, 1e-4))
     out = {}
-    for n, shape in ((BATCH, "flagship"), (TRAIN_BATCH, "train_shape")):
+    for n, shape, radius in ((BATCH, "flagship", 4), (TRAIN_BATCH, "train_shape", 4),
+                             (BATCH, "flagship", 3)):
         levels32, coords = _flagship_lookup_inputs(dev, n)
         rows = coords.shape[0]
         for dtype in _map_dtypes(k1):
-            suffix = "_bf16" if dtype == torch.bfloat16 else ""
+            suffix = ("_bf16" if dtype == torch.bfloat16 else "") + (
+                "" if radius == 4 else f"_r{radius}")
             levels = [m.to(dtype) for m in levels32]
-            calls = _grid_sample_lookup(levels, coords)
-            tent = k1.corr_lookup_flat_plain(levels, coords)
+            calls = _grid_sample_lookup(levels, coords, radius)
+            tent = k1.corr_lookup_flat_plain(levels, coords, radius)
             lib = torch.cat([f().reshape(rows, -1).float() for f in calls], dim=1)
             lib_err = (lib - tent).abs().max().item()
             library_ms = sum(median_ms(f, 10) for f in calls)
             library_device_ms = sum(device_ms(f, 20) for f in calls)
-            bound_ms, bound_by, nbytes = _lookup_bound(levels, coords)
+            bound_ms, bound_by, nbytes = _lookup_bound(levels, coords, radius)
             for key, variant, plain, tol in variants:
                 key += suffix
-                got = k1.corr_lookup_flat(levels, coords, variant=variant)
-                want = plain(levels, coords)
+                got = k1.corr_lookup_flat(levels, coords, radius, variant=variant)
+                want = plain(levels, coords, radius)
                 torch.cuda.synchronize()
                 err = _max_abs(got, want)
                 if tol == 0.0:
@@ -467,23 +499,23 @@ def phase_lookup(dev, ptxas):
                 require(math.isfinite(err) and err <= tol, f"{key} max |d| {err} <= {tol}")
 
                 def kernel():
-                    return k1.corr_lookup_flat(levels, coords, variant=variant)
+                    return k1.corr_lookup_flat(levels, coords, radius, variant=variant)
 
                 res = {"max_abs_err": err, "ms": median_ms(kernel, 20),
                        "device_ms": device_ms(kernel, 50),
-                       "plain_ms": median_ms(lambda: plain(levels, coords), 3),
+                       "plain_ms": median_ms(lambda: plain(levels, coords, radius), 3),
                        "library_ms": library_ms, "bound_ms": bound_ms, "bound_by": bound_by}
                 if shape == "flagship":
                     out[key] = res
                 emit({"phase": key, "variant": variant, "maps": str(dtype), "shape": shape,
-                      "rows": rows, "tolerance": tol,
+                      "rows": rows, "radius": radius, "tolerance": tol,
                       "grid_sample_max_abs_diff_vs_tent": lib_err, **res,
                       "library_device_ms": library_device_ms, "bytes": nbytes,
                       "gb_per_s": nbytes / res["ms"] / 1e6,
                       "share_of_bound": bound_ms / res["ms"],
                       "device_gb_per_s": nbytes / res["device_ms"] / 1e6,
                       "device_share_of_bound": bound_ms / res["device_ms"],
-                      "ptxas": _lookup_resources(key, ptxas)})
+                      "ptxas": _lookup_resources(key, ptxas, radius=radius)})
             del levels, calls, tent, lib
         del levels32, coords
     return out
@@ -510,17 +542,18 @@ def phase_k1b(dev, ptxas):
 
     levels32, coords = _flagship_lookup_inputs(dev, TRAIN_BATCH)
     rows = coords.shape[0]
-    g = torch.randn((rows, 4 * 81), generator=torch.Generator().manual_seed(3)).to(dev)
     out = {}
-    for dtype in _map_dtypes(k1):
-        key = "K1b_bf16" if dtype == torch.bfloat16 else "K1b"
+    for radius, dtype in itertools.product((4, 3), _map_dtypes(k1)):
+        k = 2 * radius + 1
+        g = torch.randn((rows, 4 * k * k), generator=torch.Generator().manual_seed(3)).to(dev)
+        key = ("K1b_bf16" if dtype == torch.bfloat16 else "K1b") + (
+            "" if radius == 4 else f"_r{radius}")
         levels = [m.to(dtype) for m in levels32]
         errs, ulps = {}, {}
         for want_coords in (True, False):
-            got, got_c = k1.corr_lookup_flat_bwd(levels, coords, g, want_coords=want_coords)
-            again, again_c = k1.corr_lookup_flat_bwd(levels, coords, g, want_coords=want_coords)
-            want, want_c = k1.corr_lookup_flat_bwd_plain(levels, coords, g,
-                                                         want_coords=want_coords)
+            got, got_c = k1.corr_lookup_flat_bwd(levels, coords, g, radius, want_coords)
+            again, again_c = k1.corr_lookup_flat_bwd(levels, coords, g, radius, want_coords)
+            want, want_c = k1.corr_lookup_flat_bwd_plain(levels, coords, g, radius, want_coords)
             torch.cuda.synchronize()
             require(all(torch.equal(a, b) for a, b in zip(got, again)) and
                     (not want_coords or torch.equal(got_c, again_c)),
@@ -542,45 +575,45 @@ def phase_k1b(dev, ptxas):
                 f"{key} max |d| {errs} <= 1e-4")
         # the autograd backward of the 4 F.grid_sample calls into the maps
         maps = [m.detach().clone().requires_grad_() for m in levels]
-        outs = [f() for f in _grid_sample_lookup(maps, coords)]
+        outs = [f() for f in _grid_sample_lookup(maps, coords, radius)]
         gs = [gi.reshape(o.shape).to(o.dtype).contiguous()
-              for gi, o in zip(g.split(81, dim=1), outs)]
+              for gi, o in zip(g.split(k * k, dim=1), outs)]
 
         def library():
             torch.autograd.grad(outs, maps, gs, retain_graph=True)
 
         def kernel():
-            return k1.corr_lookup_flat_bwd(levels, coords, g, want_coords=False)
+            return k1.corr_lookup_flat_bwd(levels, coords, g, radius, want_coords=False)
 
         def with_flow_grad():
-            return k1.corr_lookup_flat_bwd(levels, coords, g)
+            return k1.corr_lookup_flat_bwd(levels, coords, g, radius)
 
         # bytes: g and coords read once, the dense level grads (the maps'
         # dtype) written once
         nbytes = g.numel() * 4 + coords.numel() * 4 + sum(m.numel() * m.element_size()
                                                           for m in levels)
-        cells = rows * sum((2 * 4 + 2) ** 2 for _ in levels)
+        cells = rows * sum((2 * radius + 2) ** 2 for _ in levels)
         bound_ms, bound_by = bound(nbytes, cells * 4 * 5)  # up to 4 taps x (weight, mul, add)
         res = {
             "max_abs_err": err,
             "ms": median_ms(kernel, 20),
             "device_ms": device_ms(kernel, 50),
-            "plain_ms": median_ms(lambda: k1.corr_lookup_flat_bwd_plain(levels, coords, g,
-                                                                        want_coords=False), 3),
+            "plain_ms": median_ms(lambda: k1.corr_lookup_flat_bwd_plain(
+                levels, coords, g, radius, want_coords=False), 3),
             "library_ms": median_ms(library, 5),
             "library_device_ms": device_ms(library, 5),
             "bound_ms": bound_ms, "bound_by": bound_by,
         }
-        emit({"phase": key, "maps": str(dtype), "rows": rows,
-              "max_abs_err_by_case": {str(k): v for k, v in errs.items()},
-              "bf16_ulps_by_case": {str(k): v for k, v in ulps.items()},
+        emit({"phase": key, "maps": str(dtype), "rows": rows, "radius": radius,
+              "max_abs_err_by_case": {str(c): v for c, v in errs.items()},
+              "bf16_ulps_by_case": {str(c): v for c, v in ulps.items()},
               "ms_with_flow_grad": median_ms(with_flow_grad, 20),
               "device_ms_with_flow_grad": device_ms(with_flow_grad, 50), **res,
               "bytes": nbytes, "gb_per_s": nbytes / res["ms"] / 1e6,
               "share_of_bound": bound_ms / res["ms"],
               "device_gb_per_s": nbytes / res["device_ms"] / 1e6,
               "device_share_of_bound": bound_ms / res["device_ms"],
-              "ptxas": _lookup_resources(key, ptxas)})
+              "ptxas": _lookup_resources(key, ptxas, radius=radius)})
         out[key] = res
         del levels, maps, outs
     return out
@@ -839,18 +872,20 @@ def phase_k56(dev, scene, k2_out):
     return out
 
 
-def seeded_model(dtype=None):
-    """The bench network (in `dtype`: None float32, or torch.bfloat16) with
-    weights from a seeded generator, the same for either dtype: lecun-normal
-    convs and linears, zero biases, default norms; the pose head's output
-    weights get normal(0, HEAD_STD) so that the poses move.  Larger output
-    weights (0.02, as the parity tests use at 3 iterations) make the
-    random-weight recurrence chaotic over 8 iterations: rounding-sized input
-    differences grow into visible pose differences, and no two devices
-    could be compared."""
+def seeded_model(dtype=None, **options):
+    """The bench network (in `dtype`: None float32, or torch.bfloat16; with
+    the refiner's `options`, e.g. SCFLOW_OPTIONS) with weights from a
+    seeded generator, the same for either dtype: lecun-normal convs and
+    linears, zero biases (the pose head's identity rotation bias kept),
+    default norms; the pose head's output weights get normal(0, HEAD_STD)
+    so that the poses move.  Larger output weights (0.02, as the parity
+    tests use at 3 iterations) make the random-weight recurrence chaotic
+    over 8 iterations: rounding-sized input differences grow into visible
+    pose differences, and no two devices could be compared."""
     from scflow_tpu_torch.refiners.scflow import SCFlowRefiner
 
-    model = SCFlowRefiner(num_class=NCLASS, image_size=(IMG, IMG), iters=ITERS, dtype=dtype)
+    model = SCFlowRefiner(num_class=NCLASS, image_size=(IMG, IMG), iters=ITERS, dtype=dtype,
+                          **options)
     g = torch.Generator().manual_seed(0)
     head = model.decoder.pose_pred
     with torch.no_grad():
@@ -1006,7 +1041,7 @@ def phase_tf32(model, assets, batch, smi):
             "trans_max_abs_diff": d_t}
 
 
-def phase_profile(infer, model, assets, batch, smi):
+def phase_profile(infer, model, assets, batch, smi, tag: str = "shipped"):
     """Where one call's time goes: render, encoders and decoder timed with
     CUDA events (median of 3 after a warm-up; "gru", the decoder's ConvGRU
     calls summed, is part of "decoder"), and, from torch.profiler over
@@ -1064,7 +1099,8 @@ def phase_profile(infer, model, assets, batch, smi):
     top = sorted(kernels.items(), key=lambda kv: -kv[1][0])[:12]
     ours = {name.split("(")[0]: v for name, v in kernels.items()
             if "lookup_kernel" in name or "raster_v3_kernel" in name}
-    emit({"phase": "profile", "model_dtype": str(model.dtype), "stage_ms": stage_ms,
+    emit({"phase": "profile", "model": tag, "model_dtype": str(model.dtype),
+          "stage_ms": stage_ms,
           "profiled_call_ms": wall_ms,
           "kernel_time_sum_ms": sum(ms for ms, _ in kernels.values()),
           "kernel_names": len(kernels), "ours_ms_count": ours,
@@ -1080,18 +1116,18 @@ LR_CONFIG = dict(policy="OneCycle", max_lr=4e-4, total_steps=100100, pct_start=0
                  anneal_strategy="linear")
 
 
-def train_model(image: int, iters: int, dtype=None):
-    """The shipped network (detach_depth_for_xy=True) in `dtype` with
-    PyTorch's default initialisation from a seed (the same weights for
-    either dtype); the pose head's output weights get normal(0, 0.005) so
-    that the poses move.  PyTorch's initialisation, smaller than the
-    lecun-normal one of seeded_model, keeps the float32 gradients of two
-    devices within the 2e-2 the card-CPU check allows."""
+def train_model(image: int, iters: int, dtype=None, **options):
+    """The shipped network (detach_depth_for_xy=True; with the refiner's
+    `options`) in `dtype` with PyTorch's default initialisation from a seed
+    (the same weights for either dtype); the pose head's output weights get
+    normal(0, 0.005) so that the poses move.  PyTorch's initialisation,
+    smaller than the lecun-normal one of seeded_model, keeps the float32
+    gradients of two devices within the 2e-2 the card-CPU check allows."""
     from scflow_tpu_torch.refiners.scflow import SCFlowRefiner
 
     torch.manual_seed(0)
     model = SCFlowRefiner(num_class=NCLASS, image_size=(image, image), iters=iters,
-                          detach_depth_for_xy=True, dtype=dtype)
+                          detach_depth_for_xy=True, dtype=dtype, **options)
     g = torch.Generator().manual_seed(1)
     head = model.decoder.pose_pred
     with torch.no_grad():
@@ -1267,18 +1303,20 @@ def _train_stages(state, assets, loss_assets, batch):
     return {k: statistics.median(v[1:]) for k, v in times.items()}
 
 
-def _train_card_vs_cpu(bank, raft: bool = False):
+def _train_card_vs_cpu(bank, raft: bool = False, options=None):
     """One step on the card and one on the CPU (the plain versions: render
     'pallas' runs the plain v3 raster there, the lookup plain K1 and K1b)
     from the same weights and batch, at batch 2, 128^2, 3 iterations; the
-    SCFlow recipe, or with raft the RAFT one."""
+    SCFlow recipe, or with raft the RAFT one, on the model with the
+    refiner's `options` (RAFT_SMALL, SCFLOW_OPTIONS)."""
     import copy
 
     n, image, iters = 2, 128, 3
+    options = options or {}
     if raft:
-        model, setup = raft_train_model(iters), _raft_train_setup
+        model, setup = raft_train_model(iters, **options), _raft_train_setup
     else:
-        model = train_model(image, iters)
+        model = train_model(image, iters, **options)
 
         def setup(*args):
             return _train_setup(*args, render_backend="pallas")[:3]
@@ -1548,15 +1586,16 @@ RAFT_PNP = dict(occ_thresh=0.5, num_points=1000, reprojection_error=3.0, num_hyp
 RAFT_CLIP = 1.0  # configs/refine_models/raft.py optimizer_config
 
 
-def raft_model(dtype=None, iters: int = RAFT_ITERS):
+def raft_model(dtype=None, iters: int = RAFT_ITERS, **options):
     """The shipped RAFTRefinerFlowMask (256-channel feature encoders, h and
-    context 128) in `dtype` with seeded_model's weights: lecun-normal convs,
-    zero biases, default norms, the flow head's output conv normal(0,
-    HEAD_STD), so that each of the 12 iterations moves the flow by about a
-    tenth of a pixel and two devices stay comparable."""
+    context 128; or the refiner's `options`, e.g. RAFT_SMALL) in `dtype`
+    with seeded_model's weights: lecun-normal convs, zero biases, default
+    norms, the flow head's output conv normal(0, HEAD_STD), so that each of
+    the 12 iterations moves the flow by about a tenth of a pixel and two
+    devices stay comparable."""
     from scflow_tpu_torch.refiners.raft import RAFTRefinerFlowMask
 
-    model = RAFTRefinerFlowMask(iters=iters, dtype=dtype)
+    model = RAFTRefinerFlowMask(iters=iters, dtype=dtype, **options)
     g = torch.Generator().manual_seed(0)
     head = model.decoder.flow_pred.predict_layer
     with torch.no_grad():
@@ -1844,13 +1883,13 @@ def _raft_train_setup(model, bank, image: int, device=None, lr_cfg=LR_CONFIG,
     return TrainState(model, tx), step, assets
 
 
-def raft_train_model(iters: int):
-    """The shipped RAFTRefinerFlowMask with PyTorch's initialisation from a
-    seed (train_model's reason)."""
+def raft_train_model(iters: int, **options):
+    """The shipped RAFTRefinerFlowMask (or one with the refiner's `options`)
+    with PyTorch's initialisation from a seed (train_model's reason)."""
     from scflow_tpu_torch.refiners.raft import RAFTRefinerFlowMask
 
     torch.manual_seed(0)
-    return RAFTRefinerFlowMask(iters=iters)
+    return RAFTRefinerFlowMask(iters=iters, **options)
 
 
 def phase_raft_train(smi):
@@ -1944,6 +1983,208 @@ def _raft_train_stages(state, assets, batch):
         for name, a, z in zip(names, ev, ev[1:]):
             times[name].append(a.elapsed_time(z))
     return {k: statistics.median(v[1:]) for k, v in times.items()}
+
+
+# RAFT-S, the RAFT paper's small model (Teed & Deng, "RAFT", ECCV 2020,
+# RAFT-S; the authors' core/raft.py small branch): Bottleneck encoders
+# (IN features, a norm-free context), h 96 / context 64, radius 3, the
+# Conv GRU, bilinear upsampling; 12 iterations as the shipped RAFT
+RAFT_SMALL = dict(net_type="Small", h_channels=96, cxt_channels=64, encoder_out_channels=128,
+                  encoder_norm="IN", cxt_norm=None, num_levels=4, radius=3, gru_type="Conv")
+# the SCFlow options the shipped configuration leaves off, at its widths
+SCFLOW_OPTIONS = dict(seperate_encoder=True, radius=3, mask_flow=True, mask_corr=True,
+                      detach_mask=False, gru_fuse_gates=True, depth_transform="linear",
+                      pose_head_cfg=dict(type="MultiClassPoseHead", num_class=NCLASS,
+                                         rotation_mode="quaternion"))
+
+
+def _timed_calls(fn, calls: int = 10) -> float:
+    """Host-clock ms per call of `calls` back-to-back calls."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    torch.cuda.synchronize()
+    return 1e3 * (time.perf_counter() - t0) / calls
+
+
+def phase_raft_small(smi):
+    """RAFT-S (RAFT_SMALL) through the RAFT entry points at the raft phases'
+    shapes: make_raft_infer_fn (device PnP) at batch 64, 256^2, 12
+    iterations: 12 launches of K1's radius-3 instance and 1 K2 per call,
+    nothing else; finite flow, occlusion in [0, 1], orthonormal poses; the
+    first 4 samples' flow and occlusion against the CPU run of the plain
+    versions (atol 2e-2 px, 1e-3, the raft phase's bounds); ms per call,
+    refinements/s, the stages.  Then one bf16 call (12 K1 bf16, 1 K2; its
+    first 4 samples' flow within twice the CPU's bf16-to-fp32 distance, max
+    and mean, of the CPU's bf16 run) and
+    make_raft_train_step at the RAFT recipe (batch 16: 12 K1, 12 K1b at
+    radius 3, 1 K2 per step), ms per step, the stages, the loss falling
+    over the recipe's first 6 steps, and a card step against a CPU step at
+    batch 2, 128^2, 3 iterations.  Returns {kernel: launches} of its calls
+    and steps."""
+    import copy
+
+    from scflow_tpu_torch.refiners.system import RenderAssets
+    from scflow_tpu_torch.render.meshbank import make_synthetic_bank
+
+    bank = make_synthetic_bank(NCLASS, kind="uvsphere", size=80.0)
+    assets = RenderAssets.from_bank(bank)
+    model = raft_model(**RAFT_SMALL)
+    require(model.decoder.radius == 3 and not hasattr(model.decoder, "mask_pred"), "RAFT-S")
+    batch = train_batch(assets, BATCH, IMG, seed=2)
+    infer = _raft_infer(model, assets, pnp_backend="device", pnp_cfg=RAFT_PNP)
+    infer(batch)  # warm-up
+    out, launches = counted(lambda: infer(batch))
+    require(only(launches, K1=RAFT_ITERS, K2=1), f"raft_small launches per call {launches}")
+    flow, occ = out["flow"], out["occlusion"]
+    require(tuple(flow.shape) == (BATCH, IMG, IMG, 2) and bool(torch.isfinite(flow).all())
+            and 0 <= occ.min() and occ.max() <= 1, f"raft_small outputs {tuple(flow.shape)}")
+    R = out["rotations"]
+    ortho = (R.transpose(1, 2) @ R - torch.eye(3, device=R.device)).abs().amax().item()
+    require(ortho < 1e-4 and bool(torch.isfinite(out["translations"]).all()),
+            f"raft_small poses: |R^T R - I| {ortho}")
+    cpu_assets = RenderAssets.from_bank(bank, device="cpu")
+    ref = _raft_infer(raft_model(**RAFT_SMALL), cpu_assets, "cpu")(
+        {k: v[:4] for k, v in batch.items()})
+    d_flow = (flow[:4].cpu() - ref["flow"]).abs().max().item()
+    d_occ = (occ[:4].cpu() - ref["occlusion"]).abs().max().item()
+    require(d_flow <= 2e-2 and d_occ <= 1e-3, f"raft_small card vs CPU: flow {d_flow}, occ {d_occ}")
+    ms = _timed_calls(lambda: infer(batch))
+    res = {"launches_per_call": launches, "orthonormality_err": ortho,
+           "flow_max_abs": flow.abs().max().item(), "pnp_ok": int(out["pnp_ok"].sum()),
+           "cpu_flow_max_abs_diff": d_flow, "cpu_occlusion_max_abs_diff": d_occ,
+           "ms_per_call": ms, "refinements_per_s": 1e3 * BATCH / ms,
+           "stage_ms": _raft_stages(model, assets, batch),
+           "parameters": sum(p.numel() for p in model.parameters())}
+    res.update(_profile_call(lambda: infer(batch)))
+
+    infer16 = _raft_infer(raft_model(torch.bfloat16, **RAFT_SMALL), assets,
+                          pnp_backend="device", pnp_cfg=RAFT_PNP)
+    infer16(batch)
+    out16, c16 = counted(lambda: infer16(batch))
+    require(only(c16, K1_bf16=RAFT_ITERS, K2=1), f"raft_small bf16 launches {c16}")
+    require(bool(torch.isfinite(out16["flow"]).all()), "raft_small bf16: finite flow")
+    d16 = (out16["flow"] - flow).abs()
+    # bf16 rounds differently on the two devices, so the card's bf16 flow is
+    # held to the CPU's bf16 flow within twice the CPU's own bf16-to-fp32
+    # distance (tests/test_torch_options_raft.py's bound against JAX's bf16)
+    ref16 = _raft_infer(raft_model(torch.bfloat16, **RAFT_SMALL), cpu_assets, "cpu")(
+        {k: v[:4] for k, v in batch.items()})["flow"]
+    d_cpu16, d_card16 = (ref16 - ref["flow"]).abs(), (out16["flow"][:4].cpu() - ref16).abs()
+    require(d_card16.max() <= 2 * d_cpu16.max() and d_card16.mean() <= 2 * d_cpu16.mean(),
+            f"raft_small bf16 card vs CPU bf16: max {d_card16.max().item()}, mean "
+            f"{d_card16.mean().item()}; CPU bf16 vs fp32: max {d_cpu16.max().item()}, mean "
+            f"{d_cpu16.mean().item()}")
+    res["bf16"] = {"launches_per_call": c16, "ms_per_call": _timed_calls(lambda: infer16(batch)),
+                   "flow_max_abs_diff_vs_fp32": d16.max().item(),
+                   "flow_mean_abs_diff_vs_fp32": d16.mean().item(),
+                   "cpu_bf16_vs_fp32_max_mean": [d_cpu16.max().item(), d_cpu16.mean().item()],
+                   "card_vs_cpu_bf16_max_mean": [d_card16.max().item(), d_card16.mean().item()]}
+    res["bf16"]["refinements_per_s"] = 1e3 * BATCH / res["bf16"]["ms_per_call"]
+    del infer16, out16
+
+    state0, step, tassets = _raft_train_setup(raft_train_model(RAFT_ITERS, **RAFT_SMALL), bank,
+                                              IMG)
+    tbatch = train_batch(tassets, TRAIN_BATCH, IMG)
+    state0, _ = step(state0, tbatch)  # warm-up
+    (_, logs), ct = counted(lambda: step(copy.deepcopy(state0), tbatch))
+    require(only(ct, K1=RAFT_ITERS, K1b=RAFT_ITERS, K2=1), f"raft_small train launches {ct}")
+    require(math.isfinite(float(logs["loss"])), f"raft_small loss {float(logs['loss'])}")
+    state = copy.deepcopy(state0)
+    ms_step = _timed_calls(lambda: step(state, tbatch), 5)
+    train = {"launches_per_step": ct, "loss": float(logs["loss"]), "ms_per_step": ms_step,
+             "samples_per_s": 1e3 * TRAIN_BATCH / ms_step,
+             "stage_ms": _raft_train_stages(state, tassets, tbatch)}
+    fall_state, fall_step, _ = _raft_train_setup(copy.deepcopy(state0.model), bank, IMG)
+    losses = []
+    for _ in range(6):
+        fall_state, flogs = fall_step(fall_state, tbatch)
+        losses.append(float(flogs["loss"]))
+    require(all(map(math.isfinite, losses)) and losses[-1] < losses[0],
+            f"raft_small losses {losses}")
+    train["losses_shipped_recipe"] = losses
+    del fall_state, state
+    train["card_vs_cpu"] = _train_card_vs_cpu(bank, raft=True, options=RAFT_SMALL)
+    emit({"phase": "raft_small", "batch": BATCH, "image": IMG, "iters": RAFT_ITERS,
+          "classes": NCLASS, "model": RAFT_SMALL, **res, "train": {"batch": TRAIN_BATCH, **train},
+          "card": smi})
+    return {"K1": launches["K1"], "K1_bf16": c16["K1_bf16"], "K1b": ct["K1b"]}
+
+
+def phase_scflow_options(smi, shipped):
+    """The SCFlow option set (SCFLOW_OPTIONS) at the flagship configuration:
+    make_scflow_infer_fn(slim=True) at batch 64, 256^2, 8 iterations, 21
+    classes on bench.py's inputs with seeded weights: 8 launches of K1's
+    radius-3 instance and 1 K2 per call, nothing else; finite, orthonormal,
+    moved poses; the first 4 samples against the CPU run of the plain
+    versions (the slice phase's bounds); ms per call, refinements/s, the
+    stages; the pose difference from the shipped configuration's call on
+    the same inputs (information only).  Then make_scflow_train_step at the
+    shipped recipe (batch 16: 8 K1, 8 K1b at radius 3, 1 K2 per step), ms
+    per step, and a card step against a CPU step at batch 2, 128^2, 3
+    iterations.  Returns {kernel: launches}."""
+    import copy
+
+    from scflow_tpu_torch.refiners.system import RenderAssets, make_scflow_infer_fn
+    from scflow_tpu_torch.render.meshbank import make_synthetic_bank
+
+    bank = make_synthetic_bank(NCLASS, kind="uvsphere", size=80.0)
+    assets = RenderAssets.from_bank(bank)
+    model = seeded_model(**SCFLOW_OPTIONS)
+    batch = bench_batch()
+
+    def make_infer(m, a, device=None, **kw):
+        return make_scflow_infer_fn(m, a, image_size=(IMG, IMG), render_cull_backfaces=True,
+                                    slim=True, device=device, **kw)
+
+    infer = make_infer(model, assets)
+    infer(batch)  # warm-up
+    out, launches = counted(lambda: infer(batch))
+    require(only(launches, K1=ITERS, K2=1), f"scflow_options launches per call {launches}")
+    R, t = out["rotations"].cpu().numpy(), out["translations"].cpu().numpy()
+    require(np.isfinite(R).all() and np.isfinite(t).all(), "scflow_options: finite poses")
+    ortho = float(np.abs(np.einsum("nji,njk->nik", R, R) - np.eye(3)).max())
+    require(ortho < 1e-4, f"scflow_options |R^T R - I| {ortho}")
+    moved = float(np.abs(t - batch["ref_translations"]).max())
+    require(moved > 1.0 and np.abs(R - batch["ref_rotations"]).max() > 1e-3,
+            "scflow_options: poses moved")
+    ref = make_infer(seeded_model(**SCFLOW_OPTIONS), RenderAssets.from_bank(bank, device="cpu"),
+                     "cpu", render_backend="pallas")({k: v[:4] for k, v in batch.items()})
+    d_rot = float(np.abs(R[:4] - ref["rotations"].numpy()).max())
+    t_ref = ref["translations"].numpy()
+    t_excess = float((np.abs(t[:4] - t_ref) - (2e-2 + 2e-3 * np.abs(t_ref))).max())
+    require(d_rot <= 2e-3 and t_excess <= 0,
+            f"scflow_options card vs CPU: rot |d| {d_rot}, t excess {t_excess}")
+    ms = _timed_calls(lambda: infer(batch))
+    res = {"launches_per_call": launches, "orthonormality_err": ortho,
+           "max_translation_move": moved, "cpu_rot_max_abs_diff": d_rot,
+           "cpu_trans_tolerance_excess": t_excess, "ms_per_call": ms,
+           "refinements_per_s": 1e3 * BATCH / ms,
+           "stage_ms": phase_profile(infer, model, assets, batch, smi, tag="scflow_options")}
+    if shipped is not None:  # the slice phase's call, where it ran first
+        d_shipped = _pose_dist(R, t, shipped["R"], shipped["t"])
+        res.update(shipped_ms_per_call=shipped["ms_per_call"], pose_diff_vs_shipped={
+            "rot_max_abs": d_shipped[0], "trans_max_abs": d_shipped[1]})
+
+    state0, step, tassets, loss_assets = _train_setup(train_model(IMG, ITERS, **SCFLOW_OPTIONS),
+                                                      bank, IMG)
+    tbatch = train_batch(tassets, TRAIN_BATCH, IMG)
+    state0, _ = step(state0, tbatch)  # warm-up
+    (_, logs), ct = counted(lambda: step(copy.deepcopy(state0), tbatch))
+    require(only(ct, K1=ITERS, K1b=ITERS, K2=1), f"scflow_options train launches {ct}")
+    require(math.isfinite(float(logs["loss"])), f"scflow_options loss {float(logs['loss'])}")
+    state = copy.deepcopy(state0)
+    ms_step = _timed_calls(lambda: step(state, tbatch), 5)
+    train = {"launches_per_step": ct, "loss": float(logs["loss"]), "ms_per_step": ms_step,
+             "samples_per_s": 1e3 * TRAIN_BATCH / ms_step,
+             "stage_ms": _train_stages(state, tassets, loss_assets, tbatch)}
+    del state
+    train["card_vs_cpu"] = _train_card_vs_cpu(bank, options=SCFLOW_OPTIONS)
+    emit({"phase": "scflow_options", "batch": BATCH, "image": IMG, "iters": ITERS,
+          "classes": NCLASS, "options": SCFLOW_OPTIONS, **res,
+          "train": {"batch": TRAIN_BATCH, **train}, "card": smi})
+    return {"K1": launches["K1"], "K1b": ct["K1b"]}
 
 
 def _render_close(got, want, what: str):
@@ -2054,19 +2295,44 @@ def phase_render(dev, scene, smi):
     return launches
 
 
+PHASE_GROUPS = ("lookup", "raster", "slice", "raft", "options")
+
+
+def run_phase_groups(groups, dev, ptxas, smi) -> None:
+    """The phases of each named group (PHASE_GROUPS), in the order given."""
+    shipped = None
+    for group in groups:
+        if group == "lookup":
+            phase_lookup(dev, ptxas)
+            phase_k1b(dev, ptxas)
+        elif group == "raster":
+            scene = _flagship_scene(dev)
+            _, k2_out = phase_k2(dev, scene)
+            phase_k3(dev, scene, k2_out)
+            phase_k4(dev, scene)
+            phase_k56(dev, scene, k2_out)
+            del scene, k2_out
+        elif group == "slice":
+            _, shipped = phase_slice(smi)
+        elif group == "raft":
+            phase_raft_all(smi)
+        else:
+            phase_raft_small(smi)
+            phase_scflow_options(smi, shipped)
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    parser.add_argument("--lookup-only", action="store_true",
-                        help="run only the device, build and lookup phases (K1, K7, K8, "
-                             "K1b)")
-    parser.add_argument("--raster-only", action="store_true",
-                        help="run only the device, build and raster kernel phases (K2-K6)")
-    parser.add_argument("--raft-only", action="store_true",
-                        help="run only the device, build and RAFT phases")
+    parser.add_argument("--phases", type=lambda v: v.split(","), default=None,
+                        metavar="GROUP[,GROUP...]",
+                        help="run only the device and build phases and then these groups, "
+                             f"in order: {', '.join(PHASE_GROUPS)}")
     parser.add_argument("--root", type=Path, default=Path(__file__).resolve().parent,
                         help="the checkout whose scflow_tpu_torch to build and run "
                              "(default: this script's), e.g. an unpacked parent commit")
     args = parser.parse_args()
+    if args.phases is not None and not set(args.phases) <= set(PHASE_GROUPS):
+        parser.error(f"unknown phase groups in {args.phases}; expected {PHASE_GROUPS}")
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
         return 1
@@ -2079,26 +2345,12 @@ def main() -> int:
     name, smi = phase_device()
     emit({"phase": "package", "path": str(Path(scflow_tpu_torch.__file__).parent)})
     ptxas = phase_build(strict=args.root.resolve() == Path(__file__).resolve().parent)
-    if args.lookup_only:
-        phase_lookup(dev, ptxas)
-        phase_k1b(dev, ptxas)
-        emit({"ok": True, "device": {"platform": "gpu", "kind": name,
-                                     "count": torch.cuda.device_count()}})
-        return 0
-    if args.raft_only:
-        phase_raft_all(smi)
+    if args.phases is not None:
+        run_phase_groups(args.phases, dev, ptxas, smi)
         emit({"ok": True, "device": {"platform": "gpu", "kind": name,
                                      "count": torch.cuda.device_count()}})
         return 0
     scene = _flagship_scene(dev)
-    if args.raster_only:
-        _, k2_out = phase_k2(dev, scene)
-        phase_k3(dev, scene, k2_out)
-        phase_k4(dev, scene)
-        phase_k56(dev, scene, k2_out)
-        emit({"ok": True, "device": {"platform": "gpu", "kind": name,
-                                     "count": torch.cuda.device_count()}})
-        return 0
     res = phase_lookup(dev, ptxas)
     res.update(phase_k1b(dev, ptxas))
     res["K2"], k2_out = phase_k2(dev, scene)
@@ -2116,6 +2368,10 @@ def main() -> int:
     launches.update(train_launches)
     launches.update(phase_train_bf16(smi, fp32_loss))
     raft_launches = phase_raft_all(smi)
+    # the radius-3 instances' launches on the two option paths
+    r3_launches = {"raft_small": phase_raft_small(smi),
+                   "scflow_options": phase_scflow_options(smi, fp32_slice)}
+    del fp32_slice
     src = "scflow_tpu_torch/csrc/"
     tpu = "scflow_tpu/ops/pallas/"
     table = [
@@ -2142,10 +2398,19 @@ def main() -> int:
         ("K1b_bf16", "corr_lookup backward on bf16 maps", "corr_lookup_bwd.cu",
          "corr_lookup.py:346 (_lookup_bwd, bf16 levels: level grads in bf16)"),
     ]
+    def radius_3(key):
+        """The key's radius-3 instance: its numbers from the kernel phases
+        and its launches per call or step on the option paths."""
+        if f"{key}_r3" not in res:
+            return {}
+        got = {path: n[key] for path, n in r3_launches.items() if key in n}
+        return {"radius_3": {**res[f"{key}_r3"], "launches": got}}
+
     emit({"kernels": [
         {"name": f"{key} {fn}", "route": "cuda", "source": src + file, "replaces": tpu + where,
          "launches": launches[key], **({"raft_launches": raft_launches[key]}
-                                       if key in raft_launches else {}), **res[key]}
+                                       if key in raft_launches else {}), **res[key],
+         **radius_3(key)}
         for key, fn, file, where in table], "card": smi})
     emit({"ok": True, "device": {"platform": "gpu", "kind": name,
                                  "count": torch.cuda.device_count()}})

@@ -1,8 +1,8 @@
 """Pose, camera and flow geometry (batched, on tensors).
 
 Ports of scflow_tpu/geometry: rotation.py::rotmat_from_ortho6d,
-rotmat_from_axis_angle and axis_angle_from_rotmat, se3.py::apply_delta_pose,
-camera.py::coords_grid and lift_depth_to_object_points(_at),
+rotmat_from_quat, rotmat_from_axis_angle and axis_angle_from_rotmat,
+se3.py::apply_delta_pose, camera.py::coords_grid and lift_depth_to_object_points(_at),
 flow.py::flow_from_object_points(_at), flow_from_pose_and_depth,
 filter_flow_by_mask, filter_flow_by_depth and cal_epe.  Same arithmetic and
 layouts (pixel grids in (x, y) order, NHWC maps).
@@ -26,6 +26,19 @@ def rotmat_from_ortho6d(o6d: torch.Tensor) -> torch.Tensor:
     z = _normalize(torch.linalg.cross(x, o6d[..., 3:6]))
     y = torch.linalg.cross(z, x)
     return torch.stack([x, y, z], dim=-1)
+
+
+def rotmat_from_quat(q: torch.Tensor) -> torch.Tensor:
+    """Scalar-last quaternion (x, y, z, w), normalized first -> rotation
+    matrix, (..., 4) -> (..., 3, 3)."""
+    x, y, z, w = _normalize(q).unbind(-1)
+    xx, yy, zz = x * x, y * y, z * z
+    xy, xz, yz = x * y, x * z, y * z
+    wx, wy, wz = w * x, w * y, w * z
+    r = torch.stack([1 - 2 * (yy + zz), 2 * (xy - wz), 2 * (xz + wy),
+                     2 * (xy + wz), 1 - 2 * (xx + zz), 2 * (yz - wx),
+                     2 * (xz - wy), 2 * (yz + wx), 1 - 2 * (xx + yy)], dim=-1)
+    return r.reshape(q.shape[:-1] + (3, 3))
 
 
 def rotmat_from_axis_angle(rvec: torch.Tensor) -> torch.Tensor:
@@ -59,8 +72,20 @@ def axis_angle_from_rotmat(R: torch.Tensor) -> torch.Tensor:
     return v * scale
 
 
+DEPTH_TRANSFORMS = ("exp", "linear")
+
+
+def check_depth_transform(name: str) -> str:
+    """The JAX function reads every name but 'exp' as 'linear'; here any
+    other than the two raises."""
+    if name not in DEPTH_TRANSFORMS:
+        raise ValueError(f"unknown depth_transform {name!r}; expected one of "
+                         f"{DEPTH_TRANSFORMS}")
+    return name
+
+
 def apply_delta_pose(
-    rotation_delta: torch.Tensor,  # (N, 6) ortho6d
+    rotation_delta: torch.Tensor,  # (N, 6) ortho6d or (N, 4) scalar-last quaternion
     translation_delta: torch.Tensor,  # (N, 3)
     rotation_src: torch.Tensor,  # (N, 3, 3)
     translation_src: torch.Tensor,  # (N, 3)
@@ -68,16 +93,21 @@ def apply_delta_pose(
     depth_transform: str = "exp",
     detach_depth_for_xy: bool = False,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """R_dst = dR @ R_src; v_z = t_z / exp(dz); v_xy = v_z (d_xy / weight +
-    t_xy / t_z), the reference's 'exp' depth transform (the only one its
-    configs use).  detach_depth_for_xy stops v_z's gradient in the x/y
-    terms (the shipped configuration sets it)."""
-    if depth_transform != "exp":
-        raise ValueError(f"depth_transform {depth_transform!r} is not ported; 'exp' is")
-    rotation_dst = rotmat_from_ortho6d(rotation_delta) @ rotation_src
+    """R_dst = dR @ R_src, dR from the ortho6d delta (Gram-Schmidt) or the
+    quaternion one (rotmat_from_quat); v_z = t_z / exp(dz) ('exp', the
+    shipped configuration's) or t_z (dz + 1) ('linear'); v_xy = v_z (d_xy /
+    weight + t_xy / t_z).  detach_depth_for_xy stops v_z's gradient in the
+    x/y terms (the shipped configuration sets it).  Any other
+    depth_transform raises (check_depth_transform)."""
+    check_depth_transform(depth_transform)
+    if rotation_delta.shape[-1] == 4:
+        dR = rotmat_from_quat(rotation_delta)
+    else:
+        dR = rotmat_from_ortho6d(rotation_delta)
+    rotation_dst = dR @ rotation_src
     tx, ty, tz = translation_src.unbind(-1)
     dx, dy, dz = translation_delta.unbind(-1)
-    vz = tz / torch.exp(dz)
+    vz = tz / torch.exp(dz) if depth_transform == "exp" else tz * (dz + 1.0)
     vz_xy = vz.detach() if detach_depth_for_xy else vz
     vx = vz_xy * (dx / weight + tx / tz)
     vy = vz_xy * (dy / weight + ty / tz)

@@ -124,12 +124,20 @@ class GroupNorm(nn.GroupNorm):
         return super().forward(x.float()).to(self.dtype)
 
 
-def apply_norm(norm: nn.Module, x: torch.Tensor, train: bool) -> torch.Tensor:
-    """A norm layer on x; only BatchNorm reads `train`."""
+def apply_norm(norm: Optional[nn.Module], x: torch.Tensor, train: bool) -> torch.Tensor:
+    """A norm layer on x (None: x as it is); only BatchNorm reads `train`."""
+    if norm is None:
+        return x
     return norm(x, train) if isinstance(norm, BatchNorm) else norm(x)
 
 
-def make_norm(kind: str, channels: int, dtype: Optional[torch.dtype] = None) -> nn.Module:
+def make_norm(kind: Optional[str], channels: int, dtype: Optional[torch.dtype] = None
+              ) -> Optional[nn.Module]:
+    """The norm layer of `kind`: 'BN', 'IN', 'GN' (32 groups, as the JAX
+    package's; channels that 32 does not divide raise ValueError, as flax's
+    GroupNorm does) or None, no norm (the JAX _Norm(kind=None))."""
+    if kind is None:
+        return None
     if kind == "BN":
         return BatchNorm(channels, dtype=dtype)
     if kind == "IN":

@@ -15,10 +15,14 @@ carry and the motion features are float32, h_feat and the heads' outputs
 bf16, the delta flow cast to float32, and the upsampled flow float32; the
 upsampled occlusion keeps the head's dtype.
 
-The port keeps the shipped 'Basic' net with the SeqConv GRU, 4 levels and
-radius 4; 'Small', the 'Conv' GRU, fused gates and other level counts or
-radii raise NotImplementedError.  Maps must be square: the port's pyramid
-raises on others (JAX falls back to its 4-D pyramid there).
+Every field of the JAX module: net_type 'Basic' or 'Small' ('Small' has no
+up-mask head, so flow and occlusion upsample bilinearly), the SeqConv or
+Conv GRU with fused or unfused gates, any level count and radius,
+feat_channels and mask_channels.  Convex upsampling reshapes the mask
+head's mask_channels (2 radius + 1) channels to 9 scale^2; where they
+differ the JAX module fails to reshape and this one raises ValueError at
+construction.  Maps that are not square take the JAX package's own route
+(ops/corr.py): 'xla', or 'auto'; 'pallas' there raises on the card.
 """
 
 from typing import Dict, Optional
@@ -27,41 +31,44 @@ import torch
 import torch.nn as nn
 
 from scflow_tpu_torch.models.motion import ConvGRU, MotionEncoder, XHead
+from scflow_tpu_torch.models.scflow_decoder import CXT_CHANNELS, H_CHANNELS, check_net_type
 from scflow_tpu_torch.ops.corr import corr_lookup, correlation_pyramid_flat
 from scflow_tpu_torch.ops.resize import interpolate_bilinear
 from scflow_tpu_torch.ops.upsample import convex_upsample
 
-_H_CHANNELS = {"Basic": 128, "Small": 96}
-_CXT_CHANNELS = {"Basic": 128, "Small": 64}
-
 
 class RAFTDecoder(nn.Module):
-    """The JAX module's fields, with its defaults; names follow the
-    reference state dict (encoder, gru, flow_pred, mask_pred,
-    occlusion_pred)."""
+    """The JAX module's fields, with its defaults, then the port's own
+    cxt_channels (the context features' width, None: the net_type's; flax
+    infers it); names follow the reference state dict (encoder, gru,
+    flow_pred, mask_pred, occlusion_pred)."""
 
     def __init__(self, net_type: str = "Basic", num_levels: int = 4, radius: int = 4,
                  iters: int = 12, gru_type: str = "SeqConv", gru_fuse_gates: bool = False,
                  feat_channels: int = 256, mask_channels: int = 64,
                  convex_upsample_flow: bool = True, predict_occlusion: bool = False,
-                 dtype: Optional[torch.dtype] = None, lookup_backend: str = "xla"):
+                 dtype: Optional[torch.dtype] = None, lookup_backend: str = "xla",
+                 cxt_channels: Optional[int] = None):
         super().__init__()
-        if net_type != "Basic":
-            raise NotImplementedError(f"net_type {net_type!r} is not ported; 'Basic' is")
-        if gru_type != "SeqConv" or gru_fuse_gates:
-            raise NotImplementedError("only the SeqConv GRU with unfused gates is ported")
-        if (num_levels, radius) != (4, 4):
-            raise NotImplementedError("only num_levels=4, radius=4 are ported")
-        self.net_type, self.num_levels, self.radius = net_type, num_levels, radius
+        self.net_type = check_net_type(net_type)
+        self.num_levels, self.radius = num_levels, radius
         self.iters = iters
-        self.convex_upsample_flow = convex_upsample_flow
         self.predict_occlusion = predict_occlusion
         self.dtype, self.lookup_backend = dtype, lookup_backend
+        scale = 2 ** (num_levels - 1)
+        # flax builds the up-mask head for the 'Basic' net only, and runs it
+        # where convex_upsample_flow is set
+        self.convex = net_type == "Basic" and convex_upsample_flow
+        if self.convex and mask_channels * (2 * radius + 1) != 9 * scale ** 2:
+            raise ValueError(
+                f"convex upsampling needs mask_channels (2 radius + 1) = 9 x {scale}^2 "
+                f"channels, got {mask_channels} x {2 * radius + 1}")
         h = self.h_channels
-        self.encoder = MotionEncoder(dtype)
-        self.gru = ConvGRU(h, self.cxt_channels + MotionEncoder.out_channels, dtype)
+        cxt = self.cxt_channels if cxt_channels is None else cxt_channels
+        self.encoder = MotionEncoder(dtype, net_type, num_levels, radius)
+        self.gru = ConvGRU(h, cxt + self.encoder.out_channels, dtype, gru_type, gru_fuse_gates)
         self.flow_pred = XHead(h, feat_channels, 2, kind="flow", dtype=dtype)
-        if convex_upsample_flow:  # flax creates the head only where it runs
+        if self.convex:
             self.mask_pred = XHead(h, feat_channels, mask_channels * (2 * radius + 1),
                                    kind="mask", dtype=dtype)
         if predict_occlusion:
@@ -69,20 +76,21 @@ class RAFTDecoder(nn.Module):
 
     @property
     def h_channels(self) -> int:
-        return _H_CHANNELS[self.net_type]
+        return H_CHANNELS[self.net_type]
 
     @property
     def cxt_channels(self) -> int:
-        return _CXT_CHANNELS[self.net_type]
+        return CXT_CHANNELS[self.net_type]
 
     def forward(self, feat1: torch.Tensor, feat2: torch.Tensor, flow: torch.Tensor,
                 h_feat: torch.Tensor, cxt_feat: torch.Tensor, iters: Optional[int] = None,
                 lookup_backend: Optional[str] = None, lookup_variant: str = "tent",
                 output_sequences: bool = True) -> Dict[str, torch.Tensor]:
-        """feat1, feat2 (N, C, h, w), flow (N, h, w, 2) the warm start at 1/8
-        resolution, h_feat and cxt_feat (N, 128, h, w).  Returns "flow"
-        (T, N, H, W, 2) and, with predict_occlusion, "occlusion" (T, N, H,
-        W), one entry per iteration.  output_sequences=False keeps only the
+        """feat1, feat2 (N, C, h, w), flow (N, h, w, 2) the warm start at the
+        maps' resolution, h_feat (N, h_channels, h, w) and cxt_feat.
+        Returns "flow" (T, N, scale h, scale w, 2), scale = 2^(num_levels -
+        1), and, with predict_occlusion, "occlusion" (T, N, scale h, scale
+        w), one entry per iteration.  output_sequences=False keeps only the
         last (T = 1) and runs the mask and occlusion heads and the
         upsampling for it alone: what JAX's inference computes once XLA has
         dropped the iterations it does not return.  lookup_backend None
@@ -103,7 +111,7 @@ class RAFTDecoder(nn.Module):
             if not output_sequences and it < iters - 1:
                 continue
             mask = None
-            if self.convex_upsample_flow:
+            if self.convex:
                 mask = (0.25 * self.mask_pred(h_feat)).permute(0, 2, 3, 1)
                 upflows.append(convex_upsample(flow, mask, scale, multiplier=scale))
             else:

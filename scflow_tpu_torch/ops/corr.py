@@ -1,8 +1,13 @@
 """All-pairs correlation pyramid (flat layout) and its windowed lookup.
 
-Ports of scflow_tpu/ops/corr.py::correlation_pyramid_flat and
-`corr_lookup_dispatch`.  The all-pairs product is one large matmul, left to
-torch.matmul as the JAX package left it to XLA.  The lookup is
+Ports of scflow_tpu/ops/corr.py::correlation_pyramid_flat,
+correlation_pyramid and `corr_lookup_dispatch`.  The all-pairs product is
+one large matmul, left to torch.matmul as the JAX package left it to XLA.
+Maps that are not square take the JAX package's own route there: its 4-D
+pyramid and its XLA tent lookup, outside any Pallas kernel (its kernels'
+index math assumes square maps), here the same levels kept flat and the
+'xla' formulation below; on the card only when 'xla' (or 'auto') is asked
+for, since 'pallas' there would name a kernel that does not run.  The lookup is
 differentiable on both backends:
 
 - 'pallas': `corr_lookup_pallas_diff`'s pairing, the kernel of the chosen
@@ -31,8 +36,10 @@ from scflow_tpu_torch.ops.cuda.corr_lookup import (check_variant, corr_lookup_fl
 def correlation_pyramid_flat(feat1: torch.Tensor, feat2: torch.Tensor,
                              num_levels: int = 4, out_dtype: Optional[torch.dtype] = None
                              ) -> List[torch.Tensor]:
-    """feat1, feat2: (N, H, W, C) -> levels (N*H*W, S_l*S_l), S_l = H / 2^l,
-    level 0 = <feat1[n, s], feat2[n, t]> / sqrt(C), then 2x2 average pools.
+    """feat1, feat2: (N, H, W, C) -> levels (N*H*W, H_l*W_l), H_l = H / 2^l,
+    level 0 = <feat1[n, s], feat2[n, t]> / sqrt(C), then 2x2 average pools
+    (the JAX package's flat pyramid on square maps, its 4-D one otherwise:
+    the same values).
 
     out_dtype (the JAX function's): None is float32 on float32 features.
     With out_dtype bfloat16, as the JAX package does, the products
@@ -45,8 +52,8 @@ def correlation_pyramid_flat(feat1: torch.Tensor, feat2: torch.Tensor,
     in float32 and round once, as the JAX package's bf16 matmuls with the
     exact 0.25 pool matrix do (avg_pool2d accumulates bf16 in float32)."""
     n, h, w, c = feat1.shape
-    if h != w or h % 2 ** (num_levels - 1):
-        raise ValueError(f"square maps divisible by 2^{num_levels - 1} needed, "
+    if h % 2 ** (num_levels - 1) or w % 2 ** (num_levels - 1):
+        raise ValueError(f"{num_levels} levels need maps divisible by 2^{num_levels - 1}, "
                          f"got {h}x{w}")
     f1 = feat1.reshape(n, h * w, c)
     f2t = feat2.reshape(n, h * w, c).transpose(1, 2)
@@ -58,11 +65,10 @@ def correlation_pyramid_flat(feat1: torch.Tensor, feat2: torch.Tensor,
     else:
         corr = (torch.matmul(f1.float(), f2t.float()) / math.sqrt(c)).to(out_dtype)
     pyramid = [corr.reshape(n * h * w, h * w)]
-    s = h
     for _ in range(num_levels - 1):
-        pooled = F.avg_pool2d(pyramid[-1].view(-1, 1, s, s), 2)
-        s //= 2
-        pyramid.append(pooled.reshape(-1, s * s))
+        pooled = F.avg_pool2d(pyramid[-1].view(-1, 1, h, w), 2)
+        h, w = h // 2, w // 2
+        pyramid.append(pooled.reshape(-1, h * w))
     return pyramid
 
 
@@ -107,21 +113,34 @@ def corr_lookup(pyramid: Sequence[torch.Tensor], flow: torch.Tensor, radius: int
     the window of every level around pixel + flow, tap order as in
     corr_lookup_flat.  backend 'pallas' runs the kernels (their plain
     versions on CPU tensors), 'xla' the tent tensor formulation, 'auto'
-    'pallas' on a card and 'xla' on the CPU.  variant 'tent' | 'shift' |
-    'bdiag' picks the forward kernel and means nothing on 'xla', where any
-    other than 'tent' raises.  On bfloat16 levels the output is float32 on
+    'pallas' on a card and 'xla' on the CPU.  Maps that are not square
+    take 'xla', as JAX's dispatch does, on 'auto' and on CPU tensors; no
+    kernel takes them, so 'pallas' on a CUDA tensor raises there rather
+    than run the plain route unseen.  variant 'tent' |
+    'shift' | 'bdiag' picks the forward kernel and means nothing on 'xla',
+    where any other than 'tent' raises.  On bfloat16 levels the output is float32 on
     both backends: 'pallas' upcasts the cells, as the Pallas kernels do;
     'xla' also rounds the tent weights to bfloat16 first, as the JAX
     package's XLA lookup does (its einsums take the map's dtype)."""
     check_variant(variant)
+    n, h, w, _ = flow.shape
+    if h != w:
+        if variant != "tent":
+            raise ValueError(f"lookup variant {variant!r} needs square maps, got {h}x{w}")
+        if backend == "pallas" and flow.is_cuda:
+            raise ValueError(f"backend 'pallas' needs square maps on the card, got {h}x{w}: "
+                             f"no kernel takes them; pass 'xla' (the JAX package's own route)")
+        backend = "xla"  # the JAX dispatch's fallback: its kernels assume square maps
     backend = resolve_backend(backend, flow.device)
     if backend == "xla" and variant != "tent":
         raise ValueError(f"lookup variant {variant!r} needs backend 'pallas'")
-    n, h, w, _ = flow.shape
     coords = (coords_grid(h, w, flow.dtype, flow.device)[None] + flow).reshape(-1, 2)
     if backend == "pallas":
         out = _KernelLookup.apply(coords.contiguous(), radius, variant, *pyramid)
     else:
+        # a square level is S x S whatever S; other levels halve the flow's
+        # map per level (JAX's flat-level rule in corr_lookup_dispatch)
+        shapes = None if h == w else [(h >> l, w >> l) for l in range(len(pyramid))]
         out = corr_lookup_flat_plain(pyramid, coords, radius, tent=_JaxTent.apply,
-                                     round_weights=True)
+                                     round_weights=True, shapes=shapes)
     return out.reshape(n, h, w, -1)

@@ -30,6 +30,11 @@ from scflow_tpu_torch.ops.cuda.build import CudaKernel, build_all, library_path
 
 MAX_LEVELS = 4
 VARIANTS = ("tent", "shift", "bdiag")
+# the radii each forward source builds (MAX_RADIUS in csrc/; K1b's
+# BWD_MAX_RADIUS is 15, so the forward's is the limit): a copy, so that
+# check_window needs no build; tests/test_torch_kernels.py holds it to what
+# each built library reports (window_layout's and bwd_layout's max_radius)
+MAX_RADIUS = {"tent": 15, "shift": 12, "bdiag": 12}
 MAP_DTYPES = (torch.float32, torch.bfloat16)
 _LOOKUP_ARGS = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 6 + [ctypes.c_longlong, ctypes.c_void_p]
 _BWD_ARGS = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 4 + [ctypes.c_void_p] * 4
@@ -107,6 +112,22 @@ def check_variant(variant: str) -> str:
     return variant
 
 
+def check_window(variant: str, num_levels: int, radius: int) -> None:
+    """Raise NotImplementedError for a lookup the kernels of `variant` (the
+    forward, and K1b for the backward) do not build: a radius past the
+    sources' MAX_RADIUS (K1 and K1b 15, K7 and K8 12) or more than
+    MAX_LEVELS levels (the Pallas kernels take any count).  Whether two
+    ring stages of the window fit a block's shared memory is the launch's
+    check (window_layout)."""
+    check_variant(variant)
+    if not 0 <= radius <= MAX_RADIUS[variant]:
+        raise NotImplementedError(f"the {variant!r} lookup kernel builds radius "
+                                  f"0-{MAX_RADIUS[variant]}, not {radius}")
+    if not 1 <= num_levels <= MAX_LEVELS:
+        raise NotImplementedError(f"the lookup kernels take 1-{MAX_LEVELS} levels, "
+                                  f"not {num_levels}")
+
+
 def _level_sizes(pyramid: Sequence[torch.Tensor], rows: int):
     sizes = []
     for m in pyramid:
@@ -130,14 +151,15 @@ def _tent(u: torch.Tensor) -> torch.Tensor:
 
 
 def _tent_weights(p: torch.Tensor, s: int, radius: int, tent=_tent) -> torch.Tensor:
-    """(B,) level coordinate -> (B, k, S) weights tent((p + off) - cell)."""
+    """(B,) level coordinate -> (B, k, s) weights tent((p + off) - cell)."""
     offs = torch.arange(-radius, radius + 1, dtype=p.dtype, device=p.device)
     grid = torch.arange(s, dtype=p.dtype, device=p.device)
     return tent(p[:, None, None] + offs[None, :, None] - grid[None, None, :])
 
 
 def corr_lookup_flat_plain(pyramid: Sequence[torch.Tensor], coords: torch.Tensor,
-                           radius: int = 4, tent=_tent, round_weights: bool = False
+                           radius: int = 4, tent=_tent, round_weights: bool = False,
+                           shapes: Optional[Sequence[Tuple[int, int]]] = None
                            ) -> torch.Tensor:
     """The tent formulation of scflow_tpu/ops/corr.py::corr_lookup on flat
     levels: out[b, j*k + i] = sum_{h,w} wy[b,i,h] wx[b,j,w] m[b,h,w] with
@@ -146,16 +168,20 @@ def corr_lookup_flat_plain(pyramid: Sequence[torch.Tensor], coords: torch.Tensor
     reads them).  `tent` is max(0, 1 - |u|); ops/corr.py passes one with
     JAX's subgradients.  round_weights rounds the weights to the map's dtype
     first, as the JAX package's XLA lookup does (ops/corr.py::corr_lookup:
-    `wy.astype(m.dtype)`); a no-op on float32 maps."""
+    `wy.astype(m.dtype)`); a no-op on float32 maps.  shapes: each level's
+    (rows, cols), for maps that are not square (the kernels' levels are
+    S x S, which None means)."""
     b = coords.shape[0]
     k = 2 * radius + 1
+    if shapes is None:
+        shapes = [(s, s) for s in _level_sizes(pyramid, b)]
     outs = []
-    for lvl, (m, s) in enumerate(zip(pyramid, _level_sizes(pyramid, b))):
-        wx = _tent_weights(coords[:, 0] / 2.0**lvl, s, radius, tent)
-        wy = _tent_weights(coords[:, 1] / 2.0**lvl, s, radius, tent)
+    for lvl, (m, (sh, sw)) in enumerate(zip(pyramid, shapes)):
+        wx = _tent_weights(coords[:, 0] / 2.0**lvl, sw, radius, tent)
+        wy = _tent_weights(coords[:, 1] / 2.0**lvl, sh, radius, tent)
         if round_weights:
             wx, wy = (w.to(m.dtype).to(w.dtype) for w in (wx, wy))
-        tmp = torch.bmm(wy, _upcast(m, coords).reshape(b, s, s))  # (B, i, w)
+        tmp = torch.bmm(wy, _upcast(m, coords).reshape(b, sh, sw))  # (B, i, w)
         out = torch.bmm(wx, tmp.transpose(1, 2))  # (B, j, i)
         outs.append(out.reshape(b, k * k))
     return torch.cat(outs, dim=-1)

@@ -10,6 +10,7 @@ import torch.nn as nn
 
 from scflow_tpu_torch.models.raft_decoder import RAFTDecoder
 from scflow_tpu_torch.models.raft_encoder import RAFTEncoder
+from scflow_tpu_torch.refiners.scflow import check_channels, check_dtype, check_num_levels
 
 
 class _RAFTRefinerBase(nn.Module):
@@ -17,35 +18,41 @@ class _RAFTRefinerBase(nn.Module):
 
     def __init__(self, seperate_encoder: bool = False, h_channels: int = 128,
                  cxt_channels: int = 128, encoder_out_channels: int = 256,
-                 encoder_norm: str = "IN", cxt_norm: str = "BN", net_type: str = "Basic",
-                 num_levels: int = 4, radius: int = 4, iters: int = 12,
-                 gru_type: str = "SeqConv", gru_fuse_gates: bool = False,
+                 encoder_norm: Optional[str] = "IN", cxt_norm: Optional[str] = "BN",
+                 net_type: str = "Basic", num_levels: int = 4, radius: int = 4,
+                 iters: int = 12, gru_type: str = "SeqConv", gru_fuse_gates: bool = False,
                  convex_upsample_flow: bool = True, max_flow: float = 400.0,
                  predict_occlusion: Optional[bool] = None, dtype: Optional[torch.dtype] = None):
         """The JAX module's fields and defaults (the reference's spelling of
-        seperate_encoder included).  dtype: None computes in float32,
+        seperate_encoder included).  The encoders take net_type and the
+        norms ('BN', 'IN', 'GN' or None); the decoder net_type, the levels
+        and radius, the GRU and the upsampling (models/raft_decoder.py);
+        cxt_channels any width, h_channels the net_type's (128 'Basic', 96
+        'Small'), as in JAX, where another fails to broadcast.  RAFT-S, the
+        RAFT paper's small model, is net_type='Small', h_channels=96,
+        cxt_channels=64, encoder_out_channels=128, cxt_norm=None,
+        radius=3, gru_type='Conv'.  dtype: None computes in float32,
         torch.bfloat16 in bf16 (parameters and BatchNorm statistics stay
-        float32).  max_flow is carried for the configs; the steps take their
-        own."""
+        float32).  max_flow is carried for the configs; the steps take
+        their own."""
         super().__init__()
-        if dtype not in (None, torch.float32, torch.bfloat16):
-            raise ValueError(f"dtype must be None, torch.float32 or torch.bfloat16, got {dtype}")
-        dtype = None if dtype == torch.float32 else dtype
+        dtype = check_dtype(dtype)
+        check_num_levels(num_levels)
         if predict_occlusion is not None:
             self.predict_occlusion = predict_occlusion
         self.seperate_encoder, self.h_channels = seperate_encoder, h_channels
         self.encoder_norm, self.max_flow, self.dtype = encoder_norm, max_flow, dtype
-        self.render_encoder = RAFTEncoder(encoder_out_channels, norm=encoder_norm, dtype=dtype)
+        enc = dict(net_type=net_type)
+        self.render_encoder = RAFTEncoder(encoder_out_channels, encoder_norm, dtype, **enc)
         if seperate_encoder:
-            self.real_encoder = RAFTEncoder(encoder_out_channels, norm=encoder_norm, dtype=dtype)
-        self.context = RAFTEncoder(h_channels + cxt_channels, norm=cxt_norm, dtype=dtype)
+            self.real_encoder = RAFTEncoder(encoder_out_channels, encoder_norm, dtype, **enc)
+        self.context = RAFTEncoder(h_channels + cxt_channels, cxt_norm, dtype, **enc)
         self.decoder = RAFTDecoder(net_type=net_type, num_levels=num_levels, radius=radius,
                                    iters=iters, gru_type=gru_type, gru_fuse_gates=gru_fuse_gates,
                                    convex_upsample_flow=convex_upsample_flow,
-                                   predict_occlusion=self.predict_occlusion, dtype=dtype)
-        if (self.decoder.h_channels, self.decoder.cxt_channels) != (h_channels, cxt_channels):
-            raise ValueError("h_channels and cxt_channels must be the decoder's "
-                             f"{self.decoder.h_channels} and {self.decoder.cxt_channels}")
+                                   predict_occlusion=self.predict_occlusion, dtype=dtype,
+                                   cxt_channels=cxt_channels)
+        check_channels(self.decoder, h_channels)
 
     def _encode_pair(self, render: torch.Tensor, real: torch.Tensor, train: bool):
         """Both feature maps.  A shared instance-normed encoder takes them as
@@ -96,7 +103,9 @@ class _RAFTRefinerBase(nn.Module):
                 output_sequences: bool = True) -> Dict[str, torch.Tensor]:
         """The JAX module's call on NHWC images: "flow" (T, N, H, W, 2) and,
         for the mask model, "occlusion" (T, N, H, W).  init_flow: (N, H/8,
-        W/8, 2), zeros by default.  train=True runs the BatchNorms on batch
+        W/8, 2), zeros by default.  Images that are not square take the
+        JAX package's route for their maps (ops/corr.py; on the card with
+        lookup_backend 'xla' or 'auto', 'pallas' raises).  train=True runs the BatchNorms on batch
         statistics and updates their running ones in place.  lookup_backend
         None is the decoder's 'xla', as in JAX; the entry points pass one.
         lookup_variant and output_sequences: RAFTDecoder.forward."""

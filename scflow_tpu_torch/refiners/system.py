@@ -24,7 +24,7 @@ from scflow_tpu_torch.geometry import (cal_epe, filter_flow_by_depth, filter_flo
 from scflow_tpu_torch.losses.basic import l1_loss, raft_loss
 from scflow_tpu_torch.losses.point_matching import (disentangle_point_matching_loss,
                                                     sym_mask_from_types)
-from scflow_tpu_torch.ops.cuda.corr_lookup import check_variant
+from scflow_tpu_torch.ops.cuda.corr_lookup import check_variant, check_window
 from scflow_tpu_torch.refiners.flow_pose import solve_poses_from_flow_device
 from scflow_tpu_torch.render.rasterizer import rasterize
 from scflow_tpu_torch.render.renderer import render_batch
@@ -151,11 +151,27 @@ def scflow_sequence_losses(out: Dict[str, torch.Tensor], gt_rotations, gt_transl
     return loss, log_vars
 
 
-def _check_lookup(backend: str, variant: str, dev: torch.device) -> None:
-    """Raise now, not at the first lookup, on a name corr_lookup refuses."""
+def _check_lookup(model, backend: str, variant: str, dev: torch.device,
+                  image_size: Tuple[int, int]) -> None:
+    """Raise now, not at the first lookup, on what corr_lookup refuses: an
+    unknown name; on the card, 'pallas' asked for on an image that is not
+    square (no kernel takes such maps; 'xla' runs them); and, where the
+    lookup runs the kernels ('pallas', on the card or as their plain
+    versions on the CPU), a model whose radius or level count the variant's
+    kernels do not build (corr_lookup.check_window)."""
     check_variant(variant)
-    if resolve_backend(backend, dev) == "xla" and variant != "tent":
+    square = image_size[0] == image_size[1]
+    if backend == "pallas" and dev.type == "cuda" and not square:
+        raise ValueError(f"lookup_backend 'pallas' needs a square image on the card, got "
+                         f"{image_size[0]}x{image_size[1]}; pass 'xla' (the JAX package's "
+                         f"own route for such maps)")
+    if variant != "tent" and not square:
+        raise ValueError(f"lookup variant {variant!r} needs a square image")
+    backend = resolve_backend(backend, dev)
+    if backend == "xla" and variant != "tent":
         raise ValueError(f"lookup variant {variant!r} needs lookup_backend 'pallas'")
+    if backend == "pallas" and square:
+        check_window(variant, model.decoder.num_levels, model.decoder.radius)
 
 
 _TRAIN_KEYS = {"real_images": torch.float32, "ref_rotations": torch.float32,
@@ -214,7 +230,7 @@ def make_scflow_train_step(
         raise NotImplementedError("render augmentations are not ported")
     dev = resolve_device(device)
     resolve_backend(render_backend, dev)
-    _check_lookup(lookup_backend, lookup_variant, dev)
+    _check_lookup(model, lookup_backend, lookup_variant, dev, image_size)
     model.to(dev)
     for assets in (render_assets, loss_assets):
         if assets[0].device != dev:
@@ -294,7 +310,7 @@ def make_scflow_infer_fn(model, render_assets: RenderAssets,
         raise ValueError(f"iters must be a positive int or None, got {iters!r}")
     dev = resolve_device(device)
     resolve_backend(render_backend, dev)  # an unknown name raises here
-    _check_lookup(lookup_backend, lookup_variant, dev)
+    _check_lookup(model, lookup_backend, lookup_variant, dev, image_size)
     model = model.to(dev).eval()
     if render_assets.verts.device != dev:
         raise ValueError(f"render assets are on {render_assets.verts.device}, "
@@ -315,8 +331,8 @@ def make_scflow_infer_fn(model, render_assets: RenderAssets,
                 chunk=render_chunk, backend=render_backend,
                 cull_backfaces=render_cull_backfaces)
             out = model(rendered, real, R, t, depths, K, labels, iters=iters,
-                        output_sequences=False, pose_only=slim, lookup_backend=lookup_backend,
-                        lookup_variant=lookup_variant)
+                        output_sequences=False, unroll=unroll, pose_only=slim,
+                        lookup_backend=lookup_backend, lookup_variant=lookup_variant)
             res = {"rotations": out["rotations"][-1], "translations": out["translations"][-1]}
             if not slim:
                 res["masks"] = out["masks"][-1]
@@ -327,13 +343,13 @@ def make_scflow_infer_fn(model, render_assets: RenderAssets,
 
 
 def _raft_setup(model, render_assets: RenderAssets, render_backend: str, lookup_backend: str,
-                lookup_variant: str, device):
+                lookup_variant: str, device, image_size: Tuple[int, int]):
     """Check the names, move the model to the device and return a batch
     reader: the batch's keys of the train step's, numpy arrays or tensors,
     as tensors of their dtypes there."""
     dev = resolve_device(device)
     resolve_backend(render_backend, dev)
-    _check_lookup(lookup_backend, lookup_variant, dev)
+    _check_lookup(model, lookup_backend, lookup_variant, dev, image_size)
     model.to(dev)
     if render_assets.verts.device != dev:
         raise ValueError(f"render assets are on {render_assets.verts.device}, the model on {dev}")
@@ -398,7 +414,7 @@ def make_raft_train_step(
     if render_augmentations is not None:
         raise NotImplementedError("render augmentations are not ported")
     read = _raft_setup(model, render_assets, render_backend, lookup_backend, lookup_variant,
-                       device)
+                       device, image_size)
 
     def step(state: TrainState, batch: Dict) -> Tuple[TrainState, Dict[str, torch.Tensor]]:
         with full_fp32():
@@ -483,7 +499,7 @@ def make_raft_infer_fn(model, render_assets: RenderAssets,
         raise ValueError(f"iters must be a positive int or None, got {iters!r}")
     pnp_cfg = dict(pnp_cfg or {})
     read = _raft_setup(model, render_assets, render_backend, lookup_backend, lookup_variant,
-                       device)
+                       device, image_size)
     model.eval()
 
     def infer(batch: Dict) -> Dict[str, torch.Tensor]:
@@ -524,7 +540,7 @@ def make_raft_val_step(model, render_assets: RenderAssets,
     step's, gt_masks optional.  Arguments and rules as make_raft_infer_fn's
     (JAX's val step renders with the default chunk and takes none)."""
     read = _raft_setup(model, render_assets, render_backend, lookup_backend, lookup_variant,
-                       device)
+                       device, image_size)
     model.eval()
 
     def val_step(batch: Dict) -> Dict[str, torch.Tensor]:

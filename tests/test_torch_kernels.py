@@ -164,48 +164,127 @@ def test_wrappers_reject_other_devices():
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("case", ["random", "border", "integer"])
-def test_corr_lookup_kernel_matches_plain(case, cuda):
+@pytest.mark.parametrize("radius", [3, 4])
+def test_corr_lookup_kernel_matches_plain(radius, case, cuda):
     """atol 1e-4: the kernel blends 4 corners, the plain version sums tent
-    weights over whole rows; the two round differently."""
+    weights over whole rows; the two round differently.  Radius 4 (the
+    shipped models) and 3 (RAFT-S and the SCFlow option set)."""
     levels, coords = _lookup_case(case)
     levels = [m.to(cuda) for m in levels]
     coords = coords.to(cuda)
     before = k1.KERNEL.launches
-    got = k1.corr_lookup_flat(levels, coords)
+    got = k1.corr_lookup_flat(levels, coords, radius)
     torch.cuda.synchronize()
     assert k1.KERNEL.launches == before + 1
-    want = k1.corr_lookup_flat_plain(levels, coords)
+    want = k1.corr_lookup_flat_plain(levels, coords, radius)
     torch.testing.assert_close(got, want, rtol=0, atol=1e-4)
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("case", ["random", "border", "integer"])
-def test_shift_kernel_matches_plain_bit_for_bit(case, cuda):
+@pytest.mark.parametrize("radius", [3, 4])
+def test_shift_kernel_matches_plain_bit_for_bit(radius, case, cuda):
     """K7 and its plain version make the same two products and one sum per
     blend, unfused (-fmad=false): the outputs are identical."""
     levels, coords = _lookup_case(case)
     levels = [m.to(cuda) for m in levels]
     coords = coords.to(cuda)
     before = k1.SHIFT_KERNEL.launches
-    got = k1.corr_lookup_flat(levels, coords, variant="shift")
+    got = k1.corr_lookup_flat(levels, coords, radius, variant="shift")
     torch.cuda.synchronize()
     assert k1.SHIFT_KERNEL.launches == before + 1
-    assert torch.equal(got, k1.corr_lookup_flat_shift_plain(levels, coords))
+    assert torch.equal(got, k1.corr_lookup_flat_shift_plain(levels, coords, radius))
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("case", ["random", "border", "integer"])
-def test_bdiag_kernel_matches_tent_plain(case, cuda):
+@pytest.mark.parametrize("radius", [3, 4])
+def test_bdiag_kernel_matches_tent_plain(radius, case, cuda):
     """K8 against the tent plain version at K1's atol 1e-4."""
     levels, coords = _lookup_case(case)
     levels = [m.to(cuda) for m in levels]
     coords = coords.to(cuda)
     before = k1.BDIAG_KERNEL.launches
-    got = k1.corr_lookup_flat(levels, coords, variant="bdiag")
+    got = k1.corr_lookup_flat(levels, coords, radius, variant="bdiag")
     torch.cuda.synchronize()
     assert k1.BDIAG_KERNEL.launches == before + 1
-    torch.testing.assert_close(got, k1.corr_lookup_flat_plain(levels, coords), rtol=0,
+    torch.testing.assert_close(got, k1.corr_lookup_flat_plain(levels, coords, radius), rtol=0,
                                atol=1e-4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("variant", ["shift", "bdiag"])
+def test_shift_and_bdiag_kernels_raise_at_radius_13(variant, cuda):
+    """K7 and K8 build radius 0-12: radius 13 (which K1 builds) raises from
+    the launch, and check_window, which the entry points call, says so
+    before any launch."""
+    levels, coords = _lookup_case("random")
+    levels = [m.to(cuda) for m in levels]
+    with pytest.raises(RuntimeError):
+        k1.corr_lookup_flat(levels, coords.to(cuda), 13, variant=variant)
+    with pytest.raises(NotImplementedError, match="radius"):
+        k1.check_window(variant, 4, 13)
+    k1.check_window("tent", 4, 13)
+
+
+@pytest.mark.cuda
+def test_entry_point_rejects_a_radius_the_variant_does_not_build(cuda):
+    """make_raft_infer_fn on a radius-13 model with lookup_variant 'shift'
+    raises at construction, before its first call launches anything."""
+    from scflow_tpu_torch.refiners.raft import RAFTRefinerFlowMask
+    from scflow_tpu_torch.refiners.system import RenderAssets, make_raft_infer_fn
+
+    model = RAFTRefinerFlowMask(iters=1, radius=13, convex_upsample_flow=False)
+    assets = RenderAssets.from_bank(make_synthetic_bank(3), device=cuda)
+    before = _all_launches()
+    with pytest.raises(NotImplementedError, match="radius"):
+        make_raft_infer_fn(model, assets, image_size=(64, 64), lookup_backend="pallas",
+                           lookup_variant="shift", device=cuda)
+    assert _all_launches() == before
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_max_radius_table_matches_the_libraries(dtype, cuda):
+    """check_window's static MAX_RADIUS (it needs no build) is the largest
+    radius each built library reports: K1, K7 and K8 through window_layout,
+    and K1b, which every variant's backward launches, through bwd_layout,
+    whose range covers every forward's."""
+    for variant in k1.VARIANTS:
+        assert k1.window_layout(variant, 4, 0, dtype)["max_radius"] == k1.MAX_RADIUS[variant]
+    for want_coords in (False, True):
+        bwd = k1.bwd_layout(4, 0, want_coords, dtype)["max_radius"]
+        assert bwd == max(k1.MAX_RADIUS.values())
+
+
+@pytest.mark.cuda
+def test_non_square_maps_refuse_the_kernel_backend_on_the_card(cuda):
+    """The 1/8 maps of a 256x192 crop (32x24): no kernel takes them, so
+    backend 'pallas' on CUDA tensors raises, in corr_lookup and at an entry
+    point's construction, and launches nothing; 'xla' (and 'auto') runs the
+    JAX package's route there and matches the same route on the CPU."""
+    from scflow_tpu_torch.ops.corr import corr_lookup, correlation_pyramid_flat
+    from scflow_tpu_torch.refiners.raft import RAFTRefinerFlow
+    from scflow_tpu_torch.refiners.system import RenderAssets, make_raft_infer_fn
+
+    g = torch.Generator().manual_seed(0)
+    f1, f2 = (torch.randn((1, 32, 24, 16), generator=g) for _ in range(2))
+    flow = 3.0 * torch.randn((1, 32, 24, 2), generator=g)
+    want = corr_lookup(correlation_pyramid_flat(f1, f2), flow, 3, backend="pallas")
+    levels = correlation_pyramid_flat(f1.to(cuda), f2.to(cuda))
+    before = _all_launches()
+    with pytest.raises(ValueError, match="square"):
+        corr_lookup(levels, flow.to(cuda), 3, backend="pallas")
+    for backend in ("xla", "auto"):
+        got = corr_lookup(levels, flow.to(cuda), 3, backend=backend)
+        torch.testing.assert_close(got.cpu(), want, rtol=0, atol=1e-4)
+    model = RAFTRefinerFlow(iters=1, convex_upsample_flow=False)
+    assets = RenderAssets.from_bank(make_synthetic_bank(3), device=cuda)
+    with pytest.raises(ValueError, match="square"):
+        make_raft_infer_fn(model, assets, image_size=(256, 192), lookup_backend="pallas",
+                           device=cuda)
+    make_raft_infer_fn(model, assets, image_size=(256, 192), lookup_backend="xla", device=cuda)
+    assert _all_launches() == before
 
 
 # every radius the launch switch of K7/K8 instantiates (0-12, checked against
@@ -478,18 +557,21 @@ def test_bwd_kernel_raises_outside_the_instantiated_set(radius, levels, cuda, mo
 @pytest.mark.cuda
 @pytest.mark.parametrize("want_coords", [True, False])
 @pytest.mark.parametrize("case", ["random", "border", "integer"])
-def test_bwd_kernel_matches_plain(case, want_coords, cuda):
+@pytest.mark.parametrize("radius", [3, 4])
+def test_bwd_kernel_matches_plain(radius, case, want_coords, cuda):
     """K1b against its plain version: level grads and the coords grad at
     atol 1e-4 (sums of a few O(1) terms, in another order)."""
     levels, coords = _lookup_case(case)
-    g = torch.randn((coords.shape[0], 4 * 81), generator=torch.Generator().manual_seed(2))
+    k = 2 * radius + 1
+    g = torch.randn((coords.shape[0], 4 * k * k), generator=torch.Generator().manual_seed(2))
     levels = [m.to(cuda) for m in levels]
     coords, g = coords.to(cuda), g.to(cuda)
     before = k1.BWD_KERNEL.launches
-    grads, gc = k1.corr_lookup_flat_bwd(levels, coords, g, want_coords=want_coords)
+    grads, gc = k1.corr_lookup_flat_bwd(levels, coords, g, radius, want_coords=want_coords)
     torch.cuda.synchronize()
     assert k1.BWD_KERNEL.launches == before + 1
-    want, want_c = k1.corr_lookup_flat_bwd_plain(levels, coords, g, want_coords=want_coords)
+    want, want_c = k1.corr_lookup_flat_bwd_plain(levels, coords, g, radius,
+                                                 want_coords=want_coords)
     for a, b in zip(grads, want):
         torch.testing.assert_close(a, b, rtol=0, atol=1e-4)
     if want_coords:

@@ -181,19 +181,33 @@ def test_refiner_bf16_matches_jax_bf16(mask_pair, shared_run, no_tf32):
         assert err <= 2 * dist + 1e-4 + 1e-4 * np.abs(w).max(), (k, err, dist)
 
 
-@pytest.mark.parametrize("kw", [dict(net_type="Small"), dict(gru_type="Conv"),
-                                dict(gru_fuse_gates=True), dict(radius=3)])
+@pytest.mark.parametrize("kw", [dict(net_type="Small"), dict(gru_type="conv"),
+                                dict(net_type="Large"), dict(radius=3)])
 def test_unported_options_raise(kw):
+    """Every option is ported; what raises is each combination
+    the JAX package cannot run, or reads as another: the 'Small' net with
+    'Basic' h_channels (its GRU gates fail to broadcast), an unknown GRU
+    type (JAX's is 'SeqConv' then), 'Large' (no decoder widths: a KeyError)
+    and radius 3 with convex upsampling (the mask head's 9 x 64 channels
+    do not reshape to 9 x 8^2)."""
     from scflow_tpu_torch.refiners.raft import RAFTRefinerFlowMask
 
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(ValueError):
         RAFTRefinerFlowMask(**kw)
 
 
-def test_non_square_maps_raise(mask_pair):
-    """The port's pyramid needs square maps (JAX falls back to its 4-D
-    pyramid there, not ported)."""
-    port = mask_pair[2]
-    x = torch.zeros(1, 64, 128, 3)
-    with pytest.raises(ValueError, match="square"), torch.no_grad():
-        port(x, x, lookup_backend="xla")
+def test_non_square_maps_raise(mask_pair, no_tf32):
+    """Maps that are not square (a 64x128 crop) take the JAX package's own
+    route (its 4-D pyramid and XLA lookup) on both backends and match
+    JAX's; a lookup variant that names a kernel raises there, since the
+    kernels need square maps."""
+    fmodel, variables, port = mask_pair
+    rng = np.random.default_rng(6)
+    render, real = (rng.normal(size=(1, 64, 128, 3)).astype(np.float32) for _ in range(2))
+    want = _jax_apply(fmodel, variables, render, real, lookup_backend="pallas")
+    with torch.no_grad():
+        got = port(torch.from_numpy(render), torch.from_numpy(real), lookup_backend="pallas")
+        _close(got, want, "64x128")
+        with pytest.raises(ValueError, match="square"):
+            port(torch.from_numpy(render), torch.from_numpy(real), lookup_backend="pallas",
+                 lookup_variant="shift")

@@ -6,11 +6,22 @@ JAX and flax are imported inside the functions that need them, so that the
 JAX-free card tests (tests/test_torch_kernels.py) can import this module on
 a machine without JAX."""
 
+import os
+
 import numpy as np
 import pytest
 import torch
 
 from scflow_tpu_torch.convert import state_dict_from_flax
+
+# Under pytest-xdist each worker process would run torch's CPU ops on every
+# core; with several workers sharing the cores (and XLA's own thread pools)
+# the OpenMP threads contend and the port's tests run many times slower.
+# Every worker imports this module while collecting, so it caps torch's
+# intra-op threads at the worker's share of the cores before any test runs.
+if os.environ.get("PYTEST_XDIST_WORKER"):
+    torch.set_num_threads(max(1, (os.cpu_count() or 1)
+                              // int(os.environ.get("PYTEST_XDIST_WORKER_COUNT", "1"))))
 
 
 @pytest.fixture(autouse=True)
@@ -251,3 +262,70 @@ def raft_pair_torch_init(img: int, iters: int, seed: int = 0, mask: bool = True,
     variables = np_tree(convert_state_dict_to_variables(
         {k: v.numpy() for k, v in port.state_dict().items()}, template, **norms))
     return fmodel, variables, port.eval()
+
+
+def flax_from_port(template, state_dict, encoder_norm="IN", cxt_norm="BN"):
+    """The inverse of the weight bridge: flax variables of `template`'s tree
+    (nested dicts of arrays or shape structs, e.g. lecun_variables') filled
+    from the port's state dict by the bridge's own key mapping
+    (convert.torch_key), OIHW -> HWIO and (O, I) -> (I, O).  Unlike the JAX
+    package's convert_state_dict_to_variables it takes every norm kind,
+    None included."""
+    import jax
+
+    from scflow_tpu_torch.convert import torch_key
+
+    def fill(path, leaf):
+        names = tuple(p.key for p in path)
+        w = state_dict[torch_key(names, encoder_norm, cxt_norm)].detach().numpy()
+        if names[-1] == "kernel" and w.ndim == 4:
+            w = w.transpose(2, 3, 1, 0)
+        elif names[-1] == "kernel" and w.ndim == 2:
+            w = w.T
+        assert w.shape == tuple(leaf.shape), (names, w.shape, leaf.shape)
+        return np.array(w, np.float32)
+
+    return {coll: jax.tree_util.tree_map_with_path(fill, tree) for coll, tree in template.items()}
+
+
+def scflow_init_args(n: int, img: int):
+    """Dummy inputs for tracing an SCFlowRefiner's init: (render, real, R, t,
+    depth, K, label)."""
+    import jax.numpy as jnp
+
+    z = jnp.zeros((n, img, img, 3))
+    eye = jnp.tile(jnp.eye(3)[None], (n, 1, 1))
+    return (z, z, eye, jnp.tile(jnp.asarray([[0.0, 0.0, 700.0]]), (n, 1)),
+            jnp.zeros((n, img, img)), eye, jnp.zeros((n,), jnp.int32))
+
+
+def scflow_options_pair(img: int, iters: int, seed: int = 0, perturb: float = 0.02,
+                        num_class: int = 3, **model_kw):
+    """(flax SCFlowRefiner, numpy variables, port SCFlowRefiner) with the same
+    weights and any of the refiner's options (model_kw to both; the pose
+    head is a MultiClassPoseHead of num_class classes unless model_kw's
+    pose_head_cfg says otherwise): lecun_variables, the pose head's output
+    kernels normal(0, perturb) and its rotation bias the identity of its
+    rotation mode (_zero_init_heads' bias; lecun_variables zeroes biases),
+    carried to the port by the weight bridge."""
+    from scflow_tpu.refiners import SCFlowRefiner as FlaxRefiner
+    from scflow_tpu_torch.models.pose_head import ID_BIAS
+    from scflow_tpu_torch.refiners.scflow import SCFlowRefiner
+
+    model_kw.setdefault("pose_head_cfg", dict(type="MultiClassPoseHead", num_class=num_class))
+    fmodel = FlaxRefiner(iters=iters, **model_kw)
+    variables = lecun_variables(fmodel, seed, *scflow_init_args(1, img))
+    head = variables["params"]["decoder"]["update"]["pose_pred"]
+    rng = np.random.default_rng(seed)
+    for name in ("rotation_pred", "translation_pred"):
+        k = head[name]["kernel"]
+        head[name]["kernel"] = rng.normal(0.0, perturb, k.shape).astype(np.float32)
+    bias = np.asarray(ID_BIAS[model_kw["pose_head_cfg"].get("rotation_mode", "ortho6d")])
+    rot_bias = head["rotation_pred"]["bias"]
+    head["rotation_pred"]["bias"] = np.tile(bias, rot_bias.shape[0] // bias.size).astype(
+        np.float32)
+    with torch.random.fork_rng(devices=[]):
+        port = SCFlowRefiner(num_class=num_class, image_size=(img, img), iters=iters,
+                             **model_kw)
+    norms = {k: model_kw[k] for k in ("encoder_norm", "cxt_norm") if k in model_kw}
+    return fmodel, variables, load_port(port, variables, **norms)
