@@ -7,8 +7,9 @@
 --phases runs phases 1 and 2 and then only the named groups, in the order
 given, of the package in DIR (default: this checkout; e.g. an unpacked
 parent commit), without the kernels line: lookup (phases 3, 10 and 11),
-raster (4-7), slice (8), raft (14) and options (16 and 17; with slice
-before it, 17 prints its pose difference from the slice's call).
+raster (4-7), slice (8), raft (14), options (16 and 17; with slice
+before it, 17 prints its pose difference from the slice's call) and
+workflow (18).
 
 Phases, each printing one JSON line; any failure exits non-zero before the
 last line:
@@ -162,11 +163,52 @@ last line:
                slice's call on the same inputs; the train step at batch 16 (8
                K1, 8 K1b at radius 3, 1 K2), ms, stages, a card step against
                a CPU step;
+ 18. workflow - the reference's test workflow, `cli.test_main --eval
+               --format-only --save-dir --out` (tools/test.py's arguments),
+               on the card from a config that _base_s the shipped
+               configs/refine_models/scflow.py and overrides only the data
+               paths (so 256^2, 8 iterations, 21 classes, max_bucket 64,
+               culling on), over a synthetic test set in YCB-V's BOP layout
+               written under build/workflow/ (removed afterwards): 48
+               640x480 PNGs (the port's imwrite) of 3-9 of the slice's
+               21 uvsphere classes each, rendered at the gt pose with YCB-V's
+               camera over grey, initial poses the gt jittered by up to 15
+               degrees and 15/15/50 mm (the shipped PoseJitter's ranges).
+               The slice's seeded weights, saved with save_params.  Runs,
+               each after a 2-image warm-up: fp32 and bf16 (--cfg-options
+               model.dtype=bfloat16) on the 48 images, and the shipped
+               configs/refine_models/raft.py with test_cfg.pnp_backend=device
+               on 8 (raft_model's weights).  Per run: ms/img and
+               refinements/s (host clock over test_main's loop, which
+               loads, calls, fetches and remaps each image in turn), the
+               load ms/img and the call's ms/img (launch + fetch), the
+               metric table, imread's median ms on 8 of the PNGs (alone,
+               before the runs), the entry point alone on one image's batch
+               padded to 8 (ms back to back and device ms; lines
+               "workflow_*_alone"), and exactly 8 K1 (or K1_bf16) and
+               1 K2 per image for SCFlow, 12 K1 and 1 K2 for RAFT, nothing
+               else.  Gates: (a) the first 4 images with --device cpu give
+               poses within the slice's card-vs-CPU bounds (rotations 2e-3,
+               translations 2e-2 + 2e-3 |t|): fp32; bf16 against the
+               CPU's bf16 run with twice the CPU's own bf16-to-fp32
+               distance (largest |dR|, largest |dt|) added to each bound;
+               and RAFT with the device PnP with the flow head's output
+               zeroed (flow 0: exact correspondences, where random flow
+               makes RANSAC turn 1e-6 differences into other poses), whose
+               poses are also the initial ones (|dR| 2e-3, |dt| 1 mm, the
+               raft phase's gt-flow bounds); (b) with the pose head's
+               output weights zeroed (biases the identity) the workflow
+               returns the initial poses (rotations within 1e-5,
+               translations within 1e-5 |t| + 1e-3 mm), and evaluate's
+               ADD(-S)/REP/AUC equal this script's own numpy computation
+               of those poses' errors within 1e-6; (c) each BOP export
+               parses back with one entry per object equal to --out; (d)
+               a checkpoint saved from the card loads on the CPU, equal;
  15. the kernels line (float32 and bf16 instances; "raft_launches": each
      kernel's launches per RAFT call or step; "radius_3": the radius-3
      instance's numbers from phases 3/10/11 and its launches per call or
-     step on phases 16 and 17), then the device line the chip harness
-     reads.
+     step on phases 16 and 17; "workflow_launches_per_image": per image of
+     each workflow run), then the device line the chip harness reads.
 Imports no JAX.  Needs one card; without one it exits non-zero at once.
 """
 
@@ -2295,10 +2337,469 @@ def phase_render(dev, scene, smi):
     return launches
 
 
-PHASE_GROUPS = ("lookup", "raster", "slice", "raft", "options")
+# ---- workflow: the reference's test workflow from a config file ----
+
+YCBV_K = ((1066.778, 0.0, 312.9869), (0.0, 1067.487, 241.3109), (0.0, 0.0, 1.0))
+FRAME_H, FRAME_W = 480, 640  # YCB-V's frames
+WF_SEQ = 48  # a YCB-V test scene id (48-59)
+WF_IMAGES, WF_CPU_IMAGES, WF_RAFT_IMAGES = 48, 4, 8
+WF_JITTER = (15.0, 15.0, 15.0, 50.0)  # degrees, x, y, z mm: ycbv_real.py:38-51's PoseJitter
+WF_METRIC = {"add": [0.05, 0.10, 0.20, 0.50], "rep": [2, 5, 10, 20], "auc": []}
 
 
-def run_phase_groups(groups, dev, ptxas, smi) -> None:
+def _write_ply(path: Path, verts, faces, colors) -> None:
+    lines = ["ply", "format ascii 1.0", f"element vertex {len(verts)}",
+             "property float x", "property float y", "property float z",
+             "property uchar red", "property uchar green", "property uchar blue",
+             f"element face {len(faces)}", "property list uchar int vertex_indices",
+             "end_header"]
+    rgb = np.clip(np.rint(np.asarray(colors) * 255), 0, 255).astype(int)
+    lines += [f"{v[0]} {v[1]} {v[2]} {c[0]} {c[1]} {c[2]}" for v, c in zip(verts, rgb)]
+    lines += [f"3 {f[0]} {f[1]} {f[2]}" for f in faces]
+    path.write_text("\n".join(lines) + "\n")
+
+
+def _rotation(axis, degrees: float) -> np.ndarray:
+    axis = np.asarray(axis, np.float64) / np.linalg.norm(axis)
+    k = np.array([[0, -axis[2], axis[1]], [axis[2], 0, -axis[0]], [-axis[1], axis[0], 0]])
+    a = math.radians(degrees)
+    return np.eye(3) + math.sin(a) * k + (1 - math.cos(a)) * (k @ k)
+
+
+def _workflow_scene(root: Path, dev, images: int = WF_IMAGES, seed: int = 0) -> dict:
+    """A synthetic test set in YCB-V's BOP layout under root: the slice's 21
+    uvsphere classes of 1024 faces as models_1024/ and models_eval/ .ply
+    files, box keypoints, and `images` 640x480 PNGs (written by the port's
+    imwrite) of 3-9 objects each, rendered at their gt poses with YCB-V's
+    camera over a grey background (nearest surface wins), with
+    scene_gt/scene_gt_info/scene_camera.json, the image list and initial
+    poses: the gt jittered by up to 15 degrees and 15/15/50 mm (the shipped
+    PoseJitter's ranges).  The first 4 images hold 3, 3, 4 and 4 objects
+    (the CPU gate's 4-object buckets).  Returns the gt, the initial poses
+    and the meshes' vertices."""
+    from scflow_tpu_torch.datasets.pipelines.imops import imwrite
+    from scflow_tpu_torch.refiners.system import RenderAssets
+    from scflow_tpu_torch.render.meshbank import MeshBank, make_synthetic_bank
+    from scflow_tpu_torch.render.renderer import render_batch
+
+    bank = make_synthetic_bank(NCLASS, kind="uvsphere", size=80.0)
+    verts, keypoints = [], []
+    for sub in ("models_1024", "models_eval", "keypoints", "image_lists"):
+        (root / sub).mkdir(parents=True, exist_ok=True)
+    for c in range(NCLASS):
+        v = bank.verts[c][bank.vert_valid[c]]
+        f = bank.faces[c][bank.face_valid[c]]
+        col = bank.colors[c][bank.vert_valid[c]]
+        for sub in ("models_1024", "models_eval"):
+            _write_ply(root / sub / f"obj_{c + 1:06d}.ply", v, f, col)
+        verts.append(v.astype(np.float32))
+        lo, hi = v.min(0), v.max(0)
+        keypoints.append([[float(x), float(y), float(z)] for x in (lo[0], hi[0])
+                          for y in (lo[1], hi[1]) for z in (lo[2], hi[2])])
+    (root / "keypoints" / "bbox.json").write_text(json.dumps(keypoints))
+    assets = RenderAssets.from_bank(MeshBank.from_dir(str(root / "models_1024")), device=dev)
+    diam = [float(np.linalg.norm(v.max(0) - v.min(0))) for v in verts]
+
+    K = np.array(YCBV_K, np.float32)
+    seq = root / "test" / f"{WF_SEQ:06d}"
+    (seq / "rgb").mkdir(parents=True, exist_ok=True)
+    rng = np.random.default_rng(seed)
+    scene_gt, scene_info, scene_cam, scene_init, gt, init = {}, {}, {}, {}, [], []
+    for i in range(images):
+        n = 3 + i // 2 if i < 4 else 3 + i % 7
+        while True:  # until every object shows at least 400 pixels
+            labels = rng.choice(NCLASS, n, replace=False)
+            cells = rng.choice(12, n, replace=False)
+            R, t = [], []
+            for c, cell in zip(labels, cells):
+                u = (cell % 4 + rng.uniform(0.3, 0.7)) * FRAME_W / 4
+                v = (cell // 4 + rng.uniform(0.3, 0.7)) * FRAME_H / 3
+                z = K[0, 0] * diam[c] / rng.uniform(140, 220)
+                t.append([(u - K[0, 2]) * z / K[0, 0], (v - K[1, 2]) * z / K[1, 1], z])
+                R.append(_rotation(rng.normal(size=3), rng.uniform(0, 360)))
+            R, t = np.asarray(R, np.float32), np.asarray(t, np.float32)
+            with torch.no_grad():
+                out = render_batch(*assets, torch.from_numpy(R).to(dev),
+                                   torch.from_numpy(t).to(dev),
+                                   torch.from_numpy(np.repeat(K[None], n, 0)).to(dev),
+                                   torch.from_numpy(labels).to(dev), FRAME_H, FRAME_W,
+                                   backend="auto", cull_backfaces=True)
+            depth = out["depths"].cpu().numpy()
+            full = out["masks"].cpu().numpy() > 0.5
+            near = np.where(full, depth, np.inf).argmin(0)
+            visible = full & (np.arange(n)[:, None, None] == near[None])
+            if (visible.sum((1, 2)) >= 400).all():
+                break
+        img = np.full((FRAME_H, FRAME_W, 3), 0.5, np.float32)
+        rgb = out["images"].cpu().numpy()
+        for o in range(n):
+            img[visible[o]] = rgb[o][visible[o]]
+        imwrite(str(seq / "rgb" / f"{i:06d}.png"),
+                np.clip(np.rint(img[..., ::-1] * 255), 0, 255).astype(np.uint8))
+
+        def box(m):
+            ys, xs = np.nonzero(m)
+            return [int(xs.min()), int(ys.min()), int(xs.max() - xs.min() + 1),
+                    int(ys.max() - ys.min() + 1)]
+
+        R0, t0 = [], []
+        for o in range(n):
+            axis = rng.normal(size=3)
+            R0.append(_rotation(axis, rng.uniform(0, WF_JITTER[0])) @ R[o])
+            t0.append(t[o] + rng.uniform(-1, 1, 3) * np.array(WF_JITTER[1:]))
+        R0, t0 = np.asarray(R0, np.float32), np.asarray(t0, np.float32)
+        scene_gt[str(i)] = [dict(cam_R_m2c=R[o].reshape(-1).tolist(), cam_t_m2c=t[o].tolist(),
+                                 obj_id=int(labels[o]) + 1) for o in range(n)]
+        scene_init[str(i)] = [dict(cam_R_m2c=R0[o].reshape(-1).tolist(),
+                                   cam_t_m2c=t0[o].tolist(), obj_id=int(labels[o]) + 1)
+                              for o in range(n)]
+        scene_info[str(i)] = [dict(bbox_obj=box(full[o]), bbox_visib=box(visible[o]),
+                                   px_count_visib=int(visible[o].sum()),
+                                   visib_fract=float(visible[o].sum() / full[o].sum()))
+                              for o in range(n)]
+        scene_cam[str(i)] = dict(cam_K=K.reshape(-1).tolist(), depth_scale=1.0)
+        gt.append((labels, R, t))
+        init.append((labels, R0, t0))
+    for name, content in (("scene_gt", scene_gt), ("scene_gt_info", scene_info),
+                          ("scene_camera", scene_cam)):
+        (seq / f"{name}.json").write_text(json.dumps(content))
+    (root / "initial_poses" / f"{WF_SEQ:06d}").mkdir(parents=True, exist_ok=True)
+    (root / "initial_poses" / f"{WF_SEQ:06d}" / "scene_gt.json").write_text(json.dumps(scene_init))
+    (root / "image_lists" / "test.txt").write_text(
+        "\n".join(f"{WF_SEQ:06d}/rgb/{i:06d}.png" for i in range(images)))
+    return dict(gt=gt, init=init, verts=verts, K=K)
+
+
+def _workflow_config(root: Path, repo: Path, model: str) -> Path:
+    """A config that _base_s the shipped configs/refine_models/<model> and
+    overrides only the data paths (the test set, its initial poses, image
+    list, keypoints and meshes; the test pipeline's ComputeBbox mesh_dir;
+    the renderer's meshes) and the work_dir."""
+    path = root / f"workflow_{model}"
+    path.write_text(f'''_base_ = {str(repo / "configs" / "refine_models" / model)!r}
+_root = {str(root / "ycbv")!r}
+_dataset = load_cfg_vars({str(repo / "configs" / "refine_datasets" / "ycbv_real.py")!r})
+data = dict(test=dict(
+    data_root=_root + "/test", ref_annots_root=_root + "/initial_poses",
+    image_list=_root + "/image_lists/test.txt", keypoints_json=_root + "/keypoints/bbox.json",
+    meshes_eval=_root + "/models_eval",
+    pipeline=[dict(t, mesh_dir=_root + "/models_eval") if t["type"] == "ComputeBbox" else t
+              for t in _dataset["test_pipeline"]]))
+model = dict(renderer=dict(mesh_dir=_root + "/models_1024"))
+work_dir = _root + "/work"
+del _dataset
+''')
+    return path
+
+
+def _independent_metrics(info, cfg, pred, metric) -> dict:
+    """ADD(-S), REP and AUC of `pred` (per image: labels, R, t) against the
+    scene's gt, computed here in float64 from the definitions
+    (datasets/base.py's): per object the mean distance of 1000 mesh points
+    (the dataset's seeded draw, default_rng(20230613) per class in order)
+    between the gt and the predicted pose, over the nearest predicted point
+    for the config's symmetric classes, as a share of the config's
+    diameter; the mean 2D distance of their projections; VOCap's area under
+    the accuracy curve up to 100 mm; per class, then the mean over classes
+    present."""
+    rng = np.random.default_rng(20230613)
+    pts = [v[rng.choice(v.shape[0], 1000)].astype(np.float64) for v in info["verts"]]
+    sym = cfg.data.test.mesh_symmetry
+    diam = cfg.data.test.mesh_diameter
+    K = info["K"].astype(np.float64)
+    errs = {"add": [], "rep": [], "auc": []}
+    labels_all = []
+    for (labels, R, t), (plabels, pR, pt) in zip(info["gt"], pred):
+        for o, c in enumerate(labels):
+            j = int(np.nonzero(np.asarray(plabels) == c)[0][0])
+            g = pts[c] @ R[o].astype(np.float64).T + t[o]
+            p = pts[c] @ np.asarray(pR[j], np.float64).T + np.asarray(pt[j], np.float64)
+            if sym.get(f"cls_{c + 1}", False):
+                d = np.linalg.norm(g[:, None] - p[None], axis=-1).min(1).mean()
+            else:
+                d = np.linalg.norm(g - p, axis=-1).mean()
+            proj = lambda x: (x @ K.T)[:, :2] / (x @ K.T)[:, 2:]  # noqa: E731
+            errs["add"].append(d / diam[c])
+            errs["auc"].append(d)
+            errs["rep"].append(np.linalg.norm(proj(g) - proj(p), axis=-1).mean())
+            labels_all.append(c)
+    labels_all = np.asarray(labels_all)
+    names = cfg.data.test.class_names
+    out, avg = {}, {}
+    for name, thresholds in metric.items():
+        e = np.asarray(errs[name])
+        keys = ([name] if not thresholds else
+                [f"{name}_{int(x * 100) if x < 1 else int(x):02d}" for x in thresholds])
+        for c, cname in enumerate(names):
+            sel = e[labels_all == c]
+            for key, x in zip(keys, thresholds or [None]):
+                if len(sel) == 0:
+                    out[f"{cname}/{key}"] = -1.0
+                    continue
+                if x is None:
+                    s = np.sort(sel)
+                    acc = np.arange(1, len(s) + 1) / len(s)
+                    keep = s <= 100.0
+                    rec = np.concatenate([[0.0], s[keep], [100.0]])
+                    pre = np.maximum.accumulate(np.concatenate(
+                        [[0.0], acc[keep], [acc[keep][-1] if keep.any() else 0.0]]))
+                    idx = np.nonzero(np.diff(rec))[0] + 1
+                    v = float(np.sum((rec[idx] - rec[idx - 1]) * pre[idx]) / 100.0)
+                else:
+                    v = float((sel < x).mean())
+                out[f"{cname}/{key}"] = v
+                avg.setdefault(key, []).append(v)
+    out.update({f"average/{k}": float(np.mean(v)) for k, v in avg.items()})
+    return out
+
+
+def _results_of(path: Path):
+    """A test_main --out file as per image (labels, R, t)."""
+    return [(np.asarray(r["pred"]["labels"]), np.asarray(r["pred"]["rotations"], np.float32),
+             np.asarray(r["pred"]["translations"], np.float32))
+            for r in json.loads(path.read_text())]
+
+
+def _bop_matches_out(save_dir: Path, out_path: Path, n_images: int) -> None:
+    """Gate (c): the BOP export parses back with one entry per object equal
+    to the --out file's poses."""
+    bop = json.loads((save_dir / f"{WF_SEQ:06d}" / "scene_gt.json").read_text())
+    out = _results_of(out_path)
+    require(sorted(bop, key=int) == [str(i) for i in range(n_images)], "one BOP entry per image")
+    for i, (labels, R, t) in enumerate(out):
+        entries = bop[str(i)]
+        require(len(entries) == len(labels), f"BOP image {i}: one entry per object")
+        for e, c, r, tt in zip(entries, labels, R, t):
+            require(e["obj_id"] == int(c) + 1 and np.allclose(e["cam_R_m2c"], r.reshape(-1),
+                                                               rtol=0, atol=1e-6)
+                    and np.allclose(e["cam_t_m2c"], tt, rtol=1e-6, atol=1e-4),
+                    f"BOP image {i} equals --out")
+
+
+def _workflow_run(cli, args, k1: str, iters: int, tag: str, smi, extra=None):
+    """One counted test_main run: its launches (exactly `iters` of k1 and 1
+    K2 per image, nothing else), finite orthonormal poses, and its line."""
+    res, launches = counted(lambda: cli.test_main(args))
+    n_img = len(res["results"])
+    n_obj = sum(len(r["pred"]["labels"]) for r in res["results"])
+    require(only(launches, **{k1: iters * n_img, "K2": n_img}),
+            f"{tag}: launches {launches} for {n_img} images")
+    R = np.concatenate([r["pred"]["rotations"] for r in res["results"]])
+    t = np.concatenate([r["pred"]["translations"] for r in res["results"]])
+    ortho = float(np.abs(np.einsum("nji,njk->nik", R, R) - np.eye(3)).max())
+    require(np.isfinite(R).all() and np.isfinite(t).all() and ortho < 1e-4,
+            f"{tag}: finite orthonormal poses ({ortho})")
+    st, sec = res["stats"], res["seconds"]
+    line = {"phase": f"workflow_{tag}", "images": n_img, "objects": n_obj,
+            "ms_per_img": 1e3 * sec / n_img, "refinements_per_s": n_obj / sec,
+            "load_ms_per_img": 1e3 * st["load"] / n_img,
+            "call_ms_per_img": 1e3 * (st["call"] + st["fetch"]) / n_img,
+            "launch_ms_per_img": 1e3 * st["call"] / n_img,
+            "fetch_ms_per_img": 1e3 * st["fetch"] / n_img,
+            "finish_ms_per_img": 1e3 * st["finish"] / n_img,
+            "launches_per_img": {k: v / n_img for k, v in launches.items() if v},
+            "metrics": res["metrics"], **(extra or {}), "card": smi}
+    emit(line)
+    return res, launches, line
+
+
+def _workflow_alone(cfg, ckpt: Path, smi, tag: str, bucket: int = 8):
+    """The entry point alone on one image's batch padded to `bucket`
+    (back-to-back calls, median_ms, and device time, device_ms), against
+    which the loop's call ms/img is read."""
+    from scflow_tpu_torch.apis import build_render_assets, make_infer_from_cfg
+    from scflow_tpu_torch.datasets.loader import collate_batch
+    from scflow_tpu_torch.refiners.build import build_refiner_from_config
+    from scflow_tpu_torch.registry import build_dataset
+    from scflow_tpu_torch.runtime.checkpoint import load_params
+    from scflow_tpu_torch.runtime.eval_loop import _bucket, pad_batch
+
+    model = build_refiner_from_config(cfg.model)
+    load_params(str(ckpt), model)
+    assets, _ = build_render_assets(cfg.model)
+    infer, _ = make_infer_from_cfg(cfg, model, assets, (IMG, IMG), slim=True)
+    np.random.seed(0)
+    dataset = build_dataset(cfg.data["test"])
+    for idx in range(len(dataset)):
+        batch = collate_batch([dataset[idx]])
+        n = len(batch["labels"])
+        if _bucket(n) == bucket:
+            break
+    batch = {k: v for k, v in batch.items() if k not in ("img_metas", "per_img_patch_num")}
+    padded = pad_batch(batch, bucket)
+    line = {"phase": f"workflow_{tag}_alone", "objects": n, "bucket": bucket,
+            "call_ms": median_ms(lambda: infer(padded), 10),
+            "call_device_ms": device_ms(lambda: infer(padded), 10), "card": smi}
+    emit(line)
+    return line
+
+
+def _card_vs_cpu(card, cpu, tag: str, rot_slack: float = 0.0, t_slack: float = 0.0):
+    """Gate (a) on per-image (labels, R, t): the same labels, |dR| within
+    2e-3 + rot_slack and |dt| within 2e-2 + 2e-3 |t| + t_slack (the slice's
+    card-vs-CPU bounds, widened by the slack for bf16).  Returns the
+    largest |dR| and the largest excess of |dt| over its bound."""
+    rot = t_excess = -math.inf
+    require(len(card) == len(cpu), f"(a) {tag}: {len(card)} vs {len(cpu)} images")
+    for (cl, cR, ct), (gl, gR, gt_) in zip(cpu, card):
+        require(np.array_equal(cl, gl), f"(a) {tag}: labels")
+        rot = max(rot, float(np.abs(cR - gR).max()))
+        t_excess = max(t_excess, float((np.abs(ct - gt_)
+                                        - (2e-2 + 2e-3 * np.abs(ct) + t_slack)).max()))
+    require(rot <= 2e-3 + rot_slack and t_excess <= 0,
+            f"(a) {tag} card vs CPU: rot |d| {rot} (slack {rot_slack}), t excess {t_excess}")
+    return rot, t_excess
+
+
+def phase_workflow(smi, root: Path):
+    """The reference's test workflow (`cli.test_main --eval --format-only`)
+    on the card from a config that _base_s the shipped model, over the
+    synthetic YCB-V-layout set: fp32, bf16 (--cfg-options model.dtype=
+    bfloat16) and the RAFT config with device PnP, then gates (a)-(d)."""
+    import shutil
+
+    from scflow_tpu_torch import cli
+    from scflow_tpu_torch.config import Config
+    from scflow_tpu_torch.refiners.build import build_refiner_from_config
+    from scflow_tpu_torch.runtime.checkpoint import load_params, save_params
+
+    work = root / "build" / "workflow"
+    shutil.rmtree(work, ignore_errors=True)
+    work.mkdir(parents=True)
+    try:
+        t0 = time.perf_counter()
+        info = _workflow_scene(work / "ycbv", torch.device("cuda", 0))
+        scene_s = time.perf_counter() - t0
+        from scflow_tpu_torch.datasets.pipelines.imops import imread
+
+        pngs = sorted((work / "ycbv" / "test" / f"{WF_SEQ:06d}" / "rgb").glob("*.png"))[:8]
+        decode = []
+        for png in pngs:
+            t0 = time.perf_counter()
+            imread(str(png), "unchanged")
+            decode.append(1e3 * (time.perf_counter() - t0))
+        cfg_path = _workflow_config(work, root, "scflow.py")
+        cfg = Config.fromfile(str(cfg_path))
+        require(cfg.model.decoder.iters == ITERS and tuple(cfg.model.renderer.image_size)
+                == (IMG, IMG) and cfg.model.decoder.pose_head_cfg.num_class == NCLASS
+                and cfg.model.renderer.cull_backfaces is True
+                and cfg.model.test_cfg.get("max_bucket", 64) == 64, "the shipped model")
+        model = build_refiner_from_config(cfg.model)
+        model.load_state_dict(seeded_model().state_dict())
+        model = model.cuda()
+        ckpt = work / "scflow.pth"
+        save_params(str(ckpt), model)  # from the card
+        cpu_model = build_refiner_from_config(cfg.model)
+        load_params(str(ckpt), cpu_model)  # gate (d): it loads on the CPU
+        require(all(torch.equal(v.cpu(), cpu_model.state_dict()[k])
+                    for k, v in model.state_dict().items()), "(d) card checkpoint on the CPU")
+        base = [str(cfg_path), "--checkpoint", str(ckpt)]
+        lines = {}
+        bf16 = ["--cfg-options", "model.dtype=bfloat16"]
+        for tag, k1, opts in (("scflow_fp32", "K1", []), ("scflow_bf16", "K1_bf16", bf16)):
+            cli.test_main(base + ["--limit", "2"] + opts)  # warm-up: cuDNN plans, allocator
+            out_json, save_dir = work / f"{tag}.json", work / f"bop_{tag}"
+            res, launches, lines[tag] = _workflow_run(
+                cli, base + ["--eval", "--format-only", "--save-dir", str(save_dir),
+                             "--out", str(out_json)] + opts, k1, ITERS, tag, smi,
+                {"scene_s": scene_s, "imread_640x480_ms": statistics.median(decode)})
+            _bop_matches_out(save_dir, out_json, WF_IMAGES)  # gate (c)
+            alone = Config.fromfile(str(cfg_path))
+            alone.merge_from_dict(Config.parse_options(opts[1:]))
+            _workflow_alone(alone, ckpt, smi, tag)
+        # gate (a): the same workflow on the CPU for the first 4 images, fp32 and
+        # bf16; bf16 within twice the CPU's own bf16-to-fp32 distance more
+        cpu_args = base + ["--limit", str(WF_CPU_IMAGES), "--device", "cpu"]
+        cpu = cli.test_main(cpu_args + ["--out", str(work / "cpu.json")])
+        cli.test_main(cpu_args + ["--out", str(work / "cpu_bf16.json")] + bf16)
+        cpu32, cpu16 = _results_of(work / "cpu.json"), _results_of(work / "cpu_bf16.json")
+        cpu_rot, t_excess = _card_vs_cpu(
+            _results_of(work / "scflow_fp32.json")[:WF_CPU_IMAGES], cpu32, "fp32")
+        d16_rot = max(float(np.abs(a[1] - b[1]).max()) for a, b in zip(cpu16, cpu32))
+        d16_t = max(float(np.abs(a[2] - b[2]).max()) for a, b in zip(cpu16, cpu32))
+        bf16_rot, bf16_excess = _card_vs_cpu(
+            _results_of(work / "scflow_bf16.json")[:WF_CPU_IMAGES], cpu16, "bf16",
+            2 * d16_rot, 2 * d16_t)
+        # gate (b): output weights zero, biases the identity: the initial poses come back
+        head = model.decoder.pose_pred
+        with torch.no_grad():
+            head.rotation_pred.weight.zero_()
+            head.translation_pred.weight.zero_()
+        require(not head.translation_pred.bias.any().item(), "(b) zero translation bias")
+        zero_ckpt = work / "identity.pth"
+        save_params(str(zero_ckpt), model)
+        eval_opts = [f"{k}={v}" for k, v in WF_METRIC.items()]
+        ident = cli.test_main([str(cfg_path), "--checkpoint", str(zero_ckpt), "--eval",
+                               "--out", str(work / "identity.json"), "--eval-options"]
+                              + eval_opts)
+        id_rot = id_t = 0.0
+        for (labels, R0, t0_), (pl, pR, pt) in zip(info["init"],
+                                                    _results_of(work / "identity.json")):
+            require(np.array_equal(np.sort(labels), np.sort(pl)), "(b) labels")
+            order = [int(np.nonzero(pl == c)[0][0]) for c in labels]
+            id_rot = max(id_rot, float(np.abs(pR[order] - R0).max()))
+            id_t = max(id_t, float((np.abs(pt[order] - t0_) / (1e-5 * np.abs(t0_) + 1e-3)).max()))
+        require(id_rot <= 1e-5 and id_t <= 1.0,
+                f"(b) initial poses back: rot {id_rot}, t {id_t} of the bound")
+        want = _independent_metrics(info, cfg, info["init"], WF_METRIC)
+        got = ident["metrics"]
+        require(set(got) == set(want), f"(b) metric keys {sorted(set(got) ^ set(want))[:5]}")
+        worst = max(abs(got[k] - want[k]) for k in want)
+        require(worst <= 1e-6, f"(b) evaluate vs numpy: {worst}")
+        # RAFT: the shipped config with the device PnP, on 8 images
+        raft_cfg = _workflow_config(work, root, "raft.py")
+        raft_ckpt = work / "raft.pth"
+        save_params(str(raft_ckpt), raft_model().cuda())
+        ropts = ["--cfg-options", "model.test_cfg.pnp_backend=device"]
+        cli.test_main([str(raft_cfg), "--checkpoint", str(raft_ckpt), "--limit", "1"]
+                      + ropts)  # warm-up
+        _, _, lines["raft"] = _workflow_run(
+            cli, [str(raft_cfg), "--checkpoint", str(raft_ckpt), "--limit",
+                  str(WF_RAFT_IMAGES), "--eval"] + ropts, "K1", RAFT_ITERS, "raft", smi)
+        # gate (a) for RAFT on 4 images: the flow head's output zero, so the flow
+        # is 0 and the device PnP solves exact correspondences (on random flow
+        # its RANSAC turns the devices' 1e-6 differences into other poses): card
+        # and CPU agree, and both return the initial poses
+        zero_raft = raft_model()
+        with torch.no_grad():
+            zero_raft.decoder.flow_pred.predict_layer.weight.zero_()
+            zero_raft.decoder.flow_pred.predict_layer.bias.zero_()
+        save_params(str(work / "raft_zero.pth"), zero_raft.cuda())
+        zargs = [str(raft_cfg), "--checkpoint", str(work / "raft_zero.pth"), "--limit",
+                 str(WF_CPU_IMAGES)]
+        for dev, name in (([], "raft_zero.json"), (["--device", "cpu"], "raft_zero_cpu.json")):
+            cli.test_main(zargs + dev + ["--out", str(work / name)] + ropts)
+        zcard = _results_of(work / "raft_zero.json")
+        raft_rot, raft_excess = _card_vs_cpu(zcard, _results_of(work / "raft_zero_cpu.json"),
+                                             "raft, zero flow")
+        raft_init_rot = raft_init_t = 0.0
+        for (labels, R0, t0_), (pl, pR, pt) in zip(info["init"], zcard):
+            order = [int(np.nonzero(pl == c)[0][0]) for c in labels]
+            raft_init_rot = max(raft_init_rot, float(np.abs(pR[order] - R0).max()))
+            raft_init_t = max(raft_init_t, float(np.abs(pt[order] - t0_).max()))
+        require(raft_init_rot <= 2e-3 and raft_init_t <= 1.0,
+                f"(a) raft, zero flow: initial poses back: rot {raft_init_rot}, t {raft_init_t}")
+        emit({"phase": "workflow_gates", "cpu_images": WF_CPU_IMAGES,
+              "cpu_rot_max_abs_diff": cpu_rot, "cpu_trans_tolerance_excess": t_excess,
+              "bf16_cpu_rot_max_abs_diff": bf16_rot, "bf16_cpu_trans_tolerance_excess":
+              bf16_excess, "cpu_bf16_to_fp32_rot": d16_rot, "cpu_bf16_to_fp32_trans": d16_t,
+              "raft_zero_flow_cpu_rot_max_abs_diff": raft_rot,
+              "raft_zero_flow_cpu_trans_tolerance_excess": raft_excess,
+              "raft_zero_flow_initial_rot_max_abs_diff": raft_init_rot,
+              "raft_zero_flow_initial_trans_max_abs_diff": raft_init_t,
+              "identity_rot_max_abs_diff": id_rot, "identity_trans_share_of_bound": id_t,
+              "identity_metrics_max_abs_diff": worst,
+              "identity_add_10": want["average/add_10"], "identity_auc": want["average/auc"],
+              "cpu_seconds": cpu["seconds"], "card": smi})
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    return {tag: line["launches_per_img"] for tag, line in lines.items()}
+
+
+PHASE_GROUPS = ("lookup", "raster", "slice", "raft", "options", "workflow")
+
+
+def run_phase_groups(groups, dev, ptxas, smi, root: Path) -> None:
     """The phases of each named group (PHASE_GROUPS), in the order given."""
     shipped = None
     for group in groups:
@@ -2316,6 +2817,8 @@ def run_phase_groups(groups, dev, ptxas, smi) -> None:
             _, shipped = phase_slice(smi)
         elif group == "raft":
             phase_raft_all(smi)
+        elif group == "workflow":
+            phase_workflow(smi, root)
         else:
             phase_raft_small(smi)
             phase_scflow_options(smi, shipped)
@@ -2346,7 +2849,7 @@ def main() -> int:
     emit({"phase": "package", "path": str(Path(scflow_tpu_torch.__file__).parent)})
     ptxas = phase_build(strict=args.root.resolve() == Path(__file__).resolve().parent)
     if args.phases is not None:
-        run_phase_groups(args.phases, dev, ptxas, smi)
+        run_phase_groups(args.phases, dev, ptxas, smi, args.root.resolve())
         emit({"ok": True, "device": {"platform": "gpu", "kind": name,
                                      "count": torch.cuda.device_count()}})
         return 0
@@ -2372,6 +2875,8 @@ def main() -> int:
     r3_launches = {"raft_small": phase_raft_small(smi),
                    "scflow_options": phase_scflow_options(smi, fp32_slice)}
     del fp32_slice
+    # launches per image of each workflow run (the main path of test_main)
+    wf_launches = phase_workflow(smi, args.root.resolve())
     src = "scflow_tpu_torch/csrc/"
     tpu = "scflow_tpu/ops/pallas/"
     table = [
@@ -2406,11 +2911,16 @@ def main() -> int:
         got = {path: n[key] for path, n in r3_launches.items() if key in n}
         return {"radius_3": {**res[f"{key}_r3"], "launches": got}}
 
+    def workflow(key):
+        """The key's launches per image in each workflow run."""
+        got = {run: n[key] for run, n in wf_launches.items() if key in n}
+        return {"workflow_launches_per_image": got} if got else {}
+
     emit({"kernels": [
         {"name": f"{key} {fn}", "route": "cuda", "source": src + file, "replaces": tpu + where,
          "launches": launches[key], **({"raft_launches": raft_launches[key]}
                                        if key in raft_launches else {}), **res[key],
-         **radius_3(key)}
+         **radius_3(key), **workflow(key)}
         for key, fn, file, where in table], "card": smi})
     emit({"ok": True, "device": {"platform": "gpu", "kind": name,
                                  "count": torch.cuda.device_count()}})

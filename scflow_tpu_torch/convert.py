@@ -125,3 +125,115 @@ def state_dict_from_flax(variables: Dict[str, Any], encoder_norm: Optional[str] 
             if path[-1] == "mean":  # BatchNorm2d also keeps a step count
                 sd[f"{key.rsplit('.', 1)[0]}.num_batches_tracked"] = torch.tensor(0)
     return sd
+
+
+def flax_from_state_dict(template: Dict[str, Any], state_dict: Dict[str, torch.Tensor],
+                         encoder_norm: Optional[str] = "IN",
+                         cxt_norm: Optional[str] = "BN") -> Dict[str, Any]:
+    """The inverse of state_dict_from_flax: flax variables of `template`'s
+    tree (nested dicts whose leaves have a .shape: arrays or shape structs)
+    filled from a state dict by the same key mapping (torch_key), OIHW ->
+    HWIO and (O, I) -> (I, O); nested dicts of float32 numpy arrays.  A leaf
+    whose key the state dict lacks raises KeyError, a shape mismatch
+    ValueError."""
+    def fill(tree, prefix):
+        out = {}
+        for k, v in tree.items():
+            path = prefix + (k,)
+            if hasattr(v, "items"):
+                out[k] = fill(v, path)
+                continue
+            w = state_dict[torch_key(path, encoder_norm, cxt_norm)].detach().cpu().numpy()
+            if k == "kernel" and w.ndim == 4:
+                w = w.transpose(2, 3, 1, 0)
+            elif k == "kernel" and w.ndim == 2:
+                w = w.T
+            if w.shape != tuple(v.shape):
+                raise ValueError(f"{'/'.join(path)}: {w.shape} against {tuple(v.shape)}")
+            out[k] = np.array(w, np.float32)
+        return out
+
+    return {coll: fill(tree, ()) for coll, tree in template.items()}
+
+
+_NORM_RE = re.compile(r"(bn|in|gn)(\d*)")
+# torch "name.i" -> flax "name_i"-style module names (the rest keep theirs)
+_INDEXED = {"delta_flow_encoder": "delta_flow_enc", "mask_encoder": "mask_enc",
+            "layers": "layer", "conv_layers": "conv", "corr_net": "corr_net",
+            "flow_net": "flow_net", "out_net": "out_net", "conv_z": "conv_z",
+            "conv_r": "conv_r", "conv_q": "conv_q"}
+
+
+def flax_path(key: str, decoder_update: bool = True) -> Tuple[str, ...]:
+    """The inverse of torch_key: the flax path (module names, then the leaf's
+    name) of a state-dict key of a refiner.  decoder_update says whether the
+    refiner's decoder keeps its update block under 'update', as the SCFlow
+    decoder does (the RAFT decoder does not); the flat torch names cannot
+    tell.  Raises KeyError for a key no flax leaf maps to (num_batches_tracked
+    among them)."""
+    parts = key.split(".")
+    leaf = parts[-1]
+    toks = parts[:-1]
+    out = []
+    i = 0
+    in_encoder = toks and toks[0] in ("render_encoder", "real_encoder", "context")
+    is_norm = False
+    while i < len(toks):
+        p = toks[i]
+        nxt = toks[i + 1] if i + 1 < len(toks) else None
+        depth_in_encoder = len(out)  # 1 directly under an encoder
+        if i == 0 and p == "decoder" and decoder_update:
+            out += ["decoder", "update"]
+        elif m := re.fullmatch(r"res_layer(\d+)", p):
+            out.append(f"layer{m.group(1)}_block{nxt}")
+            i += 1
+        elif p == "downsample":
+            is_norm = nxt == "1"
+            out += ["downsample_norm", "n"] if is_norm else ["downsample_conv"]
+            i += 1
+        elif in_encoder and depth_in_encoder == 1 and p in ("conv1", "conv2"):
+            out.append("stem_conv" if p == "conv1" else "out_conv")
+        elif in_encoder and (m := _NORM_RE.fullmatch(p)):
+            is_norm = True
+            out += ["stem_norm" if depth_in_encoder == 1 else f"norm{m.group(2)}", "n"]
+        elif p in _INDEXED and nxt is not None and nxt.isdigit():
+            if p == "conv_layers":
+                out.append("trunk")
+            out.append(f"{_INDEXED[p]}{nxt}")
+            i += 1
+        elif p == "fc_layers":
+            out += ["trunk", f"fc{nxt}"]
+            i += 2  # the Sequential's index 0
+        elif p == "predict_layer":
+            out.append("predict")
+        elif p == "gn" and "pose_pred" in toks[:i]:
+            is_norm = True
+            out.append("norm")
+        else:
+            out.append(p)
+        i += 1
+    if leaf == "weight":
+        out.append("scale" if is_norm else "kernel")
+    elif leaf in ("bias", "running_mean", "running_var"):
+        out.append({"bias": "bias", "running_mean": "mean", "running_var": "var"}[leaf])
+    else:
+        raise KeyError(f"no flax leaf maps to {key}")
+    return tuple(out)
+
+
+def flax_param_names(model: torch.nn.Module) -> Dict[str, str]:
+    """{parameter name: '/'-joined flax path} of a refiner of this package
+    (SCFlowRefiner, RAFTRefinerFlow, RAFTRefinerFlowMask): the names the
+    JAX package's configs use for parameters, e.g. in
+    optimizer_config.frozen_prefixes.  Each one is checked to map back to
+    its parameter's key."""
+    update = hasattr(getattr(model, "decoder", None), "pose_pred")
+    enc, cxt = model.encoder_norm, model.cxt_norm
+    names = {}
+    for name, _ in model.named_parameters():
+        path = flax_path(name, update)
+        if torch_key(path, enc, cxt) != name:
+            raise KeyError(f"{name}: its flax path {'/'.join(path)} maps back to "
+                           f"{torch_key(path, enc, cxt)}")
+        names[name] = "/".join(path)
+    return names

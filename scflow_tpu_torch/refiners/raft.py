@@ -42,6 +42,7 @@ class _RAFTRefinerBase(nn.Module):
             self.predict_occlusion = predict_occlusion
         self.seperate_encoder, self.h_channels = seperate_encoder, h_channels
         self.encoder_norm, self.max_flow, self.dtype = encoder_norm, max_flow, dtype
+        self.cxt_norm = cxt_norm
         enc = dict(net_type=net_type)
         self.render_encoder = RAFTEncoder(encoder_out_channels, encoder_norm, dtype, **enc)
         if seperate_encoder:

@@ -68,6 +68,7 @@ class SCFlowRefiner(nn.Module):
         check_num_levels(num_levels)
         self.dtype, self.seperate_encoder = dtype, seperate_encoder
         self.h_channels, self.encoder_norm, self.max_flow = h_channels, encoder_norm, max_flow
+        self.cxt_norm = cxt_norm
         enc = dict(net_type=net_type)
         self.render_encoder = RAFTEncoder(encoder_out_channels, encoder_norm, dtype, **enc)
         if seperate_encoder:

@@ -7,13 +7,13 @@ from dataclasses import dataclass
 
 import torch
 
-from scflow_tpu_torch.runtime.optim import AdamWClip
+from scflow_tpu_torch.runtime.optim import ClippedOptimizer
 
 
 @dataclass
 class TrainState:
     model: torch.nn.Module
-    tx: AdamWClip
+    tx: ClippedOptimizer
     step: int = 0
 
     def apply_gradients(self) -> torch.Tensor:

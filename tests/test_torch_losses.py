@@ -243,10 +243,14 @@ def test_adamw_clip_update_matches_optax(rng, clipped):
 
 
 def test_build_optimizer_refuses_what_is_not_ported():
+    """An optimizer type neither package knows raises KeyError, as in JAX;
+    frozen_prefixes need the refiner's parameter names (Adam, SGD and the
+    prefixes themselves are held to optax in
+    tests/test_torch_workflow_optim.py)."""
     p = [torch.nn.Parameter(torch.zeros(2))]
-    with pytest.raises(NotImplementedError):
-        build_optimizer(p, dict(type="SGD"))
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(KeyError):
+        build_optimizer(p, dict(type="RMSprop"))
+    with pytest.raises(TypeError):
         build_optimizer(p, dict(type="AdamW"), frozen_prefixes=["render_encoder"])
     with pytest.raises(ValueError):
         onecycle_lr(1e-3, 100, anneal_strategy="step")

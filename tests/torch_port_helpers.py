@@ -267,25 +267,14 @@ def raft_pair_torch_init(img: int, iters: int, seed: int = 0, mask: bool = True,
 def flax_from_port(template, state_dict, encoder_norm="IN", cxt_norm="BN"):
     """The inverse of the weight bridge: flax variables of `template`'s tree
     (nested dicts of arrays or shape structs, e.g. lecun_variables') filled
-    from the port's state dict by the bridge's own key mapping
-    (convert.torch_key), OIHW -> HWIO and (O, I) -> (I, O).  Unlike the JAX
-    package's convert_state_dict_to_variables it takes every norm kind,
+    from the port's state dict (convert.flax_from_state_dict).  Unlike the
+    JAX package's convert_state_dict_to_variables it takes every norm kind,
     None included."""
-    import jax
+    from flax.core import unfreeze
 
-    from scflow_tpu_torch.convert import torch_key
+    from scflow_tpu_torch.convert import flax_from_state_dict
 
-    def fill(path, leaf):
-        names = tuple(p.key for p in path)
-        w = state_dict[torch_key(names, encoder_norm, cxt_norm)].detach().numpy()
-        if names[-1] == "kernel" and w.ndim == 4:
-            w = w.transpose(2, 3, 1, 0)
-        elif names[-1] == "kernel" and w.ndim == 2:
-            w = w.T
-        assert w.shape == tuple(leaf.shape), (names, w.shape, leaf.shape)
-        return np.array(w, np.float32)
-
-    return {coll: jax.tree_util.tree_map_with_path(fill, tree) for coll, tree in template.items()}
+    return flax_from_state_dict(unfreeze(template), state_dict, encoder_norm, cxt_norm)
 
 
 def scflow_init_args(n: int, img: int):
