@@ -8,8 +8,8 @@
 given, of the package in DIR (default: this checkout; e.g. an unpacked
 parent commit), without the kernels line: lookup (phases 3, 10 and 11),
 raster (4-7), slice (8), raft (14), options (16 and 17; with slice
-before it, 17 prints its pose difference from the slice's call) and
-workflow (18).
+before it, 17 prints its pose difference from the slice's call), workflow
+(18) and train_workflow (19).
 
 Phases, each printing one JSON line; any failure exits non-zero before the
 last line:
@@ -204,11 +204,52 @@ last line:
                of those poses' errors within 1e-6; (c) each BOP export
                parses back with one entry per object equal to --out; (d)
                a checkpoint saved from the card loads on the CPU, equal;
+ 19. train_workflow - the reference's train workflow, `cli.train_main`
+               (tools/train.py's arguments), on the card from a config that
+               _base_s the shipped configs/refine_models/scflow.py and
+               overrides only the data paths, the meshes, the work_dir and
+               the intervals (log 5, checkpoints 10, evaluation 20): so
+               256^2, 8 iterations, batch 16, workers_per_gpu 8, AdamW
+               4e-4 + OneCycle + clip 10, the shipped train
+               pipeline (PoseJitter, ComputeBbox, Crop, RandomHSV,
+               RandomNoise, RandomSmooth, Resize, Pad, RemapPose), PyTorch's
+               seeded initialisation (the config's pretrained file is not
+               in the repo: train_main warns), over a synthetic train_real
+               split of 48 frames (phase 18's scene with visible masks)
+               with the val set phase 18's test set cut to 8 images.  The
+               checking runs load with data.worker_mode='process' (TW_FAST:
+               the config's thread workers took 10.9 s a step).  Runs,
+               each counting every kernel's launches per step (reset before
+               each step, read after it): fp32, 30 steps with
+               --profile-steps 3: exactly 1 K2, 8 K1, 8 K1b per step,
+               finite losses, the mean of the last 5 below that of the
+               first 5, checkpoints iter_10/20/30, eval_history.json,
+               best.json and best_ckpt.pth, a profiler trace, TensorBoard
+               event files or the hook's warning, the logged it/s; --resume
+               --max-iters 40: the log's "Resumed from iter 30" and "Start
+               training: iter 30 -> 40", the weights equal iter_30.pth bit
+               for bit, the first step's lr the schedule's at count 30; the
+               card step against the CPU step (the plain versions) on the
+               loader's first 2 samples with 3 iterations (loss rtol 1e-3,
+               worst per-leaf gradient rel L2 2e-2); bf16
+               (model.dtype=bfloat16), 10 steps: 8 K1_bf16, 8 K1b_bf16, 1 K2
+               per step, finite, falling (first 3 against last 3); the
+               shipped raft.py, 5 steps: 12 K1, 12 K1b, 1 K2 per step,
+               finite; then data.worker_mode 'thread' and 'process', each 3
+               warm-up steps, then 20 timed (ms per step on the host clock
+               over the runner loop, samples/s, load ms per step blocked in
+               next(data_iter), device ms per step by CUDA events around
+               the step), the last 5 of them traced (the device's idle
+               share: 1 - the union of the kernels' intervals over the host
+               window),
+               with os.cpu_count();
  15. the kernels line (float32 and bf16 instances; "raft_launches": each
      kernel's launches per RAFT call or step; "radius_3": the radius-3
      instance's numbers from phases 3/10/11 and its launches per call or
      step on phases 16 and 17; "workflow_launches_per_image": per image of
-     each workflow run), then the device line the chip harness reads.
+     each workflow run; "train_workflow_launches_per_step": per step of
+     the fp32, bf16 and RAFT train_workflow runs), then the device line the
+     chip harness reads.
 Imports no JAX.  Needs one card; without one it exits non-zero at once.
 """
 
@@ -216,6 +257,7 @@ import argparse
 import itertools
 import json
 import math
+import os
 import re
 import statistics
 import subprocess
@@ -224,7 +266,12 @@ import time
 from pathlib import Path
 
 import numpy as np
-import torch
+
+# not in the train workflow's spawned loader workers, which import this
+# script again (with torch imported there, eight workers took about a minute
+# to deliver the first batch on the card's host)
+if __name__ != "__mp_main__":
+    import torch
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM, NVIDIA data sheet
 FP32_FLOPS = 67e12  # H100 SXM fp32 outside the tensor cores
@@ -661,7 +708,7 @@ def phase_k1b(dev, ptxas):
     return out
 
 
-def quat_to_matrix(q: torch.Tensor) -> torch.Tensor:
+def quat_to_matrix(q: "torch.Tensor") -> "torch.Tensor":
     """(N, 4) unit quaternions (w, x, y, z) -> (N, 3, 3) rotations."""
     w, x, y, z = q.unbind(-1)
     return torch.stack([1 - 2 * (y * y + z * z), 2 * (x * y - z * w), 2 * (x * z + y * w),
@@ -2366,17 +2413,20 @@ def _rotation(axis, degrees: float) -> np.ndarray:
     return np.eye(3) + math.sin(a) * k + (1 - math.cos(a)) * (k @ k)
 
 
-def _workflow_scene(root: Path, dev, images: int = WF_IMAGES, seed: int = 0) -> dict:
-    """A synthetic test set in YCB-V's BOP layout under root: the slice's 21
+def _workflow_scene(root: Path, dev, images: int = WF_IMAGES, seed: int = 0,
+                    split: str = "test") -> dict:
+    """A synthetic set in YCB-V's BOP layout under root: the slice's 21
     uvsphere classes of 1024 faces as models_1024/ and models_eval/ .ply
     files, box keypoints, and `images` 640x480 PNGs (written by the port's
     imwrite) of 3-9 objects each, rendered at their gt poses with YCB-V's
     camera over a grey background (nearest surface wins), with
-    scene_gt/scene_gt_info/scene_camera.json, the image list and initial
-    poses: the gt jittered by up to 15 degrees and 15/15/50 mm (the shipped
-    PoseJitter's ranges).  The first 4 images hold 3, 3, 4 and 4 objects
-    (the CPU gate's 4-object buckets).  Returns the gt, the initial poses
-    and the meshes' vertices."""
+    scene_gt/scene_gt_info/scene_camera.json and the image list
+    (image_lists/<split>.txt).  split 'test' adds initial poses: the gt
+    jittered by up to 15 degrees and 15/15/50 mm (the shipped PoseJitter's
+    ranges); 'train_real' adds each object's visible mask as
+    mask_visib/{image}_{object}.png.  The first 4 images hold 3, 3, 4 and
+    4 objects (the CPU gate's 4-object buckets).  Returns the gt, the
+    initial poses and the meshes' vertices."""
     from scflow_tpu_torch.datasets.pipelines.imops import imwrite
     from scflow_tpu_torch.refiners.system import RenderAssets
     from scflow_tpu_torch.render.meshbank import MeshBank, make_synthetic_bank
@@ -2401,8 +2451,10 @@ def _workflow_scene(root: Path, dev, images: int = WF_IMAGES, seed: int = 0) -> 
     diam = [float(np.linalg.norm(v.max(0) - v.min(0))) for v in verts]
 
     K = np.array(YCBV_K, np.float32)
-    seq = root / "test" / f"{WF_SEQ:06d}"
+    seq = root / split / f"{WF_SEQ:06d}"
     (seq / "rgb").mkdir(parents=True, exist_ok=True)
+    if split == "train_real":
+        (seq / "mask_visib").mkdir(exist_ok=True)
     rng = np.random.default_rng(seed)
     scene_gt, scene_info, scene_cam, scene_init, gt, init = {}, {}, {}, {}, [], []
     for i in range(images):
@@ -2436,6 +2488,10 @@ def _workflow_scene(root: Path, dev, images: int = WF_IMAGES, seed: int = 0) -> 
             img[visible[o]] = rgb[o][visible[o]]
         imwrite(str(seq / "rgb" / f"{i:06d}.png"),
                 np.clip(np.rint(img[..., ::-1] * 255), 0, 255).astype(np.uint8))
+        if split == "train_real":
+            for o in range(n):
+                imwrite(str(seq / "mask_visib" / f"{i:06d}_{o:06d}.png"),
+                        visible[o].astype(np.uint8) * 255)
 
         def box(m):
             ys, xs = np.nonzero(m)
@@ -2463,9 +2519,11 @@ def _workflow_scene(root: Path, dev, images: int = WF_IMAGES, seed: int = 0) -> 
     for name, content in (("scene_gt", scene_gt), ("scene_gt_info", scene_info),
                           ("scene_camera", scene_cam)):
         (seq / f"{name}.json").write_text(json.dumps(content))
-    (root / "initial_poses" / f"{WF_SEQ:06d}").mkdir(parents=True, exist_ok=True)
-    (root / "initial_poses" / f"{WF_SEQ:06d}" / "scene_gt.json").write_text(json.dumps(scene_init))
-    (root / "image_lists" / "test.txt").write_text(
+    if split == "test":
+        (root / "initial_poses" / f"{WF_SEQ:06d}").mkdir(parents=True, exist_ok=True)
+        (root / "initial_poses" / f"{WF_SEQ:06d}" / "scene_gt.json").write_text(
+            json.dumps(scene_init))
+    (root / "image_lists" / f"{split}.txt").write_text(
         "\n".join(f"{WF_SEQ:06d}/rgb/{i:06d}.png" for i in range(images)))
     return dict(gt=gt, init=init, verts=verts, K=K)
 
@@ -2796,7 +2854,362 @@ def phase_workflow(smi, root: Path):
     return {tag: line["launches_per_img"] for tag, line in lines.items()}
 
 
-PHASE_GROUPS = ("lookup", "raster", "slice", "raft", "options", "workflow")
+# ---- train_workflow: the reference's train workflow from a config file ----
+
+TW_TRAIN_IMAGES, TW_VAL_IMAGES = 48, 8
+TW_ITERS, TW_RESUME_ITERS, TW_BF16_ITERS, TW_RAFT_ITERS = 30, 40, 10, 5
+TW_WARMUP, TW_MEASURED, TW_TRACED = 3, 20, 5  # per worker mode; the last 5 measured traced
+TW_INTERVALS = dict(log=5, checkpoint=10, evaluation=20)
+TW_CPU = dict(samples=2, iters=3)  # the card-vs-CPU step: the loader's first 2 samples
+# the runs that check the path load in worker processes: with the config's
+# thread workers a step took 10.9 s on the card's 8-core host (the loader's
+# threads starve the step's launches of the GIL), so those runs alone would
+# take the script past its time limit; the timed runs measure both modes
+TW_FAST = "data.worker_mode=process"
+
+
+def _train_workflow_config(root: Path, repo: Path, model: str) -> Path:
+    """A config that _base_s the shipped configs/refine_models/<model> and
+    overrides only the data paths (data.train: the train_real split, its
+    image list, keypoints and meshes, and the mesh_dir of the train
+    pipeline's PoseJitter and ComputeBbox; data.val: the test set cut to
+    TW_VAL_IMAGES images, its initial poses and meshes), the meshes of the
+    renderer and of the pose loss, the work_dir, and the log, checkpoint
+    and evaluation intervals (TW_INTERVALS)."""
+    ycbv = repo / "configs" / "refine_datasets" / "ycbv_real.py"
+    loss = ('model = dict(renderer=dict(mesh_dir=_root + "/models_1024"), pose_loss_cfg=dict('
+            'loss_func_cfg=dict(mesh_path=_root + "/models_eval")))' if model == "scflow.py"
+            else 'model = dict(renderer=dict(mesh_dir=_root + "/models_1024"))')
+    path = root / f"train_{model}"
+    path.write_text(f'''_base_ = {str(repo / "configs" / "refine_models" / model)!r}
+_root = {str(root / "ycbv")!r}
+_dataset = load_cfg_vars({str(ycbv)!r})
+_meshes = _root + "/models_eval"
+data = dict(
+    train=dict(
+        data_root=_root + "/train_real", gt_annots_root=_root + "/train_real",
+        image_list=_root + "/image_lists/train_real.txt",
+        keypoints_json=_root + "/keypoints/bbox.json", meshes_eval=_meshes,
+        pipeline=[dict(t, mesh_dir=_meshes) if "mesh_dir" in t else t
+                  for t in _dataset["train_pipeline"]]),
+    val=dict(
+        data_root=_root + "/test", ref_annots_root=_root + "/initial_poses",
+        image_list=_root + "/image_lists/val.txt",
+        keypoints_json=_root + "/keypoints/bbox.json", meshes_eval=_meshes,
+        pipeline=[dict(t, mesh_dir=_meshes) if "mesh_dir" in t else t
+                  for t in _dataset["val_pipeline"]]))
+{loss}
+work_dir = _root + "/work"
+log_config = dict(interval={TW_INTERVALS["log"]})
+checkpoint_config = dict(interval={TW_INTERVALS["checkpoint"]})
+evaluation = dict(interval={TW_INTERVALS["evaluation"]})
+del _dataset
+''')
+    return path
+
+
+def _train_probe(timed: bool = False):
+    """A runner hook (placed before the configured ones, so it sees each
+    step first): every kernel count set to 0 before each step and read
+    after it, CUDA events around the step, the step's loss (kept on the
+    device) and the optimizer's lr, and the weights the run starts from.
+    With `timed`: after TW_WARMUP steps, TW_MEASURED steps timed on the
+    host clock (synchronised at both ends) with the runner's load seconds,
+    the last TW_TRACED of them under torch.profiler (CUDA activity only)."""
+    from scflow_tpu_torch.runtime.checkpoint import reference_state_dict
+    from scflow_tpu_torch.runtime.runner import Hook
+
+    kernels = kernel_counters()
+
+    class Probe(Hook):
+        def __init__(self):
+            self.launches, self.events, self.losses, self.lrs = [], [], [], []
+            self.start_weights = self.start_step = None
+            self.window = {}
+            self.prof = None
+
+        def before_run(self, runner):
+            self.start_weights = {k: v.clone()
+                                  for k, v in reference_state_dict(runner.state.model).items()}
+            self.start_step = runner.step
+
+        def before_train_iter(self, runner):
+            for k in kernels.values():
+                k.launches = 0
+            self.events.append([torch.cuda.Event(enable_timing=True),
+                                torch.cuda.Event(enable_timing=True)])
+            self.events[-1][0].record()
+
+        def after_train_iter(self, runner):
+            self.events[-1][1].record()
+            self.launches.append({name: k.launches for name, k in kernels.items()})
+            self.losses.append(runner.last_log["loss"])
+            self.lrs.append(runner.state.tx.tx.param_groups[0]["lr"])
+            if not timed:
+                return
+            done = runner.step - self.start_step
+            if done in (TW_WARMUP, TW_WARMUP + TW_MEASURED):
+                torch.cuda.synchronize()
+                self.window[done] = (time.perf_counter(), dict(runner.stats))
+            if done == TW_WARMUP + TW_MEASURED - TW_TRACED:
+                from torch.profiler import ProfilerActivity, profile
+
+                self.prof = profile(activities=[ProfilerActivity.CUDA])
+                torch.cuda.synchronize()
+                self.prof.start()
+                self.window["trace_start"] = time.perf_counter()
+            elif done == TW_WARMUP + TW_MEASURED:
+                self.prof.stop()
+
+    return Probe()
+
+
+def _probe_checks(probe, tag: str, want: dict, falling: int = 0) -> dict:
+    """Every step launched exactly `want` and nothing else; finite losses;
+    with `falling`, the mean of the last `falling` losses below the mean of
+    the first `falling`."""
+    bad = [i for i, n in enumerate(probe.launches) if not only(n, **want)]
+    require(not bad, f"{tag}: launches per step {probe.launches[bad[0]] if bad else ''} "
+                     f"(want {want}) at steps {bad[:5]}")
+    losses = [float(v) for v in probe.losses]
+    require(all(math.isfinite(v) for v in losses), f"{tag}: finite losses {losses}")
+    out = {"steps": len(losses), "launches_per_step": want, "losses": losses}
+    if falling:
+        first, last = statistics.mean(losses[:falling]), statistics.mean(losses[-falling:])
+        require(last < first, f"{tag}: the loss falls (first {falling} mean {first}, last "
+                              f"{last})")
+        out.update(loss_first_mean=first, loss_last_mean=last)
+    return out
+
+
+def _log_lines(work_dir: Path, log_file: Path = None):
+    """(the newest log file of a train_main run, its lines)."""
+    log = log_file or max(work_dir.glob("*.log"), key=lambda p: p.stat().st_mtime)
+    return log, log.read_text().splitlines()
+
+
+def _its_per_s(lines) -> list:
+    return [float(m.group(1)) for m in (re.search(r", ([0-9.]+) it/s,", ln) for ln in lines) if m]
+
+
+def _train_card_vs_cpu_cfg(cfg_path: Path) -> dict:
+    """One step of make_train_step_from_cfg on the card and on the CPU (the
+    plain versions) from the same seeded weights on the loader's first
+    batch of TW_CPU['samples'] samples (256^2), the config's iterations cut
+    to TW_CPU['iters']: the loss within rtol 1e-3, the worst per-leaf
+    gradient within rel L2 2e-2 (phase 12's bounds)."""
+    import copy
+    import random as pyrandom
+
+    from scflow_tpu_torch.apis import (build_loss_assets, build_render_assets,
+                                       init_model_variables, make_train_step_from_cfg)
+    from scflow_tpu_torch.config import Config
+    from scflow_tpu_torch.datasets import DataLoader
+    from scflow_tpu_torch.refiners.build import build_refiner_from_config
+    from scflow_tpu_torch.registry import build_dataset
+    from scflow_tpu_torch.runtime.optim import build_optimizer
+    from scflow_tpu_torch.runtime.train_state import TrainState
+
+    cfg = Config.fromfile(str(cfg_path))
+    cfg.merge_from_dict({"model.decoder.iters": TW_CPU["iters"]})
+    pyrandom.seed(0)
+    np.random.seed(0)
+    it = iter(DataLoader(build_dataset(cfg.data["train"]), samples_per_step=TW_CPU["samples"],
+                         num_workers=1, seed=0))
+    batch = next(it)
+    it.close()
+    batch = {k: v for k, v in batch.items() if k not in ("img_metas", "per_img_patch_num")}
+    logs, grads = {}, {}
+    with torch.random.fork_rng(devices=[]):
+        model = build_refiner_from_config(cfg.model)
+    init_model_variables(cfg.model, model, seed=0, device="cpu")
+    models = {"cuda": copy.deepcopy(model), "cpu": model}
+    for dev, m in models.items():
+        assets, bank = build_render_assets(cfg.model, device=dev)
+        loss_assets = build_loss_assets(cfg.model, bank.num_class, device=dev)
+        tx, _ = build_optimizer(m.to(dev), dict(cfg.optimizer), dict(cfg.lr_config),
+                                cfg.optimizer_config.grad_clip.max_norm)
+        step = make_train_step_from_cfg(cfg, m, assets, loss_assets, (IMG, IMG), device=dev)
+        state, logs[dev] = step(TrainState(m, tx), batch)
+        grads[dev] = {k: p.grad.cpu() for k, p in state.model.named_parameters()}
+    torch.cuda.synchronize()
+    worst, leaf = _worst_grad_rel(grads["cuda"], grads["cpu"])
+    loss_rel = abs(float(logs["cuda"]["loss"]) / float(logs["cpu"]["loss"]) - 1)
+    require(loss_rel <= 1e-3 and worst <= 2e-2,
+            f"train_workflow card vs CPU step: loss rel {loss_rel}, worst gradient rel {worst} "
+            f"({leaf})")
+    return {"samples": TW_CPU["samples"], "iters": TW_CPU["iters"],
+            "objects": int(len(batch["labels"])),
+            "loss_card": float(logs["cuda"]["loss"]), "loss_cpu": float(logs["cpu"]["loss"]),
+            "loss_rel_diff": loss_rel, "worst_grad_rel_l2": worst, "worst_leaf": leaf}
+
+
+def _idle_share(probe) -> dict:
+    """The device's idle share over the traced steps: 1 - (the union of the
+    kernels' intervals) / (the host clock's window)."""
+    spans = sorted((e.time_range.start, e.time_range.end) for e in probe.prof.events()
+                   if e.device_type == torch.autograd.DeviceType.CUDA)
+    busy_us, end = 0.0, -math.inf
+    for a, b in spans:
+        if b > end:
+            busy_us += b - max(a, end)
+            end = b
+    t0 = probe.window["trace_start"]
+    t1 = probe.window[TW_WARMUP + TW_MEASURED][0]
+    window_ms = 1e3 * (t1 - t0)
+    return {"traced_steps": TW_TRACED, "kernels": len(spans), "window_ms": window_ms,
+            "kernel_union_ms": busy_us / 1e3,
+            "idle_share": (1.0 - busy_us / 1e3 / window_ms) if spans else None}
+
+
+def _timed_run(cli, cfg_path: Path, work_dir: Path, mode: str, smi) -> dict:
+    """TW_WARMUP + TW_MEASURED steps of the fp32 recipe with
+    data.worker_mode `mode`: ms per step (host clock over the runner loop),
+    samples/s, load ms per step (time blocked in next(data_iter)), device
+    ms per step (CUDA events around the step), the idle share over the
+    last TW_TRACED steps."""
+    probe = _train_probe(timed=True)
+    steps = TW_WARMUP + TW_MEASURED
+    cli.train_main([str(cfg_path), "--work-dir", str(work_dir), "--max-iters", str(steps),
+                    "--cfg-options", f"data.worker_mode={mode}", "evaluation.interval=100000",
+                    "checkpoint_config.interval=100000"], extra_hooks=[probe])
+    _probe_checks(probe, f"timed {mode}", {"K1": ITERS, "K1b": ITERS, "K2": 1})
+    (ta, sa), (tb, sb) = probe.window[TW_WARMUP], probe.window[TW_WARMUP + TW_MEASURED]
+    measured = probe.events[TW_WARMUP:TW_WARMUP + TW_MEASURED]
+    ms = 1e3 * (tb - ta) / TW_MEASURED
+    line = {"phase": f"train_workflow_{mode}", "worker_mode": mode, "workers": 8,
+            "batch": TRAIN_BATCH, "measured_steps": TW_MEASURED, "ms_per_step": ms,
+            "samples_per_s": TRAIN_BATCH * 1e3 / ms,
+            "load_ms_per_step": 1e3 * (sb["load"] - sa["load"]) / TW_MEASURED,
+            "put_ms_per_step": 1e3 * (sb["put"] - sa["put"]) / TW_MEASURED,
+            "launch_ms_per_step": 1e3 * (sb["step"] - sa["step"]) / TW_MEASURED,
+            "device_ms_per_step": statistics.mean(a.elapsed_time(b) for a, b in measured),
+            **_idle_share(probe), "cpu_count": os.cpu_count(), "card": smi}
+    emit(line)
+    return line
+
+
+def phase_train_workflow(smi, root: Path):
+    """The reference's train workflow (`cli.train_main`, tools/train.py's
+    arguments) on the card from a config that _base_s the shipped model,
+    over the synthetic YCB-V-layout train_real split: fp32 with the
+    checkpoints, evaluation, profiler and TensorBoard hooks, its resume,
+    a card step against a CPU step, bf16, RAFT, then both worker modes
+    timed."""
+    import shutil
+    import warnings
+
+    from scflow_tpu_torch import cli
+    from scflow_tpu_torch.config import Config
+    from scflow_tpu_torch.runtime.checkpoint import read_checkpoint
+
+    work = root / "build" / "train_workflow"
+    shutil.rmtree(work, ignore_errors=True)
+    work.mkdir(parents=True)
+    launches = {}
+    try:
+        t0 = time.perf_counter()
+        dev = torch.device("cuda", 0)
+        _workflow_scene(work / "ycbv", dev, TW_TRAIN_IMAGES, seed=1, split="train_real")
+        _workflow_scene(work / "ycbv", dev, WF_IMAGES, seed=0, split="test")
+        (work / "ycbv" / "image_lists" / "val.txt").write_text(
+            "\n".join(f"{WF_SEQ:06d}/rgb/{i:06d}.png" for i in range(TW_VAL_IMAGES)))
+        scene_s = time.perf_counter() - t0
+        cfg_path = _train_workflow_config(work, root, "scflow.py")
+        cfg = Config.fromfile(str(cfg_path))
+        shipped = Config.fromfile(str(root / "configs" / "refine_models" / "scflow.py"))
+        require(cfg.model.decoder.iters == ITERS and tuple(cfg.model.renderer.image_size)
+                == (IMG, IMG) and cfg.data.samples_per_gpu == TRAIN_BATCH
+                and cfg.data.workers_per_gpu == 8 and "worker_mode" not in cfg.data
+                and cfg.optimizer == shipped.optimizer and cfg.lr_config == shipped.lr_config
+                and cfg.optimizer_config == shipped.optimizer_config
+                and [t["type"] for t in cfg.data.train.pipeline]
+                == [t["type"] for t in shipped.data.train.pipeline], "the shipped recipe")
+
+        # fp32: 30 steps, the hooks at their intervals
+        wd = work / "fp32"
+        probe = _train_probe()
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            t0 = time.perf_counter()
+            runner = cli.train_main([str(cfg_path), "--work-dir", str(wd), "--max-iters",
+                                     str(TW_ITERS), "--profile-steps", "3", "--cfg-options",
+                                     TW_FAST], extra_hooks=[probe])
+            run_s = time.perf_counter() - t0
+        fp32 = _probe_checks(probe, "fp32", {"K1": ITERS, "K1b": ITERS, "K2": 1}, falling=5)
+        launches["fp32"] = fp32["launches_per_step"]
+        ckpts = sorted(p.name for p in (wd / "checkpoints").glob("*.pth"))
+        every = TW_INTERVALS["checkpoint"]
+        require({f"iter_{n}.pth" for n in range(every, TW_ITERS + 1, every)} <= set(ckpts),
+                f"checkpoints {ckpts}")
+        for name in ("eval_history.json", "best.json", "best_ckpt.pth"):
+            require((wd / name).exists(), f"{name} written")
+        history = json.loads((wd / "eval_history.json").read_text())
+        traces = sorted(str(p.relative_to(wd)) for p in (wd / "profile").glob("*.json"))
+        require(traces, "a profiler trace")
+        tb_files = sorted(p.name for p in (wd / "tb").glob("events.*")) if (wd / "tb").exists() \
+            else []
+        tb_warned = [str(w.message) for w in caught if "TensorboardHook disabled" in str(w.message)]
+        require(tb_files or tb_warned, "TensorBoard event files, or the hook's warning")
+        log, lines = _log_lines(wd)
+        emit({"phase": "train_workflow_fp32", **fp32, "seconds": run_s, "scene_s": scene_s,
+              "its_per_s_logged": _its_per_s(lines), "checkpoints": ckpts,
+              "eval_history": [{"step": h["step"], "average/add_10":
+                                h["metrics"].get("average/add_10")} for h in history],
+              "best": json.loads((wd / "best.json").read_text()), "profile": traces,
+              "tensorboard_files": tb_files, "tensorboard_warning": tb_warned[:1],
+              "first_lr": probe.lrs[0], "card": smi})
+        del runner
+
+        # resume from iter 30 to 40: the weights bit for bit, the schedule's lr
+        probe = _train_probe()
+        runner = cli.train_main([str(cfg_path), "--work-dir", str(wd), "--resume",
+                                 "--max-iters", str(TW_RESUME_ITERS), "--cfg-options", TW_FAST],
+                                extra_hooks=[probe])
+        saved = read_checkpoint(str(wd / "checkpoints" / f"iter_{TW_ITERS}.pth"))["state_dict"]
+        require(probe.start_step == TW_ITERS and set(saved) == set(probe.start_weights)
+                and all(torch.equal(saved[k], v) for k, v in probe.start_weights.items()),
+                "resumed weights equal iter_30.pth bit for bit")
+        log2, lines2 = _log_lines(wd)
+        require(log2 != log and any(f"Resumed from iter {TW_ITERS}" in ln for ln in lines2)
+                and any(f"Start training: iter {TW_ITERS} -> {TW_RESUME_ITERS}" in ln
+                        for ln in lines2), f"resume log lines in {log2.name}")
+        want_lr = runner.lr_schedule(TW_ITERS)  # the 31st step's (0-based count 30)
+        require(probe.lrs[0] == want_lr, f"first resumed lr {probe.lrs[0]} vs {want_lr}")
+        resumed = _probe_checks(probe, "resume", {"K1": ITERS, "K1b": ITERS, "K2": 1})
+        emit({"phase": "train_workflow_resume", **resumed, "first_lr": probe.lrs[0],
+              "schedule_lr_step_31": want_lr, "card": smi})
+        del runner
+
+        cpu = _train_card_vs_cpu_cfg(cfg_path)
+        emit({"phase": "train_workflow_card_vs_cpu", **cpu, "card": smi})
+
+        # bf16, then RAFT, each from its own work dir
+        probe = _train_probe()
+        cli.train_main([str(cfg_path), "--work-dir", str(work / "bf16"), "--max-iters",
+                        str(TW_BF16_ITERS), "--cfg-options", "model.dtype=bfloat16", TW_FAST],
+                       extra_hooks=[probe])
+        bf16 = _probe_checks(probe, "bf16", {"K1_bf16": ITERS, "K1b_bf16": ITERS, "K2": 1},
+                             falling=3)
+        launches["bf16"] = bf16["launches_per_step"]
+        emit({"phase": "train_workflow_bf16", **bf16, "card": smi})
+        probe = _train_probe()
+        raft_cfg = _train_workflow_config(work, root, "raft.py")
+        cli.train_main([str(raft_cfg), "--work-dir", str(work / "raft"), "--max-iters",
+                        str(TW_RAFT_ITERS), "--cfg-options", TW_FAST], extra_hooks=[probe])
+        raft = _probe_checks(probe, "raft", {"K1": RAFT_ITERS, "K1b": RAFT_ITERS, "K2": 1})
+        launches["raft"] = raft["launches_per_step"]
+        emit({"phase": "train_workflow_raft", **raft, "card": smi})
+
+        for mode in ("thread", "process"):
+            _timed_run(cli, cfg_path, work / f"timed_{mode}", mode, smi)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    return launches
+
+
+PHASE_GROUPS = ("lookup", "raster", "slice", "raft", "options", "workflow",
+                "train_workflow")
 
 
 def run_phase_groups(groups, dev, ptxas, smi, root: Path) -> None:
@@ -2819,6 +3232,8 @@ def run_phase_groups(groups, dev, ptxas, smi, root: Path) -> None:
             phase_raft_all(smi)
         elif group == "workflow":
             phase_workflow(smi, root)
+        elif group == "train_workflow":
+            phase_train_workflow(smi, root)
         else:
             phase_raft_small(smi)
             phase_scflow_options(smi, shipped)
@@ -2877,6 +3292,8 @@ def main() -> int:
     del fp32_slice
     # launches per image of each workflow run (the main path of test_main)
     wf_launches = phase_workflow(smi, args.root.resolve())
+    # launches per step of each train_workflow run (the main path of train_main)
+    tw_launches = phase_train_workflow(smi, args.root.resolve())
     src = "scflow_tpu_torch/csrc/"
     tpu = "scflow_tpu/ops/pallas/"
     table = [
@@ -2912,9 +3329,12 @@ def main() -> int:
         return {"radius_3": {**res[f"{key}_r3"], "launches": got}}
 
     def workflow(key):
-        """The key's launches per image in each workflow run."""
+        """The key's launches per image in each workflow run, and per step
+        in each train_workflow run."""
         got = {run: n[key] for run, n in wf_launches.items() if key in n}
-        return {"workflow_launches_per_image": got} if got else {}
+        steps = {run: n[key] for run, n in tw_launches.items() if key in n}
+        return {**({"workflow_launches_per_image": got} if got else {}),
+                **({"train_workflow_launches_per_step": steps} if steps else {})}
 
     emit({"kernels": [
         {"name": f"{key} {fn}", "route": "cuda", "source": src + file, "replaces": tpu + where,

@@ -1,21 +1,23 @@
-"""Config-driven builders of the test workflow: config dict -> render
-assets, model weights, the inference call and the evaluation callable.  The
-port's copy of the test side of scflow_tpu/apis.py (used by cli.test_main);
-the train side (load_init_weights, make_train_step_from_cfg) comes with the
-train workflow."""
+"""Config-driven builders of the test and train workflows: config dict ->
+render and loss assets, model weights (seeded, pretrained, or from a
+checkpoint), the inference call, the train step, the evaluation callable
+and the TensorBoard panels.  The port's copy of scflow_tpu/apis.py (used by
+cli.test_main and cli.train_main)."""
 
+import os
 import warnings
-from typing import Dict, Tuple
+from typing import Dict, Optional, Tuple
 
 import numpy as np
 import torch
 
 from scflow_tpu_torch.device import resolve_device
 from scflow_tpu_torch.refiners.build import build_refiner_from_config
-from scflow_tpu_torch.refiners.system import (RenderAssets, make_raft_infer_fn,
-                                              make_scflow_infer_fn)
+from scflow_tpu_torch.refiners.system import (LossAssets, RenderAssets, loss_assets_from_bank,
+                                              make_raft_infer_fn, make_raft_train_step,
+                                              make_scflow_infer_fn, make_scflow_train_step)
 from scflow_tpu_torch.render.meshbank import MeshBank, resolve_cull_backfaces
-from scflow_tpu_torch.runtime.checkpoint import load_params
+from scflow_tpu_torch.runtime.checkpoint import load_params, load_pretrained
 from scflow_tpu_torch.runtime.eval_loop import single_process_test
 from scflow_tpu_torch.runtime.logger import get_logger
 
@@ -28,6 +30,20 @@ def build_render_assets(model_cfg: Dict, device=None) -> Tuple[RenderAssets, Mes
     bank = MeshBank.from_dir(rcfg["mesh_dir"])
     resolve_cull_backfaces(bank, rcfg.get("cull_backfaces"))
     return RenderAssets.from_bank(bank, device=device), bank
+
+
+def build_loss_assets(model_cfg: Dict, num_class: int, device=None) -> Optional[LossAssets]:
+    """The point-matching loss's vertex banks: every vertex of the meshes
+    under pose_loss_cfg.loss_func_cfg.mesh_path, with its mesh_diameter and
+    symmetry_types, on `device` (None: CUDA); None without a mesh_path (a
+    RAFT config).  num_class is accepted for the JAX signature; the
+    symmetry mask covers the bank's classes, as JAX's does."""
+    pcfg = model_cfg.get("pose_loss_cfg", {}).get("loss_func_cfg", {})
+    mesh_path = pcfg.get("mesh_path")
+    if mesh_path is None:
+        return None
+    bank = MeshBank.from_dir(mesh_path, diameters=pcfg.get("mesh_diameter"))
+    return loss_assets_from_bank(bank, pcfg.get("symmetry_types", {}), device=device)
 
 
 def norm_stats_from_cfg(cfg) -> Tuple[Tuple[float, ...], Tuple[float, ...]]:
@@ -67,6 +83,31 @@ def init_model_variables(cfg_model: Dict, model: torch.nn.Module, seed: int = 0,
         fresh = build_refiner_from_config(cfg_model)
     model.load_state_dict(fresh.state_dict())
     return model.to(dev).state_dict()
+
+
+def load_init_weights(cfg_model: Dict, model: torch.nn.Module, logger=None) -> torch.nn.Module:
+    """The config's init_cfg {'type': 'Pretrained', 'checkpoint': PATH} into
+    `model` (checkpoint.load_pretrained: the reference's layout or
+    mmflow's, each key the file and the model share).  A missing file
+    warns and keeps the weights, as the JAX package does (the shipped
+    configs name a file the repo does not hold).  An orbax directory
+    raises: the port reads no orbax (ROADMAP §1, out of scope)."""
+    logger = logger or get_logger()
+    init_cfg = cfg_model.get("init_cfg") or {}
+    path = init_cfg.get("checkpoint")
+    if init_cfg.get("type") != "Pretrained" or not path:
+        return model
+    if not os.path.exists(path):
+        logger.warning(f"init checkpoint {path} not found; using random init")
+        return model
+    if not path.endswith((".pth", ".pt")):
+        raise ValueError(f"init checkpoint {path}: the port reads .pth/.pt files, not orbax "
+                         "directories (ROADMAP §1, out of scope)")
+    logger.info(f"Loading init checkpoint {path}")
+    keys = load_pretrained(path, model)
+    logger.info(f"init checkpoint: {len(keys['missing'])} model keys not in the file, "
+                f"{len(keys['unexpected'])} file keys not in the model")
+    return model
 
 
 def load_eval_checkpoint(path: str, model: torch.nn.Module, logger=None) -> Dict[str, torch.Tensor]:
@@ -152,6 +193,51 @@ def make_infer_from_cfg(cfg, model, render_assets: RenderAssets, image_size=(256
     return infer, pose_from_output
 
 
+def make_train_step_from_cfg(cfg, model, render_assets: RenderAssets,
+                             loss_assets: Optional[LossAssets], image_size=(256, 256),
+                             device=None):
+    """The train step of the config's refiner (JAX's make_train_step_from_cfg):
+    SCFlow with the sequence-loss weights, gamma, disentangle_z and loss
+    type of its pose, flow and mask loss configs; RAFT with its flow and
+    occlusion losses and filter_invalid_flow_by_mask/_by_depth; max_flow,
+    renderer.cull_backfaces, and render_augmentations (which raise: not
+    ported).  As make_infer_from_cfg, the render takes the kernel backend
+    ('pallas') and so does the lookup on a square image ('auto' otherwise)
+    on either device, where JAX's config-built step takes its plain 'xla'
+    lookup: the same function, and a CPU run checks a card run."""
+    mcfg = cfg.model
+    image_size = tuple(image_size)
+    common = dict(image_size=image_size, max_flow=mcfg.get("max_flow", 400.0),
+                  render_augmentations=mcfg.get("render_augmentations"),
+                  render_cull_backfaces=bool(mcfg.get("renderer", {}).get("cull_backfaces",
+                                                                          False)),
+                  render_backend="pallas",
+                  lookup_backend="pallas" if image_size[0] == image_size[1] else "auto",
+                  device=device)
+    if mcfg["type"] == "SCFlowRefiner":
+        pose_lf = mcfg.get("pose_loss_cfg", {}).get("loss_func_cfg", {})
+        flow_lf = mcfg.get("flow_loss_cfg", {}).get("loss_func_cfg", {})
+        mask_lf = mcfg.get("mask_loss_cfg", {}).get("loss_func_cfg", {})
+        loss_kwargs = dict(gamma=mcfg.get("pose_loss_cfg", {}).get("gamma", 0.8),
+                           pose_weight=pose_lf.get("loss_weight", 10.0),
+                           flow_weight=flow_lf.get("loss_weight", 0.1),
+                           mask_weight=mask_lf.get("loss_weight", 10.0),
+                           disentangle_z=pose_lf.get("disentangle_z", True),
+                           pose_loss_type=int(pose_lf.get("loss_type", "l1")[-1]))
+        return make_scflow_train_step(model, render_assets, loss_assets,
+                                      filter_invalid_flow=mcfg.get("filter_invalid_flow", True),
+                                      loss_kwargs=loss_kwargs, **common)
+    flow_lf = mcfg.get("flow_loss_cfg", {}).get("loss_func_cfg", {})
+    occ_lf = mcfg.get("occlusion_loss_cfg", {}).get("loss_func_cfg", {})
+    return make_raft_train_step(
+        model, render_assets,
+        filter_invalid_flow_by_mask=mcfg.get("filter_invalid_flow_by_mask", True),
+        filter_invalid_flow_by_depth=mcfg.get("filter_invalid_flow_by_depth", False),
+        gamma=mcfg.get("flow_loss_cfg", {}).get("gamma", 0.8),
+        flow_weight=flow_lf.get("loss_weight", 1.0),
+        occlusion_weight=occ_lf.get("loss_weight", 100.0), **common)
+
+
 def build_eval_fn(cfg, model, render_assets: RenderAssets, dataset, image_size=(256, 256),
                   device=None):
     """The EvalHook's callable: eval_fn(state) -> flat metric dict, for a
@@ -169,3 +255,59 @@ def build_eval_fn(cfg, model, render_assets: RenderAssets, dataset, image_size=(
 
     return eval_fn
 
+
+
+def build_tb_image_fn(cfg, model, render_assets: RenderAssets, image_size=(256, 256),
+                      device=None):
+    """The TensorboardHook's image_fn(runner) -> {name: (H, W, 3) float image}:
+    panels of the first sample of the runner's last batch (reference
+    TensorboardImgLoggerHook with base_refiner.add_vis_images): the real
+    image, the predicted flow and mask (make_infer_from_cfg, slim=False),
+    the rendered image forward-warped by the predicted flow, and the gt
+    flow.  As the JAX package's, the gt flow is computed from a zero depth
+    map (ROADMAP §3)."""
+    from scflow_tpu_torch.geometry import flow_from_pose_and_depth
+    from scflow_tpu_torch.refiners.system import render_and_normalize
+    from scflow_tpu_torch.visualize import flow2rgb, simple_forward_warp
+
+    infer, _ = make_infer_from_cfg(cfg, model, render_assets, image_size, device=device)
+    norm_mean = np.asarray(cfg.get("normalize_mean", [0.0, 0.0, 0.0]))
+    norm_std = np.asarray(cfg.get("normalize_std", [255.0, 255.0, 255.0]))
+    max_flow = cfg.model.get("max_flow", 400.0)
+
+    def image_fn(runner):
+        batch = runner.last_batch
+        if batch is None:
+            return {}
+        out = {k: v.detach().float().cpu().numpy() for k, v in infer(batch).items()
+               if isinstance(v, torch.Tensor)}
+        imgs = {}
+        real = batch["real_images"][0].float().cpu().numpy()
+        imgs["train/real_image"] = np.clip((real * norm_std + norm_mean) / 255.0, 0, 1)
+        if "flow" in out:
+            imgs["train/pred_flow"] = flow2rgb(out["flow"][0], unknown_thr=max_flow - 1)
+        if "masks" in out:
+            imgs["train/pred_mask"] = np.repeat(out["masks"][0][..., None], 3, axis=-1)
+        sel = {k: torch.as_tensor(batch[k][:1]) for k in
+               ("ref_rotations", "ref_translations", "k", "labels", "gt_rotations",
+                "gt_translations") if k in batch}
+        if "flow" in out:
+            with torch.no_grad():
+                rendered, _, rmasks = render_and_normalize(
+                    render_assets, sel["ref_rotations"], sel["ref_translations"], sel["k"],
+                    sel["labels"].long(), tuple(image_size), tuple(norm_mean), tuple(norm_std),
+                    chunk=1)
+            disp = np.clip((rendered[0].cpu().numpy() * norm_std + norm_mean) / 255.0, 0, 1)
+            imgs["train/warped_render"] = simple_forward_warp(disp, out["flow"][0],
+                                                              rmasks[0].cpu().numpy())
+        if "gt_rotations" in sel:
+            with torch.no_grad():
+                gt_flow = flow_from_pose_and_depth(
+                    sel["ref_rotations"], sel["ref_translations"], sel["gt_rotations"],
+                    sel["gt_translations"],
+                    torch.zeros((1,) + tuple(image_size), device=sel["k"].device), sel["k"],
+                    invalid_num=max_flow)
+            imgs["train/gt_flow"] = flow2rgb(gt_flow[0].cpu().numpy(), unknown_thr=max_flow - 1)
+        return imgs
+
+    return image_fn

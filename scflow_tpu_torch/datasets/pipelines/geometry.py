@@ -285,3 +285,26 @@ class RemapPose:
         results["geometry_transform_mode"] = self.mode
         return results
 
+
+
+@PIPELINES.register_module("ProjectKeypoints")
+class ProjectKeypoints:
+    """gt_keypoints_3d (per object, in the object's frame) projected under
+    the gt pose and k: gt_keypoints_2d and gt_keypoints_3d_camera, float32.
+    clip_border is accepted for config compatibility; neither package
+    clips."""
+
+    def __init__(self, clip_border=False):
+        self.clip_border = clip_border
+
+    def __call__(self, results):
+        kp3d = results["gt_keypoints_3d"]
+        R, t, k = results["gt_rotations"], results["gt_translations"], results["k"]
+        kp2d, kp3c = [], []
+        for i in range(len(R)):
+            p2, p3 = project_3d_point(kp3d[i], k[i], R[i], t[i], return_3d=True)
+            kp2d.append(p2)
+            kp3c.append(p3)
+        results["gt_keypoints_2d"] = np.stack(kp2d).astype(np.float32)
+        results["gt_keypoints_3d_camera"] = np.stack(kp3c).astype(np.float32)
+        return results

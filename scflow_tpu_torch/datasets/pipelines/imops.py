@@ -1,6 +1,8 @@
 """Image helpers of the data pipeline without cv2 (the card's machine has
 none): a PNG codec on zlib and numpy (imread, imwrite), cv2's INTER_LINEAR
-resize on uint8 images (imresize, imrescale) and the crop and pad helpers.
+resize on uint8 images (imresize, imrescale), the crop and pad helpers,
+and for the colour transforms cv2's uint8 BGR<->HSV conversions (bgr2hsv,
+hsv2bgr) and box filter (blur).
 The port's copy of scflow_tpu/datasets/pipelines/imops.py, whose resize and
 reads are cv2's.
 
@@ -302,3 +304,86 @@ def impad(img: np.ndarray, padding: Tuple[int, int, int, int], pad_val=0):
     return np.pad(
         img, ((top, bottom), (left, right), (0, 0)), constant_values=pad_val
     )
+
+
+# cv2's uint8 BGR <-> HSV (COLOR_BGR2HSV / COLOR_HSV2BGR, hue in [0, 180)):
+# the forward conversion in cv2's 12-bit fixed point with the division
+# tables it builds once (RGB2HSV_b); the inverse in float32 with the fused
+# multiply-adds of cv2's code, where cv2 truncates the result to uint8 for
+# the pixels its vector loop takes (each row's first 32 x floor(W / 32))
+# and rounds it to nearest for the rest of the row.  Both equal cv2 5.0's
+# on every one of the 2^24 inputs, in both kinds of column
+# (tests/test_torch_train_pipelines.py).
+_HSV_BLOCK = 32  # pixels per step of cv2's vector loop
+_HSV_SHIFT = 12
+_HSV_HALF = 1 << (_HSV_SHIFT - 1)
+_DIV = np.arange(1, 256, dtype=np.float64)
+_SDIV = np.concatenate([[0], np.rint((255 << _HSV_SHIFT) / _DIV)]).astype(np.int64)
+_HDIV = np.concatenate([[0], np.rint((180 << _HSV_SHIFT) / (6.0 * _DIV))]).astype(np.int64)
+del _DIV
+
+
+def bgr2hsv(img: np.ndarray) -> np.ndarray:
+    """cv2.cvtColor(img, cv2.COLOR_BGR2HSV) for a uint8 (..., 3) image."""
+    if img.dtype != np.uint8 or img.shape[-1] != 3:
+        raise ValueError(f"bgr2hsv takes uint8 (..., 3) images, got {img.dtype} {img.shape}")
+    b, g, r = (img[..., i].astype(np.int64) for i in range(3))
+    v = np.maximum(np.maximum(b, g), r)
+    diff = v - np.minimum(np.minimum(b, g), r)
+    s = (diff * _SDIV[v] + _HSV_HALF) >> _HSV_SHIFT
+    h = np.where(v == r, g - b, np.where(v == g, b - r + 2 * diff, r - g + 4 * diff))
+    h = (h * _HDIV[diff] + _HSV_HALF) >> _HSV_SHIFT
+    h = np.where(h < 0, h + 180, h)
+    return np.stack([h, s, v], axis=-1).astype(np.uint8)
+
+
+# (b, g, r) rows of cv2's sector table, indices into (v, p, q, t)
+_SECTORS = np.array([[1, 3, 0], [1, 0, 2], [3, 0, 1], [0, 2, 1], [0, 1, 3], [2, 1, 0]])
+
+
+def _fma32(a: np.ndarray, b: np.ndarray, c) -> np.ndarray:
+    """float32 a * b + c rounded once: the product of two float32 values is
+    exact in float64, and the sum's float64 rounding never decides the
+    float32 result on this function's inputs (checked on all of them)."""
+    return (a.astype(np.float64) * b + c).astype(np.float32)
+
+
+def hsv2bgr(img: np.ndarray) -> np.ndarray:
+    """cv2.cvtColor(img, cv2.COLOR_HSV2BGR) for a uint8 (..., W, 3) image (rows
+    of W pixels; a (3,) pixel is a row of one)."""
+    if img.dtype != np.uint8 or img.shape[-1] != 3:
+        raise ValueError(f"hsv2bgr takes uint8 (..., 3) images, got {img.dtype} {img.shape}")
+    f32 = np.float32
+    h = img[..., 0].astype(f32) * f32(6.0 / 180.0)
+    s = img[..., 1].astype(f32) * f32(1.0 / 255.0)
+    v = img[..., 2].astype(f32) * f32(1.0 / 255.0)
+    pre = np.trunc(h)
+    h = h - pre
+    sector = (pre - np.trunc(pre * f32(1.0 / 6.0)) * f32(6.0)).astype(np.int64)
+    one = f32(1.0)
+    tab = np.stack([v, v * (one - s), v * _fma32(-s, h, 1.0), v * _fma32(-s, one - h, 1.0)],
+                   axis=-1)
+    bgr = np.take_along_axis(tab, _SECTORS[sector], axis=-1) * f32(255.0)
+    width = img.shape[-2] if img.ndim > 1 else 1
+    vector = np.arange(width) < width - width % _HSV_BLOCK
+    out = np.where(vector[:, None], np.trunc(bgr), np.rint(bgr))
+    return np.clip(out, 0, 255).astype(np.uint8)
+
+
+def blur(img: np.ndarray, k: int) -> np.ndarray:
+    """cv2.blur(img, (k, k)) for a uint8 image (H, W[, C]) and an odd k: the
+    mean over each k x k window, the border reflected without repeating
+    the edge (cv2's BORDER_REFLECT_101, numpy's 'reflect'), rounded to
+    nearest.  cv2 rounds the float32 product sum * (1/k^2); for odd k that
+    equals the integer (sum + k^2 // 2) // k^2 at every possible sum."""
+    if img.dtype != np.uint8 or k < 1 or k % 2 == 0:
+        raise ValueError(f"blur takes a uint8 image and an odd k, got {img.dtype}, {k}")
+    if k == 1:
+        return img.copy()
+    r = k // 2
+    tail = [(0, 0)] * (img.ndim - 2)
+    x = np.pad(img.astype(np.int64), [(r, r), (r, r)] + tail, mode="reflect")
+    c = np.pad(np.cumsum(np.cumsum(x, axis=0), axis=1), [(1, 0), (1, 0)] + tail)
+    s = c[k:, k:] - c[:-k, k:] - c[k:, :-k] + c[:-k, :-k]
+    d = k * k
+    return ((s + d // 2) // d).astype(np.uint8)

@@ -6,9 +6,6 @@ refinement on the keypoints' projections (refine_pose_lm), where the JAX package
 EPnP; the host RANSAC (pnp.solve_pnp_ransac) stays with pnp.py."""
 
 import numpy as np
-import torch
-
-
 
 
 def project_3d_point(pt3d, K, rotation, translation, transform_matrix=None,
@@ -96,6 +93,8 @@ def remap_pose(srcK, srcR, srcT, pt3d, dstK, transform_M):
     (refine_pose_lm), which no pose the EPnP solve returns can beat.  Where
     the transform is not a camera motion (a crop scaled under the same K)
     no pose fits exactly, and the two solves differ (see the tests)."""
+    import torch
+
     from scflow_tpu_torch.pnp import pnp_dlt
 
     dst_2d = project_3d_point(pt3d, srcK, srcR, srcT, transform_matrix=transform_M)

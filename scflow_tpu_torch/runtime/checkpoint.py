@@ -179,3 +179,44 @@ class CheckpointManager:
             with open(self._best_path, "w") as f:
                 json.dump({"metric": metric_name, "value": value, "step": step}, f)
         return better
+
+
+def duplicate_mmflow_encoder(sd: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+    """mmflow's RAFT checkpoint layout in the reference's names
+    (tools/mmflow_ckpt_converter.py:29-41, the JAX package's
+    runtime/convert_torch.py::duplicate_mmflow_encoder): 'encoder.*' becomes
+    both 'real_encoder.*' and 'render_encoder.*', 'cxt_encoder.*' becomes
+    'context.*'; every other key stays."""
+    out = {}
+    for k, v in sd.items():
+        if k.startswith("encoder."):
+            out[_REAL + k[len("encoder."):]] = v
+            out[_SHARED + k[len("encoder."):]] = v
+        elif k.startswith("cxt_encoder."):
+            out["context." + k[len("cxt_encoder."):]] = v
+        else:
+            out[k] = v
+    return out
+
+
+def load_pretrained(path: str, model: torch.nn.Module) -> Dict[str, list]:
+    """A config's init_cfg 'Pretrained' checkpoint into `model`, as the JAX
+    package converts one with strict=False: a file without 'real_encoder.*'
+    keys is read in mmflow's layout (duplicate_mmflow_encoder); each model
+    key the file holds is loaded, a shape that differs raises ValueError,
+    the model's other keys keep their values and the file's other keys
+    (mmflow's own decoder, say) are ignored.  Returns {'missing': model
+    keys not in the file, 'unexpected': file keys not in the model}."""
+    sd = read_checkpoint(path)["state_dict"]
+    if not any(k.startswith(_REAL) for k in sd):
+        sd = duplicate_mmflow_encoder(sd)
+    want = model.state_dict()
+    sd = _drop_shared_copy(sd, want, path)
+    mismatched = [(k, tuple(v.shape), tuple(want[k].shape)) for k, v in sd.items()
+                  if k in want and v.shape != want[k].shape]
+    if mismatched:
+        raise ValueError(f"{path} does not fit the model: mismatched (key, file, model) "
+                         f"{mismatched}")
+    model.load_state_dict({k: sd.get(k, v) for k, v in want.items()})
+    return {"missing": sorted(k for k in want if k not in sd),
+            "unexpected": sorted(k for k in sd if k not in want)}

@@ -164,9 +164,14 @@ def test_cli_module_runs_the_test_command(runs, tmp_path):
                        cwd=str(REPO), env=env, capture_output=True, text=True, timeout=300)
     assert r.returncode == 0, r.stderr[-3000:]
     assert "1 images in" in r.stderr and len(_load(tmp_path / "one.json")) == 1
+    # train is ported (tests/test_torch_train_e2e.py): without a card it needs
+    # --device cpu; serve is not ported and names its ROADMAP item
     r = subprocess.run([sys.executable, "-m", "scflow_tpu_torch.cli", "train", str(cfg_path)],
                        cwd=str(REPO), env=env, capture_output=True, text=True, timeout=300)
-    assert r.returncode != 0 and "7b" in r.stderr
+    assert r.returncode != 0 and "no CUDA device is available" in r.stderr
+    r = subprocess.run([sys.executable, "-m", "scflow_tpu_torch.cli", "serve", str(cfg_path)],
+                       cwd=str(REPO), env=env, capture_output=True, text=True, timeout=300)
+    assert r.returncode != 0 and "item 9" in r.stderr
 
 
 def test_test_main_leaves_torch_rng_alone(runs):
