@@ -9,7 +9,7 @@ given, of the package in DIR (default: this checkout; e.g. an unpacked
 parent commit), without the kernels line: lookup (phases 3, 10 and 11),
 raster (4-7), slice (8), raft (14), options (16 and 17; with slice
 before it, 17 prints its pose difference from the slice's call), workflow
-(18) and train_workflow (19).
+(18), train_workflow (19) and train_pbr (20).
 
 Phases, each printing one JSON line; any failure exits non-zero before the
 last line:
@@ -203,7 +203,17 @@ last line:
                ADD(-S)/REP/AUC equal this script's own numpy computation
                of those poses' errors within 1e-6; (c) each BOP export
                parses back with one entry per object equal to --out; (d)
-               a checkpoint saved from the card loads on the CPU, equal;
+               a checkpoint saved from the card loads on the CPU, equal.
+               Cycled inference: fp32 with --cfg-options
+               model.test_cfg.cycles=2 on 8 images (each refined, re-rendered
+               at its refined pose and refined again): exactly 2 K2 and 16 K1
+               per image, its ms/img, gate (c) on its export, and gate (a)
+               cycle by cycle on the first 4 images' batches: the card's
+               first cycle against the CPU's one-cycle call, the card's
+               cycled output against the CPU's one-cycle call from the
+               card's first-cycle poses (the slice's bounds), and, ungated,
+               the card's against the CPU's whole cycled call (random weights
+               amplify the first cycle's differences in the second);
  19. train_workflow - the reference's train workflow, `cli.train_main`
                (tools/train.py's arguments), on the card from a config that
                _base_s the shipped configs/refine_models/scflow.py and
@@ -241,15 +251,37 @@ last line:
                next(data_iter), device ms per step by CUDA events around
                the step), the last 5 of them traced (the device's idle
                share: 1 - the union of the kernels' intervals over the host
-               window),
-               with os.cpu_count();
+               window), with os.cpu_count(); thread mode (10.9-11.9 s a
+               step) is cut to 1 warm-up and 5 measured steps, all 5 traced;
+ 20. train_pbr - the PBR recipe, `cli.train_main` from a config that _base_s
+               the shipped scflow.py and takes ycbv_mixpbr.py's data.train and
+               batch as they are (a ConcatDataset of train_real and train_pbr
+               at ratios 1:2, batch 24, RandomBackground p=0.3 at index 5 of
+               the pipeline, min_visib_fract 0.2 on the PBR part), the data
+               paths moved to synthetic splits under build/train_pbr/
+               (removed afterwards): phase 19's 48-frame train_real split
+               (PNG), a 48-frame train_pbr split of 640x480 JPEGs (the port's
+               encoder) with PNG visible masks and every third object's
+               visib_fract recorded as 0.1, and a background directory of
+               JPEG and PNG files of COCO-like sizes (one JPEG with EXIF
+               orientation 6).  imread's median ms and the bytes of one
+               rendered frame as PNG, as JPEG, and as JPEG after Gaussian
+               noise of sigma 8 (line "train_pbr_imread"); the patches whose
+               background RandomBackground swapped over 16 samples drawn in
+               this process (at least one); 20 steps with process workers (3
+               warm-up, 17 timed as phase 19's runs, the last 5 traced):
+               exactly 1 K2, 8 K1, 8 K1b per step, finite losses, the mean
+               of the last 5 below that of the first 5; the card step
+               against the CPU step on the loader's first 2 samples (phase
+               19's bounds);
  15. the kernels line (float32 and bf16 instances; "raft_launches": each
      kernel's launches per RAFT call or step; "radius_3": the radius-3
      instance's numbers from phases 3/10/11 and its launches per call or
      step on phases 16 and 17; "workflow_launches_per_image": per image of
-     each workflow run; "train_workflow_launches_per_step": per step of
-     the fp32, bf16 and RAFT train_workflow runs), then the device line the
-     chip harness reads.
+     each workflow run, the cycled one included;
+     "train_workflow_launches_per_step": per step of the fp32, bf16 and
+     RAFT train_workflow runs and of the train_pbr run), then the device
+     line the chip harness reads.
 Imports no JAX.  Needs one card; without one it exits non-zero at once.
 """
 
@@ -260,6 +292,7 @@ import math
 import os
 import re
 import statistics
+import struct
 import subprocess
 import sys
 import time
@@ -2392,6 +2425,7 @@ WF_SEQ = 48  # a YCB-V test scene id (48-59)
 WF_IMAGES, WF_CPU_IMAGES, WF_RAFT_IMAGES = 48, 4, 8
 WF_JITTER = (15.0, 15.0, 15.0, 50.0)  # degrees, x, y, z mm: ycbv_real.py:38-51's PoseJitter
 WF_METRIC = {"add": [0.05, 0.10, 0.20, 0.50], "rep": [2, 5, 10, 20], "auc": []}
+WF_CYCLES, WF_CYCLED_IMAGES = 2, 8  # the cycled run: test_cfg.cycles, images
 
 
 def _write_ply(path: Path, verts, faces, colors) -> None:
@@ -2424,9 +2458,11 @@ def _workflow_scene(root: Path, dev, images: int = WF_IMAGES, seed: int = 0,
     (image_lists/<split>.txt).  split 'test' adds initial poses: the gt
     jittered by up to 15 degrees and 15/15/50 mm (the shipped PoseJitter's
     ranges); 'train_real' adds each object's visible mask as
-    mask_visib/{image}_{object}.png.  The first 4 images hold 3, 3, 4 and
-    4 objects (the CPU gate's 4-object buckets).  Returns the gt, the
-    initial poses and the meshes' vertices."""
+    mask_visib/{image}_{object}.png; 'train_pbr' does too, writes the frames
+    as JPEG (the port's encoder, quality 95, 4:2:0) and records every third
+    object's visib_fract as 0.1 (below ycbv_pbr.py's min_visib_fract 0.2).
+    The first 4 images hold 3, 3, 4 and 4 objects (the CPU gate's 4-object
+    buckets).  Returns the gt, the initial poses and the meshes' vertices."""
     from scflow_tpu_torch.datasets.pipelines.imops import imwrite
     from scflow_tpu_torch.refiners.system import RenderAssets
     from scflow_tpu_torch.render.meshbank import MeshBank, make_synthetic_bank
@@ -2453,7 +2489,9 @@ def _workflow_scene(root: Path, dev, images: int = WF_IMAGES, seed: int = 0,
     K = np.array(YCBV_K, np.float32)
     seq = root / split / f"{WF_SEQ:06d}"
     (seq / "rgb").mkdir(parents=True, exist_ok=True)
-    if split == "train_real":
+    train = split in ("train_real", "train_pbr")
+    ext = "jpg" if split == "train_pbr" else "png"
+    if train:
         (seq / "mask_visib").mkdir(exist_ok=True)
     rng = np.random.default_rng(seed)
     scene_gt, scene_info, scene_cam, scene_init, gt, init = {}, {}, {}, {}, [], []
@@ -2486,9 +2524,9 @@ def _workflow_scene(root: Path, dev, images: int = WF_IMAGES, seed: int = 0,
         rgb = out["images"].cpu().numpy()
         for o in range(n):
             img[visible[o]] = rgb[o][visible[o]]
-        imwrite(str(seq / "rgb" / f"{i:06d}.png"),
+        imwrite(str(seq / "rgb" / f"{i:06d}.{ext}"),
                 np.clip(np.rint(img[..., ::-1] * 255), 0, 255).astype(np.uint8))
-        if split == "train_real":
+        if train:
             for o in range(n):
                 imwrite(str(seq / "mask_visib" / f"{i:06d}_{o:06d}.png"),
                         visible[o].astype(np.uint8) * 255)
@@ -2511,7 +2549,8 @@ def _workflow_scene(root: Path, dev, images: int = WF_IMAGES, seed: int = 0,
                               for o in range(n)]
         scene_info[str(i)] = [dict(bbox_obj=box(full[o]), bbox_visib=box(visible[o]),
                                    px_count_visib=int(visible[o].sum()),
-                                   visib_fract=float(visible[o].sum() / full[o].sum()))
+                                   visib_fract=0.1 if split == "train_pbr" and (i + o) % 3 == 0
+                                   else float(visible[o].sum() / full[o].sum()))
                               for o in range(n)]
         scene_cam[str(i)] = dict(cam_K=K.reshape(-1).tolist(), depth_scale=1.0)
         gt.append((labels, R, t))
@@ -2524,7 +2563,7 @@ def _workflow_scene(root: Path, dev, images: int = WF_IMAGES, seed: int = 0,
         (root / "initial_poses" / f"{WF_SEQ:06d}" / "scene_gt.json").write_text(
             json.dumps(scene_init))
     (root / "image_lists" / f"{split}.txt").write_text(
-        "\n".join(f"{WF_SEQ:06d}/rgb/{i:06d}.png" for i in range(images)))
+        "\n".join(f"{WF_SEQ:06d}/rgb/{i:06d}.{ext}" for i in range(images)))
     return dict(gt=gt, init=init, verts=verts, K=K)
 
 
@@ -2634,13 +2673,14 @@ def _bop_matches_out(save_dir: Path, out_path: Path, n_images: int) -> None:
                     f"BOP image {i} equals --out")
 
 
-def _workflow_run(cli, args, k1: str, iters: int, tag: str, smi, extra=None):
-    """One counted test_main run: its launches (exactly `iters` of k1 and 1
-    K2 per image, nothing else), finite orthonormal poses, and its line."""
+def _workflow_run(cli, args, k1: str, iters: int, tag: str, smi, extra=None, k2: int = 1):
+    """One counted test_main run: its launches (exactly `iters` of k1 and
+    `k2` K2 per image, nothing else), finite orthonormal poses, and its
+    line."""
     res, launches = counted(lambda: cli.test_main(args))
     n_img = len(res["results"])
     n_obj = sum(len(r["pred"]["labels"]) for r in res["results"])
-    require(only(launches, **{k1: iters * n_img, "K2": n_img}),
+    require(only(launches, **{k1: iters * n_img, "K2": k2 * n_img}),
             f"{tag}: launches {launches} for {n_img} images")
     R = np.concatenate([r["pred"]["rotations"] for r in res["results"]])
     t = np.concatenate([r["pred"]["translations"] for r in res["results"]])
@@ -2707,6 +2747,67 @@ def _card_vs_cpu(card, cpu, tag: str, rot_slack: float = 0.0, t_slack: float = 0
     require(rot <= 2e-3 + rot_slack and t_excess <= 0,
             f"(a) {tag} card vs CPU: rot |d| {rot} (slack {rot_slack}), t excess {t_excess}")
     return rot, t_excess
+
+
+def _cycled_card_vs_cpu(cfg_path: Path, ckpt: Path) -> dict:
+    """Gate (a) for cycled inference, cycle by cycle, on the first
+    WF_CPU_IMAGES images' batches (make_infer_from_cfg's calls, as test_main
+    makes them): the card's first cycle against the CPU's one-cycle call on
+    the same batch, and the card's cycled output against the CPU's
+    one-cycle call started from the card's first-cycle poses, each within
+    the slice's bounds (rotations 2e-3, translations 2e-2 + 2e-3 |t|).
+    Also returns, ungated, the largest difference between the card's and
+    the CPU's whole cycled calls: with random weights the second cycle
+    amplifies the first's small differences."""
+    from scflow_tpu_torch.apis import build_render_assets, make_infer_from_cfg
+    from scflow_tpu_torch.config import Config
+    from scflow_tpu_torch.datasets.loader import collate_batch
+    from scflow_tpu_torch.refiners.build import build_refiner_from_config
+    from scflow_tpu_torch.registry import build_dataset
+    from scflow_tpu_torch.runtime.checkpoint import load_params
+
+    cfg = Config.fromfile(str(cfg_path))
+    calls = {}
+    for dev in ("cuda", "cpu"):
+        model = build_refiner_from_config(cfg.model)
+        load_params(str(ckpt), model)
+        assets, _ = build_render_assets(cfg.model, device=dev)
+        for cycles in (1, WF_CYCLES):
+            cfg.merge_from_dict({"model.test_cfg.cycles": cycles})
+            calls[dev, cycles], _ = make_infer_from_cfg(cfg, model, assets, (IMG, IMG),
+                                                        slim=True, device=dev)
+    np.random.seed(0)
+    dataset = build_dataset(cfg.data["test"])
+    worst = {"cycle_1": [0.0, -math.inf], "cycle_2": [0.0, -math.inf],
+             "end_to_end": [0.0, 0.0]}
+
+    def record(key, got, want, bound: bool):
+        R = [v["rotations"].cpu().numpy() for v in (got, want)]
+        t = [v["translations"].cpu().numpy() for v in (got, want)]
+        rot = float(np.abs(R[0] - R[1]).max())
+        dt = np.abs(t[0] - t[1])
+        excess = float((dt - (2e-2 + 2e-3 * np.abs(t[1]))).max()) if bound else float(dt.max())
+        worst[key] = [max(worst[key][0], rot), max(worst[key][1], excess)]
+
+    for idx in range(WF_CPU_IMAGES):
+        batch = collate_batch([dataset[idx]])
+        batch = {k: v for k, v in batch.items() if k not in ("img_metas", "per_img_patch_num")}
+        card1, cardc = calls["cuda", 1](batch), calls["cuda", WF_CYCLES](batch)
+        record("cycle_1", card1, calls["cpu", 1](batch), True)
+        from_card = dict(batch, ref_rotations=card1["rotations"].cpu().numpy(),
+                         ref_translations=card1["translations"].cpu().numpy())
+        record("cycle_2", cardc, calls["cpu", 1](from_card), True)
+        record("end_to_end", cardc, calls["cpu", WF_CYCLES](batch), False)
+    for key in ("cycle_1", "cycle_2"):
+        require(worst[key][0] <= 2e-3 and worst[key][1] <= 0,
+                f"(a) cycled, {key}, card vs CPU: rot |d| {worst[key][0]}, t excess "
+                f"{worst[key][1]}")
+    return {"cycled_cycle_1_rot_max_abs_diff": worst["cycle_1"][0],
+            "cycled_cycle_1_trans_tolerance_excess": worst["cycle_1"][1],
+            "cycled_cycle_2_rot_max_abs_diff": worst["cycle_2"][0],
+            "cycled_cycle_2_trans_tolerance_excess": worst["cycle_2"][1],
+            "cycled_end_to_end_rot_max_abs_diff": worst["end_to_end"][0],
+            "cycled_end_to_end_trans_max_abs_diff": worst["end_to_end"][1]}
 
 
 def phase_workflow(smi, root: Path):
@@ -2778,6 +2879,18 @@ def phase_workflow(smi, root: Path):
         bf16_rot, bf16_excess = _card_vs_cpu(
             _results_of(work / "scflow_bf16.json")[:WF_CPU_IMAGES], cpu16, "bf16",
             2 * d16_rot, 2 * d16_t)
+        # cycled inference (test_cfg.cycles): each image re-rendered at its
+        # refined pose and refined again, on WF_CYCLED_IMAGES images; gate (c)
+        # on its export, gate (a) cycle by cycle on the first 4 images
+        copts = ["--cfg-options", f"model.test_cfg.cycles={WF_CYCLES}"]
+        cli.test_main(base + ["--limit", "1"] + copts)  # warm-up
+        out_json, save_dir = work / "scflow_cycled.json", work / "bop_cycled"
+        _, _, lines["scflow_cycled"] = _workflow_run(
+            cli, base + ["--limit", str(WF_CYCLED_IMAGES), "--eval", "--format-only",
+                         "--save-dir", str(save_dir), "--out", str(out_json)] + copts,
+            "K1", WF_CYCLES * ITERS, "scflow_cycled", smi, {"cycles": WF_CYCLES}, k2=WF_CYCLES)
+        _bop_matches_out(save_dir, out_json, WF_CYCLED_IMAGES)
+        cycled = _cycled_card_vs_cpu(cfg_path, ckpt)
         # gate (b): output weights zero, biases the identity: the initial poses come back
         head = model.decoder.pose_pred
         with torch.no_grad():
@@ -2841,6 +2954,7 @@ def phase_workflow(smi, root: Path):
               "cpu_rot_max_abs_diff": cpu_rot, "cpu_trans_tolerance_excess": t_excess,
               "bf16_cpu_rot_max_abs_diff": bf16_rot, "bf16_cpu_trans_tolerance_excess":
               bf16_excess, "cpu_bf16_to_fp32_rot": d16_rot, "cpu_bf16_to_fp32_trans": d16_t,
+              **cycled,
               "raft_zero_flow_cpu_rot_max_abs_diff": raft_rot,
               "raft_zero_flow_cpu_trans_tolerance_excess": raft_excess,
               "raft_zero_flow_initial_rot_max_abs_diff": raft_init_rot,
@@ -2858,7 +2972,10 @@ def phase_workflow(smi, root: Path):
 
 TW_TRAIN_IMAGES, TW_VAL_IMAGES = 48, 8
 TW_ITERS, TW_RESUME_ITERS, TW_BF16_ITERS, TW_RAFT_ITERS = 30, 40, 10, 5
-TW_WARMUP, TW_MEASURED, TW_TRACED = 3, 20, 5  # per worker mode; the last 5 measured traced
+# timed steps of a worker mode: warm-up, measured, and the last of the measured
+# traced; thread mode (10.9-11.9 s a step) is cut to 1 + 5 to keep the
+# script inside its time limit
+TW_TIMED = {"process": (3, 20, 5), "thread": (1, 5, 5)}
 TW_INTERVALS = dict(log=5, checkpoint=10, evaluation=20)
 TW_CPU = dict(samples=2, iters=3)  # the card-vs-CPU step: the loader's first 2 samples
 # the runs that check the path load in worker processes: with the config's
@@ -2908,14 +3025,15 @@ del _dataset
     return path
 
 
-def _train_probe(timed: bool = False):
+def _train_probe(timed=None):
     """A runner hook (placed before the configured ones, so it sees each
     step first): every kernel count set to 0 before each step and read
     after it, CUDA events around the step, the step's loss (kept on the
     device) and the optimizer's lr, and the weights the run starts from.
-    With `timed`: after TW_WARMUP steps, TW_MEASURED steps timed on the
-    host clock (synchronised at both ends) with the runner's load seconds,
-    the last TW_TRACED of them under torch.profiler (CUDA activity only)."""
+    With `timed` = (warm-up, measured, traced): after the warm-up steps,
+    the measured steps timed on the host clock (synchronised at both ends)
+    with the runner's load seconds, the last `traced` of them under
+    torch.profiler (CUDA activity only)."""
     from scflow_tpu_torch.runtime.checkpoint import reference_state_dict
     from scflow_tpu_torch.runtime.runner import Hook
 
@@ -2923,6 +3041,7 @@ def _train_probe(timed: bool = False):
 
     class Probe(Hook):
         def __init__(self):
+            self.warmup, self.measured, self.traced = timed or (0, 0, 0)
             self.launches, self.events, self.losses, self.lrs = [], [], [], []
             self.start_weights = self.start_step = None
             self.window = {}
@@ -2948,17 +3067,18 @@ def _train_probe(timed: bool = False):
             if not timed:
                 return
             done = runner.step - self.start_step
-            if done in (TW_WARMUP, TW_WARMUP + TW_MEASURED):
+            end = self.warmup + self.measured
+            if done in (self.warmup, end):
                 torch.cuda.synchronize()
                 self.window[done] = (time.perf_counter(), dict(runner.stats))
-            if done == TW_WARMUP + TW_MEASURED - TW_TRACED:
+            if done == end - self.traced:
                 from torch.profiler import ProfilerActivity, profile
 
                 self.prof = profile(activities=[ProfilerActivity.CUDA])
                 torch.cuda.synchronize()
                 self.prof.start()
                 self.window["trace_start"] = time.perf_counter()
-            elif done == TW_WARMUP + TW_MEASURED:
+            elif done == end:
                 self.prof.stop()
 
     return Probe()
@@ -3055,36 +3175,42 @@ def _idle_share(probe) -> dict:
             busy_us += b - max(a, end)
             end = b
     t0 = probe.window["trace_start"]
-    t1 = probe.window[TW_WARMUP + TW_MEASURED][0]
+    t1 = probe.window[probe.warmup + probe.measured][0]
     window_ms = 1e3 * (t1 - t0)
-    return {"traced_steps": TW_TRACED, "kernels": len(spans), "window_ms": window_ms,
+    return {"traced_steps": probe.traced, "kernels": len(spans), "window_ms": window_ms,
             "kernel_union_ms": busy_us / 1e3,
             "idle_share": (1.0 - busy_us / 1e3 / window_ms) if spans else None}
 
 
-def _timed_run(cli, cfg_path: Path, work_dir: Path, mode: str, smi) -> dict:
-    """TW_WARMUP + TW_MEASURED steps of the fp32 recipe with
-    data.worker_mode `mode`: ms per step (host clock over the runner loop),
-    samples/s, load ms per step (time blocked in next(data_iter)), device
-    ms per step (CUDA events around the step), the idle share over the
-    last TW_TRACED steps."""
-    probe = _train_probe(timed=True)
-    steps = TW_WARMUP + TW_MEASURED
-    cli.train_main([str(cfg_path), "--work-dir", str(work_dir), "--max-iters", str(steps),
-                    "--cfg-options", f"data.worker_mode={mode}", "evaluation.interval=100000",
-                    "checkpoint_config.interval=100000"], extra_hooks=[probe])
-    _probe_checks(probe, f"timed {mode}", {"K1": ITERS, "K1b": ITERS, "K2": 1})
-    (ta, sa), (tb, sb) = probe.window[TW_WARMUP], probe.window[TW_WARMUP + TW_MEASURED]
-    measured = probe.events[TW_WARMUP:TW_WARMUP + TW_MEASURED]
-    ms = 1e3 * (tb - ta) / TW_MEASURED
-    line = {"phase": f"train_workflow_{mode}", "worker_mode": mode, "workers": 8,
-            "batch": TRAIN_BATCH, "measured_steps": TW_MEASURED, "ms_per_step": ms,
-            "samples_per_s": TRAIN_BATCH * 1e3 / ms,
-            "load_ms_per_step": 1e3 * (sb["load"] - sa["load"]) / TW_MEASURED,
-            "put_ms_per_step": 1e3 * (sb["put"] - sa["put"]) / TW_MEASURED,
-            "launch_ms_per_step": 1e3 * (sb["step"] - sa["step"]) / TW_MEASURED,
-            "device_ms_per_step": statistics.mean(a.elapsed_time(b) for a, b in measured),
-            **_idle_share(probe), "cpu_count": os.cpu_count(), "card": smi}
+def _timed_run(cli, cfg_path: Path, work_dir: Path, mode: str, smi, timed=None,
+               phase: str = None, batch: int = TRAIN_BATCH, falling: int = 0) -> dict:
+    """`timed` = (warm-up, measured, traced) steps (TW_TIMED[mode] by
+    default) of the config's fp32 recipe with data.worker_mode `mode`: ms
+    per step (host clock over the runner loop), samples/s, load ms per step
+    (time blocked in next(data_iter)), device ms per step (CUDA events
+    around the step), the idle share over the traced steps; exactly 1 K2,
+    8 K1 and 8 K1b per step, finite losses and, with `falling`, falling."""
+    warmup, measured, traced = timed or TW_TIMED[mode]
+    probe = _train_probe(timed=(warmup, measured, traced))
+    phase = phase or f"train_workflow_{mode}"
+    cli.train_main([str(cfg_path), "--work-dir", str(work_dir), "--max-iters",
+                    str(warmup + measured), "--cfg-options", f"data.worker_mode={mode}",
+                    "evaluation.interval=100000", "checkpoint_config.interval=100000"],
+                   extra_hooks=[probe])
+    checks = _probe_checks(probe, phase, {"K1": ITERS, "K1b": ITERS, "K2": 1}, falling)
+    (ta, sa), (tb, sb) = probe.window[warmup], probe.window[warmup + measured]
+    events = probe.events[warmup:warmup + measured]
+    ms = 1e3 * (tb - ta) / measured
+    line = {"phase": phase, "worker_mode": mode, "workers": 8, "batch": batch,
+            "warmup_steps": warmup, "measured_steps": measured, "ms_per_step": ms,
+            "samples_per_s": batch * 1e3 / ms,
+            "load_ms_per_step": 1e3 * (sb["load"] - sa["load"]) / measured,
+            "put_ms_per_step": 1e3 * (sb["put"] - sa["put"]) / measured,
+            "launch_ms_per_step": 1e3 * (sb["step"] - sa["step"]) / measured,
+            "device_ms_per_step": statistics.mean(a.elapsed_time(b) for a, b in events),
+            **_idle_share(probe), "cpu_count": os.cpu_count(),
+            **({k: checks[k] for k in ("loss_first_mean", "loss_last_mean")} if falling else {}),
+            "launches_per_step": checks["launches_per_step"], "card": smi}
     emit(line)
     return line
 
@@ -3208,8 +3334,178 @@ def phase_train_workflow(smi, root: Path):
     return launches
 
 
+# ---- train_pbr: the PBR recipe (configs/refine_datasets/ycbv_mixpbr.py's data) ----
+
+TP_PBR_IMAGES = 48
+TP_STEPS = (3, 17, 5)  # warm-up, measured, traced: 20 steps in process mode
+TP_BATCH = 24  # ycbv_mixpbr.py's samples_per_gpu
+TP_SWAP_SAMPLES = 16
+# background images of other sizes than the frames, as in COCO (one JPEG
+# carries EXIF orientation 6, which imread 'color' applies)
+TP_BACKGROUNDS = (("000000000001.jpg", 427, 640), ("000000000002.jpg", 333, 500),
+                  ("000000000003.png", 480, 640), ("000000000004.png", 375, 500))
+
+
+def _relocated(obj, ycbv: Path, coco: Path):
+    """A plain copy of a config value with the shipped data paths moved to
+    the synthetic set."""
+    if isinstance(obj, dict):
+        return {k: _relocated(v, ycbv, coco) for k, v in obj.items()}
+    if isinstance(obj, (list, tuple)):
+        return type(obj)(_relocated(v, ycbv, coco) for v in obj)
+    if isinstance(obj, str):
+        return obj.replace("data/ycbv", str(ycbv)).replace("data/coco", str(coco))
+    return obj
+
+
+def _exif_orientation_app1(orientation: int) -> bytes:
+    """An APP1 Exif segment holding only IFD0's Orientation tag."""
+    tiff = (b"II" + struct.pack("<HI", 42, 8) + struct.pack("<H", 1)
+            + struct.pack("<HHIH", 0x0112, 3, 1, orientation) + b"\x00\x00"
+            + struct.pack("<I", 0))
+    body = b"Exif\x00\x00" + tiff
+    return b"\xff\xe1" + struct.pack(">H", len(body) + 2) + body
+
+
+def _pbr_backgrounds(coco: Path) -> None:
+    """TP_BACKGROUNDS, colour ramps with noise, by the port's imwrite."""
+    from scflow_tpu_torch.datasets.pipelines.imops import imwrite
+
+    coco.mkdir(parents=True)
+    rng = np.random.default_rng(11)
+    for i, (name, h, w) in enumerate(TP_BACKGROUNDS):
+        y, x = np.mgrid[:h, :w]
+        img = np.stack([x * 255 // w, y * 255 // h, (x * (i + 1) + y) % 256], -1)
+        img = np.clip(img + rng.normal(0, 12, img.shape), 0, 255).astype(np.uint8)
+        imwrite(str(coco / name), img)
+    first = coco / TP_BACKGROUNDS[0][0]
+    data = first.read_bytes()
+    first.write_bytes(data[:2] + _exif_orientation_app1(6) + data[2:])
+
+
+def _train_pbr_config(root: Path, repo: Path) -> Path:
+    """A config that _base_s the shipped configs/refine_models/scflow.py and
+    takes configs/refine_datasets/ycbv_mixpbr.py's data.train (a
+    ConcatDataset of train_real and train_pbr at ratios 1:2, RandomBackground
+    p=0.3 at index 5 of the pipeline, min_visib_fract 0.2 on the PBR part)
+    and samples_per_gpu (24) as they are, the data paths moved to the
+    synthetic set; the val set, meshes, work_dir and intervals as
+    _train_workflow_config has them."""
+    from scflow_tpu_torch.config import Config
+
+    mix = Config.fromfile(str(repo / "configs" / "refine_datasets" / "ycbv_mixpbr.py"))
+    train = _relocated(mix.data["train"], root / "ycbv", root / "coco")
+    train["_delete_"] = True
+    path = root / "train_pbr_scflow.py"
+    base = _train_workflow_config(root, repo, "scflow.py").read_text()
+    path.write_text(base + f"""data["samples_per_gpu"] = {mix.data["samples_per_gpu"]}
+data["train"] = {train!r}
+evaluation = dict(interval=100000)
+checkpoint_config = dict(interval=100000)
+""")
+    return path
+
+
+def _background_swaps(cfg_path: Path) -> dict:
+    """Patches whose background RandomBackground swapped, counted in this
+    process over TP_SWAP_SAMPLES samples of the config's train set (every
+    k-th index, so both parts are drawn)."""
+    import random as pyrandom
+
+    from scflow_tpu_torch.config import Config
+    from scflow_tpu_torch.datasets.pipelines.color import RandomBackground
+    from scflow_tpu_torch.registry import build_dataset
+
+    dataset = build_dataset(Config.fromfile(str(cfg_path)).data["train"])
+    seen = {"patches": 0, "swapped": 0}
+    for part in dataset.datasets:
+        for t in part.transformer.transforms:
+            if isinstance(t, RandomBackground):
+                def counting(img, mask=None, _augment=t.augment):
+                    out = _augment(img, mask)
+                    seen["patches"] += 1
+                    seen["swapped"] += out is not img
+                    return out
+
+                t.augment = counting
+    pyrandom.seed(0)
+    np.random.seed(0)
+    step = max(len(dataset) // TP_SWAP_SAMPLES, 1)
+    for i in range(TP_SWAP_SAMPLES):
+        dataset[i * step]
+    return seen
+
+
+def _imread_times(frame_png: Path, work: Path) -> dict:
+    """imread ms (median of 5 after one read) and bytes of a rendered
+    640x480 frame as PNG, as JPEG (the port's encoder, quality 95), and as
+    JPEG after Gaussian noise of sigma 8."""
+    from scflow_tpu_torch.datasets.pipelines.imops import imread, imwrite
+
+    frame = imread(str(frame_png), "unchanged")
+    noisy = np.clip(frame + np.random.default_rng(3).normal(0, 8, frame.shape), 0, 255)
+    files = {"png": frame_png, "jpeg_smooth": work / "smooth.jpg",
+             "jpeg_noisy": work / "noisy.jpg"}
+    imwrite(str(files["jpeg_smooth"]), frame)
+    imwrite(str(files["jpeg_noisy"]), noisy.astype(np.uint8))
+    out = {}
+    for name, path in files.items():
+        imread(str(path), "unchanged")
+        times = []
+        for _ in range(5):
+            t0 = time.perf_counter()
+            imread(str(path), "unchanged")
+            times.append(1e3 * (time.perf_counter() - t0))
+        out[name] = {"ms": statistics.median(times), "bytes": path.stat().st_size}
+    return out
+
+
+def phase_train_pbr(smi, root: Path):
+    """The PBR recipe: `cli.train_main` on the card from a config with the
+    shipped scflow.py model and ycbv_mixpbr.py's data (train_real PNG and
+    train_pbr JPEG frames at 1:2, batch 24, RandomBackground p=0.3) over
+    synthetic splits of TW_TRAIN_IMAGES and TP_PBR_IMAGES 640x480 frames
+    and a background directory: 20 steps with process workers, timed as
+    train_workflow's runs are (1 K2, 8 K1, 8 K1b per step, the loss
+    falling); a card step against a CPU step on the loader's first
+    samples; the background swaps; imread's times on JPEG and PNG."""
+    import shutil
+
+    from scflow_tpu_torch import cli
+
+    work = root / "build" / "train_pbr"
+    shutil.rmtree(work, ignore_errors=True)
+    work.mkdir(parents=True)
+    try:
+        t0 = time.perf_counter()
+        dev = torch.device("cuda", 0)
+        ycbv = work / "ycbv"
+        _workflow_scene(ycbv, dev, TW_TRAIN_IMAGES, seed=1, split="train_real")
+        _workflow_scene(ycbv, dev, TP_PBR_IMAGES, seed=2, split="train_pbr")
+        _workflow_scene(ycbv, dev, TW_VAL_IMAGES, seed=0, split="test")
+        (ycbv / "image_lists" / "val.txt").write_text(
+            "\n".join(f"{WF_SEQ:06d}/rgb/{i:06d}.png" for i in range(TW_VAL_IMAGES)))
+        _pbr_backgrounds(work / "coco")
+        scene_s = time.perf_counter() - t0
+        cfg_path = _train_pbr_config(work, root)
+        decode = _imread_times(ycbv / "train_real" / f"{WF_SEQ:06d}" / "rgb" / "000000.png",
+                               work)
+        emit({"phase": "train_pbr_imread", "frame": [FRAME_H, FRAME_W], **decode,
+              "scene_s": scene_s, "card": smi})
+        swaps = _background_swaps(cfg_path)
+        require(swaps["swapped"] >= 1, f"train_pbr: a background swapped ({swaps})")
+        line = _timed_run(cli, cfg_path, work / "pbr", "process", smi, timed=TP_STEPS,
+                          phase="train_pbr", batch=TP_BATCH, falling=5)
+        cpu = _train_card_vs_cpu_cfg(cfg_path)
+        emit({"phase": "train_pbr_gates", "background_patches": swaps["patches"],
+              "background_swapped": swaps["swapped"], "card_vs_cpu": cpu, "card": smi})
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    return {"pbr": line["launches_per_step"]}
+
+
 PHASE_GROUPS = ("lookup", "raster", "slice", "raft", "options", "workflow",
-                "train_workflow")
+                "train_workflow", "train_pbr")
 
 
 def run_phase_groups(groups, dev, ptxas, smi, root: Path) -> None:
@@ -3234,6 +3530,8 @@ def run_phase_groups(groups, dev, ptxas, smi, root: Path) -> None:
             phase_workflow(smi, root)
         elif group == "train_workflow":
             phase_train_workflow(smi, root)
+        elif group == "train_pbr":
+            phase_train_pbr(smi, root)
         else:
             phase_raft_small(smi)
             phase_scflow_options(smi, shipped)
@@ -3294,6 +3592,8 @@ def main() -> int:
     wf_launches = phase_workflow(smi, args.root.resolve())
     # launches per step of each train_workflow run (the main path of train_main)
     tw_launches = phase_train_workflow(smi, args.root.resolve())
+    # launches per step of the PBR recipe's train_main run
+    tw_launches.update(phase_train_pbr(smi, args.root.resolve()))
     src = "scflow_tpu_torch/csrc/"
     tpu = "scflow_tpu/ops/pallas/"
     table = [

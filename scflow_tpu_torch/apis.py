@@ -15,7 +15,8 @@ from scflow_tpu_torch.device import resolve_device
 from scflow_tpu_torch.refiners.build import build_refiner_from_config
 from scflow_tpu_torch.refiners.system import (LossAssets, RenderAssets, loss_assets_from_bank,
                                               make_raft_infer_fn, make_raft_train_step,
-                                              make_scflow_infer_fn, make_scflow_train_step)
+                                              make_scflow_cycled_infer_fn, make_scflow_infer_fn,
+                                              make_scflow_train_step)
 from scflow_tpu_torch.render.meshbank import MeshBank, resolve_cull_backfaces
 from scflow_tpu_torch.runtime.checkpoint import load_params, load_pretrained
 from scflow_tpu_torch.runtime.eval_loop import single_process_test
@@ -148,9 +149,11 @@ def make_infer_from_cfg(cfg, model, render_assets: RenderAssets, image_size=(256
     reference's test forward); RAFT configs with test_cfg.pnp_backend
     'device' solve the pose on the device too, and with 'host' (the
     default) return the flow, which pose_from_output solves with cv2's
-    RANSAC on the host (not on a machine without cv2).
-    test_cfg.cycles > 1 (make_scflow_cycled_infer_fn) raises
-    NotImplementedError.  The render takes the kernel's backend ('pallas')
+    RANSAC on the host (not on a machine without cv2).  SCFlow with
+    test_cfg.cycles > 1 refines that many times through
+    make_scflow_cycled_infer_fn, on the same backends; a RAFT config with
+    cycles > 1 raises ValueError (JAX's RAFT path ignores cycles).  The
+    render takes the kernel's backend ('pallas')
     on either device, where JAX's 'auto' takes its XLA form off the TPU: on
     the CPU the kernel's plain version then computes what the card's kernel
     does, so a CPU run checks a card run (the two raster coverage formulas
@@ -166,11 +169,15 @@ def make_infer_from_cfg(cfg, model, render_assets: RenderAssets, image_size=(256
     lookup = "pallas" if image_size[0] == image_size[1] else "auto"
     common = dict(image_size=image_size, iters=iters, render_cull_backfaces=cull,
                   render_backend="pallas", lookup_backend=lookup, device=device)
+    cycles = test_cfg.get("cycles", 1)
     if mcfg["type"] == "SCFlowRefiner":
-        if test_cfg.get("cycles", 1) > 1:
-            raise NotImplementedError("test_cfg.cycles > 1 (make_scflow_cycled_infer_fn) is "
-                                      "not ported (ROADMAP §1 item 9)")
+        if cycles > 1:
+            return make_scflow_cycled_infer_fn(model, render_assets, cycles=cycles, slim=slim,
+                                               **common), None
         return make_scflow_infer_fn(model, render_assets, slim=slim, **common), None
+    if cycles > 1:
+        raise ValueError(f"test_cfg.cycles={cycles} on a RAFT config: cycled inference is "
+                         "SCFlow's (the JAX package's RAFT path ignores it)")
     if test_cfg.get("pnp_backend", "host") == "device":
         return make_raft_infer_fn(model, render_assets, pnp_backend="device",
                                   pnp_cfg=_raft_pnp_cfg(test_cfg), **common), None

@@ -1,22 +1,27 @@
 """Image helpers of the data pipeline without cv2 (the card's machine has
-none): a PNG codec on zlib and numpy (imread, imwrite), cv2's INTER_LINEAR
-resize on uint8 images (imresize, imrescale), the crop and pad helpers,
-and for the colour transforms cv2's uint8 BGR<->HSV conversions (bgr2hsv,
-hsv2bgr) and box filter (blur).
+none): a PNG codec on zlib and numpy and a JPEG codec (jpeg.py) behind
+imread and imwrite, cv2's INTER_LINEAR resize on uint8 images (imresize,
+imrescale), the crop and pad helpers, and for the colour transforms cv2's
+uint8 BGR<->HSV and BGR<->grey conversions (bgr2hsv, hsv2bgr, bgr2gray,
+gray2bgr), box filter (blur), min-max normalize (normalize_minmax) and
+affine warp (warp_affine, get_rotation_matrix_2d).
 The port's copy of scflow_tpu/datasets/pipelines/imops.py, whose resize and
 reads are cv2's.
 
 imread returns what cv2.imread does for 8- and 16-bit grey, grey+alpha,
-RGB and RGBA PNGs (non-interlaced, every row filter): the channels in BGR
-(BGRA) order.  imresize follows cv2.resize's fixed-point arithmetic for
-uint8 (11-bit coefficients, its 2x downscale switched to INTER_AREA), see
-_resize_linear_u8."""
+RGB and RGBA PNGs (non-interlaced, every row filter) and for the JPEGs that
+jpeg.py reads: the channels in BGR (BGRA) order.  imresize follows
+cv2.resize's fixed-point arithmetic for uint8 (11-bit coefficients, its 2x
+downscale switched to INTER_AREA), see _resize_linear_u8."""
 
+import math
 import struct
 import zlib
 from typing import Tuple
 
 import numpy as np
+
+from scflow_tpu_torch.datasets.pipelines.jpeg import DecodeError, jpeg_decode, jpeg_encode, orient
 
 _PNG_SIG = b"\x89PNG\r\n\x1a\n"
 _CHANNELS = {0: 1, 2: 3, 4: 2, 6: 4}  # PNG colour type -> samples per pixel
@@ -27,14 +32,14 @@ _ZLIB_LEVEL = 3  # zlib's speed/size trade for imwrite
 
 def _chunks(data: bytes):
     if data[:8] != _PNG_SIG:
-        raise ValueError("not a PNG file")
+        raise DecodeError("not a PNG file")
     pos = 8
     while pos < len(data):
         length, kind = struct.unpack(">I4s", data[pos:pos + 8])
         body = data[pos + 8:pos + 8 + length]
         (crc,) = struct.unpack(">I", data[pos + 8 + length:pos + 12 + length])
         if zlib.crc32(kind + body) != crc:
-            raise ValueError(f"PNG chunk {kind!r}: bad CRC")
+            raise DecodeError(f"PNG chunk {kind!r}: bad CRC")
         yield kind, body
         pos += 12 + length
 
@@ -152,14 +157,40 @@ def _to_bgr_order(img: np.ndarray) -> np.ndarray:
     return img
 
 
+# signatures of the other formats cv2.imread decodes, which the port does not
+_OTHER_FORMATS = ((b"BM", "BMP"), (b"II*\x00", "TIFF"), (b"MM\x00*", "TIFF"),
+                  (b"RIFF", "WebP"), (b"\x00\x00\x00\x0cjP", "JPEG 2000"),
+                  (b"\xffO\xffQ", "JPEG 2000"), (b"#?RADIANCE", "Radiance HDR"),
+                  (b"v/1\x01", "OpenEXR"), (b"GIF8", "GIF"))
+
+
 def imread(path: str, flag: str = "color") -> np.ndarray:
-    """cv2.imread for PNG files: flag 'unchanged' (cv2.IMREAD_UNCHANGED)
-    keeps the depth and the channels, in BGR(A) order; 'color'
-    (cv2.IMREAD_COLOR) gives (H, W, 3) uint8 BGR (16-bit samples keep their
-    high byte, alpha is dropped); 'grayscale' reads grey files only.
-    Raises FileNotFoundError for a missing file."""
+    """cv2.imread for PNG and JPEG files, the codec chosen by the file's
+    signature: flag 'unchanged' (cv2.IMREAD_UNCHANGED) keeps the depth and
+    the channels, in BGR(A) order, and ignores a JPEG's EXIF orientation;
+    'color' (cv2.IMREAD_COLOR) gives (H, W, 3) uint8 BGR (16-bit samples keep
+    their high byte, alpha is dropped); 'grayscale' reads grey PNGs and any
+    JPEG (its luma); 'color' and 'grayscale' apply a JPEG's EXIF Orientation
+    as cv2 does.  Raises FileNotFoundError for a missing file, DecodeError
+    where cv2.imread returns None (not an image, a truncated header, a bad
+    PNG checksum) and NotImplementedError for a format or a JPEG feature
+    that cv2 reads and the port does not."""
     with open(path, "rb") as f:
-        img = _to_bgr_order(png_decode(f.read()))
+        data = f.read()
+    if data[:2] == b"\xff\xd8":
+        if flag not in ("unchanged", "color", "grayscale"):
+            raise ValueError(f"unknown imread flag {flag!r}")
+        img, orientation = jpeg_decode(data, grey=flag == "grayscale", path=path)
+        if flag == "unchanged":
+            return img
+        img = orient(img, orientation)
+        return np.repeat(img[..., None], 3, axis=2) if flag == "color" and img.ndim == 2 else img
+    if data[:8] != _PNG_SIG:
+        for sig, name in _OTHER_FORMATS:
+            if data.startswith(sig):
+                raise NotImplementedError(f"{path}: {name} files are not read (PNG and JPEG)")
+        raise DecodeError(f"{path}: not an image file")
+    img = _to_bgr_order(png_decode(data))
     if flag == "unchanged":
         return img
     if flag == "grayscale":
@@ -177,13 +208,19 @@ def imread(path: str, flag: str = "color") -> np.ndarray:
 
 
 def imwrite(path: str, img: np.ndarray) -> None:
-    """cv2.imwrite for PNG files: (H, W) grey, (H, W, 3) BGR or (H, W, 4)
-    BGRA, uint8 or uint16."""
-    if img.ndim == 3 and img.shape[2] in (3, 4):
-        order = [2, 1, 0] + ([3] if img.shape[2] == 4 else [])
-        img = img[..., order]
+    """cv2.imwrite for PNG and JPEG files, by the path's extension ('.jpg'
+    and '.jpeg' write a baseline JPEG at cv2's default quality 95, 4:2:0,
+    from (H, W) grey or (H, W, 3) BGR uint8; any other writes a PNG from
+    (H, W) grey, (H, W, 3) BGR or (H, W, 4) BGRA, uint8 or uint16)."""
+    if str(path).lower().endswith((".jpg", ".jpeg")):
+        data = jpeg_encode(img)
+    else:
+        if img.ndim == 3 and img.shape[2] in (3, 4):
+            order = [2, 1, 0] + ([3] if img.shape[2] == 4 else [])
+            img = img[..., order]
+        data = png_encode(img)
     with open(path, "wb") as f:
-        f.write(png_encode(img))
+        f.write(data)
 
 
 def imcrop_pad(img: np.ndarray, bbox, pad_val=0) -> np.ndarray:
@@ -387,3 +424,260 @@ def blur(img: np.ndarray, k: int) -> np.ndarray:
     s = c[k:, k:] - c[:-k, k:] - c[k:, :-k] + c[:-k, :-k]
     d = k * k
     return ((s + d // 2) // d).astype(np.uint8)
+
+
+def bgr2gray(img: np.ndarray) -> np.ndarray:
+    """cv2.cvtColor(img, cv2.COLOR_BGR2GRAY) for a uint8 (..., 3) image: the
+    BT.601 weights in cv2 5's 15-bit fixed point (summing to 2^15), rounded;
+    equal to cv2 on every one of the 2^24 inputs."""
+    if img.dtype != np.uint8 or img.shape[-1] != 3:
+        raise ValueError(f"bgr2gray takes uint8 (..., 3) images, got {img.dtype} {img.shape}")
+    b, g, r = (img[..., i].astype(np.int32) for i in range(3))
+    return ((b * 3735 + g * 19235 + r * 9798 + (1 << 14)) >> 15).astype(np.uint8)
+
+
+def gray2bgr(img: np.ndarray) -> np.ndarray:
+    """cv2.cvtColor(img, cv2.COLOR_GRAY2BGR): the grey plane in each channel."""
+    return np.repeat(img[..., None], 3, axis=-1)
+
+
+def normalize_minmax(x: np.ndarray, alpha: float = 0.0, beta: float = 255.0) -> np.ndarray:
+    """cv2.normalize(x, None, alpha, beta, cv2.NORM_MINMAX) for a float32 or
+    float64 array: x * scale + shift fused in x's dtype, where scale =
+    (beta - alpha) * (1 / (max - min)) (0 for a flat array) and shift = min
+    (alpha, beta) - min * scale; for float32 both are rounded to float32
+    first, as cv2 does."""
+    if x.dtype not in (np.float32, np.float64):
+        raise TypeError(f"normalize_minmax takes float32 or float64, not {x.dtype}")
+    lo, hi = float(x.min()), float(x.max())
+    dmin, dmax = min(alpha, beta), max(alpha, beta)
+    scale = (dmax - dmin) * (1.0 / (hi - lo) if hi - lo > np.finfo(np.float64).eps else 0.0)
+    if x.dtype == np.float32:
+        scale = float(np.float32(scale))
+        shift = float(np.float32(dmin)) - float(np.float32(lo * scale))
+        return _fma32(x, np.float32(scale), np.float32(shift))
+    return _fma64(x, scale, dmin - lo * scale)
+
+
+def _fma64(a: np.ndarray, b: float, c: float) -> np.ndarray:
+    """float64 a * b + c rounded once (cv2's vector loop fuses it): the
+    product split exactly into p + e (Veltkamp and Dekker), p + c into
+    s + t (Knuth's two-sum), then s + (t + e)."""
+    split = 134217729.0  # 2^27 + 1
+    p = a * b
+    ta = split * a
+    ah = ta - (ta - a)
+    al = a - ah
+    tb = split * b
+    bh = tb - (tb - b)
+    bl = b - bh
+    e = ((ah * bh - p) + ah * bl + al * bh) + al * bl
+    s = p + c
+    bb = s - p
+    t = (p - (s - bb)) + (c - bb)
+    return s + (t + e)
+
+
+def get_rotation_matrix_2d(center, angle: float, scale: float) -> np.ndarray:
+    """cv2.getRotationMatrix2D: (2, 3) float64, a positive angle (degrees)
+    counter-clockwise in the image; the centre is taken as float32 (cv2's
+    Point2f)."""
+    cx, cy = (float(np.float32(c)) for c in center)
+    a = angle * (math.pi / 180)
+    alpha, beta = math.cos(a) * scale, math.sin(a) * scale
+    return np.array([[alpha, beta, (1 - alpha) * cx - beta * cy],
+                     [-beta, alpha, beta * cx + (1 - alpha) * cy]])
+
+
+def invert_affine(m) -> np.ndarray:
+    """cv2.invertAffineTransform of a (2, 3) matrix, as the six float64
+    values (a11, a12, b1, a21, a22, b2)."""
+    m = np.asarray(m, np.float64).reshape(6)
+    d = m[0] * m[4] - m[1] * m[3]
+    d = 1.0 / d if d != 0 else 0.0
+    a11, a22, a12, a21 = m[4] * d, m[0] * d, -m[1] * d, -m[3] * d
+    return np.array([a11, a12, -a11 * m[2] - a12 * m[5], a21, a22, -a21 * m[2] - a22 * m[5]])
+
+
+_WARP_BLOCK = 16  # pixels per step of cv2's vector warp loop
+
+
+def _warp_coords(m, w: int, h: int):
+    """cv2.warpAffine's float32 source coordinates of each destination pixel
+    (the inverse map): in its vector loop (each row's first 16 x floor(W /
+    16) pixels) x * m0 + (y * m1 + m2) with the first product fused, in its
+    scalar tail (x * m0 + y * m1) + m2 with the first sum fused."""
+    a = invert_affine(m).astype(np.float32)
+    x = np.arange(w, dtype=np.float32)[None, :]
+    y = np.arange(h, dtype=np.float32)[:, None]
+    tail = np.arange(w) >= w - w % _WARP_BLOCK
+    out = []
+    for m0, m1, m2 in ((a[0], a[1], a[2]), (a[3], a[4], a[5])):
+        vec = _fma32(x, m0, y * m1 + m2)
+        scalar = _fma32(x, m0, y * m1) + m2
+        out.append(np.where(tail, scalar, vec))
+    return out
+
+
+def _taps(src: np.ndarray, ys, xs, border):
+    """src[ys, xs] (..., C) with border for indices outside the image."""
+    h, w = src.shape[:2]
+    inside = (xs >= 0) & (xs < w) & (ys >= 0) & (ys < h)
+    v = src[np.clip(ys, 0, h - 1), np.clip(xs, 0, w - 1)]
+    return np.where(inside[..., None], v, border)
+
+
+_WARP_MODES = ("nearest", "bilinear", "bicubic", "area", "lanczos")
+
+
+def warp_affine(img: np.ndarray, m, dsize, interpolation: str = "bilinear",
+                border_value=0) -> np.ndarray:
+    """cv2.warpAffine(img, m, dsize=(w, h), flags=..., borderValue=...) with
+    a constant border for a uint8 (H, W) or (H, W, C) image.  Nearest and
+    bilinear ('area' is bilinear in a warp) follow cv2 5's float32 kernels:
+    the coordinates of _warp_coords, the nearest tap by rounding half to
+    even, bilinear as fused lerps along x then y, rounded to nearest.
+    Bicubic takes the same coordinates and separable float32 weights
+    (_warp_bicubic); how cv2 computes its weights is not known exactly, so
+    a few values differ by one level (tests/test_torch_warp.py states the
+    bound).  Lanczos-4 is cv2's fixed-point remap (_warp_lanczos)."""
+    if img.dtype != np.uint8:
+        raise TypeError(f"warp_affine takes uint8 images, not {img.dtype}")
+    if interpolation not in _WARP_MODES:
+        raise ValueError(f"unknown interpolation {interpolation!r}, expected one of "
+                         f"{_WARP_MODES}")
+    w, h = int(dsize[0]), int(dsize[1])
+    grey = img.ndim == 2
+    src = img[..., None] if grey else img
+    c = src.shape[2]
+    border = np.broadcast_to(
+        np.clip(np.rint(np.asarray(border_value, np.float64).ravel()[:c]), 0, 255), (c,))
+    if interpolation == "lanczos":
+        out = _warp_lanczos(src, m, w, h, border)
+    else:
+        sx, sy = _warp_coords(m, w, h)
+        if interpolation == "bicubic":
+            out = _warp_bicubic(src, sx, sy, border)
+        elif interpolation == "nearest":
+            out = _taps(src, np.rint(sy).astype(np.int64), np.rint(sx).astype(np.int64), border)
+        else:
+            ix, iy = np.floor(sx), np.floor(sy)
+            fx = (sx - ix)[..., None]
+            fy = (sy - iy)[..., None]
+            ix, iy = ix.astype(np.int64), iy.astype(np.int64)
+            p = [_taps(src, iy + dy, ix + dx, border).astype(np.float32)
+                 for dy in (0, 1) for dx in (0, 1)]
+            top = _fma32(fx, p[1] - p[0], p[0])
+            bottom = _fma32(fx, p[3] - p[2], p[2])
+            out = np.rint(_fma32(fy, bottom - top, top))
+    out = np.clip(out, 0, 255).astype(np.uint8)
+    return out[..., 0] if grey else out
+
+
+def _cubic_weights(x: np.ndarray):
+    """cv2's interpolateCubic (A = -0.75) in float32, per fraction x."""
+    f = np.float32
+    a, one = f(-0.75), f(1)
+    c0 = ((a * (x + one) - f(5) * a) * (x + one) + f(8) * a) * (x + one) - f(4) * a
+    c1 = ((a + f(2)) * x - (a + f(3))) * x * x + one
+    c2 = ((a + f(2)) * (one - x) - (a + f(3))) * (one - x) * (one - x) + one
+    return [c0, c1, c2, one - c0 - c1 - c2]
+
+
+def _lanczos_weights(x: np.ndarray):
+    """cv2's interpolateLanczos4 per fraction x: sinc windows from double
+    trigonometry, normalized to sum 1 in float32."""
+    s45 = 0.70710678118654752440084436210485
+    cs = [(1, 0), (-s45, -s45), (0, 1), (s45, -s45), (-1, 0), (s45, s45), (0, -1), (-s45, s45)]
+    y0 = -(x.astype(np.float64) + 3) * np.pi * 0.25
+    s0, c0 = np.sin(y0), np.cos(y0)
+    out = []
+    for i in range(8):
+        yy = (x + np.float32(3 - i)).astype(np.float32)
+        y = -yy.astype(np.float64) * np.pi * 0.25
+        with np.errstate(divide="ignore", invalid="ignore"):
+            v = ((cs[i][0] * s0 + cs[i][1] * c0) / (y * y)).astype(np.float32)
+        out.append(np.where(np.abs(yy) >= 1e-6, v, np.float32(1e30)))
+    total = out[0]
+    for v in out[1:]:
+        total = total + v
+    inv = np.float32(1) / total
+    return [v * inv for v in out]
+
+
+_AB_BITS, _INTER_BITS = 10, 5
+_INTER_TAB = 1 << _INTER_BITS
+_REMAP_BITS = 15
+_LANCZOS_CENTRE = 4  # the first of the central two taps each way, which take the rounding
+_LANCZOS_TABLE = []
+
+
+def _lanczos_table() -> np.ndarray:
+    """cv2's initInterTab2D for Lanczos-4: (32 * 32, 8, 8) int32 weights,
+    each the rounded float32 product of two 1-D kernels at the fractions
+    i / 32, the rounding error moved onto the largest (or smallest) of the
+    central four so that each table sums to 2^15."""
+    if not _LANCZOS_TABLE:
+        frac = np.arange(_INTER_TAB, dtype=np.float32) * np.float32(1.0 / _INTER_TAB)
+        tab1 = np.stack(_lanczos_weights(frac), axis=1)  # (32, 8)
+        v = (tab1[:, None, :, None] * tab1[None, :, None, :]).astype(np.float32)
+        it = np.rint(v * np.float32(1 << _REMAP_BITS)).astype(np.int32)  # (32, 32, 8, 8)
+        for i in range(_INTER_TAB):
+            for j in range(_INTER_TAB):
+                t = it[i, j]
+                diff = int(t.sum()) - (1 << _REMAP_BITS)
+                if diff:
+                    lo = hi = (_LANCZOS_CENTRE, _LANCZOS_CENTRE)
+                    for k1 in range(_LANCZOS_CENTRE, _LANCZOS_CENTRE + 2):
+                        for k2 in range(_LANCZOS_CENTRE, _LANCZOS_CENTRE + 2):
+                            if t[k1, k2] < t[lo]:
+                                lo = (k1, k2)
+                            elif t[k1, k2] > t[hi]:
+                                hi = (k1, k2)
+                    t[hi if diff < 0 else lo] -= diff
+        _LANCZOS_TABLE.append(it.reshape(_INTER_TAB * _INTER_TAB, 8, 8))
+    return _LANCZOS_TABLE[0]
+
+
+def _warp_lanczos(src, m, w, h, border):
+    """cv2's fixed-point warpAffine + remap for Lanczos-4: source
+    coordinates in 10-bit fixed point from the float64 inverse map (each
+    row's start plus each column's offset, rounded half to even), 5
+    fraction bits indexing the weight table, (sum + 2^14) >> 15."""
+    tab = _lanczos_table()
+    a = invert_affine(m)
+    scale = 1 << _AB_BITS
+    delta = scale // _INTER_TAB // 2
+    x, y = np.arange(w), np.arange(h)
+    adx = np.rint(a[0] * x * scale).astype(np.int64)
+    ady = np.rint(a[3] * x * scale).astype(np.int64)
+    x0 = np.rint((a[1] * y + a[2]) * scale).astype(np.int64) + delta
+    y0 = np.rint((a[4] * y + a[5]) * scale).astype(np.int64) + delta
+    X = (x0[:, None] + adx[None, :]) >> (_AB_BITS - _INTER_BITS)
+    Y = (y0[:, None] + ady[None, :]) >> (_AB_BITS - _INTER_BITS)
+    wts = tab[(Y & (_INTER_TAB - 1)) * _INTER_TAB + (X & (_INTER_TAB - 1))]
+    X, Y = (X >> _INTER_BITS) - 3, (Y >> _INTER_BITS) - 3
+    acc = np.zeros((h, w, src.shape[2]), np.int64)
+    for dy in range(8):
+        for dx in range(8):
+            acc += (_taps(src, Y + dy, X + dx, border).astype(np.int64)
+                    * wts[..., dy, dx][..., None])
+    return (acc + (1 << (_REMAP_BITS - 1))) >> _REMAP_BITS
+
+
+def _warp_bicubic(src, sx, sy, border):
+    """Bicubic (4 x 4 taps) at float32 coordinates: per-pixel 1-D weights,
+    each tap row summed along x with fused multiply-adds, then the rows
+    along y."""
+    ix, iy = np.floor(sx), np.floor(sy)
+    wx = [w[..., None] for w in _cubic_weights((sx - ix).astype(np.float32))]
+    wy = [w[..., None] for w in _cubic_weights((sy - iy).astype(np.float32))]
+    ix, iy = ix.astype(np.int64) - 1, iy.astype(np.int64) - 1
+    acc = None
+    for dy in range(4):
+        row = None
+        for dx in range(4):
+            p = _taps(src, iy + dy, ix + dx, border).astype(np.float32)
+            row = p * wx[dx] if row is None else _fma32(p, wx[dx], row)
+        acc = row * wy[dy] if acc is None else _fma32(row, wy[dy], acc)
+    return np.rint(acc)

@@ -1,6 +1,6 @@
 """Image/mask loading transforms (reference datasets/pipelines/loadding.py):
-the port's copy of scflow_tpu/datasets/pipelines/loading.py, reading PNGs
-with imops.imread in place of cv2.imread."""
+the port's copy of scflow_tpu/datasets/pipelines/loading.py, reading PNG and
+JPEG files with imops.imread in place of cv2.imread."""
 
 import os
 

@@ -3,8 +3,9 @@ or -> sequence losses -> optimizer update (training).
 
 Port of scflow_tpu/refiners/system.py: RenderAssets, LossAssets,
 render_and_normalize, render_depth, scflow_sequence_losses,
-make_scflow_train_step and make_scflow_infer_fn (the JAX signature: the
-final pose, and with slim=False the final mask and flow), and the RAFT
+make_scflow_train_step, make_scflow_infer_fn (the JAX signature: the
+final pose, and with slim=False the final mask and flow) and
+make_scflow_cycled_infer_fn (the reference's multi-pass refinement), and the RAFT
 baseline's make_raft_train_step, make_raft_infer_fn (the flow, and with
 pnp_backend='device' the pose from it) and make_raft_val_step.  Every entry
 point runs a model of either dtype (dtype=torch.bfloat16 computes the
@@ -338,6 +339,39 @@ def make_scflow_infer_fn(model, render_assets: RenderAssets,
                 res["masks"] = out["masks"][-1]
                 res["flow"] = out["flow_from_pred"][-1]
             return res
+
+    return infer
+
+
+def make_scflow_cycled_infer_fn(model, render_assets: RenderAssets, cycles: int = 2,
+                                image_size: Tuple[int, int] = (256, 256), norm_mean=NORM_MEAN,
+                                norm_std=NORM_STD, iters: Optional[int] = None,
+                                render_chunk: int = 64, render_backend: str = "auto",
+                                render_cull_backfaces: bool = False,
+                                lookup_backend: str = "auto", unroll: bool = False,
+                                slim: bool = False, lookup_variant: str = "tent", device=None):
+    """Multi-pass refinement (reference forward_multiple_pass,
+    base_refiner.py:249-260): after each cycle the object is re-rendered at
+    the refined pose and refined again, `cycles` times in all.  The
+    intermediate cycles run pose-only; slim controls only the last cycle's
+    outputs, as in make_scflow_infer_fn (whose arguments these are, with
+    cycles after render_assets as in JAX's signature)."""
+    if not isinstance(cycles, int) or cycles < 1:
+        raise ValueError(f"cycles must be a positive int, got {cycles!r}")
+    steps = [make_scflow_infer_fn(
+        model, render_assets, image_size=image_size, norm_mean=norm_mean, norm_std=norm_std,
+        iters=iters, render_chunk=render_chunk, render_backend=render_backend,
+        render_cull_backfaces=render_cull_backfaces, lookup_backend=lookup_backend,
+        unroll=unroll, slim=slim or not last, lookup_variant=lookup_variant, device=device)
+        for last in (False, True)]
+
+    def infer(batch: Dict) -> Dict[str, torch.Tensor]:
+        batch = dict(batch)
+        for cycle in range(cycles):
+            out = steps[cycle == cycles - 1](batch)
+            batch["ref_rotations"], batch["ref_translations"] = (out["rotations"],
+                                                                 out["translations"])
+        return out
 
     return infer
 
