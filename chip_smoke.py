@@ -9,7 +9,8 @@ given, of the package in DIR (default: this checkout; e.g. an unpacked
 parent commit), without the kernels line: lookup (phases 3, 10 and 11),
 raster (4-7), slice (8), raft (14), options (16 and 17; with slice
 before it, 17 prints its pose difference from the slice's call), workflow
-(18), train_workflow (19) and train_pbr (20).
+(18), train_workflow (19), train_pbr (20), serve (21-23) and train_augment
+(24).
 
 Phases, each printing one JSON line; any failure exits non-zero before the
 last line:
@@ -169,14 +170,14 @@ last line:
                configs/refine_models/scflow.py and overrides only the data
                paths (so 256^2, 8 iterations, 21 classes, max_bucket 64,
                culling on), over a synthetic test set in YCB-V's BOP layout
-               written under build/workflow/ (removed afterwards): 48
+               written under build/workflow/ (removed afterwards): 24
                640x480 PNGs (the port's imwrite) of 3-9 of the slice's
                21 uvsphere classes each, rendered at the gt pose with YCB-V's
                camera over grey, initial poses the gt jittered by up to 15
                degrees and 15/15/50 mm (the shipped PoseJitter's ranges).
                The slice's seeded weights, saved with save_params.  Runs,
                each after a 2-image warm-up: fp32 and bf16 (--cfg-options
-               model.dtype=bfloat16) on the 48 images, and the shipped
+               model.dtype=bfloat16) on the 24 images, and the shipped
                configs/refine_models/raft.py with test_cfg.pnp_backend=device
                on 8 (raft_model's weights).  Per run: ms/img and
                refinements/s (host clock over test_main's loop, which
@@ -225,8 +226,8 @@ last line:
                RandomNoise, RandomSmooth, Resize, Pad, RemapPose), PyTorch's
                seeded initialisation (the config's pretrained file is not
                in the repo: train_main warns), over a synthetic train_real
-               split of 48 frames (phase 18's scene with visible masks)
-               with the val set phase 18's test set cut to 8 images.  The
+               split of 24 frames (phase 18's scene with visible masks)
+               with the val set 8 images of phase 18's test set.  The
                checking runs load with data.worker_mode='process' (TW_FAST:
                the config's thread workers took 10.9 s a step).  Runs,
                each counting every kernel's launches per step (reset before
@@ -251,16 +252,16 @@ last line:
                next(data_iter), device ms per step by CUDA events around
                the step), the last 5 of them traced (the device's idle
                share: 1 - the union of the kernels' intervals over the host
-               window), with os.cpu_count(); thread mode (10.9-11.9 s a
-               step) is cut to 1 warm-up and 5 measured steps, all 5 traced;
+               window), with os.cpu_count(); thread mode (8.7-11.9 s a
+               step) is cut to 1 warm-up and 2 measured steps, both traced;
  20. train_pbr - the PBR recipe, `cli.train_main` from a config that _base_s
                the shipped scflow.py and takes ycbv_mixpbr.py's data.train and
                batch as they are (a ConcatDataset of train_real and train_pbr
                at ratios 1:2, batch 24, RandomBackground p=0.3 at index 5 of
                the pipeline, min_visib_fract 0.2 on the PBR part), the data
                paths moved to synthetic splits under build/train_pbr/
-               (removed afterwards): phase 19's 48-frame train_real split
-               (PNG), a 48-frame train_pbr split of 640x480 JPEGs (the port's
+               (removed afterwards): phase 19's 24-frame train_real split
+               (PNG), a 24-frame train_pbr split of 640x480 JPEGs (the port's
                encoder) with PNG visible masks and every third object's
                visib_fract recorded as 0.1, and a background directory of
                JPEG and PNG files of COCO-like sizes (one JPEG with EXIF
@@ -268,20 +269,68 @@ last line:
                rendered frame as PNG, as JPEG, and as JPEG after Gaussian
                noise of sigma 8 (line "train_pbr_imread"); the patches whose
                background RandomBackground swapped over 16 samples drawn in
-               this process (at least one); 20 steps with process workers (3
-               warm-up, 17 timed as phase 19's runs, the last 5 traced):
+               this process (at least one); 15 steps with process workers (3
+               warm-up, 12 timed as phase 19's runs, the last 5 traced):
                exactly 1 K2, 8 K1, 8 K1b per step, finite losses, the mean
                of the last 5 below that of the first 5; the card step
                against the CPU step on the loader's first 2 samples (phase
                19's bounds);
+ 21. serve   - make_serving_fn(slim=True) at tools/serve_bench.py's
+               configuration (64 objects from 4 uniform-noise frames of
+               640x480, 256^2 patches, 8 iterations, the 21-class bank,
+               culling on, the slice's seeded weights), fp32 ("serve") and
+               bf16 ("serve_bf16"): exactly 8 K1 (K1_bf16) and 1 K2 per
+               call; ms per call and objects/s (host clock), device ms
+               (events), the crop alone; gates: the served poses equal
+               make_scflow_infer_fn's on the patches and K' that
+               project_bboxes + crop_resize_patches give (the slice's
+               bounds), and (fp32) 4 objects served on the CPU (the plain
+               versions) within the slice's card-vs-CPU bounds;
+ 22. serve_http - `python -m scflow_tpu_torch.cli serve` in a subprocess
+               from a config that _base_s the shipped scflow.py (only the
+               renderer's meshes, written under build/serve/, and the
+               work_dir overridden), the slice's weights saved with
+               save_params, --frame-hw 480 640 --max-objects 64
+               --max-frames 8 --port 0 (the log names the port; /healthz
+               polled for at most 60 s after it, the log for 300 s);
+               `python -m scflow_tpu_torch.cli loadtest` with 8 clients x 10
+               requests x 4 objects: req/s, objects/s, client p50/p90/p99,
+               objects and requests per batch (/v1/stats); gates: 80 answers
+               and /v1/stats 0 errors, SIGTERM drains and the process exits
+               0, every answer equals PoseService.run of the same request in
+               this process (rotations 2e-5, translations 2e-3: the padding-
+               invariance bounds of tests/test_server.py), that run 8 K1 and
+               1 K2; then the same load on a server started with
+               --pow2-buckets ("serve_http_pow2"), the same gates but the
+               answers within the slice's bounds of that run (other batch
+               shapes);
+ 23. serve_raft - make_serving_from_cfg on a config that _base_s the shipped
+               raft.py (raft_model's weights) on 4 requests of 16 objects:
+               host PnP (the serve fn and its fetch; the cv2 solve where cv2
+               is installed) and device PnP (PoseService.run), each 12 K1 and
+               1 K2 per call, ms per call; gate: with the flow head's output
+               zeroed and occ_thresh 0, the card's and the CPU's device PnP
+               solve every object and return the reference poses (|dR| 2e-3,
+               1 mm) on 4 objects;
+ 24. train_augment - the train phase's step with the render augmentations
+               (ColorJiggle 0.3/0.3/0.3/0.05, RandomGaussianNoise 0.05 p 0.5,
+               RandomGaussianBlur 5 (0.1, 2.0) p 0.5, RandomGrayscale 0.1):
+               exactly 1 K2, 8 K1, 8 K1b per step; ms per step beside the
+               plain step (plain, augmented, augmented, plain, 5 steps each);
+               gates: one key's per-sample draws equal on the card and the
+               CPU, and equal parameters (the card's noise field included)
+               give augmented renders within 1e-5; `cli.train_main` for 3
+               steps (process workers) from a config that sets
+               model.render_augmentations, 1 K2, 8 K1, 8 K1b per step;
  15. the kernels line (float32 and bf16 instances; "raft_launches": each
      kernel's launches per RAFT call or step; "radius_3": the radius-3
      instance's numbers from phases 3/10/11 and its launches per call or
      step on phases 16 and 17; "workflow_launches_per_image": per image of
      each workflow run, the cycled one included;
      "train_workflow_launches_per_step": per step of the fp32, bf16 and
-     RAFT train_workflow runs and of the train_pbr run), then the device
-     line the chip harness reads.
+     RAFT train_workflow runs and of the train_pbr run; "serve_launches":
+     per call of each serving run and per step of the augmented steps),
+     then the device line the chip harness reads.
 Imports no JAX.  Needs one card; without one it exits non-zero at once.
 """
 
@@ -313,7 +362,14 @@ TRAIN_BATCH = 16  # configs/refine_datasets/ycbv_real.py:118, samples_per_gpu
 HEAD_STD = 0.005  # pose-head output weights of the seeded model (seeded_model)
 
 
+T0 = time.perf_counter()
+
+
 def emit(obj) -> None:
+    """One JSON line; a phase's line also carries the script's clock at its
+    end ("script_s")."""
+    if "phase" in obj:
+        obj = {**obj, "script_s": round(time.perf_counter() - T0, 1)}
     print(json.dumps(obj), flush=True)
 
 
@@ -2422,7 +2478,9 @@ def phase_render(dev, scene, smi):
 YCBV_K = ((1066.778, 0.0, 312.9869), (0.0, 1067.487, 241.3109), (0.0, 0.0, 1.0))
 FRAME_H, FRAME_W = 480, 640  # YCB-V's frames
 WF_SEQ = 48  # a YCB-V test scene id (48-59)
-WF_IMAGES, WF_CPU_IMAGES, WF_RAFT_IMAGES = 48, 4, 8
+# 24 images: the count is cut so that the script keeps near its time with
+# the serving phases
+WF_IMAGES, WF_CPU_IMAGES, WF_RAFT_IMAGES = 24, 4, 8
 WF_JITTER = (15.0, 15.0, 15.0, 50.0)  # degrees, x, y, z mm: ycbv_real.py:38-51's PoseJitter
 WF_METRIC = {"add": [0.05, 0.10, 0.20, 0.50], "rep": [2, 5, 10, 20], "auc": []}
 WF_CYCLES, WF_CYCLED_IMAGES = 2, 8  # the cycled run: test_cfg.cycles, images
@@ -2970,12 +3028,12 @@ def phase_workflow(smi, root: Path):
 
 # ---- train_workflow: the reference's train workflow from a config file ----
 
-TW_TRAIN_IMAGES, TW_VAL_IMAGES = 48, 8
+TW_TRAIN_IMAGES, TW_VAL_IMAGES = 24, 8
 TW_ITERS, TW_RESUME_ITERS, TW_BF16_ITERS, TW_RAFT_ITERS = 30, 40, 10, 5
 # timed steps of a worker mode: warm-up, measured, and the last of the measured
-# traced; thread mode (10.9-11.9 s a step) is cut to 1 + 5 to keep the
-# script inside its time limit
-TW_TIMED = {"process": (3, 20, 5), "thread": (1, 5, 5)}
+# traced; thread mode (8.7-11.9 s a step) is cut to 1 + 2 to keep the script
+# near its time
+TW_TIMED = {"process": (3, 20, 5), "thread": (1, 2, 2)}
 TW_INTERVALS = dict(log=5, checkpoint=10, evaluation=20)
 TW_CPU = dict(samples=2, iters=3)  # the card-vs-CPU step: the loader's first 2 samples
 # the runs that check the path load in worker processes: with the config's
@@ -3237,7 +3295,7 @@ def phase_train_workflow(smi, root: Path):
         t0 = time.perf_counter()
         dev = torch.device("cuda", 0)
         _workflow_scene(work / "ycbv", dev, TW_TRAIN_IMAGES, seed=1, split="train_real")
-        _workflow_scene(work / "ycbv", dev, WF_IMAGES, seed=0, split="test")
+        _workflow_scene(work / "ycbv", dev, TW_VAL_IMAGES, seed=0, split="test")
         (work / "ycbv" / "image_lists" / "val.txt").write_text(
             "\n".join(f"{WF_SEQ:06d}/rgb/{i:06d}.png" for i in range(TW_VAL_IMAGES)))
         scene_s = time.perf_counter() - t0
@@ -3336,8 +3394,8 @@ def phase_train_workflow(smi, root: Path):
 
 # ---- train_pbr: the PBR recipe (configs/refine_datasets/ycbv_mixpbr.py's data) ----
 
-TP_PBR_IMAGES = 48
-TP_STEPS = (3, 17, 5)  # warm-up, measured, traced: 20 steps in process mode
+TP_PBR_IMAGES = 24
+TP_STEPS = (3, 12, 5)  # warm-up, measured, traced: 15 steps in process mode
 TP_BATCH = 24  # ycbv_mixpbr.py's samples_per_gpu
 TP_SWAP_SAMPLES = 16
 # background images of other sizes than the frames, as in COCO (one JPEG
@@ -3504,8 +3562,551 @@ def phase_train_pbr(smi, root: Path):
     return {"pbr": line["launches_per_step"]}
 
 
+# ---- serving: make_serving_fn, the HTTP server, RAFT serving, augmented steps ----
+
+SERVE_FRAMES = 4  # tools/serve_bench.py: 64 objects from 4 frames of 640x480
+SERVE_KEYS = ("frames", "frame_idx", "ref_rotations", "ref_translations", "K", "labels")
+SERVE_CPU_OBJECTS = 4  # the card-vs-CPU gate's objects
+SERVE_LOAD = dict(clients=8, requests=10, objects=4)  # the HTTP phase's load test
+SERVE_START_S = 300  # the server subprocess's bound to come up
+# the padding-invariance bounds of tests/test_server.py:321-331
+SERVE_ROT_ATOL, SERVE_TRANS_ATOL = 2e-5, 2e-3
+RENDER_AUGMENTATIONS = [
+    dict(type="ColorJiggle", brightness=0.3, contrast=0.3, saturation=0.3, hue=0.05),
+    dict(type="RandomGaussianNoise", std=0.05, p=0.5),
+    dict(type="RandomGaussianBlur", kernel_size=5, sigma=(0.1, 2.0), p=0.5),
+    dict(type="RandomGrayscale", p=0.1)]
+TA_CLI_STEPS, TA_CLI_IMAGES = 3, 8  # the augmented cli train run
+TA_TIMED_STEPS = 5  # per group of the plain / augmented timing
+
+
+def serve_inputs(n: int = BATCH, frames: int = SERVE_FRAMES, seed: int = 0) -> dict:
+    """tools/serve_bench.py's inputs: uniform-noise 640x480 frames (in [0, 1],
+    the range make_serving_fn takes; serve_bench passes 0-255), n objects
+    spread over them, random rotations, t = (60 N(0,1), 40 N(0,1),
+    U(700, 1100)) mm, the LINEMOD focal lengths at the frame's centre, random
+    labels."""
+    rng = np.random.default_rng(seed)
+    q = rng.normal(size=(n, 4))
+    R = quat_to_matrix(torch.from_numpy(q / np.linalg.norm(q, axis=1, keepdims=True)))
+    t = np.stack([rng.normal(size=n) * 60, rng.normal(size=n) * 40,
+                  rng.uniform(700, 1100, n)], -1).astype(np.float32)
+    K = np.tile(np.array([[[572.4, 0, FRAME_W / 2], [0, 573.5, FRAME_H / 2], [0, 0, 1]]],
+                         np.float32), (n, 1, 1))
+    return dict(frames=rng.uniform(0, 1, (frames, FRAME_H, FRAME_W, 3)).astype(np.float32),
+                frame_idx=rng.integers(0, frames, n).astype(np.int32),
+                ref_rotations=R.float().numpy(), ref_translations=t, K=K,
+                labels=rng.integers(0, NCLASS, n).astype(np.int32))
+
+
+def _poses_ok(R, t, ref_t, tag: str) -> float:
+    require(np.isfinite(R).all() and np.isfinite(t).all(), f"{tag}: finite poses")
+    ortho = float(np.abs(np.einsum("nji,njk->nik", R, R) - np.eye(3)).max())
+    require(ortho < 1e-4, f"{tag}: |R^T R - I| {ortho} < 1e-4")
+    require(float(np.abs(t - ref_t).max()) > 1.0, f"{tag}: poses moved")
+    return ortho
+
+
+def _slice_bounds(R, t, R_ref, t_ref, what: str):
+    """The slice's card-vs-CPU bounds: rotations 2e-3, translations 2e-2 +
+    2e-3 |t|.  Returns (largest |dR|, largest excess over the t bound)."""
+    d_rot = float(np.abs(R - R_ref).max())
+    t_excess = float((np.abs(t - t_ref) - (2e-2 + 2e-3 * np.abs(t_ref))).max())
+    require(d_rot <= 2e-3 and t_excess <= 0, f"{what}: rot |d| {d_rot}, t excess {t_excess}")
+    return d_rot, t_excess
+
+
+def phase_serve(smi):
+    """make_serving_fn(slim=True) at tools/serve_bench.py's configuration
+    (64 objects from 4 frames of 640x480, 256^2 patches, 8 iterations, the
+    21-class bank, culling on), fp32 and bf16: launches per call, ms per
+    call and objects/s, device ms, the crop alone; gates: serving equals
+    make_scflow_infer_fn on the patches and K' crop_resize_patches gives,
+    and (fp32) 4 objects served on the CPU agree with the card's."""
+    from scflow_tpu_torch.device import full_fp32
+    from scflow_tpu_torch.refiners.scflow import SCFlowRefiner
+    from scflow_tpu_torch.refiners.system import RenderAssets, make_scflow_infer_fn
+    from scflow_tpu_torch.render.meshbank import make_synthetic_bank
+    from scflow_tpu_torch.serving import crop_resize_patches, make_serving_fn, project_bboxes
+
+    bank = make_synthetic_bank(NCLASS, kind="uvsphere", size=80.0)
+    assets = RenderAssets.from_bank(bank)
+    inputs = serve_inputs()
+    dev = torch.device("cuda", 0)
+    args = [torch.from_numpy(inputs[k]).to(dev) for k in SERVE_KEYS]
+
+    def crop():
+        with torch.inference_mode(), full_fp32():
+            boxes = project_bboxes(assets.verts, assets.vert_valid, *args[2:])
+            return crop_resize_patches(args[0], boxes, args[1], args[4], IMG)
+
+    launches, fp32 = {}, None
+    for tag, dtype, k1 in (("serve", None, "K1"), ("serve_bf16", torch.bfloat16, "K1_bf16")):
+        model = seeded_model(dtype)
+        serve = make_serving_fn(model, assets, assets.verts, assets.vert_valid, image_size=IMG,
+                                iters=ITERS, render_cull_backfaces=True, slim=True)
+        serve(*args)  # warm-up: cuDNN plans, allocator
+        torch.cuda.synchronize()
+        out, c = counted(lambda: serve(*args))
+        require(only(c, K2=1, **{k1: ITERS}), f"{tag}: launches per call {c}")
+        launches[tag] = c
+        R, t = out["rotations"].cpu().numpy(), out["translations"].cpu().numpy()
+        ortho = _poses_ok(R, t, inputs["ref_translations"], tag)
+        # serving is the crop, then the infer entry point
+        patches, new_k = crop()
+        infer = make_scflow_infer_fn(model, assets, image_size=(IMG, IMG), iters=ITERS,
+                                     render_cull_backfaces=True, slim=True)
+        ref = infer(dict(real_images=patches, ref_rotations=args[2], ref_translations=args[3],
+                         k=new_k, labels=args[5]))
+        vs_infer = _slice_bounds(R, t, ref["rotations"].cpu().numpy(),
+                                 ref["translations"].cpu().numpy(), f"{tag} vs infer")
+        line = {"serve_vs_infer_rot_max_abs_diff": vs_infer[0],
+                "serve_vs_infer_trans_max_abs_diff":
+                    float(np.abs(t - ref["translations"].cpu().numpy()).max())}
+        if dtype is None:
+            cpu_model = SCFlowRefiner(num_class=NCLASS, image_size=(IMG, IMG), iters=ITERS)
+            cpu_model.load_state_dict(model.state_dict())
+            cpu_assets = RenderAssets.from_bank(bank, device="cpu")
+            cpu_serve = make_serving_fn(cpu_model, cpu_assets, cpu_assets.verts,
+                                        cpu_assets.vert_valid, image_size=IMG, iters=ITERS,
+                                        render_backend="pallas", render_cull_backfaces=True,
+                                        lookup_backend="pallas", slim=True, device="cpu")
+            n = SERVE_CPU_OBJECTS
+            cpu = cpu_serve(*(torch.from_numpy(inputs[k] if k == "frames" else inputs[k][:n])
+                              for k in SERVE_KEYS))
+            d_rot, t_excess = _slice_bounds(R[:n], t[:n], cpu["rotations"].numpy(),
+                                            cpu["translations"].numpy(), f"{tag}: card vs CPU")
+            line.update(cpu_objects=n, cpu_rot_max_abs_diff=d_rot,
+                        cpu_trans_tolerance_excess=t_excess)
+            fp32 = (R, t)
+        else:
+            line["pose_diff_vs_fp32"] = _pose_dist(R, t, *fp32)
+        calls = 10
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(calls):
+            serve(*args)
+        torch.cuda.synchronize()
+        dt = (time.perf_counter() - t0) / calls
+        emit({"phase": tag, "objects": BATCH, "frames": SERVE_FRAMES,
+              "frame_hw": [FRAME_H, FRAME_W], "image": IMG, "iters": ITERS, "classes": NCLASS,
+              "launches_per_call": c, "orthonormality_err": ortho, **line,
+              "ms_per_call": 1e3 * dt, "objects_per_s": BATCH / dt,
+              "device_ms_per_call": device_ms(lambda: serve(*args), reps=3, groups=3),
+              "crop_ms": median_ms(crop, reps=5, groups=3), "card": smi})
+        del model, serve, infer
+    return launches
+
+
+def _serve_work(root: Path) -> Path:
+    """build/serve/ with the slice's 21 uvsphere meshes as .ply files
+    (models_1024/), which the serve configs' renderer reads."""
+    from scflow_tpu_torch.render.meshbank import make_synthetic_bank
+
+    work = root / "build" / "serve"
+    meshes = work / "models_1024"
+    if not meshes.exists():
+        meshes.mkdir(parents=True)
+        bank = make_synthetic_bank(NCLASS, kind="uvsphere", size=80.0)
+        for c in range(NCLASS):
+            _write_ply(meshes / f"obj_{c + 1:06d}.ply", bank.verts[c][bank.vert_valid[c]],
+                       bank.faces[c][bank.face_valid[c]], bank.colors[c][bank.vert_valid[c]])
+    return work
+
+
+def _serve_config(work: Path, repo: Path, model: str) -> Path:
+    """A config that _base_s the shipped configs/refine_models/<model> and
+    overrides only the renderer's meshes and the work_dir."""
+    path = work / f"serve_{model}"
+    path.write_text(f'''_base_ = {str(repo / "configs" / "refine_models" / model)!r}
+model = dict(renderer=dict(mesh_dir={str(work / "models_1024")!r}))
+work_dir = {str(work / "work")!r}
+''')
+    return path
+
+
+def _serve_service(cfg, ckpt: Path, **cfg_options):
+    """PoseService over make_serving_from_cfg on the card, as serve_main
+    builds it, from the config (with cfg_options) and the checkpoint."""
+    from scflow_tpu_torch.apis import (build_render_assets, load_eval_checkpoint,
+                                       make_serving_from_cfg)
+    from scflow_tpu_torch.refiners.build import build_refiner_from_config
+    from scflow_tpu_torch.runtime.server import PoseService
+
+    cfg.merge_from_dict(cfg_options)
+    with torch.random.fork_rng(devices=[]):
+        model = build_refiner_from_config(cfg.model)
+    model.cuda()
+    assets, bank = build_render_assets(cfg.model)
+    load_eval_checkpoint(str(ckpt), model)
+    serve_fn, keys, post_fn = make_serving_from_cfg(cfg, model, assets)
+    return PoseService(serve_fn, frame_hw=(FRAME_H, FRAME_W), num_class=bank.num_class,
+                       max_frames=8, max_objects=BATCH, fetch_keys=keys, post_fn=post_fn)
+
+
+def _serve_load(cfg_path: Path, ckpt: Path, root: Path, tag: str, extra=()) -> dict:
+    """Start `python -m scflow_tpu_torch.cli serve` (--frame-hw 480 640
+    --max-objects 64 --max-frames 8 --port 0, then `extra`) in a
+    subprocess, wait for the port in its log and for /healthz, drive it
+    with `cli loadtest` (SERVE_LOAD, answers saved), read /v1/stats, send
+    SIGTERM and wait for the exit.  Gates: every request answered, 0
+    errors, exit code 0 after the drain.  The process is killed on any
+    failure."""
+    import queue
+    import signal
+    import threading
+    from urllib.request import urlopen
+
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        [str(root)] + [p for p in [os.environ.get("PYTHONPATH")] if p]))
+    t0 = time.perf_counter()
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "scflow_tpu_torch.cli", "serve", str(cfg_path), "--checkpoint",
+         str(ckpt), "--frame-hw", str(FRAME_H), str(FRAME_W), "--max-objects", str(BATCH),
+         "--max-frames", "8", "--port", "0", *extra],
+        cwd=str(root), env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    lines, ports = [], queue.Queue()
+
+    def read():
+        for line in proc.stdout:
+            lines.append(line.rstrip())
+            m = re.search(r"serving on http://[\d.]+:(\d+)", line)
+            if m:
+                ports.put(int(m.group(1)))
+
+    reader = threading.Thread(target=read, daemon=True)
+    reader.start()
+    try:
+        try:
+            port = ports.get(timeout=SERVE_START_S)
+        except queue.Empty:
+            raise RuntimeError(f"{tag}: the server did not come up in {SERVE_START_S} s: "
+                               + " | ".join(lines[-20:]))
+        url = f"http://127.0.0.1:{port}"
+        deadline = time.perf_counter() + 60
+        while True:
+            try:
+                if urlopen(url + "/healthz", timeout=5).read() == b"ok":
+                    break
+            except OSError:
+                pass
+            require(time.perf_counter() < deadline and proc.poll() is None,
+                    f"{tag}: the server answers /healthz within 60 s")
+            time.sleep(0.5)
+        up_s = time.perf_counter() - t0
+        answers = cfg_path.parent / f"{tag}_responses.npz"
+        load = subprocess.run(
+            [sys.executable, "-m", "scflow_tpu_torch.cli", "loadtest", "--url", url,
+             "--clients", str(SERVE_LOAD["clients"]), "--requests", str(SERVE_LOAD["requests"]),
+             "--objects", str(SERVE_LOAD["objects"]), "--frame-hw", str(FRAME_H), str(FRAME_W),
+             "--num-class", str(NCLASS), "--timeout", "120", "--save-responses", str(answers)],
+            cwd=str(root), env=env, capture_output=True, text=True, timeout=600)
+        require(load.returncode == 0, f"{tag}: cli loadtest: {load.stderr[-2000:]}")
+        report = json.loads(next(ln for ln in load.stdout.splitlines()
+                                 if ln.startswith('{"requests_ok"')))
+        stats = json.loads(urlopen(url + "/v1/stats", timeout=10).read())
+        n = SERVE_LOAD["clients"] * SERVE_LOAD["requests"]
+        require(report["requests_ok"] == n and report["requests_failed"] == 0,
+                f"{tag}: loadtest report {report}")
+        require(stats["errors"] == 0 and stats["requests"] == n, f"{tag}: /v1/stats {stats}")
+        proc.send_signal(signal.SIGTERM)
+        rc = proc.wait(timeout=120)
+        reader.join(timeout=10)
+        require(rc == 0 and any("shutting down" in ln for ln in lines),
+                f"{tag}: SIGTERM drains and exits 0 (exit code {rc}): " + " | ".join(lines[-5:]))
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait(timeout=60)
+    lat = report["latency_ms"]
+    line = {"requests_per_s": report["requests_per_s"], "objects_per_s": report["objects_per_s"],
+            "client_p50_ms": lat["p50"], "client_p90_ms": lat["p90"],
+            "client_p99_ms": lat["p99"], "wall_s": report["wall_s"],
+            "objects_per_batch": stats["mean_objects_per_batch"],
+            "requests_per_batch": stats["mean_requests_per_batch"], "batches": stats["batches"],
+            "server_latency_ms": stats["latency_ms"], "errors": stats["errors"],
+            "server_up_s": up_s, "sigterm_exit_code": rc}
+    return dict(line=line, answers=np.load(answers))
+
+
+def phase_serve_http(smi, root: Path):
+    """`python -m scflow_tpu_torch.cli serve` as a subprocess on the card,
+    from a config that _base_s the shipped scflow.py, the slice's seeded
+    weights saved with save_params, --frame-hw 480 640 --max-objects 64
+    --max-frames 8 --port 0; `cli loadtest` (8 clients x 10 requests x 4
+    objects) drives it (_serve_load's gates).  Gate: every answer equals
+    PoseService.run of the same request (rotations 2e-5, translations
+    2e-3), a run of 8 K1 and 1 K2.  Then the same load on a server with
+    --pow2-buckets ("serve_http_pow2": batches padded to their power of
+    two), its answers within the slice's bounds of the same run."""
+    from scflow_tpu_torch.config import Config
+    from scflow_tpu_torch.refiners.build import build_refiner_from_config
+    from scflow_tpu_torch.runtime.checkpoint import save_params
+    from scflow_tpu_torch.runtime.server import RefineRequest
+
+    work = _serve_work(root)
+    cfg_path = _serve_config(work, root, "scflow.py")
+    cfg = Config.fromfile(str(cfg_path))
+    require(cfg.model.decoder.iters == ITERS and tuple(cfg.model.renderer.image_size)
+            == (IMG, IMG) and cfg.model.decoder.pose_head_cfg.num_class == NCLASS
+            and cfg.model.renderer.cull_backfaces is True, "the shipped model")
+    with torch.random.fork_rng(devices=[]):
+        model = build_refiner_from_config(cfg.model)
+    model.load_state_dict(seeded_model().state_dict())
+    ckpt = work / "scflow.pth"
+    save_params(str(ckpt), model)
+    runs = {"serve_http": _serve_load(cfg_path, ckpt, root, "serve_http"),
+            "serve_http_pow2": _serve_load(cfg_path, ckpt, root, "serve_http_pow2",
+                                           ["--pow2-buckets"])}
+
+    # every answer against PoseService.run of the same request, alone
+    service = _serve_service(Config.fromfile(str(cfg_path)), ckpt)
+    z = runs["serve_http"]["answers"]
+    req = RefineRequest(frame=z["request_frame"], rotations=z["request_rotations"],
+                        translations=z["request_translations"], k=z["request_k"],
+                        labels=z["request_labels"])
+    service.run([req])  # warm-up
+    (direct,), c = counted(lambda: service.run([req]))
+    require(only(c, K1=ITERS, K2=1), f"serve_http: PoseService.run launches {c}")
+    n = SERVE_LOAD["clients"] * SERVE_LOAD["requests"]
+    for tag, run in runs.items():
+        z = run["answers"]
+        d_rot = float(np.abs(z["rotations"] - direct["rotations"][None]).max())
+        d_t = float(np.abs(z["translations"] - direct["translations"][None]).max())
+        require(len(z["rotations"]) == n, f"{tag}: {n} answers saved")
+        if tag == "serve_http":
+            require(d_rot <= SERVE_ROT_ATOL and d_t <= SERVE_TRANS_ATOL,
+                    f"{tag}: answers vs PoseService.run: rot |d| {d_rot}, t |d| {d_t}")
+        else:
+            _slice_bounds(z["rotations"].reshape(-1, 3, 3), z["translations"].reshape(-1, 3),
+                          np.tile(direct["rotations"], (n, 1, 1)),
+                          np.tile(direct["translations"], (n, 1)), f"{tag} vs PoseService.run")
+        emit({"phase": tag, **SERVE_LOAD, "frame_hw": [FRAME_H, FRAME_W], "max_objects": BATCH,
+              "max_frames": 8, "pow2_buckets": tag.endswith("pow2"), **run["line"],
+              "answers_vs_run_rot_max_abs_diff": d_rot, "answers_vs_run_trans_max_abs_diff": d_t,
+              "run_launches": c, "card": smi})
+    return {"serve_http_run": c}
+
+
+def _serve_requests(inputs, per_request: int):
+    """serve_inputs' objects as RefineRequests of `per_request` objects, each
+    on its own frame (the inputs' frame i % frames, as uint8)."""
+    from scflow_tpu_torch.runtime.server import RefineRequest
+
+    frames = np.rint(inputs["frames"] * 255).astype(np.uint8)
+    return [RefineRequest(frame=frames[i % len(frames)],
+                          rotations=inputs["ref_rotations"][s:s + per_request],
+                          translations=inputs["ref_translations"][s:s + per_request],
+                          k=inputs["K"][s], labels=inputs["labels"][s:s + per_request])
+            for i, s in enumerate(range(0, len(inputs["labels"]), per_request))]
+
+
+def phase_serve_raft(smi, root: Path):
+    """make_serving_from_cfg on a config that _base_s the shipped raft.py,
+    raft_model's weights: host PnP (the serve fn and its fetch of the flow,
+    occlusion, depth, K' and reference poses; the host solve needs cv2,
+    which runs only where it is installed) and device PnP
+    (test_cfg.pnp_backend=device: PoseService.run) on 4 requests of 16
+    objects; 12 K1 and 1 K2 per call; ms per call.  Gate: with the flow
+    head's output zeroed, the card's and the CPU's device PnP give the
+    reference poses (|dR| 2e-3, 1 mm: the raft phase's gt-flow bounds)."""
+    import importlib.util
+
+    from scflow_tpu_torch.apis import _raft_pnp_cfg
+    from scflow_tpu_torch.config import Config
+    from scflow_tpu_torch.refiners.system import RenderAssets
+    from scflow_tpu_torch.render.meshbank import make_synthetic_bank
+    from scflow_tpu_torch.runtime.checkpoint import save_params
+    from scflow_tpu_torch.serving import make_raft_serving_fn
+
+    work = _serve_work(root)
+    cfg_path = _serve_config(work, root, "raft.py")
+    ckpt = work / "raft.pth"
+    save_params(str(ckpt), raft_model())
+    requests = _serve_requests(serve_inputs(), BATCH // 4)
+    res, launches = {}, {}
+    host = _serve_service(Config.fromfile(str(cfg_path)), ckpt)
+    host.dispatch(requests)  # warm-up
+    torch.cuda.synchronize()
+    (out, event, counts), c = counted(lambda: host.dispatch(requests))
+    event.synchronize()
+    require(only(c, K1=RAFT_ITERS, K2=1), f"serve_raft host: launches per call {c}")
+    launches["serve_raft_host"] = {k: n for k, n in c.items() if n}
+    require(set(out) == set(host.fetch_keys) and out["flow"].shape == (BATCH, IMG, IMG, 2)
+            and bool(torch.isfinite(out["flow"]).all()), "serve_raft host: the fetched outputs")
+    if importlib.util.find_spec("cv2") is not None:
+        poses = host.post_fn({k: v.numpy() for k, v in out.items()})
+        _poses_ok(poses["rotations"], poses["translations"], out["ref_translations"].numpy(),
+                  "serve_raft host PnP")
+        res["host_pnp"] = "solved with cv2"
+        res["host_ms_per_call"] = _timed_calls(lambda: host.fetch(host.dispatch(requests)),
+                                               calls=5)
+    else:
+        res["host_pnp"] = "not run: cv2 is not installed (the serve fn and its fetch ran)"
+        res["host_ms_per_call_without_pnp"] = _timed_calls(
+            lambda: host.dispatch(requests)[1].synchronize(), calls=5)
+    del host
+    device = _serve_service(Config.fromfile(str(cfg_path)), ckpt,
+                            **{"model.test_cfg.pnp_backend": "device"})
+    device.run(requests)
+    torch.cuda.synchronize()
+    got, c = counted(lambda: device.run(requests))
+    require(only(c, K1=RAFT_ITERS, K2=1), f"serve_raft device: launches per call {c}")
+    launches["serve_raft_device"] = {k: n for k, n in c.items() if n}
+    R = np.concatenate([g["rotations"] for g in got])
+    t = np.concatenate([g["translations"] for g in got])
+    res["device_orthonormality_err"] = _poses_ok(R, t, np.concatenate(
+        [r.translations for r in requests]), "serve_raft device")
+    res["device_ms_per_call"] = _timed_calls(lambda: device.run(requests), calls=5)
+    del device
+    # card vs CPU on exact correspondences: the flow head's output zeroed
+    cfg = Config.fromfile(str(cfg_path))
+    # occ_thresh 0: every rendered pixel a correspondence, so the solve runs
+    # whatever the random occlusion head predicts
+    pnp_cfg = dict(_raft_pnp_cfg(cfg.model.test_cfg), occ_thresh=0.0)
+    inputs = serve_inputs(SERVE_CPU_OBJECTS)
+    zero = raft_model()
+    with torch.no_grad():
+        zero.decoder.flow_pred.predict_layer.weight.zero_()
+        zero.decoder.flow_pred.predict_layer.bias.zero_()
+    cpu_zero = raft_model()
+    cpu_zero.load_state_dict(zero.state_dict())
+    bank = make_synthetic_bank(NCLASS, kind="uvsphere", size=80.0)
+    poses = {}
+    for dev_name, m in (("cuda", zero), ("cpu", cpu_zero)):
+        assets = RenderAssets.from_bank(bank, device=dev_name)
+        serve = make_raft_serving_fn(m, assets, assets.verts, assets.vert_valid, image_size=IMG,
+                                     render_backend="pallas", render_cull_backfaces=True,
+                                     lookup_backend="pallas", pnp_backend="device",
+                                     pnp_cfg=pnp_cfg, device=dev_name)
+        o = serve(*(torch.from_numpy(inputs[k]) for k in SERVE_KEYS))
+        require(bool(o["pnp_ok"].all()) and float(o["flow"].abs().max()) == 0,
+                f"zero flow on {dev_name}: PnP ok")
+        poses[dev_name] = (o["rotations"].cpu().numpy(), o["translations"].cpu().numpy())
+    for dev_name, (Rz, tz) in poses.items():
+        dR = float(np.abs(Rz - inputs["ref_rotations"]).max())
+        dt = float(np.abs(tz - inputs["ref_translations"]).max())
+        require(dR <= 2e-3 and dt <= 1.0, f"zero flow on {dev_name}: |dR| {dR}, |dt| {dt} mm")
+        res[f"zero_flow_{dev_name}_vs_reference"] = [dR, dt]
+    emit({"phase": "serve_raft", "objects": BATCH, "requests": len(requests),
+          "frame_hw": [FRAME_H, FRAME_W], "image": IMG, "iters": RAFT_ITERS,
+          "zero_flow_pnp": pnp_cfg, "launches_per_call": launches, **res, "card": smi})
+    return launches
+
+
+def phase_train_augment(smi, root: Path):
+    """The shipped recipe's step (batch 16, 256^2, 8 iterations, lookup
+    'pallas') with RENDER_AUGMENTATIONS: 1 K2, 8 K1, 8 K1b per step; ms per
+    step beside the same step without them (plain, augmented, augmented,
+    plain); gate: the card and the CPU draw the same per-sample parameters
+    for one key, and equal parameters (the card's noise field included)
+    give equal augmented renders (1e-5); then `cli.train_main` for
+    TA_CLI_STEPS steps from a config that sets model.render_augmentations,
+    with the same launches per step."""
+    import copy
+    import shutil
+
+    from scflow_tpu_torch import cli
+    from scflow_tpu_torch.models.augment import build_render_augmentation
+    from scflow_tpu_torch.refiners.system import RenderAssets
+    from scflow_tpu_torch.render.meshbank import make_synthetic_bank
+    from scflow_tpu_torch.render.renderer import render_batch
+
+    want = {"K1": ITERS, "K1b": ITERS, "K2": 1}
+    bank = make_synthetic_bank(NCLASS, kind="uvsphere", size=80.0)
+    state0, plain, assets, _ = _train_setup(train_model(IMG, ITERS), bank, IMG)
+    augmented = _train_setup(state0.model, bank, IMG,
+                             render_augmentations=RENDER_AUGMENTATIONS)[1]
+    batch = train_batch(assets, TRAIN_BATCH, IMG)
+    for step in (plain, augmented):  # warm-up: cuDNN plans, allocator, Adam moments
+        state0, _ = step(state0, batch)
+    torch.cuda.synchronize()
+    (_, logs), c = counted(lambda: augmented(copy.deepcopy(state0), batch))
+    require(only(c, **want), f"augmented train step launches {c}")
+    require(math.isfinite(float(logs["loss"])), "augmented step: finite loss")
+    ms = {"plain": [], "augmented": []}
+    state = copy.deepcopy(state0)
+    for name in ("plain", "augmented", "augmented", "plain"):
+        step = plain if name == "plain" else augmented
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(TA_TIMED_STEPS):
+            state, _ = step(state, batch)
+        torch.cuda.synchronize()
+        ms[name].append(1e3 * (time.perf_counter() - t0) / TA_TIMED_STEPS)
+    del state
+
+    # equal parameters, equal renders on the card and the CPU
+    aug = build_render_augmentation(RENDER_AUGMENTATIONS)
+    images = {}
+    for dev_name in ("cuda", "cpu"):
+        a = RenderAssets.from_bank(bank, device=dev_name)
+        with torch.no_grad():
+            images[dev_name] = render_batch(
+                *a, *(torch.as_tensor(batch[k], device=dev_name) for k in
+                      ("ref_rotations", "ref_translations", "k")),
+                torch.as_tensor(batch["labels"], device=dev_name), IMG, IMG, backend="pallas",
+                cull_backfaces=True)["images"]
+    key = (0, 7)
+    p_card, p_cpu = aug.draw(key, images["cuda"]), aug.draw(key, images["cpu"])
+    same = all(torch.equal(a[k].cpu(), b[k]) for a, b in zip(p_card, p_cpu) for k in a
+               if k != "noise")
+    require(same, "the card and the CPU draw the same per-sample parameters")
+    gates = [p["gate"].tolist() for p in p_card]
+    got = aug.apply(images["cuda"], p_card).cpu()
+    ref = aug.apply(images["cpu"], [{k: v.cpu() for k, v in p.items()} for p in p_card])
+    render_err = float((images["cuda"].cpu() - images["cpu"]).abs().max())
+    aug_err = float((got - ref).abs().max())
+    require(aug_err <= 1e-5, f"augmented renders, card vs CPU: {aug_err}")
+    launches = {"train_augment": c}
+
+    # cli train with render_augmentations in its config file
+    work = root / "build" / "train_augment"
+    shutil.rmtree(work, ignore_errors=True)
+    work.mkdir(parents=True)
+    try:
+        _workflow_scene(work / "ycbv", torch.device("cuda", 0), TA_CLI_IMAGES, seed=1,
+                        split="train_real")
+        base = _train_workflow_config(work, root, "scflow.py")
+        cfg_path = work / "train_augment.py"
+        cfg_path.write_text(f"_base_ = {str(base)!r}\n"
+                            f"model = dict(render_augmentations={RENDER_AUGMENTATIONS!r})\n")
+        probe = _train_probe()
+        cli.train_main([str(cfg_path), "--work-dir", str(work / "run"), "--max-iters",
+                        str(TA_CLI_STEPS), "--num-workers", "2", "--cfg-options", TW_FAST],
+                       extra_hooks=[probe])
+        cli_run = _probe_checks(probe, "train_augment cli", want)
+        dumped = (work / "run" / "config_dump.py").read_text()
+        require("render_augmentations" in dumped and "RandomGaussianBlur" in dumped,
+                "the config's render_augmentations reached train_main")
+        launches["train_augment_cli"] = probe.launches[-1]
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    emit({"phase": "train_augment", "batch": TRAIN_BATCH, "image": IMG, "iters": ITERS,
+          "augmentations": RENDER_AUGMENTATIONS, "launches_per_step": c,
+          "loss": float(logs["loss"]), "ms_per_step_augmented": ms["augmented"],
+          "ms_per_step_plain": ms["plain"], "card_cpu_render_max_abs_diff": render_err,
+          "card_cpu_augmented_max_abs_diff": aug_err, "gates_key_0_7": gates,
+          "cli_train": cli_run, "card": smi})
+    return launches
+
+
+def serve_phases(smi, root: Path) -> dict:
+    """The serving phases (serve, serve_http, serve_raft), build/serve/
+    removed afterwards; {run: launches per call}."""
+    import shutil
+
+    try:
+        launches = phase_serve(smi)
+        launches.update(phase_serve_http(smi, root))
+        launches.update(phase_serve_raft(smi, root))
+    finally:
+        shutil.rmtree(root / "build" / "serve", ignore_errors=True)
+    return launches
+
+
 PHASE_GROUPS = ("lookup", "raster", "slice", "raft", "options", "workflow",
-                "train_workflow", "train_pbr")
+                "train_workflow", "train_pbr", "serve", "train_augment")
 
 
 def run_phase_groups(groups, dev, ptxas, smi, root: Path) -> None:
@@ -3532,6 +4133,10 @@ def run_phase_groups(groups, dev, ptxas, smi, root: Path) -> None:
             phase_train_workflow(smi, root)
         elif group == "train_pbr":
             phase_train_pbr(smi, root)
+        elif group == "serve":
+            serve_phases(smi, root)
+        elif group == "train_augment":
+            phase_train_augment(smi, root)
         else:
             phase_raft_small(smi)
             phase_scflow_options(smi, shipped)
@@ -3594,6 +4199,9 @@ def main() -> int:
     tw_launches = phase_train_workflow(smi, args.root.resolve())
     # launches per step of the PBR recipe's train_main run
     tw_launches.update(phase_train_pbr(smi, args.root.resolve()))
+    # launches per call of each serving run, per step of the augmented steps
+    serve_launches = serve_phases(smi, args.root.resolve())
+    serve_launches.update(phase_train_augment(smi, args.root.resolve()))
     src = "scflow_tpu_torch/csrc/"
     tpu = "scflow_tpu/ops/pallas/"
     table = [
@@ -3636,11 +4244,18 @@ def main() -> int:
         return {**({"workflow_launches_per_image": got} if got else {}),
                 **({"train_workflow_launches_per_step": steps} if steps else {})}
 
+    def serving(key):
+        """The key's launches per call of each serving run (serve, serve_bf16,
+        serve_http_run, serve_raft_host, serve_raft_device) and per step of
+        the augmented train steps (train_augment, train_augment_cli)."""
+        got = {run: n[key] for run, n in serve_launches.items() if n.get(key)}
+        return {"serve_launches": got} if got else {}
+
     emit({"kernels": [
         {"name": f"{key} {fn}", "route": "cuda", "source": src + file, "replaces": tpu + where,
          "launches": launches[key], **({"raft_launches": raft_launches[key]}
                                        if key in raft_launches else {}), **res[key],
-         **radius_3(key), **workflow(key)}
+         **radius_3(key), **workflow(key), **serving(key)}
         for key, fn, file, where in table], "card": smi})
     emit({"ok": True, "device": {"platform": "gpu", "kind": name,
                                  "count": torch.cuda.device_count()}})

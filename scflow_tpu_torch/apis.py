@@ -1,8 +1,9 @@
 """Config-driven builders of the test and train workflows: config dict ->
 render and loss assets, model weights (seeded, pretrained, or from a
-checkpoint), the inference call, the train step, the evaluation callable
-and the TensorBoard panels.  The port's copy of scflow_tpu/apis.py (used by
-cli.test_main and cli.train_main)."""
+checkpoint), the inference call, the serving pipeline, the train step,
+the evaluation callable and the TensorBoard panels.  The port's copy of
+scflow_tpu/apis.py (used by cli.test_main, cli.train_main and
+cli.serve_main)."""
 
 import os
 import warnings
@@ -142,6 +143,54 @@ def _raft_pnp_cfg(test_cfg: Dict) -> Dict:
     return pnp_cfg
 
 
+def make_serving_from_cfg(cfg, model, render_assets: RenderAssets, device=None):
+    """The config's serving pipeline: (serve_fn, fetch_keys, post_fn) for
+    runtime.server.PoseService (JAX's make_serving_from_cfg, with `device`,
+    None meaning CUDA).  SCFlow serves poses from the device, pose-only
+    (slim), and the service fetches rotations and translations; a RAFT
+    config with test_cfg.pnp_backend 'device' solves the pose on the device
+    too (sample_points' num; mode 'random' warns: the device PnP takes the
+    top-k by confidence); with 'host' (the default) the service fetches the
+    flow, occlusion, rendered depths, K' and reference poses, and post_fn
+    solves the pose with cv2's RANSAC on the host (not on a machine without
+    cv2) against K', so poses land in the original camera frame either
+    way.  The backends are JAX's 'auto': the kernels on a card."""
+    from scflow_tpu_torch.serving import make_raft_serving_fn, make_serving_fn
+
+    norm_mean, norm_std = norm_stats_from_cfg(cfg)
+    test_cfg = cfg.model.get("test_cfg", {})
+    rcfg = cfg.model.get("renderer", {})
+    image_size = tuple(rcfg.get("image_size", (256, 256)))
+    common = dict(image_size=image_size[0], norm_mean=norm_mean, norm_std=norm_std,
+                  iters=test_cfg.get("iters"),
+                  render_cull_backfaces=bool(rcfg.get("cull_backfaces", False)), device=device)
+    banks = (render_assets.verts, render_assets.vert_valid)
+    if cfg.model["type"] == "SCFlowRefiner":
+        serve_fn = make_serving_fn(model, render_assets, *banks, slim=True, **common)
+        return serve_fn, ("rotations", "translations"), None
+    if test_cfg.get("pnp_backend", "host") == "device":
+        serve_fn = make_raft_serving_fn(model, render_assets, *banks, pnp_backend="device",
+                                        pnp_cfg=_raft_pnp_cfg(test_cfg), **common)
+        return serve_fn, ("rotations", "translations"), None
+
+    serve_fn = make_raft_serving_fn(model, render_assets, *banks, **common)
+    fetch_keys = ("flow", "occlusion", "rendered_depths", "new_k", "ref_rotations",
+                  "ref_translations")
+
+    def post_fn(out):
+        from scflow_tpu_torch.refiners.flow_pose import solve_poses_from_flow
+
+        R, t, _ = solve_poses_from_flow(
+            out["flow"], out["rendered_depths"], out["ref_rotations"], out["ref_translations"],
+            out["new_k"], occlusion=out.get("occlusion"),
+            occ_thresh=test_cfg.get("occ_thresh", 0.5),
+            sample_points=test_cfg.get("sample_points"),
+            reprojection_error=test_cfg.get("solve_pose_param", {}).get("reprojectionerror", 3.0))
+        return {"rotations": R, "translations": t}
+
+    return serve_fn, fetch_keys, post_fn
+
+
 def make_infer_from_cfg(cfg, model, render_assets: RenderAssets, image_size=(256, 256),
                         slim: bool = False, device=None):
     """(infer, pose_from_output) for the evaluation loop.  SCFlow configs
@@ -207,8 +256,9 @@ def make_train_step_from_cfg(cfg, model, render_assets: RenderAssets,
     SCFlow with the sequence-loss weights, gamma, disentangle_z and loss
     type of its pose, flow and mask loss configs; RAFT with its flow and
     occlusion losses and filter_invalid_flow_by_mask/_by_depth; max_flow,
-    renderer.cull_backfaces, and render_augmentations (which raise: not
-    ported).  As make_infer_from_cfg, the render takes the kernel backend
+    renderer.cull_backfaces, and render_augmentations (models/augment.py,
+    seeded with augment_seed 0, as JAX's config-built step).  As
+    make_infer_from_cfg, the render takes the kernel backend
     ('pallas') and so does the lookup on a square image ('auto' otherwise)
     on either device, where JAX's config-built step takes its plain 'xla'
     lookup: the same function, and a CPU run checks a card run."""

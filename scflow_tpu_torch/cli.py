@@ -6,10 +6,18 @@
         [--device cpu]
     python -m scflow_tpu_torch.cli test CONFIG --checkpoint CKPT [--eval]
         [--format-only --save-dir DIR] [--out FILE] [--device cpu]
+    python -m scflow_tpu_torch.cli serve CONFIG --checkpoint CKPT
+        [--host H] [--port P] [--frame-hw H W] [--max-objects N]
+        [--max-frames N] [--max-delay-ms MS] [--pow2-buckets]
+        [--keepalive-s S] [--cfg-options k=v ...] [--device cpu]
+    python -m scflow_tpu_torch.cli loadtest [--url URL] [--clients N]
+        [--requests N] [--objects N] [--frame-hw H W] [--num-class C]
+        [--timeout S] [--save-responses FILE.npz]
 
-(tools/train.py and tools/test.py, whose bodies are scflow_tpu/cli.py's
-train_main and test_main).  The serve and export commands of the JAX
-package are not ported yet."""
+(tools/train.py, tools/test.py, tools/serve.py and tools/serve_loadtest.py,
+whose bodies are scflow_tpu/cli.py's train_main, test_main and serve_main
+and the load-test client).  The JAX package's export command is not
+ported yet."""
 
 import argparse
 import json
@@ -19,8 +27,8 @@ import time
 
 import numpy as np
 
-_NOT_PORTED = {"serve": "ROADMAP §1 item 9 (serving)",
-               "export": "ROADMAP §1 item 9 (torch.export)"}
+_NOT_PORTED = {"export": "ROADMAP §1 item 9c (torch.export; the kernels first need "
+                         "torch.library custom ops)"}
 
 
 def _check_launcher(launcher: str) -> None:
@@ -277,14 +285,226 @@ def test_main(argv=None):
     return dict(results=results, metrics=metrics, seconds=total, stats=stats)
 
 
+def parse_serve_args(argv=None):
+    p = argparse.ArgumentParser(
+        description="Online pose-refinement server on the card (HTTP + micro-batching)")
+    p.add_argument("config")
+    p.add_argument("--checkpoint", required=True, help="a .pth/.pt checkpoint")
+    p.add_argument("--host", default="127.0.0.1")
+    p.add_argument("--port", default=8080, type=int,
+                   help="0 binds a free port, which the log names")
+    p.add_argument("--frame-hw", type=int, nargs=2, default=[480, 640],
+                   help="camera frame size the server accepts")
+    p.add_argument("--max-objects", default=64, type=int, help="device batch budget")
+    p.add_argument("--max-frames", default=8, type=int,
+                   help="max requests coalesced into one batch")
+    p.add_argument("--max-delay-ms", default=5.0, type=float,
+                   help="batching window opened by the first queued request")
+    p.add_argument("--pow2-buckets", action="store_true",
+                   help="pad to shared pow2 buckets instead of one fixed batch")
+    p.add_argument("--keepalive-s", default=0.0, type=float,
+                   help="keep-alive tick interval (the serve fn on 1 synthetic object); "
+                        "0 = off, the default")
+    p.add_argument("--cfg-options", nargs="*", default=[])
+    p.add_argument("--device", default=None,
+                   help="torch device (default: the card); 'cpu' runs the plain versions")
+    return p.parse_args(argv)
+
+
+def serve_main(argv=None):
+    """Serve the config's refiner with the checkpoint's weights over HTTP
+    (scflow_tpu/cli.py::serve_main on one card): PoseService over
+    apis.make_serving_from_cfg, warmed up at its batch shape, behind a
+    two-stage MicroBatcher (dispatch, then fetch on a second thread) and
+    make_http_server; an optional keep-alive tick.  Logs "serving on
+    http://HOST:PORT" with the bound port (so --port 0 can be found).
+    SIGTERM drains like Ctrl-C: the HTTP loop stops, the batcher finishes
+    its queued batches, and the call returns."""
+    args = parse_serve_args(argv)
+    import signal
+
+    import torch
+
+    from scflow_tpu_torch.apis import (build_render_assets, load_eval_checkpoint,
+                                       make_serving_from_cfg)
+    from scflow_tpu_torch.config import Config
+    from scflow_tpu_torch.device import resolve_device
+    from scflow_tpu_torch.refiners.build import build_refiner_from_config
+    from scflow_tpu_torch.runtime.logger import get_logger
+    from scflow_tpu_torch.runtime.server import (DeviceKeepAlive, MicroBatcher, PoseService,
+                                                 make_http_server, make_service_keepalive_tick)
+
+    logger = get_logger()
+    dev = resolve_device(args.device)
+    cfg = Config.fromfile(args.config)
+    if args.cfg_options:
+        cfg.merge_from_dict(Config.parse_options(args.cfg_options))
+    # the serve fns compute in full float32 (device.full_fp32), which saves
+    # and restores these process-wide flags around each call; set them once
+    # here, so that a keep-alive tick beside a batch cannot restore TF32 in
+    # the middle of the other's call
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
+    if dev.type == "cuda":
+        logger.info(f"device: {dev} ({torch.cuda.get_device_name(dev)})")
+        if torch.cuda.device_count() > 1:
+            logger.info(f"{torch.cuda.device_count()} cards visible; serving on {dev} only "
+                        "(serving across cards is ROADMAP §1 item 9d)")
+    with torch.random.fork_rng(devices=[]):  # the weights all come from the file
+        model = build_refiner_from_config(cfg.model)
+    model.to(dev)
+    render_assets, bank = build_render_assets(cfg.model, device=dev)
+    load_eval_checkpoint(args.checkpoint, model, logger)
+    serve_fn, fetch_keys, post_fn = make_serving_from_cfg(cfg, model, render_assets, device=dev)
+    service = PoseService(serve_fn, frame_hw=tuple(args.frame_hw), num_class=bank.num_class,
+                          max_frames=args.max_frames, max_objects=args.max_objects,
+                          fixed_bucket=not args.pow2_buckets, fetch_keys=fetch_keys,
+                          post_fn=post_fn, device=dev)
+    logger.info("warming up (the serve fn at its batch shape)...")
+    t0 = time.perf_counter()
+    service.warmup()
+    logger.info(f"warmup done in {time.perf_counter() - t0:.1f}s")
+
+    batcher = MicroBatcher(service.dispatch, fetch_batch=service.fetch,
+                           max_frames=args.max_frames, max_objects=args.max_objects,
+                           max_delay_ms=args.max_delay_ms)
+    keepalive = None
+    if args.keepalive_s > 0:
+        keepalive = DeviceKeepAlive(make_service_keepalive_tick(service),
+                                    interval_s=args.keepalive_s)
+    httpd = make_http_server(service, batcher, args.host, args.port)
+    logger.info(f"serving on http://{args.host}:{httpd.server_address[1]} "
+                "(POST /v1/refine, GET /healthz, GET /v1/stats)")
+
+    def _term(signum, frame):  # systemd and k8s send SIGTERM on a rollout
+        raise KeyboardInterrupt
+
+    previous = signal.signal(signal.SIGTERM, _term)
+    try:
+        httpd.serve_forever()
+    except KeyboardInterrupt:
+        logger.info("shutting down (draining in-flight batches)")
+    finally:
+        signal.signal(signal.SIGTERM, previous)
+        httpd.shutdown()
+        httpd.server_close()
+        batcher.stop()
+        if keepalive is not None:
+            keepalive.stop()
+    logger.info(f"stopped; stats {json.dumps(batcher.stats.snapshot())}")
+    return batcher.stats.snapshot()
+
+
+def parse_loadtest_args(argv=None):
+    p = argparse.ArgumentParser(description="Concurrent load test of the serving server")
+    p.add_argument("--url", default="http://127.0.0.1:8080")
+    p.add_argument("--clients", type=int, default=8)
+    p.add_argument("--requests", type=int, default=50, help="requests per client")
+    p.add_argument("--objects", type=int, default=4, help="objects per request")
+    p.add_argument("--frame-hw", type=int, nargs=2, default=[480, 640])
+    p.add_argument("--num-class", type=int, default=21)
+    p.add_argument("--timeout", type=float, default=120.0)
+    p.add_argument("--save-responses", default=None,
+                   help="write the request and every answered response to this .npz")
+    return p.parse_args(argv)
+
+
+def loadtest_request(frame_hw, objects: int, num_class: int):
+    """The load test's one request (tools/serve_loadtest.py's): a noise
+    frame, random rotations, translations around 700-1100 mm, the LINEMOD
+    focal lengths, random labels; seeded, so a checker can rebuild it."""
+    from scipy.spatial.transform import Rotation
+
+    h, w = frame_hw
+    rng = np.random.default_rng(0)
+    frame = rng.integers(0, 255, (h, w, 3)).astype(np.uint8)
+    R = Rotation.random(objects, 0).as_matrix().astype(np.float32)
+    t = np.stack([rng.normal(size=objects) * 50, rng.normal(size=objects) * 30,
+                  rng.uniform(700, 1100, objects)], -1).astype(np.float32)
+    K = np.array([[572.4, 0, w / 2], [0, 573.5, h / 2], [0, 0, 1]], np.float32)
+    labels = rng.integers(0, num_class, objects).astype(np.int32)
+    return dict(frame=frame, rotations=R, translations=t, k=K, labels=labels)
+
+
+def loadtest_main(argv=None):
+    """Drive POST /v1/refine with --clients threads of --requests requests
+    each and print the achieved request and object rates, the client-side
+    latency percentiles (nearest rank) and the server's /v1/stats.
+    Returns the report."""
+    args = parse_loadtest_args(argv)
+    import threading
+    from urllib.request import urlopen
+
+    from scflow_tpu_torch.runtime.server import nearest_rank, refine_remote
+
+    req = loadtest_request(args.frame_hw, args.objects, args.num_class)
+    lat, errs, answers = [], [], []
+    lock = threading.Lock()
+
+    def client():
+        for _ in range(args.requests):
+            t0 = time.perf_counter()
+            try:
+                res = refine_remote(args.url, req["frame"], req["rotations"],
+                                    req["translations"], req["k"], req["labels"],
+                                    timeout=args.timeout)
+                dt = time.perf_counter() - t0
+                with lock:
+                    lat.append(dt)
+                    answers.append(res)
+            except Exception as e:
+                with lock:
+                    errs.append(str(e))
+
+    threads = [threading.Thread(target=client) for _ in range(args.clients)]
+    t0 = time.perf_counter()
+    for th in threads:
+        th.start()
+    for th in threads:
+        th.join()
+    wall = time.perf_counter() - t0
+    lat.sort()
+
+    def q(p):
+        v = nearest_rank(lat, p)
+        return None if v is None else round(v * 1e3, 1)
+
+    n_ok = len(lat)
+    report = {"requests_ok": n_ok, "requests_failed": len(errs), "wall_s": round(wall, 2),
+              "requests_per_s": round(n_ok / wall, 2) if wall else None,
+              "objects_per_s": round(n_ok * args.objects / wall, 2) if wall else None,
+              "latency_ms": {"p50": q(0.50), "p90": q(0.90), "p95": q(0.95),
+                             "p99": q(0.99)}}
+    print(json.dumps(report), flush=True)
+    if errs:
+        print("first error:", errs[0], flush=True)
+    try:
+        stats = urlopen(args.url.rstrip("/") + "/v1/stats", timeout=10).read().decode()
+        report["server_stats"] = json.loads(stats)
+        print("server stats:", stats, flush=True)
+    except Exception as e:
+        print(f"(stats endpoint unavailable: {e})", flush=True)
+    if args.save_responses:
+        p = args.objects
+        np.savez(args.save_responses, **{f"request_{k}": v for k, v in req.items()},
+                 rotations=np.reshape([a["rotations"] for a in answers], (-1, p, 3, 3)),
+                 translations=np.reshape([a["translations"] for a in answers], (-1, p, 3)))
+    return report
+
+
+COMMANDS = {"train": train_main, "test": test_main, "serve": serve_main,
+            "loadtest": loadtest_main}
+
+
 def main(argv=None) -> None:
     argv = sys.argv[1:] if argv is None else list(argv)
-    commands = ["train", "test", *_NOT_PORTED]
+    commands = [*COMMANDS, *_NOT_PORTED]
     if not argv or argv[0] not in commands:
         raise SystemExit(f"usage: python -m scflow_tpu_torch.cli {{{','.join(commands)}}} ...")
     if argv[0] in _NOT_PORTED:
         raise NotImplementedError(f"'{argv[0]}' is not ported: {_NOT_PORTED[argv[0]]}")
-    {"train": train_main, "test": test_main}[argv[0]](argv[1:])
+    COMMANDS[argv[0]](argv[1:])
 
 
 if __name__ == "__main__":

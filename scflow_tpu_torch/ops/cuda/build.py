@@ -94,10 +94,14 @@ def build_all() -> Dict[str, str]:
         return logs
 
 
+_count_lock = threading.Lock()
+
+
 class CudaKernel:
     """One C launch function of one source.  `launch` calls it on PyTorch's
     current stream, raises if it returns a CUDA error, and counts the launch
-    in `launches` (the only place the count moves)."""
+    in `launches` (the only place the count moves; under a lock, since a
+    server launches from its batcher and keep-alive threads)."""
 
     def __init__(self, source: str, symbol: str, argtypes: Sequence):
         self.source = source
@@ -123,4 +127,5 @@ class CudaKernel:
             err = fn(*args, torch.cuda.current_stream(device).cuda_stream)
         if err != 0:
             raise RuntimeError(f"{self.symbol}: CUDA error {err} at launch")
-        self.launches += 1
+        with _count_lock:
+            self.launches += 1

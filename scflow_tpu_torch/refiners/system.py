@@ -25,6 +25,7 @@ from scflow_tpu_torch.geometry import (cal_epe, filter_flow_by_depth, filter_flo
 from scflow_tpu_torch.losses.basic import l1_loss, raft_loss
 from scflow_tpu_torch.losses.point_matching import (disentangle_point_matching_loss,
                                                     sym_mask_from_types)
+from scflow_tpu_torch.models.augment import build_render_augmentation
 from scflow_tpu_torch.ops.cuda.corr_lookup import check_variant, check_window
 from scflow_tpu_torch.refiners.flow_pose import solve_poses_from_flow_device
 from scflow_tpu_torch.render.rasterizer import rasterize
@@ -84,17 +85,20 @@ def render_and_normalize(render_assets: RenderAssets, ref_rotations, ref_transla
     """Render at the reference pose and normalize as the data pipeline does
     ((image - mean/255) / (std/255) on [0, 1] images).  Returns (images
     (N, H, W, 3), depths (N, H, W), masks (N, H, W)).  The arguments come in
-    the JAX function's order; render augmentations (augment_fn, augment_key)
-    are not ported and raise."""
-    if augment_fn is not None or augment_key is not None:
-        raise NotImplementedError("render augmentations are not ported")
+    the JAX function's order.  augment_fn (models/augment.py, the
+    render_augmentations config key) runs as augment_fn(augment_key, images)
+    on the [0, 1] rendered images BEFORE normalization, the reference's
+    order (base_refiner.py:159-166)."""
     h, w = image_size
     out = render_batch(*render_assets, ref_rotations, ref_translations, k, labels,
                        h, w, chunk=chunk, backend=backend, cull_backfaces=cull_backfaces)
-    dev = out["images"].device
+    images = out["images"]
+    if augment_fn is not None:
+        images = augment_fn(augment_key, images)
+    dev = images.device
     mean = torch.tensor(norm_mean, dtype=torch.float32, device=dev) / 255.0
     std = torch.tensor(norm_std, dtype=torch.float32, device=dev) / 255.0
-    return (out["images"] - mean) / std, out["depths"], out["masks"]
+    return (images - mean) / std, out["depths"], out["masks"]
 
 
 def render_depth(render_assets: RenderAssets, rotations, translations, k, labels,
@@ -218,17 +222,18 @@ def make_scflow_train_step(
     card) runs the kernels: K1 forward and K1b backward, K7 or K8 forward
     with lookup_variant 'shift' or 'bdiag'.  donate=True updates the state
     in place and returns it; donate=False leaves the given state as it was
-    and returns an updated copy.  Render augmentations are not ported
-    (the shipped configuration has none), so augment_seed, their seed in
-    the JAX signature, has nothing to seed.  The step computes in full
+    and returns an updated copy.  render_augmentations (a config list,
+    models/augment.py) augments the rendered images before normalization,
+    keyed by (augment_seed, state.step), so a run is deterministic and
+    resumes exactly (JAX folds the step into PRNGKey(augment_seed); the
+    draws differ from jax.random's).  The step computes in full
     float32 (device.full_fp32), whatever the global TF32 flags, and leaves
     them as it found them.  A bf16 model (SCFlowRefiner(dtype=
     torch.bfloat16)) computes its network in bf16, the kernels' bf16
     instances included (K1 or K7/K8 and K1b), while the gt flow, the
     losses, the clip and AdamW stay float32 and the gradients arrive
     float32 on the float32 parameters."""
-    if render_augmentations is not None:
-        raise NotImplementedError("render augmentations are not ported")
+    augment_fn = build_render_augmentation(render_augmentations)
     dev = resolve_device(device)
     resolve_backend(render_backend, dev)
     _check_lookup(model, lookup_backend, lookup_variant, dev, image_size)
@@ -250,7 +255,8 @@ def make_scflow_train_step(
             rendered, depths, masks = render_and_normalize(
                 render_assets, b["ref_rotations"], b["ref_translations"], b["k"], b["labels"],
                 image_size, norm_mean, norm_std, chunk=render_chunk, backend=render_backend,
-                cull_backfaces=render_cull_backfaces)
+                cull_backfaces=render_cull_backfaces, augment_fn=augment_fn,
+                augment_key=(augment_seed, state.step) if augment_fn is not None else None)
             gt_flow = flow_from_pose_and_depth(
                 b["ref_rotations"], b["ref_translations"], b["gt_rotations"],
                 b["gt_translations"], depths, b["k"], invalid_num=max_flow)
@@ -443,10 +449,9 @@ def make_raft_train_step(
     lookup is its tensor form ('xla'); lookup_backend='pallas' runs K1
     forward and K1b backward (no flow gradient: the decoder detaches the
     flow).  donate, device, lookup_variant, precision (device.full_fp32)
-    and dtypes as in make_scflow_train_step; render augmentations are not
-    ported and raise, so augment_seed seeds nothing."""
-    if render_augmentations is not None:
-        raise NotImplementedError("render augmentations are not ported")
+    and dtypes as in make_scflow_train_step, and so are render_augmentations
+    and augment_seed."""
+    augment_fn = build_render_augmentation(render_augmentations)
     read = _raft_setup(model, render_assets, render_backend, lookup_backend, lookup_variant,
                        device, image_size)
 
@@ -462,7 +467,8 @@ def make_raft_train_step(
             rendered, depths, masks = render_and_normalize(
                 render_assets, b["ref_rotations"], b["ref_translations"], b["k"], b["labels"],
                 image_size, norm_mean, norm_std, chunk=render_chunk, backend=render_backend,
-                cull_backfaces=render_cull_backfaces)
+                cull_backfaces=render_cull_backfaces, augment_fn=augment_fn,
+                augment_key=(augment_seed, state.step) if augment_fn is not None else None)
             gt_flow = _gt_flow(b, depths, max_flow)
             if filter_invalid_flow_by_mask:
                 gt_flow = filter_flow_by_mask(gt_flow, b["gt_masks"], max_flow)

@@ -137,6 +137,9 @@ def test_loss_falls_and_donate_false_leaves_the_state(setup, no_tf32):
 
 
 def test_train_step_refuses_render_augmentations(setup):
-    with pytest.raises(NotImplementedError, match="augmentations"):
+    """Render augmentations are ported (tests/test_torch_augment.py); an
+    unknown type (torchvision's ColorJitter, not kornia's ColorJiggle) is
+    refused when the step is made."""
+    with pytest.raises(ValueError, match="render augmentations: unknown type 'ColorJitter'"):
         make_raft_train_step(setup["port"], setup["render"], image_size=(IMG, IMG),
                              render_augmentations=[dict(type="ColorJitter")], device="cpu")

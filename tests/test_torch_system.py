@@ -65,11 +65,27 @@ def test_render_and_normalize_takes_the_jax_positional_order(cull):
 
 
 def test_render_and_normalize_refuses_render_augmentations():
+    """Render augmentations are ported (tests/test_torch_augment.py): in the
+    JAX order's augment_fn and augment_key places, augment_fn(augment_key,
+    images) runs on the [0, 1] render before normalization, and a key
+    without a function changes nothing, as in JAX."""
     R, t, K, labels = _pose()
     assets = RenderAssets.from_bank(make_synthetic_bank(NCLASS), device="cpu")
     args = (assets, torch.from_numpy(R), torch.from_numpy(t), torch.from_numpy(K),
             torch.from_numpy(labels).long(), (IMG, IMG))
-    with pytest.raises(NotImplementedError, match="augmentations"):
-        render_and_normalize(*args, augment_fn=lambda key, images: images)
-    with pytest.raises(NotImplementedError, match="augmentations"):
-        render_and_normalize(*args, MEAN, STD, 16, "xla", None, 0)
+    plain = render_and_normalize(*args, MEAN, STD, 16, "xla")
+    seen = []
+
+    def invert(key, images):
+        seen.append(key)
+        return 1.0 - images
+
+    got = render_and_normalize(*args, MEAN, STD, 16, "xla", invert, (3, 7))
+    assert seen == [(3, 7)]
+    mean, std = torch.tensor(MEAN) / 255, torch.tensor(STD) / 255
+    raw = plain[0] * std + mean
+    torch.testing.assert_close(got[0], (1.0 - raw - mean) / std, rtol=1e-5, atol=1e-5)
+    for a, b in zip(got[1:], plain[1:]):
+        torch.testing.assert_close(a, b, rtol=0, atol=0)
+    for a, b in zip(render_and_normalize(*args, MEAN, STD, 16, "xla", None, 0), plain):
+        torch.testing.assert_close(a, b, rtol=0, atol=0)

@@ -142,10 +142,16 @@ def test_step_from_cfg_takes_the_kernel_route(setup, monkeypatch, size, lookup):
     assert seen["image_size"] == size and seen["render_cull_backfaces"] is False
     assert seen["loss_kwargs"] == dict(gamma=0.8, pose_weight=10.0, flow_weight=0.1,
                                        mask_weight=10.0, disentangle_z=True, pose_loss_type=1)
+    assert seen["render_augmentations"] is None
+    aug = copy.deepcopy(cfg)
+    aug.model["render_augmentations"] = [dict(type="ColorJiggle", brightness=0.3)]
+    apis.make_train_step_from_cfg(aug, None, None, None, size, device="cpu")
+    assert seen["render_augmentations"] == [dict(type="ColorJiggle", brightness=0.3)]
+    # a dict where the config wants a list of dicts: the step refuses it
     bad = copy.deepcopy(cfg)
     bad.model["render_augmentations"] = dict(type="ColorJiggle")
     monkeypatch.undo()
-    with pytest.raises(NotImplementedError, match="render augmentations"):
+    with pytest.raises(ValueError, match="render augmentations must be a list"):
         apis.make_train_step_from_cfg(bad, None, None, None, size, device="cpu")
 
 
