@@ -9,8 +9,8 @@ given, of the package in DIR (default: this checkout; e.g. an unpacked
 parent commit), without the kernels line: lookup (phases 3, 10 and 11),
 raster (4-7), slice (8), raft (14), options (16 and 17; with slice
 before it, 17 prints its pose difference from the slice's call), workflow
-(18), train_workflow (19), train_pbr (20), serve (21-23) and train_augment
-(24).
+(18), train_workflow (19), train_pbr (20), serve (21-23), train_augment
+(24) and export (25).
 
 Phases, each printing one JSON line; any failure exits non-zero before the
 last line:
@@ -322,6 +322,28 @@ last line:
                give augmented renders within 1e-5; `cli.train_main` for 3
                steps (process workers) from a config that sets
                model.render_augmentations, 1 K2, 8 K1, 8 K1b per step;
+ 25. export  - `python -m scflow_tpu_torch.cli export` (tools/export_model.py's
+               arguments) from configs that _base_ the shipped scflow.py and
+               raft.py (only the renderer's meshes, written under
+               build/export/, and the work_dir overridden), --batch-size 64,
+               the slice's (raft_model's) weights saved with save_params:
+               fp32 with --platforms cuda cpu ("export"), bf16 with
+               --cfg-options model.dtype=bfloat16 ("export_bf16") and RAFT
+               with model.test_cfg.pnp_backend=device ("export_raft"), the
+               three exports at once; one fresh process loads each artifact
+               (load_exported) as its export ends and, once all have ended,
+               calls each on the bench batch: exactly 8 K1 (K1_bf16) and 1
+               K2 per SCFlow call, 12 K1 and 1 K2 per RAFT call; gates: the
+               loading process has imported none of the model, refiner,
+               config, apis or checkpoint modules; the loaded outputs within
+               the slice's bounds of the live make_infer_from_cfg call in
+               the same process (RAFT: flow 2e-2 px, occlusion 1e-3, poses
+               |dR| 2e-3, 1 mm), the fp32 artifact's 'cpu' program on the
+               first 4 samples within the slice's bounds of the card's, and
+               that artifact cut to its 'cpu' program refuses to load for
+               the card (ValueError); the export's seconds, the artifact's
+               MB, the load's seconds, ms per call (host clock over 10 calls)
+               and device ms beside the live call's;
  15. the kernels line (float32 and bf16 instances; "raft_launches": each
      kernel's launches per RAFT call or step; "radius_3": the radius-3
      instance's numbers from phases 3/10/11 and its launches per call or
@@ -329,8 +351,9 @@ last line:
      each workflow run, the cycled one included;
      "train_workflow_launches_per_step": per step of the fp32, bf16 and
      RAFT train_workflow runs and of the train_pbr run; "serve_launches":
-     per call of each serving run and per step of the augmented steps),
-     then the device line the chip harness reads.
+     per call of each serving run and per step of the augmented steps;
+     "export_launches": per call of each loaded artifact), then the device
+     line the chip harness reads.
 Imports no JAX.  Needs one card; without one it exits non-zero at once.
 """
 
@@ -3698,12 +3721,12 @@ def phase_serve(smi):
     return launches
 
 
-def _serve_work(root: Path) -> Path:
-    """build/serve/ with the slice's 21 uvsphere meshes as .ply files
-    (models_1024/), which the serve configs' renderer reads."""
+def _serve_work(root: Path, name: str = "serve") -> Path:
+    """build/<name>/ with the slice's 21 uvsphere meshes as .ply files
+    (models_1024/), which the serve (and export) configs' renderer reads."""
     from scflow_tpu_torch.render.meshbank import make_synthetic_bank
 
-    work = root / "build" / "serve"
+    work = root / "build" / name
     meshes = work / "models_1024"
     if not meshes.exists():
         meshes.mkdir(parents=True)
@@ -4091,6 +4114,264 @@ def phase_train_augment(smi, root: Path):
     return launches
 
 
+EXPORT_CPU_SAMPLES = 4  # the 'cpu' program's samples held to the card's
+EXPORT_TIMEOUT_S = 900  # each export process, and the loading process
+EXPORT_MODEL_CODE = ("models", "refiners", "config", "apis", "runtime.checkpoint")
+
+
+def export_loader(spec_path: Path) -> dict:
+    """The loading side of phase 25 (`chip_smoke.py --export-loader SPEC`),
+    one fresh process for every artifact of spec["runs"]: load_exported on
+    the card of each artifact as soon as its export has finished (its
+    "<artifact>.ready" marker; the loads overlap the exports still
+    running), with spec["cpu"] its 'cpu' program too, and with
+    spec["refusal"] the artifact cut to that program, loaded for the card
+    (it must raise ValueError); once every export has finished, each loaded
+    program's call on the batch with every launch count reset, ms per call
+    (host clock over 10 calls) and device ms; the import gate (none of
+    EXPORT_MODEL_CODE loaded); the 'cpu' programs on the batch; then each
+    live call, built from the config and checkpoint as cli export builds
+    it (which imports the model code, after the gate), its launches and
+    times.  Saves the outputs to <artifact>.npz and returns the numbers
+    per run."""
+    from scflow_tpu_torch.runtime.export import load_exported, read_meta
+
+    spec = json.loads(Path(spec_path).read_text())
+    runs = spec["runs"]
+    res = {tag: {} for tag in runs}
+    calls, cpu_calls, waiting = {}, {}, list(runs)
+    while waiting:
+        ready = [t for t in waiting if Path(runs[t]["artifact"] + ".ready").exists()]
+        failed = [t for t in waiting if Path(runs[t]["artifact"] + ".failed").exists()]
+        if failed:
+            raise RuntimeError(f"export failed: {failed}")
+        if not ready:
+            time.sleep(0.5)
+            continue
+        tag = ready[0]
+        waiting.remove(tag)
+        run, r = runs[tag], res[tag]
+        t0 = time.perf_counter()
+        calls[tag], meta = load_exported(run["artifact"])
+        r["load_s"] = time.perf_counter() - t0
+        if run["cpu"]:
+            t0 = time.perf_counter()
+            cpu_calls[tag] = load_exported(run["artifact"], device="cpu")[0]
+            r["cpu_load_s"] = time.perf_counter() - t0
+            data = Path(run["artifact"]).read_bytes()
+            (n,) = struct.unpack_from("<Q", data, 8)
+            cut = json.dumps(dict(read_meta(data), platforms=["cpu"],
+                                  programs={"cpu": meta["programs"]["cpu"]})).encode()
+            try:
+                load_exported(data[:8] + struct.pack("<Q", len(cut)) + cut + data[16 + n:])
+                r["refusal"] = None
+            except ValueError as e:
+                r["refusal"] = str(e)
+    batch = dict(np.load(spec["batch"]))
+    arrays = {tag: {} for tag in runs}
+    for tag, call in calls.items():
+        r = res[tag]
+        call(batch)  # warm-up: cuDNN plans, allocator
+        torch.cuda.synchronize()
+        out, r["launches_per_call"] = counted(lambda: call(batch))
+        r["ms_per_call"] = _timed_calls(lambda: call(batch))
+        r["device_ms_per_call"] = device_ms(lambda: call(batch), reps=2, groups=2)
+        arrays[tag].update({f"loaded_{k}": v.cpu().numpy() for k, v in out.items()})
+    imported = sorted(m for m in sys.modules if any(
+        m == f"scflow_tpu_torch.{n}" or m.startswith(f"scflow_tpu_torch.{n}.")
+        for n in EXPORT_MODEL_CODE))
+    for tag, call in cpu_calls.items():
+        t0 = time.perf_counter()
+        arrays[tag].update({f"cpu_{k}": v.numpy() for k, v in call(batch).items()})
+        res[tag]["cpu_call_s"] = time.perf_counter() - t0
+    from scflow_tpu_torch.apis import (build_render_assets, load_eval_checkpoint,
+                                       make_infer_from_cfg)
+    from scflow_tpu_torch.config import Config
+    from scflow_tpu_torch.refiners.build import build_refiner_from_config
+
+    for tag, run in runs.items():
+        r = res[tag]
+        cfg = Config.fromfile(run["config"])
+        if run["cfg_options"]:
+            cfg.merge_from_dict(Config.parse_options(run["cfg_options"]))
+        with torch.random.fork_rng(devices=[]):
+            model = build_refiner_from_config(cfg.model)
+        assets, _ = build_render_assets(cfg.model)
+        load_eval_checkpoint(run["checkpoint"], model.cuda())
+        live, _ = make_infer_from_cfg(cfg, model, assets, (IMG, IMG), slim=True)
+        live(batch)
+        torch.cuda.synchronize()
+        out, r["live_launches_per_call"] = counted(lambda: live(batch))
+        r["live_ms_per_call"] = _timed_calls(lambda: live(batch))
+        r["live_device_ms_per_call"] = device_ms(lambda: live(batch), reps=2, groups=2)
+        arrays[tag].update({f"live_{k}": v.cpu().numpy() for k, v in out.items()})
+        np.savez(run["artifact"] + ".npz", **arrays[tag])
+        del model, live, assets
+    return {"runs": res, "model_code_imported": imported}
+
+
+def _export_start(tag: str, cfg_path: Path, ckpt: Path, work: Path, root: Path, env,
+                  options, platforms):
+    """`python -m scflow_tpu_torch.cli export` of one artifact, started (not
+    waited for): (process, artifact path, log path, start time)."""
+    out = work / f"{tag}.scflowx"
+    log = work / f"{tag}.log"
+    cmd = [sys.executable, "-m", "scflow_tpu_torch.cli", "export", str(cfg_path),
+           "--checkpoint", str(ckpt), "--out", str(out), "--batch-size", str(BATCH),
+           "--platforms", *platforms]
+    if options:
+        cmd += ["--cfg-options", *options]
+    with open(log, "w") as f:
+        proc = subprocess.Popen(cmd, cwd=str(root), env=env, stdout=f,
+                                stderr=subprocess.STDOUT)
+    return proc, out, log, time.perf_counter()
+
+
+def phase_export(smi, root: Path) -> dict:
+    """Phase 25: `python -m scflow_tpu_torch.cli export` of the shipped
+    scflow.py (fp32 for 'cuda' and 'cpu'; bf16 with --cfg-options
+    model.dtype=bfloat16 for 'cuda') and raft.py (test_cfg.pnp_backend
+    device, 'cuda'), each at --batch-size 64 with the slice's (raft_model's)
+    seeded weights saved with save_params and the meshes under
+    build/export/ (removed afterwards); the three exports run at once, each
+    in its own process, and one fresh process loads and calls the
+    artifacts (export_loader).  Gates: exactly 8 K1 (K1_bf16) and 1 K2 per
+    loaded SCFlow call, 12 K1 and 1 K2 per RAFT call, as many as the live
+    call; the loading process had imported none of EXPORT_MODEL_CODE after
+    loading and calling every artifact; the loaded poses within the slice's
+    bounds of the live make_infer_from_cfg call on the bench batch (RAFT:
+    flow 2e-2 px, occlusion 1e-3, poses |dR| 2e-3 and 1 mm); the fp32
+    artifact's 'cpu' program on the same batch within the slice's bounds of
+    the card's on the first 4 samples; that artifact cut to its 'cpu'
+    program refuses to load for the card.  Returns {run: launches per
+    loaded call}."""
+    import shutil
+
+    from scflow_tpu_torch.config import Config
+    from scflow_tpu_torch.refiners.build import build_refiner_from_config
+    from scflow_tpu_torch.runtime.checkpoint import save_params
+
+    work = _serve_work(root, "export")
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        [str(root)] + [p for p in [os.environ.get("PYTHONPATH")] if p]))
+    procs = []
+    try:
+        cfgs = {m: _serve_config(work, root, f"{m}.py") for m in ("scflow", "raft")}
+        cfg = Config.fromfile(str(cfgs["scflow"]))
+        require(cfg.model.decoder.iters == ITERS and tuple(cfg.model.renderer.image_size)
+                == (IMG, IMG) and cfg.model.decoder.pose_head_cfg.num_class == NCLASS
+                and cfg.model.renderer.cull_backfaces is True, "the shipped model")
+        ckpts = {"scflow": work / "scflow.pth", "raft": work / "raft.pth"}
+        with torch.random.fork_rng(devices=[]):
+            model = build_refiner_from_config(cfg.model)
+        model.load_state_dict(seeded_model().state_dict())
+        save_params(str(ckpts["scflow"]), model)
+        save_params(str(ckpts["raft"]), raft_model())
+        del model
+        batch = bench_batch()
+        np.savez(work / "batch.npz", **batch)
+        runs = {"export": ("scflow", [], ["cuda", "cpu"], {"K1": ITERS, "K2": 1}),
+                "export_bf16": ("scflow", ["model.dtype=bfloat16"], ["cuda"],
+                                {"K1_bf16": ITERS, "K2": 1}),
+                "export_raft": ("raft", ["model.test_cfg.pnp_backend=device"], ["cuda"],
+                                {"K1": RAFT_ITERS, "K2": 1})}
+        started = {tag: _export_start(tag, cfgs[m], ckpts[m], work, root, env, opts, platforms)
+                   for tag, (m, opts, platforms, _) in runs.items()}
+        procs = [v[0] for v in started.values()]
+        spec = work / "loader_spec.json"
+        spec.write_text(json.dumps({"batch": str(work / "batch.npz"), "runs": {
+            tag: {"artifact": str(started[tag][1]), "config": str(cfgs[m]),
+                  "checkpoint": str(ckpts[m]), "cfg_options": opts, "cpu": "cpu" in platforms}
+            for tag, (m, opts, platforms, _) in runs.items()}}))
+        t_loader = time.perf_counter()
+        loader_log = work / "loader.log"
+        with open(loader_log, "w") as f:
+            loader = subprocess.Popen(
+                [sys.executable, str(Path(__file__).resolve()), "--root", str(root),
+                 "--export-loader", str(spec)], cwd=str(root), env=env, stdout=f,
+                stderr=subprocess.STDOUT)
+        procs.append(loader)
+        export_s, pending = {}, dict(started)
+        while pending:
+            for tag, (proc, out, log, t0) in list(pending.items()):
+                rc = proc.poll()
+                if rc is None:
+                    continue
+                del pending[tag]
+                export_s[tag] = time.perf_counter() - t0
+                Path(f"{out}.{'ready' if rc == 0 else 'failed'}").touch()
+                require(rc == 0, f"{tag}: cli export exited {rc}: {log.read_text()[-3000:]}")
+            require(time.perf_counter() - t_loader < EXPORT_TIMEOUT_S, "the exports finish")
+            require(loader.poll() in (None, 0), "the loading process runs: "
+                    + loader_log.read_text()[-3000:])
+            time.sleep(0.2)
+        rc = loader.wait(timeout=EXPORT_TIMEOUT_S)
+        loader_s = time.perf_counter() - t_loader
+        text = loader_log.read_text()
+        require(rc == 0, f"the loading process exited {rc}: {text[-3000:]}")
+        got = json.loads(text.strip().splitlines()[-1])
+        require(not got["model_code_imported"],
+                f"the loading process imported {got['model_code_imported']}")
+        launches = {}
+        for tag, (m, opts, platforms, want) in runs.items():
+            res = got["runs"][tag]
+            artifact = started[tag][1]
+            z = np.load(f"{artifact}.npz")
+            require(only(res["launches_per_call"], **want),
+                    f"{tag}: loaded launches per call {res['launches_per_call']}")
+            require(res["live_launches_per_call"] == res["launches_per_call"],
+                    f"{tag}: live launches per call {res['live_launches_per_call']}")
+            launches[tag] = res["launches_per_call"]
+            line = {"loaded_vs_live_rot_max_abs_diff": float(np.abs(
+                        z["loaded_rotations"] - z["live_rotations"]).max()),
+                    "loaded_vs_live_trans_max_abs_diff": float(np.abs(
+                        z["loaded_translations"] - z["live_translations"]).max())}
+            if m == "raft":
+                d_flow = float(np.abs(z["loaded_flow"] - z["live_flow"]).max())
+                d_occ = float(np.abs(z["loaded_occlusion"] - z["live_occlusion"]).max())
+                require(d_flow <= 2e-2 and d_occ <= 1e-3
+                        and line["loaded_vs_live_trans_max_abs_diff"] <= 1.0
+                        and line["loaded_vs_live_rot_max_abs_diff"] <= 2e-3,
+                        f"{tag}: loaded vs live: flow {d_flow}, occlusion {d_occ}, {line}")
+                line.update(loaded_vs_live_flow_max_abs_diff=d_flow,
+                            loaded_vs_live_occlusion_max_abs_diff=d_occ,
+                            pnp_ok=int(z["loaded_pnp_ok"].sum()))
+            else:
+                _slice_bounds(z["loaded_rotations"], z["loaded_translations"],
+                              z["live_rotations"], z["live_translations"],
+                              f"{tag}: loaded vs live")
+                line["orthonormality_err"] = _poses_ok(
+                    z["loaded_rotations"], z["loaded_translations"], batch["ref_translations"],
+                    tag)
+            if "cpu" in platforms:
+                n = EXPORT_CPU_SAMPLES
+                d_rot, t_excess = _slice_bounds(
+                    z["loaded_rotations"][:n], z["loaded_translations"][:n],
+                    z["cpu_rotations"][:n], z["cpu_translations"][:n],
+                    f"{tag}: the 'cpu' program vs the card's")
+                require(res["refusal"] is not None and "platforms ['cpu']" in res["refusal"],
+                        f"{tag}: a 'cpu' artifact loaded for the card: {res['refusal']}")
+                line.update(cpu_samples=n, cpu_rot_max_abs_diff=d_rot,
+                            cpu_trans_tolerance_excess=t_excess, cpu_load_s=res["cpu_load_s"],
+                            cpu_call_s=res["cpu_call_s"], refusal=res["refusal"])
+            emit({"phase": tag, "batch": BATCH, "image": IMG, "platforms": platforms,
+                  "cfg_options": opts, "export_s": export_s[tag],
+                  "exports_at_once": len(runs), "artifact_mb": artifact.stat().st_size / 1e6,
+                  "load_s": res["load_s"], "loader_s": loader_s,
+                  "launches_per_call": res["launches_per_call"], **line,
+                  "ms_per_call": res["ms_per_call"],
+                  "device_ms_per_call": res["device_ms_per_call"],
+                  "live_ms_per_call": res["live_ms_per_call"],
+                  "live_device_ms_per_call": res["live_device_ms_per_call"], "card": smi})
+    finally:
+        for proc in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait(timeout=60)
+        shutil.rmtree(work, ignore_errors=True)
+    return launches
+
+
 def serve_phases(smi, root: Path) -> dict:
     """The serving phases (serve, serve_http, serve_raft), build/serve/
     removed afterwards; {run: launches per call}."""
@@ -4106,7 +4387,7 @@ def serve_phases(smi, root: Path) -> dict:
 
 
 PHASE_GROUPS = ("lookup", "raster", "slice", "raft", "options", "workflow",
-                "train_workflow", "train_pbr", "serve", "train_augment")
+                "train_workflow", "train_pbr", "serve", "train_augment", "export")
 
 
 def run_phase_groups(groups, dev, ptxas, smi, root: Path) -> None:
@@ -4137,6 +4418,8 @@ def run_phase_groups(groups, dev, ptxas, smi, root: Path) -> None:
             serve_phases(smi, root)
         elif group == "train_augment":
             phase_train_augment(smi, root)
+        elif group == "export":
+            phase_export(smi, root)
         else:
             phase_raft_small(smi)
             phase_scflow_options(smi, shipped)
@@ -4151,6 +4434,8 @@ def main() -> int:
     parser.add_argument("--root", type=Path, default=Path(__file__).resolve().parent,
                         help="the checkout whose scflow_tpu_torch to build and run "
                              "(default: this script's), e.g. an unpacked parent commit")
+    parser.add_argument("--export-loader", type=Path, default=None, metavar="SPEC",
+                        help=argparse.SUPPRESS)  # phase 25's loading process
     args = parser.parse_args()
     if args.phases is not None and not set(args.phases) <= set(PHASE_GROUPS):
         parser.error(f"unknown phase groups in {args.phases}; expected {PHASE_GROUPS}")
@@ -4159,6 +4444,9 @@ def main() -> int:
         return 1
     sys.path.insert(0, str(args.root.resolve()))
     import scflow_tpu_torch  # noqa: F401  (fails at once outside the repo)
+    if args.export_loader is not None:
+        print(json.dumps(export_loader(args.export_loader)), flush=True)
+        return 0
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
@@ -4202,6 +4490,8 @@ def main() -> int:
     # launches per call of each serving run, per step of the augmented steps
     serve_launches = serve_phases(smi, args.root.resolve())
     serve_launches.update(phase_train_augment(smi, args.root.resolve()))
+    # launches per call of each loaded artifact (phase 25)
+    export_launches = phase_export(smi, args.root.resolve())
     src = "scflow_tpu_torch/csrc/"
     tpu = "scflow_tpu/ops/pallas/"
     table = [
@@ -4251,11 +4541,17 @@ def main() -> int:
         got = {run: n[key] for run, n in serve_launches.items() if n.get(key)}
         return {"serve_launches": got} if got else {}
 
+    def exported(key):
+        """The key's launches per call of each loaded artifact (export,
+        export_bf16, export_raft)."""
+        got = {run: n[key] for run, n in export_launches.items() if n.get(key)}
+        return {"export_launches": got} if got else {}
+
     emit({"kernels": [
         {"name": f"{key} {fn}", "route": "cuda", "source": src + file, "replaces": tpu + where,
          "launches": launches[key], **({"raft_launches": raft_launches[key]}
                                        if key in raft_launches else {}), **res[key],
-         **radius_3(key), **workflow(key), **serving(key)}
+         **radius_3(key), **workflow(key), **serving(key), **exported(key)}
         for key, fn, file, where in table], "card": smi})
     emit({"ok": True, "device": {"platform": "gpu", "kind": name,
                                  "count": torch.cuda.device_count()}})

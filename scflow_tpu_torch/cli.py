@@ -13,11 +13,13 @@
     python -m scflow_tpu_torch.cli loadtest [--url URL] [--clients N]
         [--requests N] [--objects N] [--frame-hw H W] [--num-class C]
         [--timeout S] [--save-responses FILE.npz]
+    python -m scflow_tpu_torch.cli export CONFIG [--checkpoint CKPT]
+        --out FILE.scflowx [--batch-size N] [--platforms cuda cpu]
+        [--cfg-options k=v ...]
 
-(tools/train.py, tools/test.py, tools/serve.py and tools/serve_loadtest.py,
-whose bodies are scflow_tpu/cli.py's train_main, test_main and serve_main
-and the load-test client).  The JAX package's export command is not
-ported yet."""
+(tools/train.py, tools/test.py, tools/serve.py, tools/serve_loadtest.py and
+tools/export_model.py, whose bodies are scflow_tpu/cli.py's train_main,
+test_main, serve_main, the load-test client and export_main)."""
 
 import argparse
 import json
@@ -26,10 +28,6 @@ import sys
 import time
 
 import numpy as np
-
-_NOT_PORTED = {"export": "ROADMAP §1 item 9c (torch.export; the kernels first need "
-                         "torch.library custom ops)"}
-
 
 def _check_launcher(launcher: str) -> None:
     if launcher != "none":
@@ -493,17 +491,87 @@ def loadtest_main(argv=None):
     return report
 
 
+def parse_export_args(argv=None):
+    p = argparse.ArgumentParser(
+        description="Export the inference graph (weights baked in) as torch.export "
+                    "programs in one artifact")
+    p.add_argument("config")
+    p.add_argument("--checkpoint", default=None,
+                   help="checkpoint to bake in (omit = init weights, "
+                        "useful only for plumbing tests)")
+    p.add_argument("--out", required=True, help="artifact path (.scflowx)")
+    p.add_argument("--batch-size", default=16, type=int,
+                   help="static object-batch size baked into the graph")
+    p.add_argument("--platforms", nargs="+", default=None, choices=("cuda", "cpu"),
+                   help="one program per platform, each traced on its device "
+                        "(default: the card), e.g. --platforms cuda cpu")
+    p.add_argument("--cfg-options", nargs="*", default=[])
+    return p.parse_args(argv)
+
+
+def export_main(argv=None):
+    """Export the config's inference call with the checkpoint's weights
+    (scflow_tpu/cli.py::export_main): for each platform, the model and the
+    render assets built on its device, and the infer fn
+    apis.make_infer_from_cfg gives (SCFlow, cycled SCFlow, bf16, RAFT with
+    either PnP backend), traced by runtime/export.py.  Returns the
+    artifact's meta."""
+    args = parse_export_args(argv)
+    import torch
+
+    from scflow_tpu_torch.apis import (build_render_assets, init_model_variables,
+                                       load_eval_checkpoint, make_infer_from_cfg)
+    from scflow_tpu_torch.config import Config
+    from scflow_tpu_torch.refiners.build import build_refiner_from_config
+    from scflow_tpu_torch.runtime.export import batch_spec, export_infer, read_meta
+    from scflow_tpu_torch.runtime.logger import get_logger
+
+    logger = get_logger()
+    cfg = Config.fromfile(args.config)
+    if args.cfg_options:
+        cfg.merge_from_dict(Config.parse_options(args.cfg_options))
+    image_size = tuple(cfg.model.get("renderer", {}).get("image_size", (256, 256)))
+    if not args.checkpoint:
+        logger.warning("no --checkpoint: exporting INIT weights")
+
+    def make_infer(device):
+        with torch.random.fork_rng(devices=[]):
+            model = build_refiner_from_config(cfg.model)
+        render_assets, _ = build_render_assets(cfg.model, device=device)
+        if args.checkpoint:
+            load_eval_checkpoint(args.checkpoint, model.to(render_assets.verts.device), logger)
+        else:
+            init_model_variables(cfg.model, model, device=device)
+        infer, pose_from_output = make_infer_from_cfg(cfg, model, render_assets, image_size,
+                                                      slim=True, device=device)
+        if pose_from_output is not None:
+            logger.warning(
+                "this config solves poses with host-side PnP; the artifact "
+                "outputs flow/occlusion — run PnP outside, or set "
+                "test_cfg.pnp_backend=device for a pose-emitting artifact")
+        return infer
+
+    data = export_infer(
+        make_infer, batch_spec(args.batch_size, image_size), platforms=args.platforms,
+        meta={"config": os.path.basename(args.config), "checkpoint": args.checkpoint or "",
+              "model_type": cfg.model["type"], "image_size": list(image_size),
+              "batch_size": args.batch_size})
+    with open(args.out, "wb") as f:
+        f.write(data)
+    meta = read_meta(data)
+    logger.info(f"wrote {args.out} ({len(data) / 1e6:.1f} MB, "
+                f"platforms={meta['platforms']}, outputs={meta['outputs']})")
+    return meta
+
+
 COMMANDS = {"train": train_main, "test": test_main, "serve": serve_main,
-            "loadtest": loadtest_main}
+            "loadtest": loadtest_main, "export": export_main}
 
 
 def main(argv=None) -> None:
     argv = sys.argv[1:] if argv is None else list(argv)
-    commands = [*COMMANDS, *_NOT_PORTED]
-    if not argv or argv[0] not in commands:
-        raise SystemExit(f"usage: python -m scflow_tpu_torch.cli {{{','.join(commands)}}} ...")
-    if argv[0] in _NOT_PORTED:
-        raise NotImplementedError(f"'{argv[0]}' is not ported: {_NOT_PORTED[argv[0]]}")
+    if not argv or argv[0] not in COMMANDS:
+        raise SystemExit(f"usage: python -m scflow_tpu_torch.cli {{{','.join(COMMANDS)}}} ...")
     COMMANDS[argv[0]](argv[1:])
 
 

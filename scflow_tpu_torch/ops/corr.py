@@ -12,7 +12,8 @@ differentiable on both backends:
 
 - 'pallas': `corr_lookup_pallas_diff`'s pairing, the kernel of the chosen
   variant forward (K1, K7 or K8) and K1b backward, whose tent derivative is
-  0 at the kinks (`_lookup_bwd`);
+  0 at the kinks (`_lookup_bwd`): the custom op `scflow::corr_lookup` and
+  its registered autograd (ops/cuda/corr_lookup.py);
 - 'xla': the tent tensor formulation under autograd, with the subgradients
   JAX's autodiff takes there: d|u|/du = +1 at u = 0 (lax.abs's rule picks
   u >= 0) and the max(0, 0) tie at |u| = 1 split in half.  torch's own
@@ -29,7 +30,6 @@ import torch.nn.functional as F
 from scflow_tpu_torch.device import resolve_backend
 from scflow_tpu_torch.geometry import coords_grid
 from scflow_tpu_torch.ops.cuda.corr_lookup import (check_variant, corr_lookup_flat,
-                                                   corr_lookup_flat_bwd,
                                                    corr_lookup_flat_plain)
 
 
@@ -90,23 +90,6 @@ class _JaxTent(torch.autograd.Function):
         return g * slope
 
 
-class _KernelLookup(torch.autograd.Function):
-    """The 'pallas' lookup: a forward kernel of the variant, K1b backward."""
-
-    @staticmethod
-    def forward(ctx, coords, radius, variant, *levels):
-        ctx.save_for_backward(coords, *levels)
-        ctx.radius = radius
-        return corr_lookup_flat(levels, coords, radius, variant)
-
-    @staticmethod
-    def backward(ctx, g):
-        coords, *levels = ctx.saved_tensors
-        grads, g_coords = corr_lookup_flat_bwd(levels, coords, g.contiguous(), ctx.radius,
-                                               want_coords=ctx.needs_input_grad[0])
-        return (g_coords, None, None, *grads)
-
-
 def corr_lookup(pyramid: Sequence[torch.Tensor], flow: torch.Tensor, radius: int = 4,
                 backend: str = "auto", variant: str = "tent") -> torch.Tensor:
     """flow (N, h, w, 2) at level-0 resolution -> (N, h, w, L*(2r+1)^2):
@@ -136,7 +119,8 @@ def corr_lookup(pyramid: Sequence[torch.Tensor], flow: torch.Tensor, radius: int
         raise ValueError(f"lookup variant {variant!r} needs backend 'pallas'")
     coords = (coords_grid(h, w, flow.dtype, flow.device)[None] + flow).reshape(-1, 2)
     if backend == "pallas":
-        out = _KernelLookup.apply(coords.contiguous(), radius, variant, *pyramid)
+        # the custom op scflow::corr_lookup, whose registered backward is K1b
+        out = corr_lookup_flat(pyramid, coords.contiguous(), radius, variant)
     else:
         # a square level is S x S whatever S; other levels halve the flow's
         # map per level (JAX's flat-level rule in corr_lookup_dispatch)

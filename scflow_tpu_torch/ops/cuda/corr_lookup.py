@@ -4,8 +4,13 @@ backward they share (csrc/corr_lookup*.cu).
 Ports of scflow_tpu/ops/pallas/corr_lookup.py::corr_lookup_pallas_flat
 (its three variants) and of `_lookup_bwd`, the backward that
 `corr_lookup_pallas_diff` pairs with them.  `corr_lookup_flat` and
-`corr_lookup_flat_bwd` launch a CUDA kernel for CUDA tensors and run the
-plain version for CPU tensors; there is no other route.  Each variant keeps
+`corr_lookup_flat_bwd` call the torch.library custom ops
+`scflow::corr_lookup` and `scflow::corr_lookup_bwd`, whose bodies launch a
+CUDA kernel for CUDA tensors and run the plain version for CPU tensors;
+there is no other route.  The forward op's registered autograd is K1b (the
+coords' gradient only where they need one), and each op's fake body gives
+the output's shape and dtype from the inputs' (what torch.export traces),
+with the launch's checks that read no data.  Each variant keeps
 its own plain version: 'shift' its one-hot-rows-then-blend formulation,
 'tent' and 'bdiag' the tent formulation, which the TPU's bdiag kernel
 computes as well (same weights, same sums, another matmul layout).
@@ -231,7 +236,9 @@ PLAIN = {"tent": corr_lookup_flat_plain, "shift": corr_lookup_flat_shift_plain,
 def _check_inputs(pyramid, coords, extra=()):
     """The level sizes of a kernel launch; raises unless coords and `extra`
     are contiguous float32, the levels contiguous and all float32 or all
-    bfloat16 (bf16 ones starting on 4-byte boundaries), on one device."""
+    bfloat16, on one device.  Reads shapes, dtypes and devices only, so the
+    ops' fake bodies run it too; `_check_aligned` is the launch's check of
+    the data pointers."""
     b = coords.shape[0]
     if coords.shape != (b, 2):
         raise ValueError(f"coords must be (B, 2), got {tuple(coords.shape)}")
@@ -247,9 +254,34 @@ def _check_inputs(pyramid, coords, extra=()):
     if dtype not in MAP_DTYPES or any(m.dtype != dtype for m in pyramid):
         raise ValueError(f"the levels must all be float32 or all bfloat16, got "
                          f"{[m.dtype for m in pyramid]}")
-    if dtype == torch.bfloat16 and any(m.data_ptr() % 4 for m in pyramid):
-        raise ValueError("bfloat16 levels must start on a 4-byte boundary")
     return sizes
+
+
+def _check_aligned(pyramid):
+    """bfloat16 levels must start on 4-byte boundaries (the kernels read
+    cell pairs)."""
+    if pyramid[0].dtype == torch.bfloat16 and any(m.data_ptr() % 4 for m in pyramid):
+        raise ValueError("bfloat16 levels must start on a 4-byte boundary")
+
+
+def _check_op(pyramid, coords, radius: int, variant: str, extra=()):
+    """The checks of a lookup op that need only shapes, dtypes and devices;
+    returns the level sizes.  A CUDA tensor gets the launch's
+    (`_check_inputs`); a CPU one the plain version's level rule.  The fake
+    bodies add `check_window`, so that an export of a window the kernels
+    do not build stops at the trace; on the card the launch refuses it."""
+    check_variant(variant)
+    if coords.device.type == "cpu":
+        return _level_sizes(pyramid, coords.shape[0])
+    if coords.device.type != "cuda":
+        raise ValueError(f"unsupported device {coords.device}")
+    return _check_inputs(pyramid, coords, extra)
+
+
+def _check_fake(pyramid, coords, radius: int, variant: str, extra=()):
+    _check_op(pyramid, coords, radius, variant, extra)
+    if coords.device.type == "cuda":
+        check_window(variant, len(pyramid), radius)
 
 
 def corr_lookup_flat(pyramid: Sequence[torch.Tensor], coords: torch.Tensor,
@@ -261,25 +293,38 @@ def corr_lookup_flat(pyramid: Sequence[torch.Tensor], coords: torch.Tensor,
     'bdiag' K8, each in the instance of the maps' dtype.  K1 takes radius
     0-15, K7 and K8 0-12 (`window_layout`'s max_radius), each at the level
     counts whose two ring stages fit a block's shared memory; another pair
-    raises RuntimeError from the launch."""
-    check_variant(variant)
+    raises RuntimeError from the launch.  Calls the custom op
+    `scflow::corr_lookup`, whose registered backward is K1b."""
+    return torch.ops.scflow.corr_lookup(list(pyramid), coords, radius, variant)
+
+
+@torch.library.custom_op("scflow::corr_lookup", mutates_args=())
+def _corr_lookup_op(levels: List[torch.Tensor], coords: torch.Tensor, radius: int,
+                    variant: str) -> torch.Tensor:
+    """K1, K7 or K8 on CUDA tensors, the variant's plain version on CPU ones."""
+    sizes = _check_op(levels, coords, radius, variant)
     if coords.device.type == "cpu":
-        return PLAIN[variant](pyramid, coords, radius)
-    if coords.device.type != "cuda":
-        raise ValueError(f"unsupported device {coords.device}")
-    sizes = _check_inputs(pyramid, coords)
+        return PLAIN[variant](levels, coords, radius)
+    _check_aligned(levels)
     b = coords.shape[0]
     k = 2 * radius + 1
-    out = torch.empty((b, len(pyramid) * k * k), dtype=torch.float32,
-                      device=coords.device)
+    out = torch.empty((b, len(levels) * k * k), dtype=torch.float32, device=coords.device)
     if b == 0:
         return out
-    pad = MAX_LEVELS - len(pyramid)
-    ptrs = [m.data_ptr() for m in pyramid] + [None] * pad
-    kernel = forward_kernel(variant, pyramid[0].dtype)
-    kernel.launch(coords.device, coords.data_ptr(), *ptrs, *(sizes + [0] * pad), len(pyramid),
+    pad = MAX_LEVELS - len(levels)
+    ptrs = [m.data_ptr() for m in levels] + [None] * pad
+    kernel = forward_kernel(variant, levels[0].dtype)
+    kernel.launch(coords.device, coords.data_ptr(), *ptrs, *(sizes + [0] * pad), len(levels),
                   radius, b, out.data_ptr())
     return out
+
+
+@_corr_lookup_op.register_fake
+def _(levels, coords, radius, variant):
+    _check_fake(levels, coords, radius, variant)
+    k = 2 * radius + 1
+    return coords.new_empty((coords.shape[0], len(levels) * k * k),
+                            dtype=torch.promote_types(levels[0].dtype, coords.dtype))
 
 
 def corr_lookup_flat_bwd_plain(pyramid: Sequence[torch.Tensor], coords: torch.Tensor,
@@ -330,25 +375,71 @@ def corr_lookup_flat_bwd(pyramid: Sequence[torch.Tensor], coords: torch.Tensor,
     in the maps' dtype, the coords grad in float32.
     K1b takes radius 0-15 at the level counts `bwd_layout` accepts (every
     window K1 takes); another raises RuntimeError from the launch.
-    Returns (grads of the levels, grad of coords or None)."""
-    if coords.device.type == "cpu":
-        return corr_lookup_flat_bwd_plain(pyramid, coords, grad_out, radius, want_coords)
-    if coords.device.type != "cuda":
-        raise ValueError(f"unsupported device {coords.device}")
-    sizes = _check_inputs(pyramid, coords, (grad_out,))
+    Returns (grads of the levels, grad of coords or None).  Calls the custom
+    op `scflow::corr_lookup_bwd`."""
+    grads = torch.ops.scflow.corr_lookup_bwd(list(pyramid), coords, grad_out, radius,
+                                             want_coords)
+    return (grads[:-1], grads[-1]) if want_coords else (grads, None)
+
+
+def _check_grad_out(pyramid, coords, grad_out, radius: int):
     b = coords.shape[0]
     k = 2 * radius + 1
     if grad_out.shape != (b, len(pyramid) * k * k):
         raise ValueError(f"grad_out must be ({b}, {len(pyramid) * k * k}), "
                          f"got {tuple(grad_out.shape)}")
-    grads = [torch.empty_like(m) for m in pyramid]
+
+
+@torch.library.custom_op("scflow::corr_lookup_bwd", mutates_args=())
+def _corr_lookup_bwd_op(levels: List[torch.Tensor], coords: torch.Tensor,
+                        grad_out: torch.Tensor, radius: int,
+                        want_coords: bool) -> List[torch.Tensor]:
+    """K1b on CUDA tensors, its plain version on CPU ones: the level grads,
+    then the coords grad where asked for (the schema has no nested
+    returns)."""
+    sizes = _check_op(levels, coords, radius, "tent", (grad_out,))
+    _check_grad_out(levels, coords, grad_out, radius)
+    if coords.device.type == "cpu":
+        grads, gc = corr_lookup_flat_bwd_plain(levels, coords, grad_out, radius, want_coords)
+        return grads + ([gc] if want_coords else [])
+    _check_aligned(levels)
+    b = coords.shape[0]
+    grads = [torch.empty_like(m) for m in levels]
     gc = torch.empty_like(coords) if want_coords else None
-    if b == 0:
-        return grads, gc
-    pad = MAX_LEVELS - len(pyramid)
-    bwd_kernel(pyramid[0].dtype).launch(
-        coords.device, coords.data_ptr(), grad_out.data_ptr(),
-        *([m.data_ptr() for m in pyramid] + [None] * pad), *(sizes + [0] * pad),
-        *([t.data_ptr() for t in grads] + [None] * pad), len(pyramid), radius, b,
-        gc.data_ptr() if want_coords else None)
-    return grads, gc
+    if b > 0:
+        pad = MAX_LEVELS - len(levels)
+        bwd_kernel(levels[0].dtype).launch(
+            coords.device, coords.data_ptr(), grad_out.data_ptr(),
+            *([m.data_ptr() for m in levels] + [None] * pad), *(sizes + [0] * pad),
+            *([t.data_ptr() for t in grads] + [None] * pad), len(levels), radius, b,
+            gc.data_ptr() if want_coords else None)
+    return grads + ([gc] if want_coords else [])
+
+
+@_corr_lookup_bwd_op.register_fake
+def _(levels, coords, grad_out, radius, want_coords):
+    _check_fake(levels, coords, radius, "tent", (grad_out,))
+    _check_grad_out(levels, coords, grad_out, radius)
+    grads = [torch.empty_like(m) for m in levels]
+    return grads + ([torch.empty_like(coords)] if want_coords else [])
+
+
+def _lookup_setup_context(ctx, inputs, output):
+    levels, coords, radius, _ = inputs
+    ctx.save_for_backward(coords, *levels)
+    ctx.radius = radius
+
+
+def _lookup_backward(ctx, grad):
+    """K1b (the `corr_lookup_pallas_diff` pairing, whatever the forward
+    variant): the level grads, and the coords grad only where the coords
+    need one."""
+    coords, *levels = ctx.saved_tensors
+    want_coords = ctx.needs_input_grad[1]
+    grads, g_coords = corr_lookup_flat_bwd(levels, coords, grad.contiguous(), ctx.radius,
+                                           want_coords)
+    return list(grads), g_coords, None, None
+
+
+torch.library.register_autograd("scflow::corr_lookup", _lookup_backward,
+                                setup_context=_lookup_setup_context)

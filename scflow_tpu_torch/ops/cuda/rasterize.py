@@ -8,8 +8,13 @@ come from scflow_tpu_torch/ops/raster_pack.py):
   K4 `rasterize_packed` (csrc/rasterize_packed.cu)    <- rasterize_packed_pallas
   K5/K6 `rasterize_shaded` (csrc/rasterize_v12.cu)    <- rasterize_shaded_pallas(version=1|2)
 
-Each wrapper runs its plain version (`*_plain`) for CPU tensors; for CUDA
-tensors it checks its inputs and launches the kernel, or raises.  The plain
+Each wrapper calls its torch.library custom op (`scflow::raster_v3`,
+`raster_v4`, `raster_packed`, `raster_v12`), whose body runs the plain
+version (`*_plain`) for CPU tensors; for CUDA tensors it checks its inputs
+and launches the kernel, or raises.  Each op's fake body gives the
+output's shape and dtype and runs the checks that read no data, so that
+torch.export traces through it.  K2's probe (chip_smoke.py's tool, on no
+entry point) stays a plain function.  The plain
 versions repeat the kernels' arithmetic operation for operation, so on the
 card kernel and plain version agree bit for bit.
 
@@ -269,16 +274,35 @@ def rasterize_shaded_v3(rows: torch.Tensor, active: torch.Tensor, h: int, w: int
     """K2.  rows (N, 32, F') float32 and active (N, H/8, W/128, F'/128)
     int32 from pack_shaded_and_bin at 8x128 tiles and fc 128 -> maps
     (N, 16, H, W) float32: z*fg, fg, sorted id, normal (3), colour (3),
-    barycentrics*fg (3), zeros."""
-    if rows.device.type == "cpu":
-        return rasterize_shaded_v3_plain(rows, active, h, w, id_bits)
+    barycentrics*fg (3), zeros.  Calls the custom op `scflow::raster_v3`."""
+    return torch.ops.scflow.raster_v3(rows, active, h, w, id_bits)
+
+
+def _check_v3(rows, active, h, w, id_bits):
     n, f = rows.shape[0], rows.shape[-1]
     _check("rasterize_shaded_v3", rows, 32,
            {"active": (active, (n, h // TH, w // TW, f // FC))}, h, w, TH, TW, FC, id_bits)
+
+
+@torch.library.custom_op("scflow::raster_v3", mutates_args=())
+def _raster_v3_op(rows: torch.Tensor, active: torch.Tensor, h: int, w: int,
+                  id_bits: int) -> torch.Tensor:
+    """K2 on CUDA tensors, its plain version on CPU ones."""
+    if rows.device.type == "cpu":
+        return rasterize_shaded_v3_plain(rows, active, h, w, id_bits)
+    _check_v3(rows, active, h, w, id_bits)
+    n, f = rows.shape[0], rows.shape[-1]
     out = torch.empty((n, 16, h, w), dtype=torch.float32, device=rows.device)
     V3_KERNEL.launch(rows.device, rows.data_ptr(), active.data_ptr(), out.data_ptr(),
                      n, f, h, w, f // FC, (1 << id_bits) - 1)
     return out
+
+
+@_raster_v3_op.register_fake
+def _(rows, active, h, w, id_bits):
+    if rows.device.type != "cpu":
+        _check_v3(rows, active, h, w, id_bits)
+    return rows.new_empty((rows.shape[0], 16, h, w))
 
 
 def rasterize_shaded_v3_probe(rows: torch.Tensor, active: torch.Tensor, h: int, w: int,
@@ -308,20 +332,38 @@ def rasterize_shaded_v3_probe(rows: torch.Tensor, active: torch.Tensor, h: int, 
     return (keys, kept) if out is None else out
 
 
+def _check_version(version: int) -> None:
+    if version not in V12_KERNELS:
+        raise ValueError(f"rasterize_shaded: version must be 1 or 2, got {version!r}")
+
+
 def rasterize_shaded(rows: torch.Tensor, active: torch.Tensor, h: int, w: int,
                      th: int = 8, tw: int = 128, fc: int = 128, id_bits: int = 11,
                      version: int = 2) -> torch.Tensor:
     """K5 (version 1) and K6 (version 2): K2's maps from the same packs,
     every chunk of a tile tested against active and the valid row, tiles
-    th x tw, chunks of fc faces.  Any version but 1 or 2 raises."""
-    if version not in V12_KERNELS:
-        raise ValueError(f"rasterize_shaded: version must be 1 or 2, got {version!r}")
-    if rows.device.type == "cpu":
-        return rasterize_shaded_plain(rows, active, h, w, th, tw, fc, id_bits)
+    th x tw, chunks of fc faces.  Any version but 1 or 2 raises.  Calls the
+    custom op `scflow::raster_v12`."""
+    _check_version(version)
+    return torch.ops.scflow.raster_v12(rows, active, h, w, th, tw, fc, id_bits, version)
+
+
+def _check_tiled(name, rows, nrows, active, h, w, th, tw, fc, id_bits):
     n, f = rows.shape[0], rows.shape[-1]
-    _check("rasterize_shaded", rows, 32,
+    _check(name, rows, nrows,
            {"active": (active, (n, h // max(th, 1), w // max(tw, 1), f // max(fc, 1)))},
            h, w, th, tw, fc, id_bits)
+
+
+@torch.library.custom_op("scflow::raster_v12", mutates_args=())
+def _raster_v12_op(rows: torch.Tensor, active: torch.Tensor, h: int, w: int, th: int, tw: int,
+                   fc: int, id_bits: int, version: int) -> torch.Tensor:
+    """K5 or K6 on CUDA tensors, their plain version on CPU ones."""
+    _check_version(version)
+    if rows.device.type == "cpu":
+        return rasterize_shaded_plain(rows, active, h, w, th, tw, fc, id_bits)
+    _check_tiled("rasterize_shaded", rows, 32, active, h, w, th, tw, fc, id_bits)
+    n, f = rows.shape[0], rows.shape[-1]
     out = torch.empty((n, 16, h, w), dtype=torch.float32, device=rows.device)
     V12_KERNELS[version].launch(rows.device, rows.data_ptr(), active.data_ptr(),
                                 out.data_ptr(), n, f, h, w, th, tw, fc, (1 << id_bits) - 1,
@@ -329,22 +371,42 @@ def rasterize_shaded(rows: torch.Tensor, active: torch.Tensor, h: int, w: int,
     return out
 
 
+@_raster_v12_op.register_fake
+def _(rows, active, h, w, th, tw, fc, id_bits, version):
+    _check_version(version)
+    if rows.device.type != "cpu":
+        _check_tiled("rasterize_shaded", rows, 32, active, h, w, th, tw, fc, id_bits)
+    return rows.new_empty((rows.shape[0], 16, h, w))
+
+
 def rasterize_packed(rows: torch.Tensor, active: torch.Tensor, h: int, w: int,
                      th: int = 32, tw: int = 128, fc: int = 128,
                      id_bits: int = 11) -> torch.Tensor:
     """K4.  rows (N, 16, F') and active (N, H/th, W/tw, F'/fc) from
     pack_faces_and_bin -> packed winner keys (N, H, W) int32, INT32_MAX
-    where no face covers."""
+    where no face covers.  Calls the custom op `scflow::raster_packed`."""
+    return torch.ops.scflow.raster_packed(rows, active, h, w, th, tw, fc, id_bits)
+
+
+@torch.library.custom_op("scflow::raster_packed", mutates_args=())
+def _raster_packed_op(rows: torch.Tensor, active: torch.Tensor, h: int, w: int, th: int,
+                      tw: int, fc: int, id_bits: int) -> torch.Tensor:
+    """K4 on CUDA tensors, its plain version on CPU ones."""
     if rows.device.type == "cpu":
         return rasterize_packed_plain(rows, active, h, w, th, tw, fc, id_bits)
+    _check_tiled("rasterize_packed", rows, 16, active, h, w, th, tw, fc, id_bits)
     n, f = rows.shape[0], rows.shape[-1]
-    _check("rasterize_packed", rows, 16,
-           {"active": (active, (n, h // max(th, 1), w // max(tw, 1), f // max(fc, 1)))},
-           h, w, th, tw, fc, id_bits)
     out = torch.empty((n, h, w), dtype=torch.int32, device=rows.device)
     PACKED_KERNEL.launch(rows.device, rows.data_ptr(), active.data_ptr(), out.data_ptr(),
                          n, f, h, w, th, tw, fc, (1 << id_bits) - 1)
     return out
+
+
+@_raster_packed_op.register_fake
+def _(rows, active, h, w, th, tw, fc, id_bits):
+    if rows.device.type != "cpu":
+        _check_tiled("rasterize_packed", rows, 16, active, h, w, th, tw, fc, id_bits)
+    return rows.new_empty((rows.shape[0], h, w), dtype=torch.int32)
 
 
 def rasterize_shaded_v4(rows: torch.Tensor, seg_start: torch.Tensor, seg_count: torch.Tensor,
@@ -354,19 +416,43 @@ def rasterize_shaded_v4(rows: torch.Tensor, seg_start: torch.Tensor, seg_count: 
     """K3.  Entry rows (N, 32, E) and the tile segments from
     pack_shaded_exact -> maps (N, 16, H, W) as K2's, except that channel 2
     holds the sorted ENTRY id (pack_shaded_exact's perm maps it to the
-    original face)."""
-    if rows.device.type == "cpu":
-        return rasterize_shaded_v4_plain(rows, seg_start, seg_count, ov_counts, ov_order,
-                                         h, w, th, tw, fc, id_bits)
-    n, f = rows.shape[0], rows.shape[-1]
+    original face).  Calls the custom op `scflow::raster_v4`."""
+    return torch.ops.scflow.raster_v4(rows, seg_start, seg_count, ov_counts, ov_order, h, w,
+                                      th, tw, fc, id_bits)
+
+
+def _check_v4(rows, seg_start, seg_count, ov_counts, ov_order, h, w, th, tw, fc, id_bits):
+    """K3's checks; returns the overflow list's length (-1: no list, a 3-D
+    ov_order)."""
+    n = rows.shape[0]
     tiles = (n, h // max(th, 1), w // max(tw, 1))
     nov = ov_order.shape[-1] if ov_order.dim() == 4 else -1
     _check("rasterize_shaded_v4", rows, 32,
            {"seg_start": (seg_start, tiles), "seg_count": (seg_count, tiles),
             "ov_counts": (ov_counts, tiles), "ov_order": (ov_order, tiles + (nov,))},
            h, w, th, tw, fc, id_bits)
+    return nov
+
+
+@torch.library.custom_op("scflow::raster_v4", mutates_args=())
+def _raster_v4_op(rows: torch.Tensor, seg_start: torch.Tensor, seg_count: torch.Tensor,
+                  ov_counts: torch.Tensor, ov_order: torch.Tensor, h: int, w: int, th: int,
+                  tw: int, fc: int, id_bits: int) -> torch.Tensor:
+    """K3 on CUDA tensors, its plain version on CPU ones."""
+    if rows.device.type == "cpu":
+        return rasterize_shaded_v4_plain(rows, seg_start, seg_count, ov_counts, ov_order,
+                                         h, w, th, tw, fc, id_bits)
+    nov = _check_v4(rows, seg_start, seg_count, ov_counts, ov_order, h, w, th, tw, fc, id_bits)
+    n, f = rows.shape[0], rows.shape[-1]
     out = torch.empty((n, 16, h, w), dtype=torch.float32, device=rows.device)
     V4_KERNEL.launch(rows.device, rows.data_ptr(), seg_start.data_ptr(), seg_count.data_ptr(),
                      ov_counts.data_ptr(), ov_order.data_ptr(), out.data_ptr(),
                      n, f, h, w, th, tw, fc, nov, (1 << id_bits) - 1)
     return out
+
+
+@_raster_v4_op.register_fake
+def _(rows, seg_start, seg_count, ov_counts, ov_order, h, w, th, tw, fc, id_bits):
+    if rows.device.type != "cpu":
+        _check_v4(rows, seg_start, seg_count, ov_counts, ov_order, h, w, th, tw, fc, id_bits)
+    return rows.new_empty((rows.shape[0], 16, h, w))

@@ -225,14 +225,26 @@ def _best_of_both(p3, p2, K, weights, points_3d, points_2d, score_on):
             torch.where(pick_g[..., None], t_g, t_p))
 
 
+def hypothesis_uniforms(n: int, num_hypotheses: int, p: int, device=None) -> torch.Tensor:
+    """The (N, H, P) uniforms solve_pnp_ransac_device draws by default: from
+    a fresh torch.Generator on `device` seeded 0."""
+    generator = torch.Generator(device=device).manual_seed(0)
+    return torch.rand((n, num_hypotheses, p), generator=generator, device=device)
+
+
 def sample_hypotheses(valid: torch.Tensor, num_hypotheses: int = 64, sample_size: int = 6,
-                      generator: Optional[torch.Generator] = None) -> torch.Tensor:
+                      generator: Optional[torch.Generator] = None,
+                      uniforms: Optional[torch.Tensor] = None) -> torch.Tensor:
     """(N, P) bool -> (N, H, S) point indices: per hypothesis, the top
     sample_size of gumbel noise with -1e9 on invalid points (drawing without
     replacement among the valid ones), as JAX's sampler does.  The sort is
-    stable, so a tie takes the lower index first, as jax.lax.top_k does."""
+    stable, so a tie takes the lower index first, as jax.lax.top_k does.
+    uniforms: the (N, H, P) draws, drawn beforehand; else they are drawn
+    from `generator`."""
     n, p = valid.shape
-    u = torch.rand((n, num_hypotheses, p), generator=generator, device=valid.device)
+    u = uniforms
+    if u is None:
+        u = torch.rand((n, num_hypotheses, p), generator=generator, device=valid.device)
     u = torch.clamp(u, min=torch.finfo(u.dtype).tiny)
     g = -torch.log(-torch.log(u)) + torch.where(valid, 0.0, -1e9)[:, None, :]
     return torch.sort(g, dim=-1, descending=True, stable=True).indices[..., :sample_size]
@@ -274,21 +286,25 @@ def solve_pnp_ransac_device(points_3d: torch.Tensor, points_2d: torch.Tensor, K:
                             valid: Optional[torch.Tensor] = None,
                             generator: Optional[torch.Generator] = None,
                             num_hypotheses: int = 64, sample_size: int = 6,
-                            inlier_thresh_px: float = 3.0, refine_iters: int = 8) -> PnPResult:
+                            inlier_thresh_px: float = 3.0, refine_iters: int = 8,
+                            uniforms: Optional[torch.Tensor] = None) -> PnPResult:
     """Fixed-shape RANSAC-PnP on padded point sets, batched: points (N, P,
     3) and (N, P, 2), K (N, 3, 3), valid (N, P) bool (all by default); or
     one set without the N.  The port of solve_pnp_ransac_jax (and of its
     vmap, batched_pnp_ransac); `generator` (a torch.Generator on the
-    points' device, seeded 0 by default) takes the place of the PRNG key."""
+    points' device, seeded 0 by default) takes the place of the PRNG key.
+    uniforms: the hypotheses' (N, H, P) draws made beforehand
+    (hypothesis_uniforms), in place of drawing them from `generator`."""
     single = points_3d.ndim == 2
     if single:
         points_3d, points_2d, K = points_3d[None], points_2d[None], K[None]
         valid = None if valid is None else valid[None]
     if valid is None:
         valid = torch.ones(points_3d.shape[:2], dtype=torch.bool, device=points_3d.device)
-    if generator is None:
-        generator = torch.Generator(device=points_3d.device).manual_seed(0)
-    idxs = sample_hypotheses(valid, num_hypotheses, sample_size, generator)
+    if uniforms is None and generator is None:
+        uniforms = hypothesis_uniforms(valid.shape[0], num_hypotheses, valid.shape[1],
+                                       points_3d.device)
+    idxs = sample_hypotheses(valid, num_hypotheses, sample_size, generator, uniforms)
     res = ransac_from_indices(points_3d, points_2d, K, valid, idxs, inlier_thresh_px,
                               refine_iters)
     return PnPResult(*(v[0] for v in res)) if single else res

@@ -90,7 +90,9 @@ def solve_poses_from_flow_device(flow, rendered_depths, ref_rotations, ref_trans
                                  internal_k, occlusion=None, occ_thresh: float = 0.5,
                                  num_points: int = 1024, num_hypotheses: int = 64,
                                  reprojection_error: float = 3.0,
-                                 generator: Optional[torch.Generator] = None):
+                                 generator: Optional[torch.Generator] = None,
+                                 uniforms: Optional[torch.Tensor] = None,
+                                 flow_score: Optional[torch.Tensor] = None):
     """Batched pose recovery from flow on the flow's device, no host round
     trip: lift the rendered depth (N, H, W) into the object frame, take the
     num_points highest-scoring valid pixels (score: the occlusion
@@ -99,7 +101,10 @@ def solve_poses_from_flow_device(flow, rendered_depths, ref_rotations, ref_trans
     flow and run solve_pnp_ransac_device (DLT and planar solves, RANSAC,
     Gauss-Newton).  Returns (R (N, 3, 3), t (N, 3), ok (N,)); a failed solve
     keeps the reference pose.  generator (on the flow's device) draws the
-    hypotheses, seeded 0 by default; it replaces JAX's `key`."""
+    hypotheses, seeded 0 by default; it replaces JAX's `key`.  uniforms and
+    flow_score are those draws made beforehand (pnp.hypothesis_uniforms
+    for (N, num_hypotheses, min(num_points, H*W)); flow_only_score), which
+    an infer fn makes once and a traced graph holds as constants."""
     n, h, w = rendered_depths.shape
     pts_obj, valid = lift_depth_to_object_points(rendered_depths, internal_k, ref_rotations,
                                                  ref_translations)
@@ -107,7 +112,9 @@ def solve_poses_from_flow_device(flow, rendered_depths, ref_rotations, ref_trans
         valid = valid & (occlusion > occ_thresh)
         score = occlusion
     else:
-        score = flow_only_score(h, w, flow.device)[None].expand(n, h, w)
+        if flow_score is None:
+            flow_score = flow_only_score(h, w, flow.device)
+        score = flow_score[None].expand(n, h, w)
     score = torch.where(valid, score.to(flow.dtype), torch.full_like(flow[..., 0], -float("inf")))
     tgt = coords_grid(h, w, flow.dtype, flow.device)[None] + flow
     idx = torch.sort(score.reshape(n, h * w), dim=-1, descending=True,
@@ -118,11 +125,9 @@ def solve_poses_from_flow_device(flow, rendered_depths, ref_rotations, ref_trans
                                                                                 a.shape[-1]))
 
     val_sel = valid.reshape(n, h * w).gather(1, idx)
-    if generator is None:
-        generator = torch.Generator(device=flow.device).manual_seed(0)
     res = solve_pnp_ransac_device(take(pts_obj), take(tgt), internal_k, val_sel, generator,
                                   num_hypotheses=num_hypotheses,
-                                  inlier_thresh_px=reprojection_error)
+                                  inlier_thresh_px=reprojection_error, uniforms=uniforms)
     ok = res.ok & (val_sel.sum(dim=1) >= 4)
     R = torch.where(ok[:, None, None], res.rotation, ref_rotations)
     t = torch.where(ok[:, None], res.translation, ref_translations)

@@ -27,7 +27,8 @@ from scflow_tpu_torch.losses.point_matching import (disentangle_point_matching_l
                                                     sym_mask_from_types)
 from scflow_tpu_torch.models.augment import build_render_augmentation
 from scflow_tpu_torch.ops.cuda.corr_lookup import check_variant, check_window
-from scflow_tpu_torch.refiners.flow_pose import solve_poses_from_flow_device
+from scflow_tpu_torch.pnp import hypothesis_uniforms
+from scflow_tpu_torch.refiners.flow_pose import flow_only_score, solve_poses_from_flow_device
 from scflow_tpu_torch.render.rasterizer import rasterize
 from scflow_tpu_torch.render.renderer import render_batch
 from scflow_tpu_torch.runtime.train_state import TrainState
@@ -326,26 +327,41 @@ def make_scflow_infer_fn(model, render_assets: RenderAssets,
     def as_tensor(x, dtype):
         return torch.as_tensor(x, dtype=dtype, device=dev)
 
+    def body(batch: Dict) -> Dict[str, torch.Tensor]:
+        R = as_tensor(batch["ref_rotations"], torch.float32)
+        t = as_tensor(batch["ref_translations"], torch.float32)
+        K = as_tensor(batch["k"], torch.float32)
+        labels = as_tensor(batch["labels"], torch.int64)
+        real = as_tensor(batch["real_images"], torch.float32)
+        rendered, depths, _ = render_and_normalize(
+            render_assets, R, t, K, labels, image_size, norm_mean, norm_std,
+            chunk=render_chunk, backend=render_backend,
+            cull_backfaces=render_cull_backfaces)
+        out = model(rendered, real, R, t, depths, K, labels, iters=iters,
+                    output_sequences=False, unroll=unroll, pose_only=slim,
+                    lookup_backend=lookup_backend, lookup_variant=lookup_variant)
+        res = {"rotations": out["rotations"][-1], "translations": out["translations"][-1]}
+        if not slim:
+            res["masks"] = out["masks"][-1]
+            res["flow"] = out["flow_from_pred"][-1]
+        return res
+
+    return _with_contexts(body, lambda batch_size: body, dev)
+
+
+def _with_contexts(body, trace_body, dev: torch.device):
+    """The live call: body(batch) under torch.inference_mode() and
+    device.full_fp32().  The call carries `trace_body(batch_size)`, the
+    body for batches of that size without those contexts (they are run-time
+    flags, not graph operations; runtime/export.py traces the body and the
+    loaded program applies them again; None: any size), and `device`."""
+
     def infer(batch: Dict) -> Dict[str, torch.Tensor]:
         with torch.inference_mode(), full_fp32():
-            R = as_tensor(batch["ref_rotations"], torch.float32)
-            t = as_tensor(batch["ref_translations"], torch.float32)
-            K = as_tensor(batch["k"], torch.float32)
-            labels = as_tensor(batch["labels"], torch.int64)
-            real = as_tensor(batch["real_images"], torch.float32)
-            rendered, depths, _ = render_and_normalize(
-                render_assets, R, t, K, labels, image_size, norm_mean, norm_std,
-                chunk=render_chunk, backend=render_backend,
-                cull_backfaces=render_cull_backfaces)
-            out = model(rendered, real, R, t, depths, K, labels, iters=iters,
-                        output_sequences=False, unroll=unroll, pose_only=slim,
-                        lookup_backend=lookup_backend, lookup_variant=lookup_variant)
-            res = {"rotations": out["rotations"][-1], "translations": out["translations"][-1]}
-            if not slim:
-                res["masks"] = out["masks"][-1]
-                res["flow"] = out["flow_from_pred"][-1]
-            return res
+            return body(batch)
 
+    infer.trace_body = trace_body
+    infer.device = dev
     return infer
 
 
@@ -371,15 +387,20 @@ def make_scflow_cycled_infer_fn(model, render_assets: RenderAssets, cycles: int 
         unroll=unroll, slim=slim or not last, lookup_variant=lookup_variant, device=device)
         for last in (False, True)]
 
-    def infer(batch: Dict) -> Dict[str, torch.Tensor]:
-        batch = dict(batch)
-        for cycle in range(cycles):
-            out = steps[cycle == cycles - 1](batch)
-            batch["ref_rotations"], batch["ref_translations"] = (out["rotations"],
-                                                                 out["translations"])
-        return out
+    def cycled(bodies):
+        def body(batch: Dict) -> Dict[str, torch.Tensor]:
+            batch = dict(batch)
+            for cycle in range(cycles):
+                out = bodies[cycle == cycles - 1](batch)
+                batch["ref_rotations"], batch["ref_translations"] = (out["rotations"],
+                                                                     out["translations"])
+            return out
 
-    return infer
+        return body
+
+    return _with_contexts(cycled([step.trace_body(None) for step in steps]),
+                          lambda n: cycled([step.trace_body(n) for step in steps]),
+                          steps[0].device)
 
 
 def _raft_setup(model, render_assets: RenderAssets, render_backend: str, lookup_backend: str,
@@ -527,7 +548,12 @@ def make_raft_infer_fn(model, render_assets: RenderAssets,
     (flow_pose.solve_poses_from_flow_device with pnp_cfg: occ_thresh,
     num_points, num_hypotheses, reprojection_error, generator) and adds
     "rotations" (N, 3, 3), "translations" (N, 3) and "pnp_ok" (N,);
-    'host' leaves the pose to the caller; any other name raises.
+    'host' leaves the pose to the caller; any other name raises.  Without a
+    generator the PnP's random draws (the flow-only score, the hypotheses'
+    uniforms) are made once on the device, the uniforms once per batch
+    size, from the seeds each call drew them from before (7 and 0), so a
+    call gives the same poses and an export holds no generator; with one,
+    each call draws from it and the infer fn cannot be exported.
 
     batch: real_images, ref_rotations, ref_translations, k, labels.  The
     arguments are the JAX function's, in its order, then lookup_variant and
@@ -541,9 +567,19 @@ def make_raft_infer_fn(model, render_assets: RenderAssets,
     read = _raft_setup(model, render_assets, render_backend, lookup_backend, lookup_variant,
                        device, image_size)
     model.eval()
+    dev = render_assets.verts.device
+    drawn = pnp_backend == "device" and pnp_cfg.get("generator") is None
+    if drawn:
+        # the device PnP's draws, made once (the flow-only score) and once per
+        # batch size (the hypotheses' uniforms), from the seeds each call drew
+        # them from before: the same values, and no generator in a traced graph
+        h, w = image_size
+        shape = (pnp_cfg.get("num_hypotheses", 64), min(pnp_cfg.get("num_points", 1024), h * w))
+        pnp_cfg["flow_score"] = flow_only_score(h, w, dev)
+        uniforms = {}
 
-    def infer(batch: Dict) -> Dict[str, torch.Tensor]:
-        with torch.inference_mode(), full_fp32():
+    def make_body(pnp_kw):
+        def body(batch: Dict) -> Dict[str, torch.Tensor]:
             b = read(batch)
             rendered, depths, masks = render_and_normalize(
                 render_assets, b["ref_rotations"], b["ref_translations"], b["k"], b["labels"],
@@ -557,11 +593,30 @@ def make_raft_infer_fn(model, render_assets: RenderAssets,
             if pnp_backend == "device":
                 R, t, ok = solve_poses_from_flow_device(
                     res["flow"], depths, b["ref_rotations"], b["ref_translations"], b["k"],
-                    occlusion=res.get("occlusion"), **pnp_cfg)
+                    occlusion=res.get("occlusion"), **pnp_kw(depths.shape[0]))
                 res.update(rotations=R, translations=t, pnp_ok=ok)
             return res
 
-    return infer
+        return body
+
+    def live_kw(n: int) -> Dict[str, Any]:
+        if not drawn:
+            return pnp_cfg
+        if n not in uniforms:
+            uniforms[n] = hypothesis_uniforms(n, *shape, device=dev)
+        return {**pnp_cfg, "uniforms": uniforms[n]}
+
+    def trace_body(batch_size: int):
+        if not drawn and pnp_backend == "device":
+            raise ValueError("pnp_cfg's generator draws the device PnP's hypotheses on every "
+                             "call, and torch.export cannot trace a torch.Generator: build "
+                             "the infer fn without one to export it")
+        kw = pnp_cfg
+        if drawn:
+            kw = {**pnp_cfg, "uniforms": hypothesis_uniforms(batch_size, *shape, device=dev)}
+        return make_body(lambda n: kw)
+
+    return _with_contexts(make_body(live_kw), trace_body, dev)
 
 
 def make_raft_val_step(model, render_assets: RenderAssets,

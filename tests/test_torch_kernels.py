@@ -979,3 +979,139 @@ def test_bf16_bwd_kernel_at_the_train_shape(want_coords, cuda, monkeypatch):
     lv, coords = _window_case(16 * 32 * 32, (32, 16, 8, 4), 4, seed=7)
     g = _bwd_grad_out(coords.shape[0], 4 * 81, 7)
     _check_bf16_bwd_kernel(lv, coords, g, 4, want_coords, cuda, monkeypatch)
+
+
+# The kernels as torch.library custom ops (scflow::*) on the card.
+
+def _card_op_cases(cuda):
+    """{name: (op, args)}: each op at a small shape on CUDA tensors."""
+    levels, coords = _lookup_case("random")
+    levels = [m.to(cuda) for m in levels]
+    coords = coords.to(cuda)
+    g = torch.randn((coords.shape[0], 4 * 81), generator=torch.Generator().manual_seed(2))
+    cases = {f"corr_lookup_{v}_{dt}": (torch.ops.scflow.corr_lookup.default,
+                                       ([m.to(dtype) for m in levels], coords, 4, v))
+             for v in k1.VARIANTS for dt, dtype in (("f32", torch.float32),
+                                                     ("bf16", torch.bfloat16))}
+    for dt, dtype in (("f32", torch.float32), ("bf16", torch.bfloat16)):
+        for want in (True, False):
+            cases[f"corr_lookup_bwd_{dt}_{want}"] = (
+                torch.ops.scflow.corr_lookup_bwd.default,
+                ([m.to(dtype) for m in levels], coords, g.to(cuda), 4, want))
+    rows, active, img = _raster_scene(cuda)
+    bits = pk.id_bits_for(rows.shape[-1])
+    cases["raster_v3"] = (torch.ops.scflow.raster_v3.default, (rows, active, img, img, bits))
+    for version in (1, 2):
+        cases[f"raster_v12_{version}"] = (torch.ops.scflow.raster_v12.default,
+                                          (rows, active, img, img, 8, 128, 128, bits, version))
+    rows_p, active_p, kw = _packed_scene(cuda, 128, 128)
+    cases["raster_packed"] = (torch.ops.scflow.raster_packed.default,
+                              (rows_p, active_p, *kw.values()))
+    packs, kw = _v4_scene(cuda, 8)
+    cases["raster_v4"] = (torch.ops.scflow.raster_v4.default, (*packs, *kw.values()))
+    return cases
+
+
+def _op_kernel(name):
+    """The CudaKernel an op case launches."""
+    if name.startswith("corr_lookup_bwd"):
+        return k1.bwd_kernel(torch.bfloat16 if "bf16" in name else torch.float32)
+    if name.startswith("corr_lookup"):
+        _, _, variant, dt = name.split("_")
+        return k1.forward_kernel(variant, torch.bfloat16 if dt == "bf16" else torch.float32)
+    if name.startswith("raster_v12"):
+        return k2.V12_KERNELS[int(name[-1])]
+    return {"raster_v3": k2.V3_KERNEL, "raster_v4": k2.V4_KERNEL,
+            "raster_packed": k2.PACKED_KERNEL}[name]
+
+
+CARD_OPS = ([f"corr_lookup_{v}_{dt}" for v in k1.VARIANTS for dt in ("f32", "bf16")]
+            + [f"corr_lookup_bwd_{dt}_{w}" for dt in ("f32", "bf16") for w in (True, False)]
+            + ["raster_v3", "raster_v4", "raster_packed", "raster_v12_1", "raster_v12_2"])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", CARD_OPS)
+def test_op_opcheck_on_the_card(name, cuda):
+    """torch.library.opcheck of each op on CUDA tensors, where its body
+    launches the kernel: the schema, the fake against the kernel, the
+    autograd registration (the lookup's backward is K1b) and the trace
+    with dynamic shapes."""
+    op, args = _card_op_cases(cuda)[name]
+    if name.startswith("corr_lookup_") and not name.startswith("corr_lookup_bwd"):
+        args = ([m.requires_grad_() for m in args[0]], args[1].requires_grad_(), *args[2:])
+    torch.library.opcheck(op, args)
+
+
+def _all_kernels():
+    """The counters of _all_launches, in its order."""
+    return (k1.KERNEL, k1.SHIFT_KERNEL, k1.BDIAG_KERNEL, k1.BWD_KERNEL, k1.KERNEL_BF16,
+            k1.SHIFT_KERNEL_BF16, k1.BDIAG_KERNEL_BF16, k1.BWD_KERNEL_BF16, k2.V3_KERNEL,
+            k2.V4_KERNEL, k2.PACKED_KERNEL, k2.V12_KERNELS[1], k2.V12_KERNELS[2])
+
+
+def _wrapper_call(name, args):
+    """The same call through the op's public wrapper."""
+    if name.startswith("corr_lookup_bwd"):
+        return k1.corr_lookup_flat_bwd(*args)
+    if name.startswith("corr_lookup"):
+        return k1.corr_lookup_flat(*args)
+    if name.startswith("raster_v12"):
+        return k2.rasterize_shaded(*args[:-1], version=args[-1])
+    return {"raster_v3": k2.rasterize_shaded_v3, "raster_v4": k2.rasterize_shaded_v4,
+            "raster_packed": k2.rasterize_packed}[name](*args)
+
+
+@pytest.mark.cuda
+def test_each_op_call_is_one_launch(cuda):
+    """Each op call, through torch.ops or its public wrapper, moves its
+    kernel's count by exactly one and no other count (the count moves in
+    CudaKernel.launch only); the lookup's backward launches one K1b."""
+    assert _all_launches() == tuple(k.launches for k in _all_kernels())
+    cases = _card_op_cases(cuda)
+    for name, (op, args) in cases.items():
+        want = [int(k is _op_kernel(name)) for k in _all_kernels()]
+        assert sum(want) == 1, name
+        for call in (lambda: op(*args), lambda: _wrapper_call(name, args)):
+            before = _all_launches()
+            call()
+            torch.cuda.synchronize()
+            assert [a - b for a, b in zip(_all_launches(), before)] == want, name
+    levels, coords, radius, variant = cases["corr_lookup_tent_f32"][1]
+    lv = [m.clone().requires_grad_() for m in levels]
+    out = k1.corr_lookup_flat(lv, coords, radius, variant)
+    before = _all_launches()
+    out.sum().backward()
+    torch.cuda.synchronize()
+    assert [a - b for a, b in zip(_all_launches(), before)] == [
+        int(k is k1.BWD_KERNEL) for k in _all_kernels()]
+
+
+@pytest.mark.cuda
+def test_op_launch_count_is_exact_across_threads(cuda):
+    """8 threads x 50 lookups through the op, with a short switch
+    interval: 400 launches counted, one per call."""
+    import sys
+    import threading
+
+    levels, coords = _lookup_case("random")
+    levels, coords = [m.to(cuda) for m in levels], coords.to(cuda)
+    before = k1.KERNEL.launches
+
+    def work():
+        for _ in range(50):
+            torch.ops.scflow.corr_lookup(levels, coords, 4, "tent")
+
+    threads = [threading.Thread(target=work) for _ in range(8)]
+    interval = sys.getswitchinterval()
+    sys.setswitchinterval(1e-6)
+    try:
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=120)
+    finally:
+        sys.setswitchinterval(interval)
+    torch.cuda.synchronize()
+    assert not any(t.is_alive() for t in threads)
+    assert k1.KERNEL.launches == before + 400

@@ -128,7 +128,7 @@ def test_infer_fn_device_pnp_matches_jax(setup, monkeypatch, no_tf32):
 
     keys = jax.random.split(jax.random.PRNGKey(0), N)
 
-    def jax_draw(valid, num_hypotheses, sample_size, generator):
+    def jax_draw(valid, num_hypotheses, sample_size, generator, uniforms=None):
         return torch.stack([torch.from_numpy(_jax_indices(v.numpy(), k, num_hypotheses,
                                                           sample_size)).long()
                             for v, k in zip(valid, keys)])

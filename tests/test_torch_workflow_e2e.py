@@ -164,16 +164,16 @@ def test_cli_module_runs_the_test_command(runs, tmp_path):
                        cwd=str(REPO), env=env, capture_output=True, text=True, timeout=300)
     assert r.returncode == 0, r.stderr[-3000:]
     assert "1 images in" in r.stderr and len(_load(tmp_path / "one.json")) == 1
-    # train and serve are ported (tests/test_torch_train_e2e.py,
-    # tests/test_torch_server.py): without a card they need --device cpu;
-    # export is not ported and names its ROADMAP item
-    for command in (["train", str(cfg_path)], ["serve", str(cfg_path), "--checkpoint", ckpt]):
+    # train, serve and export are ported (tests/test_torch_train_e2e.py,
+    # tests/test_torch_server.py, tests/test_torch_export.py): without a card
+    # they need --device cpu (export: --platforms cpu)
+    for command in (["train", str(cfg_path)], ["serve", str(cfg_path), "--checkpoint", ckpt],
+                    ["export", str(cfg_path), "--checkpoint", ckpt,
+                     "--out", str(tmp_path / "model.scflowx")]):
         r = subprocess.run([sys.executable, "-m", "scflow_tpu_torch.cli", *command],
                            cwd=str(REPO), env=env, capture_output=True, text=True, timeout=300)
         assert r.returncode != 0 and "no CUDA device is available" in r.stderr, command
-    r = subprocess.run([sys.executable, "-m", "scflow_tpu_torch.cli", "export", str(cfg_path)],
-                       cwd=str(REPO), env=env, capture_output=True, text=True, timeout=300)
-    assert r.returncode != 0 and "item 9" in r.stderr
+    assert not (tmp_path / "model.scflowx").exists()
 
 
 def test_test_main_leaves_torch_rng_alone(runs):
