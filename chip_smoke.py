@@ -10,7 +10,7 @@ parent commit), without the kernels line: lookup (phases 3, 10 and 11),
 raster (4-7), slice (8), raft (14), options (16 and 17; with slice
 before it, 17 prints its pose difference from the slice's call), workflow
 (18), train_workflow (19), train_pbr (20), serve (21-23), train_augment
-(24) and export (25).
+(24), export (25) and parallel (26).
 
 Phases, each printing one JSON line; any failure exits non-zero before the
 last line:
@@ -247,13 +247,13 @@ last line:
                per step, finite, falling (first 3 against last 3); the
                shipped raft.py, 5 steps: 12 K1, 12 K1b, 1 K2 per step,
                finite; then data.worker_mode 'thread' and 'process', each 3
-               warm-up steps, then 20 timed (ms per step on the host clock
+               warm-up steps, then 12 timed (ms per step on the host clock
                over the runner loop, samples/s, load ms per step blocked in
                next(data_iter), device ms per step by CUDA events around
                the step), the last 5 of them traced (the device's idle
                share: 1 - the union of the kernels' intervals over the host
                window), with os.cpu_count(); thread mode (8.7-11.9 s a
-               step) is cut to 1 warm-up and 2 measured steps, both traced;
+               step) is cut to 1 warm-up and 1 measured step, traced;
  20. train_pbr - the PBR recipe, `cli.train_main` from a config that _base_s
                the shipped scflow.py and takes ycbv_mixpbr.py's data.train and
                batch as they are (a ConcatDataset of train_real and train_pbr
@@ -293,9 +293,9 @@ last line:
                save_params, --frame-hw 480 640 --max-objects 64
                --max-frames 8 --port 0 (the log names the port; /healthz
                polled for at most 60 s after it, the log for 300 s);
-               `python -m scflow_tpu_torch.cli loadtest` with 8 clients x 10
+               `python -m scflow_tpu_torch.cli loadtest` with 8 clients x 6
                requests x 4 objects: req/s, objects/s, client p50/p90/p99,
-               objects and requests per batch (/v1/stats); gates: 80 answers
+               objects and requests per batch (/v1/stats); gates: 48 answers
                and /v1/stats 0 errors, SIGTERM drains and the process exits
                0, every answer equals PoseService.run of the same request in
                this process (rotations 2e-5, translations 2e-3: the padding-
@@ -344,6 +344,43 @@ last line:
                the card (ValueError); the export's seconds, the artifact's
                MB, the load's seconds, ms per call (host clock over 10 calls)
                and device ms beside the live call's;
+ 26. parallel - data parallelism (scflow_tpu_torch/parallel), under
+               build/parallel/ (removed afterwards): (a) `python -m
+               torch.distributed.run --standalone --nproc_per_node 1 -m
+               scflow_tpu_torch.cli train --launcher pytorch` (one rank,
+               NCCL) on phase 19's recipe and split with SGD in AdamW's
+               place, 3 steps with process workers, against
+               `cli.train_main` with --launcher none: the logged losses (4
+               decimals) within 1e-4 + 1e-5 |loss|, the final parameters
+               and BatchNorm buffers each apart by at most 5% of the
+               distance the steps moved them (L2; two processes' rounding
+               differs; another batch gives ~1); at one rank no collective
+               runs, so (a) shows NCCL's start and the launcher's plumbing;
+               (b) 2 ranks sharing cuda:0 over gloo (this
+               script with --parallel-rank), batch 16 each, against one
+               process at batch 32, one step: the shipped network, SGD 1e-3
+               (momentum 0.9) + clip 10, the four render augmentations;
+               the step's own rounding floor on the card is the same
+               process's step with BatchNorm's statistics summed in float64
+               (the ranks' path) instead of float32 means: each log within
+               rtol 1e-5, atol 1e-6 (tests/test_torch_parallel.py's bounds)
+               or 3 x its floor, the per-leaf gradients (shares of the
+               global norm) within 3 x theirs, every weight and BatchNorm
+               buffer after the step within rtol 1e-5, atol 1e-6; the
+               floor itself under 1% of the norm, and 2 ranks that keep
+               their own BatchNorm statistics must miss these bounds;
+               exactly 1 K2, 8 K1, 8 K1b per rank in each of 4 steps; each
+               rank's ms per step over 3 more steps, the gradient
+               all-reduce's ms, one process's ms at batch 32 with and
+               without the float64 sums, in turns; (c) `cli test --launcher
+               pytorch` at 2 ranks (gloo) on 5 images of phase 18's set
+               against one process: the same results within the slice's
+               bounds, in order, and the BOP export equal to --out; (d)
+               PoseService over Mesh(['cuda:0', 'cuda:0']) (a serve fn per
+               device from parallel.replicate) at tools/serve_bench.py's 64
+               objects against one device: 8 K1 and 1 K2 per shard, the
+               poses within the slice's bounds, ms per call of each.  Every
+               part runs; any failure fails the phase;
  15. the kernels line (float32 and bf16 instances; "raft_launches": each
      kernel's launches per RAFT call or step; "radius_3": the radius-3
      instance's numbers from phases 3/10/11 and its launches per call or
@@ -352,7 +389,9 @@ last line:
      "train_workflow_launches_per_step": per step of the fp32, bf16 and
      RAFT train_workflow runs and of the train_pbr run; "serve_launches":
      per call of each serving run and per step of the augmented steps;
-     "export_launches": per call of each loaded artifact), then the device
+     "export_launches": per call of each loaded artifact; "parallel_launches":
+     per step of each rank of phase 26 (b) and per shard of its mesh
+     service (d)), then the device
      line the chip harness reads.
 Imports no JAX.  Needs one card; without one it exits non-zero at once.
 """
@@ -3056,7 +3095,7 @@ TW_ITERS, TW_RESUME_ITERS, TW_BF16_ITERS, TW_RAFT_ITERS = 30, 40, 10, 5
 # timed steps of a worker mode: warm-up, measured, and the last of the measured
 # traced; thread mode (8.7-11.9 s a step) is cut to 1 + 2 to keep the script
 # near its time
-TW_TIMED = {"process": (3, 20, 5), "thread": (1, 2, 2)}
+TW_TIMED = {"process": (3, 12, 5), "thread": (1, 1, 1)}
 TW_INTERVALS = dict(log=5, checkpoint=10, evaluation=20)
 TW_CPU = dict(samples=2, iters=3)  # the card-vs-CPU step: the loader's first 2 samples
 # the runs that check the path load in worker processes: with the config's
@@ -3590,7 +3629,7 @@ def phase_train_pbr(smi, root: Path):
 SERVE_FRAMES = 4  # tools/serve_bench.py: 64 objects from 4 frames of 640x480
 SERVE_KEYS = ("frames", "frame_idx", "ref_rotations", "ref_translations", "K", "labels")
 SERVE_CPU_OBJECTS = 4  # the card-vs-CPU gate's objects
-SERVE_LOAD = dict(clients=8, requests=10, objects=4)  # the HTTP phase's load test
+SERVE_LOAD = dict(clients=8, requests=6, objects=4)  # the HTTP phase's load test
 SERVE_START_S = 300  # the server subprocess's bound to come up
 # the padding-invariance bounds of tests/test_server.py:321-331
 SERVE_ROT_ATOL, SERVE_TRANS_ATOL = 2e-5, 2e-3
@@ -3856,7 +3895,7 @@ def phase_serve_http(smi, root: Path):
     """`python -m scflow_tpu_torch.cli serve` as a subprocess on the card,
     from a config that _base_s the shipped scflow.py, the slice's seeded
     weights saved with save_params, --frame-hw 480 640 --max-objects 64
-    --max-frames 8 --port 0; `cli loadtest` (8 clients x 10 requests x 4
+    --max-frames 8 --port 0; `cli loadtest` (8 clients x 6 requests x 4
     objects) drives it (_serve_load's gates).  Gate: every answer equals
     PoseService.run of the same request (rotations 2e-5, translations
     2e-3), a run of 8 K1 and 1 K2.  Then the same load on a server with
@@ -3951,8 +3990,9 @@ def phase_serve_raft(smi, root: Path):
     host = _serve_service(Config.fromfile(str(cfg_path)), ckpt)
     host.dispatch(requests)  # warm-up
     torch.cuda.synchronize()
-    (out, event, counts), c = counted(lambda: host.dispatch(requests))
-    event.synchronize()
+    (out, events, counts), c = counted(lambda: host.dispatch(requests))
+    for event in events:
+        event.synchronize()
     require(only(c, K1=RAFT_ITERS, K2=1), f"serve_raft host: launches per call {c}")
     launches["serve_raft_host"] = {k: n for k, n in c.items() if n}
     require(set(out) == set(host.fetch_keys) and out["flow"].shape == (BATCH, IMG, IMG, 2)
@@ -3967,7 +4007,7 @@ def phase_serve_raft(smi, root: Path):
     else:
         res["host_pnp"] = "not run: cv2 is not installed (the serve fn and its fetch ran)"
         res["host_ms_per_call_without_pnp"] = _timed_calls(
-            lambda: host.dispatch(requests)[1].synchronize(), calls=5)
+            lambda: [e.synchronize() for e in host.dispatch(requests)[1]], calls=5)
     del host
     device = _serve_service(Config.fromfile(str(cfg_path)), ckpt,
                             **{"model.test_cfg.pnp_backend": "device"})
@@ -4386,8 +4426,492 @@ def serve_phases(smi, root: Path) -> dict:
     return launches
 
 
+# ---- parallel: data-parallel train, test and serve (phase 26) ----
+
+PAR_TIMED = 3  # the timed steps after the compared one
+PAR_FLOOR = 3.0  # (b): allowed distance in units of the step's own rounding floor
+PAR_FLOOR_MAX = 1e-2  # (b): the floor's own bound, as a share of the gradients' norm
+PAR_A_SHARE = 0.05  # (a): the runs' weights apart, as a share of what their steps moved
+PAR_OPT = dict(type="SGD", lr=1e-3, momentum=0.9)  # updates linear in the gradient
+PAR_AUGMENT = [dict(type="ColorJiggle", brightness=0.3, contrast=0.3, saturation=0.3, hue=0.05),
+               dict(type="RandomGaussianNoise", std=0.05, p=0.5),
+               dict(type="RandomGaussianBlur", kernel_size=5, sigma=(0.1, 2.0), p=0.5),
+               dict(type="RandomGrayscale", p=0.1)]
+PAR_RTOL, PAR_ATOL = 1e-5, 1e-6  # tests/test_torch_parallel.py's bounds
+PAR_TRAIN_ITERS, PAR_TEST_IMAGES = 3, 5  # (a)'s steps; (c)'s images (odd: shards 3 and 2)
+PAR_START_S = 600  # a torchrun job's bound
+
+
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def _job_env(root: Path, **extra) -> dict:
+    env = dict(os.environ)
+    env["PYTHONPATH"] = os.pathsep.join([str(root), env.get("PYTHONPATH", "")])
+    env.update({k: str(v) for k, v in extra.items()})
+    return env
+
+
+def _torchrun(root: Path, nproc: int, args, tag: str):
+    """Start `python -m torch.distributed.run --standalone --nproc_per_node N
+    -m scflow_tpu_torch.cli ARGS`; returns wait() -> (its output, which a
+    failure prints, seconds from the start), which kills a job that
+    outlives PAR_START_S."""
+    t0 = time.perf_counter()
+    proc = subprocess.Popen([sys.executable, "-m", "torch.distributed.run", "--standalone",
+                             "--nproc_per_node", str(nproc), "-m", "scflow_tpu_torch.cli", *args],
+                            cwd=str(root), env=_job_env(root), stdout=subprocess.PIPE,
+                            stderr=subprocess.STDOUT, text=True)
+
+    def wait():
+        try:
+            out = proc.communicate(timeout=max(PAR_START_S - (time.perf_counter() - t0), 1))[0]
+        finally:
+            if proc.poll() is None:
+                proc.kill()
+                proc.communicate()
+        require(proc.returncode == 0, f"{tag}: torchrun exited {proc.returncode}: {out[-3000:]}")
+        return out, time.perf_counter() - t0
+
+    return wait
+
+
+def parallel_rank(spec_path: Path) -> dict:
+    """One rank of phase 26 (b), in a process of its own with torchrun's
+    variables set: the shipped train step on its rows of the global batch,
+    data-parallel (process_group WORLD), one compared step, then PAR_TIMED
+    timed steps (each counted apart), and the gradient all-reduce alone.  Writes
+    its logs and state to the spec's out path.  A planted spec (each rank's
+    own BatchNorm statistics) runs the compared step alone."""
+    import torch.distributed as dist
+
+    from scflow_tpu_torch.parallel import (average_gradients, maybe_initialize_distributed,
+                                           rank_world)
+    from scflow_tpu_torch.render.meshbank import make_synthetic_bank
+
+    spec = torch.load(spec_path, weights_only=False)
+    dev = maybe_initialize_distributed("pytorch")
+    rank, world = rank_world()
+    if spec["plant"]:  # each rank's own BatchNorm statistics: (b)'s gate must refuse it
+        from scflow_tpu_torch.models import layers
+
+        layers.batch_sum = lambda x: x
+    model = train_model(IMG, ITERS)
+    model.load_state_dict(spec["weights"])
+    state, step, _, _ = _train_setup(model, make_synthetic_bank(NCLASS, kind="uvsphere",
+                                                                size=80.0), IMG, device=dev,
+                                     lr_cfg=None, optimizer=PAR_OPT,
+                                     render_augmentations=PAR_AUGMENT, augment_seed=3,
+                                     process_group=dist.group.WORLD)
+    n = len(spec["batch"]["labels"]) // world
+    batch = {k: v[rank * n:(rank + 1) * n] for k, v in spec["batch"].items()}
+    (state, log), c = counted(lambda: step(state, batch))
+    logs, counts, grads = {k: float(v) for k, v in log.items()}, [c], _step_grads(state)
+    weights = {k: v.detach().cpu() for k, v in state.model.state_dict().items()}
+    if spec["plant"]:
+        torch.save(dict(rank=rank, logs=logs, grads=grads, state=weights),
+                   f"{spec['out']}.rank{rank}")
+        dist.destroy_process_group()
+        return {"rank": rank}
+    for _ in range(PAR_TIMED):  # the timed steps' launches too, counted apart
+        (state, _), c = counted(lambda: step(state, batch))
+        counts.append(c)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(PAR_TIMED):
+        state, _ = step(state, batch)
+    torch.cuda.synchronize()
+    ms = 1e3 * (time.perf_counter() - t0) / PAR_TIMED
+    reduce_ms = []
+    for _ in range(3):
+        dist.barrier()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        average_gradients(state.tx.params, dist.group.WORLD)
+        torch.cuda.synchronize()
+        reduce_ms.append(1e3 * (time.perf_counter() - t0))
+    out = dict(rank=rank, world=world, device=str(dev), backend=dist.get_backend(), logs=logs,
+               counts=counts, grads=grads, state=weights, ms_per_step=ms,
+               allreduce_ms=statistics.median(reduce_ms),
+               grad_mb=sum(p.numel() for p in state.tx.params) * 4 / 1e6)
+    torch.save(out, f"{spec['out']}.rank{rank}")
+    dist.destroy_process_group()
+    return {"rank": rank}
+
+
+def _par_train_recipe(smi, root: Path, work: Path):
+    """(a): torchrun --nproc_per_node 1 ... train --launcher pytorch (NCCL),
+    started in the background, against --launcher none in this process,
+    phase 19's recipe and split with SGD in AdamW's place (updates linear
+    in the gradient), PAR_TRAIN_ITERS steps each: the logged losses and the
+    final checkpoints.  Returns the part that runs this
+    process's run, waits for the job and compares."""
+    _workflow_scene(work / "ycbv", torch.device("cuda", 0), TW_TRAIN_IMAGES, seed=1,
+                    split="train_real")
+    _workflow_scene(work / "ycbv", torch.device("cuda", 0), 1, seed=0, split="test")
+    (work / "ycbv" / "image_lists" / "val.txt").write_text(f"{WF_SEQ:06d}/rgb/000000.png")
+    cfg_path = _train_workflow_config(work, root, "scflow.py")
+    common = [str(cfg_path), "--max-iters", str(PAR_TRAIN_ITERS), "--cfg-options", TW_FAST,
+              "log_config.interval=1", "evaluation.interval=1000", "optimizer.type=SGD",
+              "optimizer.weight_decay=0"]
+    wait = _torchrun(root, 1, ["train", *common, "--work-dir", str(work / "nccl"),
+                               "--launcher", "pytorch"], "(a)")
+    return lambda: _par_train_recipe_check(smi, work, common, wait)
+
+
+def _par_train_recipe_check(smi, work: Path, common, wait) -> None:
+    from scflow_tpu_torch import cli
+    from scflow_tpu_torch.runtime.checkpoint import read_checkpoint
+    from scflow_tpu_torch.runtime.runner import Hook
+
+    class Init(Hook):  # the weights before the first step, and which are parameters
+        def before_run(self, runner):
+            self.state = {k: v.detach().cpu().clone()
+                          for k, v in runner.state.model.state_dict().items()}
+            self.params = {k for k, _ in runner.state.model.named_parameters()}
+
+    init = Init()
+    t0 = time.perf_counter()
+    try:
+        cli.train_main(common + ["--work-dir", str(work / "none")], extra_hooks=[init])
+        none_s = time.perf_counter() - t0
+    finally:
+        log, nccl_s = wait()
+    require("backend nccl" in log and "1 devices / 1 processes, global batch 16 (local 16)"
+            in log, "(a): one rank over NCCL at the config's batch")
+    logged = {}
+    for tag in ("none", "nccl"):
+        _, lines = _log_lines(work / tag)
+        logged[tag] = [float(ln.split("loss: ")[1].split(",")[0]) for ln in lines
+                       if "Iter [" in ln and "loss: " in ln]
+    # the log prints 4 decimals; two processes' cuDNN and atomics may differ in
+    # the last bits (seen: 69.1402 against 69.1401 at step 3)
+    require(len(logged["none"]) == PAR_TRAIN_ITERS and all(
+        abs(a - b) <= 1e-4 + PAR_RTOL * abs(b) for a, b in zip(logged["nccl"], logged["none"])),
+            f"(a) logged losses {logged}")
+    a = read_checkpoint(str(work / "none" / "checkpoints" / f"iter_{PAR_TRAIN_ITERS}.pth"))
+    b = read_checkpoint(str(work / "nccl" / "checkpoints" / f"iter_{PAR_TRAIN_ITERS}.pth"))
+    a, b = a["state_dict"], b["state_dict"]
+    # the model's own keys: the files list a shared encoder twice
+    keys = [k for k, v in init.state.items() if v.is_floating_point()]
+    d = max(float((a[k].double() - b[k].double()).abs().max()) for k in keys)
+    # SGD moves the weights linearly in the gradients: the runs' distance
+    # over the distance the steps moved them, for the parameters and for
+    # BatchNorm's buffers apart; another batch or another init gives ~1
+    share = {}
+    for part, names in (("parameters", [k for k in keys if k in init.params]),
+                        ("buffers", [k for k in keys if k not in init.params])):
+        apart = math.sqrt(sum(float(((a[k].double() - b[k].double()) ** 2).sum())
+                              for k in names))
+        moved = math.sqrt(sum(float(((a[k].double() - init.state[k].double()) ** 2).sum())
+                              for k in names))
+        share[part] = apart / moved
+    require(all(v <= PAR_A_SHARE for v in share.values()),
+            f"(a) final weights apart by {share} of their steps, over {PAR_A_SHARE}")
+    emit({"phase": "parallel_train_nccl", "steps": PAR_TRAIN_ITERS, "optimizer": "SGD",
+          "losses": logged["nccl"], "weights_max_abs_diff": d,
+          "weights_apart_share_of_steps": share, "bound": PAR_A_SHARE,
+          "seconds_none": none_s, "seconds_torchrun": nccl_s, "overlapped": True,
+          "card": smi})
+
+
+def _share_diff(got, want):
+    """(the largest per-leaf |got - want| as a share of want's global norm,
+    its leaf): the gradients' distance, scale-free."""
+    gn = math.sqrt(sum(float((w.double() ** 2).sum()) for w in want.values()))
+    return max((float((got[k].double() - w.double()).norm()) / gn, k) for k, w in want.items())
+
+
+def _step_grads(state):
+    return {n: p.grad.detach().cpu().clone() for n, p in state.model.named_parameters()}
+
+
+def _par_ranks(root: Path, work: Path, weights, batch, tag: str, plant: bool = False):
+    """Start (b)'s 2 rank processes (parallel_rank) on weights and the global
+    batch; returns wait() -> the ranks' outputs, which fails the phase if a
+    rank fails."""
+    spec = work / f"{tag}.pt"
+    torch.save(dict(weights=weights, batch=batch, out=str(work / tag), plant=plant), spec)
+    port = _free_port()
+    procs = [subprocess.Popen([sys.executable, str(Path(__file__).resolve()), "--root", str(root),
+                               "--parallel-rank", str(spec)], cwd=str(root),
+                              env=_job_env(root, RANK=r, WORLD_SIZE=2, LOCAL_RANK=r,
+                                           LOCAL_WORLD_SIZE=2, MASTER_ADDR="127.0.0.1",
+                                           MASTER_PORT=port),
+                              stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+             for r in range(2)]
+
+    def wait():
+        outs = [p.communicate(timeout=PAR_START_S)[0] for p in procs]
+        for p, out in zip(procs, outs):
+            require(p.returncode == 0, f"(b) {tag} rank exited {p.returncode}: {out[-3000:]}")
+        return [torch.load(f"{work / tag}.rank{r}", weights_only=False) for r in range(2)]
+
+    return wait
+
+
+def _par_train_step(smi, root: Path, work: Path) -> None:
+    """(b): 2 ranks sharing cuda:0 over gloo at the shipped recipe (batch 16
+    per rank) against one process at batch 32, one step, held within the
+    step's own rounding floor on the card: the same process's step with
+    BatchNorm's statistics summed in float64 (the ranks' path) instead of
+    float32 means, the same function rounded otherwise.  The floor itself
+    must stay under PAR_FLOOR_MAX of the gradients' norm, so a fault in the
+    float64 path cannot widen its own bound; and a pair of ranks that keep
+    their own BatchNorm statistics must miss the bound, which shows that it
+    separates.  Then, with the ranks done, one process's step in turns
+    with and without the float64 sums: their cost."""
+    from scflow_tpu_torch.models import layers
+    from scflow_tpu_torch.render.meshbank import make_synthetic_bank
+
+    bank = make_synthetic_bank(NCLASS, kind="uvsphere", size=80.0)
+    model = train_model(IMG, ITERS)
+    weights = {k: v.detach().clone() for k, v in model.state_dict().items()}
+    state, step, assets, _ = _train_setup(model, bank, IMG, lr_cfg=None, optimizer=PAR_OPT,
+                                          render_augmentations=PAR_AUGMENT, augment_seed=3)
+    batch = train_batch(assets, 2 * TRAIN_BATCH, IMG)
+    wait = _par_ranks(root, work, weights, batch, "rank")
+    model64 = train_model(IMG, ITERS)
+    model64.load_state_dict(weights)
+    state64, step64, _, _ = _train_setup(model64, bank, IMG, lr_cfg=None, optimizer=PAR_OPT,
+                                         render_augmentations=PAR_AUGMENT, augment_seed=3)
+
+    def with_f64_sums(fn):  # BatchNorm's rank path (float64 sums) in this one process
+        single_path = layers.batch_world
+        layers.batch_world = lambda: 2
+        try:
+            return fn()
+        finally:
+            layers.batch_world = single_path
+
+    try:
+        state, log = step(state, batch)
+        one = {k: float(v) for k, v in log.items()}
+        one_grads, one_state = _step_grads(state), {
+            k: v.detach().cpu() for k, v in state.model.state_dict().items()}
+        state64, log64 = with_f64_sums(lambda: step64(state64, batch))
+        floor_logs = {k: abs(float(v) - one[k]) for k, v in log64.items()}
+        grads64 = _step_grads(state64)
+        floor_grads = _share_diff(grads64, one_grads)
+    finally:
+        ranks = wait()
+    planted = _par_ranks(root, work, weights, batch, "planted", plant=True)()
+
+    def against_one(r):
+        """(worst log over its allowance, worst weight over the tolerance,
+        gradients' share diff): each within 1 (the gradients within
+        PAR_FLOOR x the floor) passes."""
+        worst_logs, worst_state = (0.0, None), (0.0, None)
+        for k, v in one.items():
+            allowed = max(PAR_ATOL + PAR_RTOL * abs(v), PAR_FLOOR * floor_logs[k])
+            ratio = abs(r["logs"][k] - v) / allowed
+            if ratio > worst_logs[0]:
+                worst_logs = (ratio, f"{k}: {r['logs'][k]} vs {v}, floor {floor_logs[k]}")
+        for k, v in one_state.items():
+            if v.is_floating_point():
+                ratio = float(((r["state"][k] - v).abs() / (PAR_ATOL + PAR_RTOL * v.abs())).max())
+                if ratio > worst_state[0]:
+                    worst_state = (ratio, k)
+        return worst_logs, worst_state, _share_diff(r["grads"], one_grads)
+
+    def passes(res):
+        return res[0][0] <= 1 and res[1][0] <= 1 and res[2][0] <= PAR_FLOOR * floor_grads[0]
+
+    for r in ranks:
+        require(r["backend"] == "gloo" and r["device"] == "cuda:0", f"(b) {r['backend']} "
+                f"on {r['device']}")
+        for c in r["counts"]:
+            require(only(c, K1=ITERS, K1b=ITERS, K2=1), f"(b) rank {r['rank']} launches {c}")
+    results = [against_one(r) for r in ranks]
+    planted_res = against_one(planted[0])
+    # the ranks' step and this process's, with and without the float64 sums,
+    # in turns on the card the ranks have left
+    times = {"float32_means": [], "float64_sums": []}
+    for _ in range(2):
+        for tag, run in (("float32_means", lambda: step(state, batch)),
+                         ("float64_sums", lambda: with_f64_sums(lambda: step64(state64, batch)))):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(PAR_TIMED):
+                run()
+            torch.cuda.synchronize()
+            times[tag].append(1e3 * (time.perf_counter() - t0) / PAR_TIMED)
+    del state64, model64
+    one_ms, f64_ms = min(times["float32_means"]), min(times["float64_sums"])
+    emit({"phase": "parallel_train_gloo", "ranks": 2, "local_batch": TRAIN_BATCH,
+          "global_batch": 2 * TRAIN_BATCH, "launches_per_step_per_rank":
+          {"K1": ITERS, "K1b": ITERS, "K2": 1}, "loss": one["loss"],
+          "loss_ranks": [r["logs"]["loss"] for r in ranks], "grad_norm": one["grad_norm"],
+          "grad_norm_ranks": [r["logs"]["grad_norm"] for r in ranks],
+          "floor_loss": floor_logs["loss"], "floor_grad_norm": floor_logs["grad_norm"],
+          "logs_worst_over_allowed": results[0][0],
+          "weights_worst_over_tolerance": max((r[1] for r in results), key=lambda t: t[0]),
+          "grads_share_diff": [r[2] for r in results], "grads_floor_share_diff": floor_grads,
+          "grads_share_diff_from_float64_sums": _share_diff(ranks[0]["grads"], grads64),
+          "planted_rank_bn": {"logs_worst_over_allowed": planted_res[0],
+                              "weights_worst_over_tolerance": planted_res[1],
+                              "grads_share_diff": planted_res[2],
+                              "grads_share_diff_from_float64_sums":
+                              _share_diff(planted[0]["grads"], grads64)},
+          "floor_factor": PAR_FLOOR, "floor_max": PAR_FLOOR_MAX, "rtol": PAR_RTOL,
+          "atol": PAR_ATOL, "ms_per_step_per_rank": [r["ms_per_step"] for r in ranks],
+          "ms_per_step_one_process_batch_32": one_ms,
+          "ms_per_step_one_process_batch_32_float64_bn_sums": f64_ms,
+          "float64_bn_sums_ms": f64_ms - one_ms, "timed_in_turns_ms": times,
+          "allreduce_ms": [r["allreduce_ms"] for r in ranks], "grad_mb": ranks[0]["grad_mb"],
+          "card": smi})
+    require(floor_grads[0] <= PAR_FLOOR_MAX, f"(b) the float64 sums path moves the gradients "
+            f"by {floor_grads} of their norm, over {PAR_FLOOR_MAX}")
+    require(all(passes(r) for r in results), f"(b) against one process: {results} "
+            f"(floor {floor_grads})")
+    require(not passes(planted_res), f"(b) ranks with their own BatchNorm statistics pass "
+            f"the gate: {planted_res} (floor {floor_grads})")
+    return ranks[0]["counts"][0]
+
+
+def _par_test(smi, root: Path, work: Path):
+    """(c): cli test --launcher pytorch at 2 ranks (sharing the card, gloo),
+    started in the background, against the single-process run in this
+    process on PAR_TEST_IMAGES images of phase 18's set.  Returns the part
+    that runs the single process, waits for the job and compares."""
+    from scflow_tpu_torch.config import Config
+    from scflow_tpu_torch.refiners.build import build_refiner_from_config
+    from scflow_tpu_torch.runtime.checkpoint import save_params
+
+    _workflow_scene(work / "ycbv", torch.device("cuda", 0), PAR_TEST_IMAGES)
+    cfg_path = _workflow_config(work, root, "scflow.py")
+    model = build_refiner_from_config(Config.fromfile(str(cfg_path)).model)
+    model.load_state_dict(seeded_model().state_dict())
+    ckpt = work / "scflow.pth"
+    save_params(str(ckpt), model)
+    base = [str(cfg_path), "--checkpoint", str(ckpt), "--format-only"]
+    wait = _torchrun(root, 2, ["test", *base, "--launcher", "pytorch", "--out",
+                               str(work / "two.json"), "--save-dir", str(work / "bop_two")], "(c)")
+    return lambda: _par_test_check(smi, work, base, wait)
+
+
+def _par_test_check(smi, work: Path, base, wait) -> None:
+    from scflow_tpu_torch import cli
+
+    try:
+        cli.test_main(base + ["--out", str(work / "one.json"),
+                              "--save-dir", str(work / "bop_one")])
+    finally:
+        log, two_s = wait()
+    require("backend gloo (2 local ranks share 1 card(s)" in log, "(c) gloo on the shared card")
+    one, two = _results_of(work / "one.json"), _results_of(work / "two.json")
+    require(len(one) == len(two) == PAR_TEST_IMAGES and all(
+        np.array_equal(a[0], b[0]) for a, b in zip(one, two)), "(c) every image, in order")
+    d_rot = max(float(np.abs(a[1] - b[1]).max()) for a, b in zip(one, two))
+    d_t = max(float(np.abs(a[2] - b[2]).max()) for a, b in zip(one, two))
+    for a, b in zip(one, two):
+        _slice_bounds(b[1], b[2], a[1], a[2], "(c) 2 ranks vs one process")
+    _bop_matches_out(work / "bop_two", work / "two.json", PAR_TEST_IMAGES)
+    emit({"phase": "parallel_test", "ranks": 2, "images": PAR_TEST_IMAGES,
+          "rot_max_abs_diff": d_rot, "t_max_abs_diff_mm": d_t, "seconds_torchrun": two_s,
+          "overlapped": True, "card": smi})
+
+
+def _par_serve(smi) -> dict:
+    """(d): PoseService over Mesh(['cuda:0', 'cuda:0']) at tools/serve_bench.py's
+    64 objects against the one-device service."""
+    from scflow_tpu_torch.parallel import Mesh, replicate
+    from scflow_tpu_torch.refiners.system import RenderAssets
+    from scflow_tpu_torch.render.meshbank import make_synthetic_bank
+    from scflow_tpu_torch.runtime.server import PoseService, RefineRequest
+    from scflow_tpu_torch.serving import make_serving_fn
+
+    bank = make_synthetic_bank(NCLASS, kind="uvsphere", size=80.0)
+    assets = RenderAssets.from_bank(bank)
+    model = seeded_model().cuda().eval()
+    mesh = Mesh(["cuda:0", "cuda:0"])
+    fns = [make_serving_fn(m, assets, assets.verts, assets.vert_valid, image_size=IMG,
+                           render_cull_backfaces=True, slim=True) for m in replicate(model, mesh)]
+    inputs = serve_inputs()
+    reqs = []
+    for f in range(SERVE_FRAMES):
+        sel = inputs["frame_idx"] == f
+        reqs.append(RefineRequest(frame=inputs["frames"][f], rotations=inputs["ref_rotations"][sel],
+                                  translations=inputs["ref_translations"][sel],
+                                  k=inputs["K"][sel], labels=inputs["labels"][sel]))
+    kw = dict(frame_hw=(FRAME_H, FRAME_W), num_class=NCLASS, max_frames=SERVE_FRAMES,
+              max_objects=BATCH)
+    one = PoseService(fns[0], **kw)
+    two = PoseService(fns, mesh=mesh, **kw)
+    one.warmup()
+    two.warmup()
+    want, c1 = counted(lambda: one.run(reqs))
+    got, c2 = counted(lambda: two.run(reqs))
+    require(only(c1, K1=ITERS, K2=1) and only(c2, K1=2 * ITERS, K2=2),
+            f"(d) launches one device {c1}, mesh {c2}")
+    R = lambda res: np.concatenate([r["rotations"] for r in res])  # noqa: E731
+    T = lambda res: np.concatenate([r["translations"] for r in res])  # noqa: E731
+    d_rot, t_excess = _slice_bounds(R(got), T(got), R(want), T(want), "(d) mesh vs one device")
+    times = {}
+    for tag, svc in (("one", one), ("mesh", two)):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(3):
+            svc.run(reqs)
+        times[tag] = 1e3 * (time.perf_counter() - t0) / 3
+    emit({"phase": "parallel_serve", "devices": [str(d) for d in mesh.devices],
+          "objects": BATCH, "launches_per_shard": {"K1": ITERS, "K2": 1},
+          "rot_max_abs_diff": float(np.abs(R(got) - R(want)).max()),
+          "t_max_abs_diff_mm": float(np.abs(T(got) - T(want)).max()),
+          "ms_per_call": times, "card": smi})
+    return {k: v // 2 for k, v in c2.items()}
+
+
+def phase_parallel(smi, root: Path) -> dict:
+    """Phase 26: (a) the train workflow over torchrun at one rank (NCCL)
+    against --launcher none; (b) the data-parallel shipped train step at 2
+    ranks sharing the card (gloo) against one process at the global batch;
+    (c) cli test --launcher pytorch at 2 ranks against one process; (d)
+    PoseService over a mesh of the card twice against one device.
+    build/parallel/ is removed afterwards.  Returns {run: launches per rank
+    step or mesh shard}."""
+    import shutil
+
+    work = root / "build" / "parallel"
+    shutil.rmtree(work, ignore_errors=True)
+    work.mkdir(parents=True)
+    t0 = time.perf_counter()
+    failed, pending = [], []
+
+    def part(name, fn):
+        try:  # every part runs, so one call shows every failure; any fails the phase
+            return fn()
+        except Exception as e:  # noqa: BLE001
+            failed.append(f"({name}) {type(e).__name__}: {e}")
+            print(f"phase 26 ({name}) failed: {e!r}", file=sys.stderr, flush=True)
+
+    try:
+        for name in "abc":
+            (work / name).mkdir()
+        # (a)'s and (c)'s jobs run in the background beside this process's
+        # runs of the same work; then (d), and (b) last and alone, as it is timed
+        for name, start in (("a", _par_train_recipe), ("c", _par_test)):
+            check = part(name, lambda: start(smi, root, work / name))
+            if check is not None:
+                pending.append((name, check))
+        for name, check in pending:
+            part(name, check)
+        launches = {"serve_mesh_shard": part("d", lambda: _par_serve(smi)),
+                    "train_rank_step": part("b", lambda: _par_train_step(smi, root, work / "b"))}
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    require(not failed, f"phase 26: {failed}")
+    emit({"phase": "parallel", "seconds": time.perf_counter() - t0})
+    return launches
+
+
 PHASE_GROUPS = ("lookup", "raster", "slice", "raft", "options", "workflow",
-                "train_workflow", "train_pbr", "serve", "train_augment", "export")
+                "train_workflow", "train_pbr", "serve", "train_augment", "export", "parallel")
 
 
 def run_phase_groups(groups, dev, ptxas, smi, root: Path) -> None:
@@ -4420,6 +4944,8 @@ def run_phase_groups(groups, dev, ptxas, smi, root: Path) -> None:
             phase_train_augment(smi, root)
         elif group == "export":
             phase_export(smi, root)
+        elif group == "parallel":
+            phase_parallel(smi, root)
         else:
             phase_raft_small(smi)
             phase_scflow_options(smi, shipped)
@@ -4436,6 +4962,8 @@ def main() -> int:
                              "(default: this script's), e.g. an unpacked parent commit")
     parser.add_argument("--export-loader", type=Path, default=None, metavar="SPEC",
                         help=argparse.SUPPRESS)  # phase 25's loading process
+    parser.add_argument("--parallel-rank", type=Path, default=None, metavar="SPEC",
+                        help=argparse.SUPPRESS)  # a rank of phase 26 (b)
     args = parser.parse_args()
     if args.phases is not None and not set(args.phases) <= set(PHASE_GROUPS):
         parser.error(f"unknown phase groups in {args.phases}; expected {PHASE_GROUPS}")
@@ -4446,6 +4974,9 @@ def main() -> int:
     import scflow_tpu_torch  # noqa: F401  (fails at once outside the repo)
     if args.export_loader is not None:
         print(json.dumps(export_loader(args.export_loader)), flush=True)
+        return 0
+    if args.parallel_rank is not None:
+        print(json.dumps(parallel_rank(args.parallel_rank)), flush=True)
         return 0
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -4492,6 +5023,8 @@ def main() -> int:
     serve_launches.update(phase_train_augment(smi, args.root.resolve()))
     # launches per call of each loaded artifact (phase 25)
     export_launches = phase_export(smi, args.root.resolve())
+    # launches per rank step and per mesh shard (phase 26)
+    parallel_launches = phase_parallel(smi, args.root.resolve())
     src = "scflow_tpu_torch/csrc/"
     tpu = "scflow_tpu/ops/pallas/"
     table = [
@@ -4541,6 +5074,12 @@ def main() -> int:
         got = {run: n[key] for run, n in serve_launches.items() if n.get(key)}
         return {"serve_launches": got} if got else {}
 
+    def parallel(key):
+        """The key's launches per step of each rank of phase 26 (b) and per
+        shard of its mesh service (d)."""
+        got = {run: n[key] for run, n in parallel_launches.items() if n.get(key)}
+        return {"parallel_launches": got} if got else {}
+
     def exported(key):
         """The key's launches per call of each loaded artifact (export,
         export_bf16, export_raft)."""
@@ -4551,7 +5090,7 @@ def main() -> int:
         {"name": f"{key} {fn}", "route": "cuda", "source": src + file, "replaces": tpu + where,
          "launches": launches[key], **({"raft_launches": raft_launches[key]}
                                        if key in raft_launches else {}), **res[key],
-         **radius_3(key), **workflow(key), **serving(key), **exported(key)}
+         **radius_3(key), **workflow(key), **serving(key), **exported(key), **parallel(key)}
         for key, fn, file, where in table], "card": smi})
     emit({"ok": True, "device": {"platform": "gpu", "kind": name,
                                  "count": torch.cuda.device_count()}})

@@ -20,7 +20,7 @@ from scflow_tpu_torch.refiners.system import (LossAssets, RenderAssets, loss_ass
                                               make_scflow_train_step)
 from scflow_tpu_torch.render.meshbank import MeshBank, resolve_cull_backfaces
 from scflow_tpu_torch.runtime.checkpoint import load_params, load_pretrained
-from scflow_tpu_torch.runtime.eval_loop import single_process_test
+from scflow_tpu_torch.runtime.eval_loop import multi_process_test
 from scflow_tpu_torch.runtime.logger import get_logger
 
 
@@ -251,7 +251,7 @@ def make_infer_from_cfg(cfg, model, render_assets: RenderAssets, image_size=(256
 
 def make_train_step_from_cfg(cfg, model, render_assets: RenderAssets,
                              loss_assets: Optional[LossAssets], image_size=(256, 256),
-                             device=None):
+                             device=None, process_group=None):
     """The train step of the config's refiner (JAX's make_train_step_from_cfg):
     SCFlow with the sequence-loss weights, gamma, disentangle_z and loss
     type of its pose, flow and mask loss configs; RAFT with its flow and
@@ -261,7 +261,8 @@ def make_train_step_from_cfg(cfg, model, render_assets: RenderAssets,
     make_infer_from_cfg, the render takes the kernel backend
     ('pallas') and so does the lookup on a square image ('auto' otherwise)
     on either device, where JAX's config-built step takes its plain 'xla'
-    lookup: the same function, and a CPU run checks a card run."""
+    lookup: the same function, and a CPU run checks a card run.
+    process_group makes the step data-parallel (make_scflow_train_step)."""
     mcfg = cfg.model
     image_size = tuple(image_size)
     common = dict(image_size=image_size, max_flow=mcfg.get("max_flow", 400.0),
@@ -270,7 +271,7 @@ def make_train_step_from_cfg(cfg, model, render_assets: RenderAssets,
                                                                           False)),
                   render_backend="pallas",
                   lookup_backend="pallas" if image_size[0] == image_size[1] else "auto",
-                  device=device)
+                  device=device, process_group=process_group)
     if mcfg["type"] == "SCFlowRefiner":
         pose_lf = mcfg.get("pose_loss_cfg", {}).get("loss_func_cfg", {})
         flow_lf = mcfg.get("flow_loss_cfg", {}).get("loss_func_cfg", {})
@@ -298,7 +299,9 @@ def make_train_step_from_cfg(cfg, model, render_assets: RenderAssets,
 def build_eval_fn(cfg, model, render_assets: RenderAssets, dataset, image_size=(256, 256),
                   device=None):
     """The EvalHook's callable: eval_fn(state) -> flat metric dict, for a
-    train state whose model is `model` (the call is bound to it)."""
+    train state whose model is `model` (the call is bound to it).  Under a
+    process group each rank refines its shard of the images and every rank
+    gets the metrics of the whole set (eval_loop.multi_process_test)."""
     infer, pose_from_output = make_infer_from_cfg(cfg, model, render_assets, image_size,
                                                   slim=True, device=device)
     metric = cfg.get("evaluation", {}).get("metric", {"add": [0.05, 0.10, 0.20, 0.50]})
@@ -306,8 +309,8 @@ def build_eval_fn(cfg, model, render_assets: RenderAssets, dataset, image_size=(
     def eval_fn(state):
         if state.model is not model:
             raise ValueError("eval_fn was built for another model")
-        results = single_process_test(infer, dataset, pose_from_output=pose_from_output,
-                                      progress_interval=0)
+        results = multi_process_test(infer, dataset, pose_from_output=pose_from_output,
+                                     progress_interval=0)
         return dataset.evaluate(results, metric=metric)
 
     return eval_fn

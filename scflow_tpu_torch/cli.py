@@ -3,9 +3,10 @@
     python -m scflow_tpu_torch.cli train CONFIG [--work-dir D]
         [--resume | --resume-from N] [--max-iters N] [--num-workers N]
         [--seed S] [--nan-check] [--profile-steps N] [--cfg-options k=v ...]
-        [--device cpu]
+        [--launcher none|jax|pytorch|slurm|mpi] [--device cpu]
     python -m scflow_tpu_torch.cli test CONFIG --checkpoint CKPT [--eval]
-        [--format-only --save-dir DIR] [--out FILE] [--device cpu]
+        [--format-only --save-dir DIR] [--out FILE]
+        [--launcher none|jax|pytorch|slurm|mpi] [--device cpu]
     python -m scflow_tpu_torch.cli serve CONFIG --checkpoint CKPT
         [--host H] [--port P] [--frame-hw H W] [--max-objects N]
         [--max-frames N] [--max-delay-ms MS] [--pow2-buckets]
@@ -19,20 +20,40 @@
 
 (tools/train.py, tools/test.py, tools/serve.py, tools/serve_loadtest.py and
 tools/export_model.py, whose bodies are scflow_tpu/cli.py's train_main,
-test_main, serve_main, the load-test client and export_main)."""
+test_main, serve_main, the load-test client and export_main).
+
+A launcher other than 'none' (or SCFLOW_DIST=1) runs train and test over
+the ranks of a job, e.g. with torchrun:
+
+    torchrun --standalone --nproc_per_node 8 -m scflow_tpu_torch.cli \
+        train CONFIG --launcher pytorch
+
+(parallel/dist.py: one card per local rank over NCCL; gloo on the CPU or
+when ranks share a card).  Rank 0 writes every file."""
 
 import argparse
 import json
+import logging
 import os
 import sys
 import time
 
 import numpy as np
 
-def _check_launcher(launcher: str) -> None:
-    if launcher != "none":
-        raise NotImplementedError(f"launcher {launcher!r}: multi-process runs are not "
-                                  "ported (ROADMAP §1 item 9); use --launcher none")
+# parallel.dist.LAUNCHERS, without importing torch here: the loader's spawned
+# workers re-import this module when it runs as __main__
+LAUNCHERS = ("none", "jax", "pytorch", "slurm", "mpi")
+_LAUNCHER_HELP = ("'none' runs one process (unless SCFLOW_DIST=1); 'pytorch' (torchrun), "
+                  "'slurm', 'mpi' and 'jax' (SCFLOW_COORDINATOR, SCFLOW_NUM_PROCESSES, "
+                  "SCFLOW_PROCESS_ID) join the job launched around this process")
+
+
+def _quiet_unless_main(logger) -> None:
+    """Ranks other than 0 log warnings and errors only."""
+    from scflow_tpu_torch.parallel import is_main
+
+    if not is_main():
+        logger.setLevel(logging.WARNING)
 
 
 def parse_train_args(argv=None):
@@ -51,8 +72,7 @@ def parse_train_args(argv=None):
     p.add_argument("--max-iters", default=None, type=int)
     p.add_argument("--num-workers", default=None, type=int)
     p.add_argument("--nan-check", action="store_true")
-    p.add_argument("--launcher", default="none",
-                   help="only 'none': multi-process runs are not ported (ROADMAP §1 item 9)")
+    p.add_argument("--launcher", default="none", choices=LAUNCHERS, help=_LAUNCHER_HELP)
     p.add_argument("--profile-steps", default=0, type=int,
                    help="trace N steps (from step 10) with torch.profiler into "
                         "WORK_DIR/profile")
@@ -64,7 +84,6 @@ def parse_train_args(argv=None):
     args.config = args.config or args.config_opt
     if not args.config:
         p.error("a config file is required (positional or --config)")
-    _check_launcher(args.launcher)
     return args
 
 
@@ -81,7 +100,18 @@ def train_main(argv=None, extra_hooks=()):
     --resume-from restore the weights, optimizer state and step from
     work_dir/checkpoints.  Python's `random` and numpy's global RNG, which
     the pipeline draws from, are seeded with --seed first.  Returns the
-    IterRunner after its run."""
+    IterRunner after its run.
+
+    With a launcher (parallel/dist.py) every rank trains on its device: the
+    global batch is data.samples_per_gpu x ranks, each rank loads its shard
+    of the index stream (process_index = rank), rank 0's weights are
+    broadcast, and the step is data-parallel (make_scflow_train_step's
+    process_group), so the ranks compute one process's step on the global
+    batch.  Rank 0 writes the config dump, the log file, the checkpoints,
+    TensorBoard, the profile and eval_history.json; the others wait for its
+    checkpoints at barriers.  One process on a host of several cards trains
+    on one of them at samples_per_gpu, where JAX's meshes every chip, and
+    warns so."""
     args = parse_train_args(argv)
     import random
 
@@ -92,7 +122,8 @@ def train_main(argv=None, extra_hooks=()):
                                        load_init_weights, make_train_step_from_cfg)
     from scflow_tpu_torch.config import Config
     from scflow_tpu_torch.datasets import DataLoader
-    from scflow_tpu_torch.device import resolve_device
+    from scflow_tpu_torch.parallel import (broadcast_module, maybe_initialize_distributed,
+                                           rank_world)
     from scflow_tpu_torch.refiners.build import build_refiner_from_config
     from scflow_tpu_torch.registry import build_dataset
     from scflow_tpu_torch.runtime.logger import get_logger, timestamped_log_file
@@ -101,16 +132,19 @@ def train_main(argv=None, extra_hooks=()):
                                                  ProfileHook, TensorboardHook, TextLoggerHook)
     from scflow_tpu_torch.runtime.train_state import TrainState
 
+    dev = maybe_initialize_distributed(args.launcher, args.device)
+    rank, world = rank_world()
     random.seed(args.seed)
     np.random.seed(args.seed)
-    dev = resolve_device(args.device)
     cfg = Config.fromfile(args.config)
     if args.cfg_options:
         cfg.merge_from_dict(Config.parse_options(args.cfg_options))
     work_dir = args.work_dir or cfg.get("work_dir", "work_dirs/default")
     os.makedirs(work_dir, exist_ok=True)
-    cfg.dump(os.path.join(work_dir, "config_dump.py"))
-    logger = get_logger(log_file=timestamped_log_file(work_dir))
+    if rank == 0:
+        cfg.dump(os.path.join(work_dir, "config_dump.py"))
+    logger = get_logger(log_file=timestamped_log_file(work_dir) if rank == 0 else None)
+    _quiet_unless_main(logger)
     logger.info(f"device: {dev}" + (f" ({torch.cuda.get_device_name(dev)})"
                                     if dev.type == "cuda" else ""))
 
@@ -121,6 +155,7 @@ def train_main(argv=None, extra_hooks=()):
     loss_assets = build_loss_assets(cfg.model, bank.num_class, device=dev)
     init_model_variables(cfg.model, model, seed=args.seed, device=dev)
     load_init_weights(cfg.model, model, logger)
+    broadcast_module(model)
 
     max_iters = args.max_iters or cfg.runner["max_iters"]
     lr_cfg = dict(cfg.get("lr_config", {}))
@@ -132,21 +167,33 @@ def train_main(argv=None, extra_hooks=()):
                                    frozen_prefixes=opt_config.get("frozen_prefixes"))
     state = TrainState(model, tx)
 
-    batch = cfg.data.get("samples_per_gpu", 16)
-    logger.info(f"1 device / 1 process, batch {batch}")
-    loader = DataLoader(build_dataset(cfg.data["train"]), samples_per_step=batch,
+    local_batch = cfg.data.get("samples_per_gpu", 16)
+    logger.info(f"{world} devices / {world} processes, global batch {local_batch * world} "
+                f"(local {local_batch})")
+    if world == 1 and dev.type == "cuda" and torch.cuda.device_count() > 1:
+        # JAX's train_main meshes every local chip at any launcher, so its
+        # global batch is samples_per_gpu x chips, which the lr schedule of
+        # the shipped recipes assumes
+        logger.warning(f"{torch.cuda.device_count()} cards visible but one process trains on "
+                       f"{dev} at global batch {local_batch}; the JAX package would train on "
+                       "every card at samples_per_gpu x cards. Start one rank per card: "
+                       "torchrun --nproc_per_node <cards> -m scflow_tpu_torch.cli train "
+                       "CONFIG --launcher pytorch")
+    loader = DataLoader(build_dataset(cfg.data["train"]), samples_per_step=local_batch,
                         num_workers=args.num_workers or cfg.data.get("workers_per_gpu", 8),
-                        seed=args.seed, worker_mode=cfg.data.get("worker_mode", "thread"))
-    train_step = make_train_step_from_cfg(cfg, model, render_assets, loss_assets, image_size,
-                                          device=dev)
+                        seed=args.seed, process_index=rank, process_count=world,
+                        worker_mode=cfg.data.get("worker_mode", "thread"))
+    train_step = make_train_step_from_cfg(
+        cfg, model, render_assets, loss_assets, image_size, device=dev,
+        process_group=torch.distributed.group.WORLD if world > 1 else None)
 
     log_cfg = cfg.get("log_config", {})
     hooks = list(extra_hooks) + [TextLoggerHook(log_cfg.get("interval", 50))]
-    if args.profile_steps:
+    if args.profile_steps and rank == 0:
         hooks.append(ProfileHook(os.path.join(work_dir, "profile"),
                                  num_steps=args.profile_steps))
     hooks.append(CheckpointHook(cfg.get("checkpoint_config", {}).get("interval", 10000)))
-    for hcfg in log_cfg.get("hooks", []):
+    for hcfg in log_cfg.get("hooks", []) if rank == 0 else ():
         if hcfg.get("type", "").startswith("Tensorboard"):
             hooks.append(TensorboardHook(
                 os.path.join(work_dir, "tb"), interval=log_cfg.get("interval", 50),
@@ -196,15 +243,13 @@ def parse_test_args(argv=None):
                    help="accepted for reference-launcher compatibility")
     p.add_argument("--cfg-options", nargs="*", default=[])
     p.add_argument("--eval-options", nargs="*", default=[])
-    p.add_argument("--launcher", default="none",
-                   help="only 'none': multi-process runs are not ported (ROADMAP §1 item 9)")
+    p.add_argument("--launcher", default="none", choices=LAUNCHERS, help=_LAUNCHER_HELP)
     p.add_argument("--device", default=None,
                    help="torch device (default: the card); 'cpu' runs the plain versions")
     args = p.parse_args(argv)
     args.config = args.config or args.config_opt
     if not args.config:
         p.error("a config file is required (positional or --config)")
-    _check_launcher(args.launcher)
     if args.format_only and not args.save_dir:
         p.error("--format-only requires --save-dir")
     return args
@@ -215,20 +260,27 @@ def test_main(argv=None):
     as asked, write the raw results (--out), the BOP export (--format-only,
     under --save-dir) and the metrics (--eval: printed, and dumped to
     work_dir/eval_*.json).  Returns {'results', 'metrics' (or None),
-    'seconds', 'stats' (the eval loop's seconds per stage)}."""
+    'seconds', 'stats' (the eval loop's seconds per stage)}.  With a launcher
+    each rank refines its shard of the images (every process_count-th one)
+    and every rank gets all the results in the dataset's order
+    (eval_loop.multi_process_test); rank 0 alone writes --out, the BOP
+    export and the metrics file."""
     args = parse_test_args(argv)
     import torch
 
     from scflow_tpu_torch.apis import (build_render_assets, load_eval_checkpoint,
                                        make_infer_from_cfg)
     from scflow_tpu_torch.config import Config
-    from scflow_tpu_torch.device import resolve_device
+    from scflow_tpu_torch.parallel import is_main, maybe_initialize_distributed
     from scflow_tpu_torch.refiners.build import build_refiner_from_config
     from scflow_tpu_torch.registry import build_dataset
     from scflow_tpu_torch.runtime.eval_loop import multi_process_test
     from scflow_tpu_torch.runtime.logger import get_logger
 
+    dev = maybe_initialize_distributed(args.launcher, args.device)
+    main = is_main()
     logger = get_logger()
+    _quiet_unless_main(logger)
     cfg = Config.fromfile(args.config)
     if args.cfg_options:
         cfg.merge_from_dict(Config.parse_options(args.cfg_options))
@@ -237,8 +289,8 @@ def test_main(argv=None):
     image_size = tuple(cfg.model.get("renderer", {}).get("image_size", (256, 256)))
     with torch.random.fork_rng(devices=[]):  # the weights all come from the file
         model = build_refiner_from_config(cfg.model)
-    model.to(resolve_device(args.device))
-    render_assets, _ = build_render_assets(cfg.model, device=args.device)
+    model.to(dev)
+    render_assets, _ = build_render_assets(cfg.model, device=dev)
     load_eval_checkpoint(args.checkpoint, model, logger)
 
     dataset = build_dataset(cfg.data["test"])
@@ -246,7 +298,7 @@ def test_main(argv=None):
         dataset.img_files = dataset.img_files[: args.limit]
 
     infer, pose_from_output = make_infer_from_cfg(cfg, model, render_assets, image_size,
-                                                  slim=True, device=args.device)
+                                                  slim=True, device=dev)
     test_cfg = cfg.model.get("test_cfg", {})
     stats = {}
     t0 = time.perf_counter()
@@ -257,14 +309,14 @@ def test_main(argv=None):
     logger.info(f"{len(results)} images in {total:.1f}s "
                 f"({total / max(len(results), 1) * 1e3:.1f} ms/img)")
 
-    if args.out:
+    if args.out and main:
         serializable = [dict(pred={k: np.asarray(v).tolist() for k, v in r["pred"].items()},
                              img_metas=r["img_metas"]) for r in results]
         with open(args.out, "w") as f:
             json.dump(serializable, f)
         logger.info(f"wrote raw results to {args.out}")
 
-    if args.format_only:
+    if args.format_only and main:
         dataset.format_results(results, args.save_dir, time=total / max(len(results), 1))
         logger.info(f"BOP-format results saved to {args.save_dir}")
     metrics = None
@@ -274,6 +326,7 @@ def test_main(argv=None):
         if args.eval_options:
             metric = Config.parse_options(args.eval_options)
         metrics = dataset.evaluate(results, metric=metric)
+    if metrics is not None and main:
         ts = time.strftime("%Y%m%d_%H%M%S")
         out_json = os.path.join(cfg.get("work_dir", "work_dirs/default"), f"eval_{ts}.json")
         os.makedirs(os.path.dirname(out_json), exist_ok=True)
@@ -311,8 +364,10 @@ def parse_serve_args(argv=None):
 
 def serve_main(argv=None):
     """Serve the config's refiner with the checkpoint's weights over HTTP
-    (scflow_tpu/cli.py::serve_main on one card): PoseService over
-    apis.make_serving_from_cfg, warmed up at its batch shape, behind a
+    (scflow_tpu/cli.py::serve_main): PoseService over
+    apis.make_serving_from_cfg, data-parallel over every visible card when
+    there is more than one (and no --device), with one replica of the model
+    and serve fn per card; warmed up at its batch shape, behind a
     two-stage MicroBatcher (dispatch, then fetch on a second thread) and
     make_http_server; an optional keep-alive tick.  Logs "serving on
     http://HOST:PORT" with the bound port (so --port 0 can be found).
@@ -327,6 +382,7 @@ def serve_main(argv=None):
                                        make_serving_from_cfg)
     from scflow_tpu_torch.config import Config
     from scflow_tpu_torch.device import resolve_device
+    from scflow_tpu_torch.parallel import make_mesh, replicate
     from scflow_tpu_torch.refiners.build import build_refiner_from_config
     from scflow_tpu_torch.runtime.logger import get_logger
     from scflow_tpu_torch.runtime.server import (DeviceKeepAlive, MicroBatcher, PoseService,
@@ -344,20 +400,27 @@ def serve_main(argv=None):
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
+    mesh = None
     if dev.type == "cuda":
         logger.info(f"device: {dev} ({torch.cuda.get_device_name(dev)})")
-        if torch.cuda.device_count() > 1:
-            logger.info(f"{torch.cuda.device_count()} cards visible; serving on {dev} only "
-                        "(serving across cards is ROADMAP §1 item 9d)")
+        if args.device is None and torch.cuda.device_count() > 1:
+            mesh = make_mesh()
+            logger.info(f"serving data-parallel over {mesh.size} devices")
     with torch.random.fork_rng(devices=[]):  # the weights all come from the file
         model = build_refiner_from_config(cfg.model)
     model.to(dev)
-    render_assets, bank = build_render_assets(cfg.model, device=dev)
     load_eval_checkpoint(args.checkpoint, model, logger)
-    serve_fn, fetch_keys, post_fn = make_serving_from_cfg(cfg, model, render_assets, device=dev)
-    service = PoseService(serve_fn, frame_hw=tuple(args.frame_hw), num_class=bank.num_class,
+    serve_fns = []
+    for replica in ([model] if mesh is None else replicate(model, mesh)):
+        rdev = next(replica.parameters()).device
+        render_assets, bank = build_render_assets(cfg.model, device=rdev)
+        serve_fn, fetch_keys, post_fn = make_serving_from_cfg(cfg, replica, render_assets,
+                                                              device=rdev)
+        serve_fns.append(serve_fn)
+    service = PoseService(serve_fns[0] if mesh is None else serve_fns,
+                          frame_hw=tuple(args.frame_hw), num_class=bank.num_class,
                           max_frames=args.max_frames, max_objects=args.max_objects,
-                          fixed_bucket=not args.pow2_buckets, fetch_keys=fetch_keys,
+                          fixed_bucket=not args.pow2_buckets, mesh=mesh, fetch_keys=fetch_keys,
                           post_fn=post_fn, device=dev)
     logger.info("warming up (the serve fn at its batch shape)...")
     t0 = time.perf_counter()

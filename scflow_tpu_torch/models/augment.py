@@ -27,6 +27,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from scflow_tpu_torch.parallel.dist import batch_rows
 from scflow_tpu_torch.registry import Registry
 
 AUGMENTATIONS = Registry("augmentations")
@@ -228,12 +229,22 @@ class RenderAugmentation:
         self.augmentations = list(augmentations)
 
     def draw(self, key: Tuple[int, int], images: torch.Tensor) -> List[Params]:
+        """Each augmentation's parameters for `images`.  In a data-parallel
+        train step (parallel/dist.py::global_batch) they are drawn for the
+        global batch, and this rank keeps its rows of them, so every rank
+        count sees the augmented renders of one process on the global
+        batch."""
         augment_seed, step = key
+        start, total = batch_rows(images.shape[0])
+        shape = (total,) + tuple(images.shape[1:])
         params = []
         for i, aug in enumerate(self.augmentations):
             s_cpu, s_dev = _seeds(augment_seed, step, i)
-            params.append(aug.draw(tuple(images.shape), torch.Generator().manual_seed(s_cpu),
-                                   torch.Generator(device=images.device).manual_seed(s_dev)))
+            drawn = aug.draw(shape, torch.Generator().manual_seed(s_cpu),
+                             torch.Generator(device=images.device).manual_seed(s_dev))
+            if total != images.shape[0]:
+                drawn = {k: v[start:start + images.shape[0]] for k, v in drawn.items()}
+            params.append(drawn)
         return params
 
     def apply(self, images: torch.Tensor, params: Sequence[Params]) -> torch.Tensor:

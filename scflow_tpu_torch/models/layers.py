@@ -19,6 +19,8 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from scflow_tpu_torch.parallel.dist import batch_sum, batch_world
+
 NORM_ABBR = {"BN": "bn", "IN": "in", "GN": "gn"}
 
 _ACTS = {
@@ -68,6 +70,30 @@ class InstanceNorm(nn.Module):
         return ((xf - mean) * torch.rsqrt(var + self.eps)).to(x.dtype)
 
 
+def _batch_moments(x: torch.Tensor):
+    """Per-channel mean and single-pass variance of x over (N, H, W).  In a
+    data-parallel train step (parallel/dist.py::global_batch) the sums and
+    counts are summed over the ranks first, with gradient, so the
+    statistics are the global batch's, as in JAX's step on the sharded
+    batch; elsewhere they are this batch's alone.  The ranks' sums are
+    float64: with float32 ones a 2-rank RAFT step's context-encoder
+    gradients sat 3e-3 from a float64 run of the step, where one process's
+    float32 step sits 7e-6 from it, and tests/test_torch_parallel.py's
+    1e-5 bound failed.  They are accumulated in float64 from x and x*x as
+    they are, without a float64 copy of x; the statistics return in x's
+    dtype."""
+    if batch_world() == 1:
+        mean = x.mean(dim=(0, 2, 3))
+        return mean, torch.clamp((x * x).mean(dim=(0, 2, 3)) - mean * mean, min=0.0)
+    c, f64 = x.shape[1], torch.float64
+    sums = batch_sum(torch.cat([x.sum(dim=(0, 2, 3), dtype=f64),
+                                (x * x).sum(dim=(0, 2, 3), dtype=f64),
+                                x.new_full((1,), x.numel() // c, dtype=f64)]))
+    mean = sums[:c] / sums[-1]
+    var = torch.clamp(sums[c:2 * c] / sums[-1] - mean * mean, min=0.0)
+    return mean.to(x.dtype), var.to(x.dtype)
+
+
 class BatchNorm(nn.Module):
     """flax.linen.BatchNorm (momentum 0.9, eps 1e-5) on NCHW, with the state
     dict of nn.BatchNorm2d.  Differs from nn.BatchNorm2d in training: the
@@ -94,8 +120,7 @@ class BatchNorm(nn.Module):
         if self.dtype is not None:
             x = x.float()
         if train:
-            mean = x.mean(dim=(0, 2, 3))
-            var = torch.clamp((x * x).mean(dim=(0, 2, 3)) - mean * mean, min=0.0)
+            mean, var = _batch_moments(x)
             with torch.no_grad():
                 m = self.momentum
                 self.running_mean.copy_(m * self.running_mean + (1 - m) * mean)

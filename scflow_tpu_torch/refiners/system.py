@@ -27,6 +27,7 @@ from scflow_tpu_torch.losses.point_matching import (disentangle_point_matching_l
                                                     sym_mask_from_types)
 from scflow_tpu_torch.models.augment import build_render_augmentation
 from scflow_tpu_torch.ops.cuda.corr_lookup import check_variant, check_window
+from scflow_tpu_torch.parallel.dist import average_gradients, average_logs, global_batch
 from scflow_tpu_torch.pnp import hypothesis_uniforms
 from scflow_tpu_torch.refiners.flow_pose import flow_only_score, solve_poses_from_flow_device
 from scflow_tpu_torch.render.rasterizer import rasterize
@@ -205,6 +206,7 @@ def make_scflow_train_step(
     augment_seed: int = 0,
     lookup_variant: str = "tent",
     device=None,
+    process_group=None,
 ):
     """Returns step(state, batch) -> (state, log_vars), the JAX package's
     train step: render at the reference pose (no gradient), the gt flow from
@@ -233,7 +235,16 @@ def make_scflow_train_step(
     torch.bfloat16)) computes its network in bf16, the kernels' bf16
     instances included (K1 or K7/K8 and K1b), while the gt flow, the
     losses, the clip and AdamW stay float32 and the gradients arrive
-    float32 on the float32 parameters."""
+    float32 on the float32 parameters.
+
+    process_group (torch.distributed.group.WORLD, or a subgroup; None: this
+    process alone) makes the step data-parallel, JAX's step on the sharded
+    global batch: each rank passes its local batch (equal shapes on every
+    rank), and BatchNorm's training statistics, the flow loss's valid-pixel
+    count and the augmentations' draws are the global batch's
+    (parallel/dist.py::global_batch); the gradients are averaged over the
+    ranks before the clip and the update, and log_vars (grad_norm included)
+    are the global batch's on every rank."""
     augment_fn = build_render_augmentation(render_augmentations)
     dev = resolve_device(device)
     resolve_backend(render_backend, dev)
@@ -245,7 +256,7 @@ def make_scflow_train_step(
     loss_kwargs = dict(loss_kwargs or {})
 
     def step(state: TrainState, batch: Dict) -> Tuple[TrainState, Dict[str, torch.Tensor]]:
-        with full_fp32():
+        with full_fp32(), global_batch(process_group):
             return _step(state, batch)
 
     def _step(state: TrainState, batch: Dict) -> Tuple[TrainState, Dict[str, torch.Tensor]]:
@@ -271,7 +282,8 @@ def make_scflow_train_step(
             loss_assets, max_flow=max_flow, **loss_kwargs)
         state.tx.zero_grad()
         loss.backward()
-        log_vars = {k: v.detach() for k, v in log_vars.items()}
+        average_gradients(state.tx.params, process_group)
+        log_vars = average_logs({k: v.detach() for k, v in log_vars.items()}, process_group)
         log_vars["grad_norm"] = state.apply_gradients()
         return state, log_vars
 
@@ -449,6 +461,7 @@ def make_raft_train_step(
     augment_seed: int = 0,
     lookup_variant: str = "tent",
     device=None,
+    process_group=None,
 ):
     """Returns step(state, batch) -> (state, log_vars) for a RAFT refiner
     (refiners/raft.py), the JAX function's step (reference
@@ -470,14 +483,14 @@ def make_raft_train_step(
     lookup is its tensor form ('xla'); lookup_backend='pallas' runs K1
     forward and K1b backward (no flow gradient: the decoder detaches the
     flow).  donate, device, lookup_variant, precision (device.full_fp32)
-    and dtypes as in make_scflow_train_step, and so are render_augmentations
-    and augment_seed."""
+    and dtypes as in make_scflow_train_step, and so are render_augmentations,
+    augment_seed and process_group (the data-parallel step)."""
     augment_fn = build_render_augmentation(render_augmentations)
     read = _raft_setup(model, render_assets, render_backend, lookup_backend, lookup_variant,
                        device, image_size)
 
     def step(state: TrainState, batch: Dict) -> Tuple[TrainState, Dict[str, torch.Tensor]]:
-        with full_fp32():
+        with full_fp32(), global_batch(process_group):
             return _step(state, batch)
 
     def _step(state: TrainState, batch: Dict) -> Tuple[TrainState, Dict[str, torch.Tensor]]:
@@ -520,7 +533,8 @@ def make_raft_train_step(
             log_vars["loss_occ"] = loss_occ
         state.tx.zero_grad()
         loss.backward()
-        log_vars = {k: v.detach() for k, v in log_vars.items()}
+        average_gradients(state.tx.params, process_group)
+        log_vars = average_logs({k: v.detach() for k, v in log_vars.items()}, process_group)
         log_vars["grad_norm"] = state.apply_gradients()
         return state, log_vars
 

@@ -18,6 +18,7 @@ import torch
 
 from scflow_tpu_torch.datasets.loader import collate_batch
 from scflow_tpu_torch.host_geometry import remap_pose_to_origin_resolution
+from scflow_tpu_torch.parallel.dist import all_gather_object, merge_sharded_results, rank_world
 from scflow_tpu_torch.runtime.logger import get_logger
 
 
@@ -84,10 +85,13 @@ def _finish_result(out, batch, metas, n, pose_from_output):
 def single_process_test(infer_fn: Callable, dataset, pose_from_output: Optional[Callable] = None,
                         max_bucket: int = 64, fixed_bucket: bool = False,
                         progress_interval: int = 50, logger=None,
-                        stats: Optional[Dict[str, float]] = None) -> List[Dict[str, Any]]:
-    """Refine every image of the dataset and return the reference-format
-    results, per image {'pred': {labels, rotations, translations, scores},
-    'img_metas': {img_path}}, in the dataset's order.
+                        stats: Optional[Dict[str, float]] = None, process_index: int = 0,
+                        process_count: int = 1) -> List[Dict[str, Any]]:
+    """Refine this process's shard of the dataset, the images
+    range(process_index, len(dataset), process_count) (all of them by
+    default), and return the reference-format results, per image {'pred':
+    {labels, rotations, translations, scores}, 'img_metas': {img_path}}, in
+    the dataset's order.
 
     infer_fn(batch) is an entry point of refiners/system.py (the model and
     the device are bound in it; JAX's infer_fn takes the variables first).
@@ -102,9 +106,10 @@ def single_process_test(infer_fn: Callable, dataset, pose_from_output: Optional[
         stats[k] = 0.0
     stats["images"] = 0
     results: List[Dict[str, Any]] = []
-    total = len(dataset)
+    indices = range(process_index, len(dataset), process_count)
+    total = len(indices)
     t_start = time.perf_counter()
-    for idx in range(total):
+    for idx in indices:
         t0 = time.perf_counter()
         batch = collate_batch([dataset[idx]])
         metas = batch.pop("img_metas")
@@ -131,11 +136,15 @@ def single_process_test(infer_fn: Callable, dataset, pose_from_output: Optional[
 
 
 def multi_process_test(infer_fn: Callable, dataset, **kwargs) -> List[Dict[str, Any]]:
-    """single_process_test in one process.  Sharding images over processes
-    (the reference's multi_gpu_test, JAX's process_allgather) needs the
-    distributed runtime of ROADMAP §1 item 9; an initialised process group
-    of more than one process raises."""
-    if torch.distributed.is_available() and torch.distributed.is_initialized() \
-            and torch.distributed.get_world_size() > 1:
-        raise NotImplementedError("multi-process evaluation is not ported (ROADMAP §1 item 9)")
-    return single_process_test(infer_fn, dataset, **kwargs)
+    """Evaluation over the ranks of the job (the reference's multi_gpu_test,
+    JAX's multi_process_test): each rank refines its shard of the images
+    (single_process_test with its rank and the world size; the shards
+    differ in size by at most one image), then every rank gathers all the
+    shards' results (parallel.all_gather_object) and merges them back into
+    the dataset's order.  Without a process group, single_process_test."""
+    pi, pc = rank_world()
+    local = single_process_test(infer_fn, dataset, process_index=pi, process_count=pc,
+                                **kwargs)
+    if pc == 1:
+        return local
+    return merge_sharded_results(all_gather_object(local))

@@ -6,7 +6,12 @@ The runner owns the train step, the data iterator, the hooks (logging,
 profiling, checkpoints, evaluation with the best model kept, TensorBoard)
 and resume.  The step's logs stay on the device: no hook fetches them every
 step (TextLoggerHook fetches its window once per interval), so the host
-loads and launches the next step while the card computes this one."""
+loads and launches the next step while the card computes this one.
+
+In a job of several ranks (parallel/dist.py) every rank runs the runner
+with its own step and loader shard; rank 0 alone writes the checkpoints,
+the best checkpoint, eval_history.json and the log lines, and the other
+ranks wait for its writes at a barrier."""
 
 import json
 import os
@@ -18,6 +23,8 @@ from typing import Any, Callable, Dict, Iterable, List, Optional
 import numpy as np
 import torch
 
+from scflow_tpu_torch.parallel.dist import barrier, rank_world
+from scflow_tpu_torch.parallel.mesh import to_device
 from scflow_tpu_torch.runtime.checkpoint import CheckpointManager
 from scflow_tpu_torch.runtime.logger import get_logger
 
@@ -133,11 +140,15 @@ class CheckpointHook(Hook):
 
     def after_train_iter(self, runner):
         if runner.step % self.interval == 0:
-            runner.ckpt_manager.save(runner.step, runner.state)
-            runner.logger.info(f"Saved checkpoint at iter {runner.step}")
+            if runner.is_main:
+                runner.ckpt_manager.save(runner.step, runner.state)
+                runner.logger.info(f"Saved checkpoint at iter {runner.step}")
+            barrier()
 
     def after_run(self, runner):
-        runner.ckpt_manager.save(runner.step, runner.state)
+        if runner.is_main:
+            runner.ckpt_manager.save(runner.step, runner.state)
+        barrier()
 
 
 class EvalHook(Hook):
@@ -158,6 +169,11 @@ class EvalHook(Hook):
         if runner.step % self.interval != 0:
             return
         metrics = self.eval_fn(runner.state)
+        if runner.is_main:
+            self._record(runner, metrics)
+        barrier()
+
+    def _record(self, runner, metrics):
         msg = ", ".join(f"{k}: {v:.4f}" for k, v in sorted(metrics.items())[:12])
         runner.logger.info(f"Eval at iter {runner.step}: {msg}")
         runner.eval_history.append((runner.step, metrics))
@@ -228,7 +244,9 @@ class IterRunner:
     ckpt_max_keep).  With nan_check a non-finite loss raises
     FloatingPointError (a fetch each step).  stats holds the seconds spent
     in next(data_iter) ('load'), put_batch ('put') and launching the step
-    ('step', host clock; the card runs behind it)."""
+    ('step', host clock; the card runs behind it).  rank and world are the
+    process's place in the job (0 and 1 without a process group);
+    is_main, rank 0, is the one that writes."""
 
     def __init__(self, train_step: Callable, state, data_iter: Iterable, max_iters: int,
                  work_dir: str = "work_dirs/default", hooks: Optional[List[Hook]] = None,
@@ -250,6 +268,8 @@ class IterRunner:
         self.eval_history: List = []
         self.nan_check = nan_check
         self.stats = {"load": 0.0, "put": 0.0, "step": 0.0}
+        self.rank, self.world = rank_world()
+        self.is_main = self.rank == 0
         os.makedirs(work_dir, exist_ok=True)
         self.ckpt_manager = CheckpointManager(work_dir, max_to_keep=ckpt_max_keep)
 
@@ -273,10 +293,7 @@ class IterRunner:
         """The batch's arrays as tensors on the model's device: on a card
         through pinned host memory with non-blocking copies, so the copy
         queues behind the running step instead of waiting for it."""
-        if self.device.type != "cuda":
-            return {k: torch.as_tensor(v) for k, v in batch.items()}
-        return {k: torch.as_tensor(v).pin_memory().to(self.device, non_blocking=True)
-                for k, v in batch.items()}
+        return {k: to_device(v, self.device) for k, v in batch.items()}
 
     def run(self):
         for h in self.hooks:

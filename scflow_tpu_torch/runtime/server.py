@@ -22,6 +22,7 @@ answers with refined poses in the original camera frame
 
 import io
 import json
+from contextlib import nullcontext
 import queue
 import threading
 import time
@@ -33,7 +34,7 @@ from typing import Callable, Dict, List, Optional, Sequence
 import numpy as np
 import torch
 
-from scflow_tpu_torch.device import resolve_device
+from scflow_tpu_torch.parallel.mesh import Mesh, batch_sharding, replicated_sharding
 from scflow_tpu_torch.runtime.eval_loop import _bucket
 
 _STOP = object()
@@ -171,8 +172,16 @@ class PoseService:
 
     JAX's PoseService(serve_fn, variables, ...) takes the model's variables;
     here the serve fn holds its model, so there is no `variables` argument,
-    and `device` is added.  mesh= (JAX's data-parallel serving over chips)
-    raises: serving across cards is ROADMAP §1 item 9d.
+    and `device` is added.
+
+    With `mesh` (parallel.Mesh) serving is data-parallel over the mesh's
+    devices, as JAX's: serve_fn is then a sequence of serve fns, one per
+    mesh device and bound to it (apis.make_serving_from_cfg on each of
+    parallel.replicate's replicas); the bucket is rounded up to a multiple
+    of the device count, the padded object rows are split evenly over the
+    devices in mesh order (parallel.batch_sharding) and the frames copied
+    to each (replicated_sharding); every shard is launched before any is
+    fetched, and the real rows come back in order.
     """
 
     def __init__(self, serve_fn: Callable, frame_hw=(480, 640), num_class: int = 21,
@@ -183,10 +192,15 @@ class PoseService:
         (or `post_fn`) reads.  `post_fn(out)` runs on the fetched numpy dict
         and returns a dict with 'rotations' and 'translations': the host PnP
         stage of RAFT-family serving."""
-        if mesh is not None:
-            raise NotImplementedError("serving over a mesh of cards is not ported "
-                                      "(ROADMAP §1 item 9d); the port serves on one card")
-        self.serve_fn = serve_fn
+        if mesh is None:
+            mesh, serve_fn = Mesh([device]), [serve_fn]
+        elif not isinstance(mesh, Mesh):
+            raise TypeError(f"mesh must be a parallel.Mesh, got {type(mesh).__name__}")
+        elif callable(serve_fn) or len(serve_fn) != mesh.size:
+            raise ValueError(f"a mesh of {mesh.size} devices needs one serve fn per "
+                             "device, a sequence of that length")
+        self.mesh = mesh
+        self.serve_fns = list(serve_fn)
         self.fetch_keys = tuple(fetch_keys)
         self.post_fn = post_fn
         self.frame_hw = tuple(frame_hw)
@@ -194,23 +208,18 @@ class PoseService:
         self.max_frames = max_frames
         self.max_objects = max_objects
         self.fixed_bucket = fixed_bucket
-        self.device = resolve_device(device)
+        self._cuda = any(d.type == "cuda" for d in mesh.devices)
 
     def _host(self, shape, dtype) -> torch.Tensor:
         """A host buffer: pinned when the batch goes to a card."""
-        return torch.empty(shape, dtype=dtype, pin_memory=self.device.type == "cuda")
-
-    def _put(self, array: np.ndarray) -> torch.Tensor:
-        x = torch.from_numpy(np.ascontiguousarray(array))
-        if self.device.type != "cuda":
-            return x
-        return x.pin_memory().to(self.device, non_blocking=True)
+        return torch.empty(shape, dtype=dtype, pin_memory=self._cuda)
 
     def dispatch(self, requests: Sequence[RefineRequest]):
-        """Pad and queue one batch on the device; returns a handle for
+        """Pad and queue one batch on the device(s); returns a handle for
         `fetch`.  On a card it returns once the work is queued: the inputs
         go up from pinned memory without waiting, and only the real rows of
-        the fetch keys come back, into pinned buffers, behind an event."""
+        the fetch keys come back, into pinned buffers, behind an event per
+        shard."""
         h, w = self.frame_hw
         frames = self._host((self.max_frames, h, w, 3), torch.float32)
         frames_np = frames.numpy()
@@ -231,7 +240,10 @@ class PoseService:
         frames_np[len(requests):] = 0.0
 
         n = int(sum(counts))
-        pad = _bucket(n, self.max_objects, fixed=self.fixed_bucket) - n
+        shards = self.mesh.size
+        b = _bucket(n, self.max_objects, fixed=self.fixed_bucket)
+        b = -(-b // shards) * shards  # the object rows split evenly over the devices
+        pad = b - n
 
         def cat(parts, pad_row):
             out = np.concatenate(parts, axis=0)
@@ -240,39 +252,42 @@ class PoseService:
                                      axis=0)
             return out
 
-        args = (cat(rot, np.eye(3, dtype=np.float32)[None]),
+        args = (cat(fidx, np.zeros((1,), np.int32)),
+                cat(rot, np.eye(3, dtype=np.float32)[None]),
                 cat(trans, np.array([[0.0, 0.0, 1000.0]], np.float32)),
                 cat(ks, _default_k(h, w)[None]),
                 cat(labels, np.zeros((1,), np.int32)))
-        frame_idx = cat(fidx, np.zeros((1,), np.int32))
+        rows = b // shards
+        host, events = {}, []
         with torch.inference_mode():
-            frames_dev = frames if self.device.type != "cuda" else frames.to(
-                self.device, non_blocking=True)
-            R, t, K, labs = (self._put(a) for a in args)
-            out = self.serve_fn(frames_dev, self._put(frame_idx), R, t, K, labs)
-            host, event = {}, None
-            for k in self.fetch_keys:
-                if k not in out:
-                    continue
-                x = out[k][:n]
-                if x.is_floating_point() and x.dtype != torch.float32:
-                    x = x.float()
-                if self.device.type == "cuda":
-                    host[k] = self._host(tuple(x.shape), x.dtype).copy_(x, non_blocking=True)
-                else:
-                    host[k] = x.clone()
-            if self.device.type == "cuda":
-                event = torch.cuda.Event()
-                event.record(torch.cuda.current_stream(self.device))
-        return host, event, counts
+            frames_on = replicated_sharding(self.mesh).place(frames)
+            args_on = zip(*(batch_sharding(self.mesh).place(a) for a in args))
+            for i, (dev, serve_fn, f, a) in enumerate(zip(self.mesh.devices, self.serve_fns,
+                                                          frames_on, args_on)):
+                first, last = i * rows, min(n, (i + 1) * rows)
+                with torch.cuda.device(dev) if dev.type == "cuda" else nullcontext():
+                    out = serve_fn(f, *a)
+                    for k in self.fetch_keys:
+                        if k not in out or last <= first:
+                            continue
+                        x = out[k][:last - first]
+                        if x.is_floating_point() and x.dtype != torch.float32:
+                            x = x.float()
+                        if k not in host:
+                            host[k] = self._host((n,) + tuple(x.shape[1:]), x.dtype)
+                        host[k][first:last].copy_(x, non_blocking=dev.type == "cuda")
+                    if dev.type == "cuda":
+                        events.append(torch.cuda.Event())
+                        events[-1].record(torch.cuda.current_stream(dev))
+        return host, events or None, counts
 
     def fetch(self, handle) -> List[Dict[str, np.ndarray]]:
         """Wait for a `dispatch` handle's copies and slice the result back
         per request.  Only the keys the response carries, and only the real
         object rows, were copied: padding would otherwise inflate the copy
         and run post_fn's host PnP on phantom objects."""
-        host, event, counts = handle
-        if event is not None:
+        host, events, counts = handle
+        for event in events or ():
             event.synchronize()
         out = {k: v.numpy() for k, v in host.items()}
         if self.post_fn is not None:

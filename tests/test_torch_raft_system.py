@@ -202,10 +202,12 @@ def test_infer_and_val_bf16_match_jax_bf16(setup, jax_fp32, no_tf32):
                                   "make_raft_train_step"])
 def test_signatures_are_jaxs(name):
     """JAX's parameters in its order and with its defaults, then
-    lookup_variant and device."""
+    lookup_variant and device (and the train step's process_group, the
+    data-parallel step)."""
     want = inspect.signature(getattr(jsystem, name)).parameters
     got = inspect.signature(getattr(system, name)).parameters
-    assert list(got) == list(want) + ["lookup_variant", "device"]
+    extra = ["process_group"] if name == "make_raft_train_step" else []
+    assert list(got) == list(want) + ["lookup_variant", "device"] + extra
     for k, p in want.items():
         if p.default is not inspect.Parameter.empty:
             assert got[k].default == p.default, k

@@ -278,7 +278,7 @@ def test_padding_invariance(tiny_service, fixed_bucket):
     """A request refined alone equals the same request sharing a batch with
     others, in the fixed bucket and in power-of-two buckets (rotations
     2e-5, translations 2e-3: tests/test_server.py's bounds)."""
-    svc = PoseService(tiny_service.serve_fn, frame_hw=HW, num_class=NCLASS, max_frames=4,
+    svc = PoseService(tiny_service.serve_fns[0], frame_hw=HW, num_class=NCLASS, max_frames=4,
                       max_objects=8, fixed_bucket=fixed_bucket, device="cpu")
     req = make_request(p=2, hw=HW, seed=0)
     alone = svc.run([req])[0]
@@ -312,8 +312,15 @@ def test_dispatch_pads_and_fetches_only_the_real_rows(tiny_service):
 
 
 def test_mesh_raises(tiny_service):
-    with pytest.raises(NotImplementedError, match="item 9d"):
-        PoseService(tiny_service.serve_fn, frame_hw=HW, mesh=object(), device="cpu")
+    """mesh= takes a parallel.Mesh and one serve fn per device of it."""
+    from scflow_tpu_torch.parallel import Mesh
+
+    with pytest.raises(TypeError, match="parallel.Mesh"):
+        PoseService(tiny_service.serve_fns, frame_hw=HW, mesh=object(), device="cpu")
+    with pytest.raises(ValueError, match="one serve fn per device"):
+        PoseService(tiny_service.serve_fns[0], frame_hw=HW, mesh=Mesh(["cpu", "cpu"]))
+    with pytest.raises(ValueError, match="one serve fn per device"):
+        PoseService(tiny_service.serve_fns, frame_hw=HW, mesh=Mesh(["cpu", "cpu"]))
 
 
 def test_end_to_end_http(tiny_service):

@@ -18,7 +18,7 @@ states, the effect of the one-step gradient bound of
 tests/test_torch_train_apis.py (2e-2) through Adam's normalised steps
 (measured: weight-leaf updates 13-15% apart at worst, 8.9% in all).  Then `cli.main(['train', ..., '--resume',
 '--max-iters', '5'])` logs "Resumed from iter 3" and runs to 5,
-`--launcher pytorch` raises, and without --device cpu on a host without a
+`--launcher pytorch` outside a launched job raises, and without --device cpu on a host without a
 card train_main raises."""
 
 import logging
@@ -184,7 +184,7 @@ def test_resume_and_dispatch(runs):
     assert "Resumed from iter 3" in text and "Start training: iter 3 -> 5" in text
     assert sorted(_logged(text)) == [1, 2, 3, 4, 5]
     assert read_checkpoint(str(root / "port" / "checkpoints" / "iter_5.pth"))["meta"]["step"] == 5
-    with pytest.raises(NotImplementedError, match="launcher 'pytorch'"):
+    with pytest.raises(RuntimeError, match="launcher's environment sets none of"):
         cli.main(["train", str(runs["cfg_path"]), "--launcher", "pytorch"])
     with pytest.raises(RuntimeError, match="no CUDA device"):
         cli.train_main([str(runs["cfg_path"]), "--work-dir", str(root / "card")])

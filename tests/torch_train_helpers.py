@@ -81,3 +81,19 @@ class Broken:
 
     def __getitem__(self, idx):
         raise ValueError("corrupt sample")
+
+
+class Draws:
+    """A dataset whose sample idx is (idx, numpy's and Python's next global
+    draws): a loader's shard and its workers' seeds show in what it yields
+    (in a module that spawned loader workers import quickly, to unpickle
+    it)."""
+
+    def __init__(self, n: int = 11):
+        self.n = n
+
+    def __len__(self):
+        return self.n
+
+    def __getitem__(self, idx):
+        return (int(idx), float(np.random.random()), random.random())
