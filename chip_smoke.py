@@ -10,7 +10,8 @@ parent commit), without the kernels line: lookup (phases 3, 10 and 11),
 raster (4-7), slice (8), raft (14), options (16 and 17; with slice
 before it, 17 prints its pose difference from the slice's call), workflow
 (18), train_workflow (19), train_pbr (20), serve (21-23), train_augment
-(24), export (25) and parallel (26).
+(24), export (25), parallel (26) and learn (the user tools, run only
+there: see phase 27).
 
 Phases, each printing one JSON line; any failure exits non-zero before the
 last line:
@@ -170,14 +171,14 @@ last line:
                configs/refine_models/scflow.py and overrides only the data
                paths (so 256^2, 8 iterations, 21 classes, max_bucket 64,
                culling on), over a synthetic test set in YCB-V's BOP layout
-               written under build/workflow/ (removed afterwards): 24
+               written under build/workflow/ (removed afterwards): 16
                640x480 PNGs (the port's imwrite) of 3-9 of the slice's
                21 uvsphere classes each, rendered at the gt pose with YCB-V's
                camera over grey, initial poses the gt jittered by up to 15
                degrees and 15/15/50 mm (the shipped PoseJitter's ranges).
                The slice's seeded weights, saved with save_params.  Runs,
                each after a 2-image warm-up: fp32 and bf16 (--cfg-options
-               model.dtype=bfloat16) on the 24 images, and the shipped
+               model.dtype=bfloat16) on the 16 images, and the shipped
                configs/refine_models/raft.py with test_cfg.pnp_backend=device
                on 8 (raft_model's weights).  Per run: ms/img and
                refinements/s (host clock over test_main's loop, which
@@ -231,26 +232,26 @@ last line:
                checking runs load with data.worker_mode='process' (TW_FAST:
                the config's thread workers took 10.9 s a step).  Runs,
                each counting every kernel's launches per step (reset before
-               each step, read after it): fp32, 30 steps with
+               each step, read after it): fp32, 20 steps with
                --profile-steps 3: exactly 1 K2, 8 K1, 8 K1b per step,
                finite losses, the mean of the last 5 below that of the
-               first 5, checkpoints iter_10/20/30, eval_history.json,
+               first 5, checkpoints iter_10/20, eval_history.json,
                best.json and best_ckpt.pth, a profiler trace, TensorBoard
                event files or the hook's warning, the logged it/s; --resume
-               --max-iters 40: the log's "Resumed from iter 30" and "Start
-               training: iter 30 -> 40", the weights equal iter_30.pth bit
-               for bit, the first step's lr the schedule's at count 30; the
+               --max-iters 30: the log's "Resumed from iter 20" and "Start
+               training: iter 20 -> 30", the weights equal iter_20.pth bit
+               for bit, the first step's lr the schedule's at count 20; the
                card step against the CPU step (the plain versions) on the
                loader's first 2 samples with 3 iterations (loss rtol 1e-3,
                worst per-leaf gradient rel L2 2e-2); bf16
-               (model.dtype=bfloat16), 10 steps: 8 K1_bf16, 8 K1b_bf16, 1 K2
+               (model.dtype=bfloat16), 6 steps: 8 K1_bf16, 8 K1b_bf16, 1 K2
                per step, finite, falling (first 3 against last 3); the
                shipped raft.py, 5 steps: 12 K1, 12 K1b, 1 K2 per step,
-               finite; then data.worker_mode 'thread' and 'process', each 3
-               warm-up steps, then 12 timed (ms per step on the host clock
+               finite; then data.worker_mode 'thread' and 'process', each 2
+               warm-up steps, then 6 timed (ms per step on the host clock
                over the runner loop, samples/s, load ms per step blocked in
                next(data_iter), device ms per step by CUDA events around
-               the step), the last 5 of them traced (the device's idle
+               the step), the last 3 of them traced (the device's idle
                share: 1 - the union of the kernels' intervals over the host
                window), with os.cpu_count(); thread mode (8.7-11.9 s a
                step) is cut to 1 warm-up and 1 measured step, traced;
@@ -269,8 +270,8 @@ last line:
                rendered frame as PNG, as JPEG, and as JPEG after Gaussian
                noise of sigma 8 (line "train_pbr_imread"); the patches whose
                background RandomBackground swapped over 16 samples drawn in
-               this process (at least one); 15 steps with process workers (3
-               warm-up, 12 timed as phase 19's runs, the last 5 traced):
+               this process (at least one); 11 steps with process workers (2
+               warm-up, 9 timed as phase 19's runs, the last 3 traced):
                exactly 1 K2, 8 K1, 8 K1b per step, finite losses, the mean
                of the last 5 below that of the first 5; the card step
                against the CPU step on the loader's first 2 samples (phase
@@ -293,9 +294,9 @@ last line:
                save_params, --frame-hw 480 640 --max-objects 64
                --max-frames 8 --port 0 (the log names the port; /healthz
                polled for at most 60 s after it, the log for 300 s);
-               `python -m scflow_tpu_torch.cli loadtest` with 8 clients x 6
+               `python -m scflow_tpu_torch.cli loadtest` with 8 clients x 3
                requests x 4 objects: req/s, objects/s, client p50/p90/p99,
-               objects and requests per batch (/v1/stats); gates: 48 answers
+               objects and requests per batch (/v1/stats); gates: 24 answers
                and /v1/stats 0 errors, SIGTERM drains and the process exits
                0, every answer equals PoseService.run of the same request in
                this process (rotations 2e-5, translations 2e-3: the padding-
@@ -316,7 +317,7 @@ last line:
                (ColorJiggle 0.3/0.3/0.3/0.05, RandomGaussianNoise 0.05 p 0.5,
                RandomGaussianBlur 5 (0.1, 2.0) p 0.5, RandomGrayscale 0.1):
                exactly 1 K2, 8 K1, 8 K1b per step; ms per step beside the
-               plain step (plain, augmented, augmented, plain, 5 steps each);
+               plain step (plain, augmented, augmented, plain, 3 steps each);
                gates: one key's per-sample draws equal on the card and the
                CPU, and equal parameters (the card's noise field included)
                give augmented renders within 1e-5; `cli.train_main` for 3
@@ -370,7 +371,7 @@ last line:
                floor itself under 1% of the norm, and 2 ranks that keep
                their own BatchNorm statistics must miss these bounds;
                exactly 1 K2, 8 K1, 8 K1b per rank in each of 4 steps; each
-               rank's ms per step over 3 more steps, the gradient
+               rank's ms per step over 2 more steps, the gradient
                all-reduce's ms, one process's ms at batch 32 with and
                without the float64 sums, in turns; (c) `cli test --launcher
                pytorch` at 2 ranks (gloo) on 5 images of phase 18's set
@@ -381,6 +382,29 @@ last line:
                objects against one device: 8 K1 and 1 K2 per shard, the
                poses within the slice's bounds, ms per call of each.  Every
                part runs; any failure fails the phase;
+ 27. learn   - the learning check (scflow_tpu_torch/tools/overfit_check.py, the
+               JAX package's tools/overfit_check.py: one synthetic batch of 8
+               cube samples at 128^2, 4 iterations, AdamW 4e-4) for
+               LEARN_STEPS steps on lookup 'pallas', then one evaluation:
+               every step exactly 1 K2, 4 K1 and 4 K1b, the evaluation 1 K2
+               and 4 K1, nothing else; finite losses; the train-batch ADD/d
+               below its initial value / LEARN_FACTOR (fixed from the learn
+               group's full-length runs: at most half the smallest factor
+               they showed at LEARN_STEPS); ms per step.
+     The learn group (--phases learn, not in the full run): the same check
+               at the tool's 2000 steps on 'xla' (JAX's default: 1 K2 a
+               step) and on 'pallas', evaluated every LEARN_STEPS, each step
+               counted; each curve's final ADD/d below its initial one (the
+               JAX tool expects below 0.01); the 'pallas' run's weights
+               saved with save_params to build/learn/overfit_pallas.pth;
+               `cli serve-bench` in fp32 and bf16 (64 objects, 8 K1 or
+               K1_bf16 and 1 K2 a call) in this process; `cli warmup` on a
+               config that _base_s the shipped scflow.py with only its
+               paths moved (the slice's meshes), in a fresh process; and
+               `cli bf16-parity` at PARITY's scale, whose exit code (1 on
+               PROTOCOL FAIL) is the group's, with its report, crossings,
+               divergence and the train's seconds per step.  Every part
+               runs; any failure fails the group;
  15. the kernels line (float32 and bf16 instances; "raft_launches": each
      kernel's launches per RAFT call or step; "radius_3": the radius-3
      instance's numbers from phases 3/10/11 and its launches per call or
@@ -391,7 +415,8 @@ last line:
      per call of each serving run and per step of the augmented steps;
      "export_launches": per call of each loaded artifact; "parallel_launches":
      per step of each rank of phase 26 (b) and per shard of its mesh
-     service (d)), then the device
+     service (d); "learn_launches": per step and per evaluation of phase
+     27's learning check), then the device
      line the chip harness reads.
 Imports no JAX.  Needs one card; without one it exits non-zero at once.
 """
@@ -2540,9 +2565,9 @@ def phase_render(dev, scene, smi):
 YCBV_K = ((1066.778, 0.0, 312.9869), (0.0, 1067.487, 241.3109), (0.0, 0.0, 1.0))
 FRAME_H, FRAME_W = 480, 640  # YCB-V's frames
 WF_SEQ = 48  # a YCB-V test scene id (48-59)
-# 24 images: the count is cut so that the script keeps near its time with
-# the serving phases
-WF_IMAGES, WF_CPU_IMAGES, WF_RAFT_IMAGES = 24, 4, 8
+# 16 images: the count is cut (48 -> 24 -> 16) so that the script keeps
+# inside its time with the later phases
+WF_IMAGES, WF_CPU_IMAGES, WF_RAFT_IMAGES = 16, 4, 8
 WF_JITTER = (15.0, 15.0, 15.0, 50.0)  # degrees, x, y, z mm: ycbv_real.py:38-51's PoseJitter
 WF_METRIC = {"add": [0.05, 0.10, 0.20, 0.50], "rep": [2, 5, 10, 20], "auc": []}
 WF_CYCLES, WF_CYCLED_IMAGES = 2, 8  # the cycled run: test_cfg.cycles, images
@@ -3091,11 +3116,11 @@ def phase_workflow(smi, root: Path):
 # ---- train_workflow: the reference's train workflow from a config file ----
 
 TW_TRAIN_IMAGES, TW_VAL_IMAGES = 24, 8
-TW_ITERS, TW_RESUME_ITERS, TW_BF16_ITERS, TW_RAFT_ITERS = 30, 40, 10, 5
+TW_ITERS, TW_RESUME_ITERS, TW_BF16_ITERS, TW_RAFT_ITERS = 20, 30, 6, 5
 # timed steps of a worker mode: warm-up, measured, and the last of the measured
-# traced; thread mode (8.7-11.9 s a step) is cut to 1 + 2 to keep the script
-# near its time
-TW_TIMED = {"process": (3, 12, 5), "thread": (1, 1, 1)}
+# traced; thread mode (8.7-11.9 s a step) is cut to 1 + 1, process mode to
+# 2 + 6, to keep the script inside its time
+TW_TIMED = {"process": (2, 6, 3), "thread": (1, 1, 1)}
 TW_INTERVALS = dict(log=5, checkpoint=10, evaluation=20)
 TW_CPU = dict(samples=2, iters=3)  # the card-vs-CPU step: the loader's first 2 samples
 # the runs that check the path load in worker processes: with the config's
@@ -3420,11 +3445,11 @@ def phase_train_workflow(smi, root: Path):
         require(log2 != log and any(f"Resumed from iter {TW_ITERS}" in ln for ln in lines2)
                 and any(f"Start training: iter {TW_ITERS} -> {TW_RESUME_ITERS}" in ln
                         for ln in lines2), f"resume log lines in {log2.name}")
-        want_lr = runner.lr_schedule(TW_ITERS)  # the 31st step's (0-based count 30)
+        want_lr = runner.lr_schedule(TW_ITERS)  # the resumed first step's (0-based count)
         require(probe.lrs[0] == want_lr, f"first resumed lr {probe.lrs[0]} vs {want_lr}")
         resumed = _probe_checks(probe, "resume", {"K1": ITERS, "K1b": ITERS, "K2": 1})
         emit({"phase": "train_workflow_resume", **resumed, "first_lr": probe.lrs[0],
-              "schedule_lr_step_31": want_lr, "card": smi})
+              f"schedule_lr_step_{TW_ITERS + 1}": want_lr, "card": smi})
         del runner
 
         cpu = _train_card_vs_cpu_cfg(cfg_path)
@@ -3457,7 +3482,7 @@ def phase_train_workflow(smi, root: Path):
 # ---- train_pbr: the PBR recipe (configs/refine_datasets/ycbv_mixpbr.py's data) ----
 
 TP_PBR_IMAGES = 24
-TP_STEPS = (3, 12, 5)  # warm-up, measured, traced: 15 steps in process mode
+TP_STEPS = (2, 9, 3)  # warm-up, measured, traced: 11 steps in process mode
 TP_BATCH = 24  # ycbv_mixpbr.py's samples_per_gpu
 TP_SWAP_SAMPLES = 16
 # background images of other sizes than the frames, as in COCO (one JPEG
@@ -3629,7 +3654,7 @@ def phase_train_pbr(smi, root: Path):
 SERVE_FRAMES = 4  # tools/serve_bench.py: 64 objects from 4 frames of 640x480
 SERVE_KEYS = ("frames", "frame_idx", "ref_rotations", "ref_translations", "K", "labels")
 SERVE_CPU_OBJECTS = 4  # the card-vs-CPU gate's objects
-SERVE_LOAD = dict(clients=8, requests=6, objects=4)  # the HTTP phase's load test
+SERVE_LOAD = dict(clients=8, requests=3, objects=4)  # the HTTP phase's load test
 SERVE_START_S = 300  # the server subprocess's bound to come up
 # the padding-invariance bounds of tests/test_server.py:321-331
 SERVE_ROT_ATOL, SERVE_TRANS_ATOL = 2e-5, 2e-3
@@ -3639,7 +3664,7 @@ RENDER_AUGMENTATIONS = [
     dict(type="RandomGaussianBlur", kernel_size=5, sigma=(0.1, 2.0), p=0.5),
     dict(type="RandomGrayscale", p=0.1)]
 TA_CLI_STEPS, TA_CLI_IMAGES = 3, 8  # the augmented cli train run
-TA_TIMED_STEPS = 5  # per group of the plain / augmented timing
+TA_TIMED_STEPS = 3  # per group of the plain / augmented timing
 
 
 def serve_inputs(n: int = BATCH, frames: int = SERVE_FRAMES, seed: int = 0) -> dict:
@@ -3895,7 +3920,7 @@ def phase_serve_http(smi, root: Path):
     """`python -m scflow_tpu_torch.cli serve` as a subprocess on the card,
     from a config that _base_s the shipped scflow.py, the slice's seeded
     weights saved with save_params, --frame-hw 480 640 --max-objects 64
-    --max-frames 8 --port 0; `cli loadtest` (8 clients x 6 requests x 4
+    --max-frames 8 --port 0; `cli loadtest` (8 clients x 3 requests x 4
     objects) drives it (_serve_load's gates).  Gate: every answer equals
     PoseService.run of the same request (rotations 2e-5, translations
     2e-3), a run of 8 K1 and 1 K2.  Then the same load on a server with
@@ -4428,7 +4453,7 @@ def serve_phases(smi, root: Path) -> dict:
 
 # ---- parallel: data-parallel train, test and serve (phase 26) ----
 
-PAR_TIMED = 3  # the timed steps after the compared one
+PAR_TIMED = 2  # the timed steps after the compared one
 PAR_FLOOR = 3.0  # (b): allowed distance in units of the step's own rounding floor
 PAR_FLOOR_MAX = 1e-2  # (b): the floor's own bound, as a share of the gradients' norm
 PAR_A_SHARE = 0.05  # (a): the runs' weights apart, as a share of what their steps moved
@@ -4910,8 +4935,210 @@ def phase_parallel(smi, root: Path) -> dict:
     return launches
 
 
+# ---- learn: the learning check and the user tools (phase 27) ----
+
+LEARN_STEPS = 100  # phase 27's learning check in the full run (lookup 'pallas')
+# ADD/d after LEARN_STEPS steps must fall below init / LEARN_FACTOR: half the
+# smallest factor at step 100 of the learn group's full-length runs on the H100
+# (10.02 'pallas', 10.31 'xla'; phase 27's own run there 17.55; PERF.md §6)
+LEARN_FACTOR = 5.0
+# --phases learn: the tool's 2000 steps, evaluated every LEARN_STEPS (the tool:
+# every 200), so that its curves give the factor at phase 27's step count
+OVERFIT_STEPS, OVERFIT_EVERY = 2000, LEARN_STEPS
+OVERFIT_LAUNCHES = {"pallas": {"K1": 4, "K1b": 4, "K2": 1}, "xla": {"K2": 1}}  # per step
+OVERFIT_EVAL = {"K1": 4, "K2": 1}  # per evaluation (make_scflow_infer_fn, 4 iterations)
+# cli bf16-parity's scale under --phases learn: the tool's defaults
+PARITY = dict(num_images=125, num_class=8, ckpt_levels="1500,4500")
+PARITY_S = 3000  # its subprocess's bound
+SERVE_BENCH_ROUNDS = 20  # cli serve-bench's default
+
+
+def _overfit(route: str, steps: int, every: int) -> dict:
+    """overfit_check.run on the card (lookup `route`) with each step's
+    launches counted: every step exactly OVERFIT_LAUNCHES[route] (after an
+    evaluation, that evaluation's OVERFIT_EVAL too), nothing else; finite
+    losses.  Returns run's result and 'launches_per_step'."""
+    from scflow_tpu_torch.tools import overfit_check
+
+    kernels = kernel_counters()
+    per_step, wrong = OVERFIT_LAUNCHES[route], []
+
+    def on_step(i, logs):
+        got = {name: k.launches for name, k in kernels.items()}
+        for k in kernels.values():
+            k.launches = 0
+        want = dict(per_step)
+        if i and i % every == 0:  # the evaluation after the step before
+            want = {n: want.get(n, 0) + OVERFIT_EVAL.get(n, 0) for n in {*want, *OVERFIT_EVAL}}
+        if not only(got, **want):
+            wrong.append((i, got))
+
+    for k in kernels.values():
+        k.launches = 0
+    res = overfit_check.run(steps, every, route, device="cuda", on_step=on_step)
+    torch.cuda.synchronize()
+    last = {name: k.launches for name, k in kernels.items()}
+    require(not wrong, f"overfit ({route}): launches of step {wrong[:3]}, want {per_step}")
+    require(steps % every or only(last, **OVERFIT_EVAL),
+            f"overfit ({route}): the last evaluation launched {last}")
+    require(bool(np.isfinite(res["losses"]).all()), f"overfit ({route}): non-finite loss")
+    return {**res, "launches_per_step": per_step}
+
+
+def phase_learn(smi) -> dict:
+    """Phase 27 (the full run): LEARN_STEPS steps of the learning check on
+    lookup 'pallas', then one evaluation; ADD/d must fall by LEARN_FACTOR."""
+    res = _overfit("pallas", LEARN_STEPS, LEARN_STEPS)
+    add = res["curve"][-1]["add"]
+    require(add * LEARN_FACTOR < res["init"],
+            f"learn: ADD/d {res['init']:.4f} -> {add:.4f} after {LEARN_STEPS} steps, "
+            f"want a factor {LEARN_FACTOR}")
+    emit({"phase": "learn", "route": "pallas", "steps": LEARN_STEPS, "init_add": res["init"],
+          "add": add, "factor": res["init"] / add, "required_factor": LEARN_FACTOR,
+          "loss_first": res["losses"][0], "loss_last": res["losses"][-1],
+          "first_step_s": res["first_step_s"], "ms_per_step": res["ms_per_step"],
+          "launches_per_step": res["launches_per_step"], "eval_launches": OVERFIT_EVAL,
+          "card": smi})
+    return {"overfit_step": res["launches_per_step"], "overfit_eval": OVERFIT_EVAL}
+
+
+def _learn_config(work: Path, repo: Path) -> Path:
+    """A config that _base_s the shipped configs/refine_models/scflow.py and
+    moves only its paths: the renderer's and the pose loss's meshes (the
+    slice's 21 uvsphere classes, written here) and the work_dir."""
+    from scflow_tpu_torch.render.meshbank import make_synthetic_bank
+
+    bank = make_synthetic_bank(NCLASS, kind="uvsphere", size=80.0)
+    for sub in ("models_1024", "models_eval"):
+        (work / sub).mkdir(parents=True)
+        for c in range(NCLASS):
+            _write_ply(work / sub / f"obj_{c + 1:06d}.ply", bank.verts[c][bank.vert_valid[c]],
+                       bank.faces[c][bank.face_valid[c]], bank.colors[c][bank.vert_valid[c]])
+    path = work / "learn_scflow.py"
+    path.write_text(f'''_base_ = {str(repo / "configs" / "refine_models" / "scflow.py")!r}
+model = dict(renderer=dict(mesh_dir={str(work / "models_1024")!r}),
+             pose_loss_cfg=dict(loss_func_cfg=dict(mesh_path={str(work / "models_eval")!r})))
+work_dir = {str(work / "work")!r}
+''')
+    return path
+
+
+def _learn_cli(root: Path, args, log: Path, timeout: float):
+    """`python -m scflow_tpu_torch.cli ARGS` from the checkout, its output to
+    `log`: (exit code, seconds, the output's lines)."""
+    t0 = time.perf_counter()
+    with open(log, "w") as f:
+        rc = subprocess.run([sys.executable, "-m", "scflow_tpu_torch.cli", *args], cwd=root,
+                            env=_job_env(root), stdout=f, stderr=subprocess.STDOUT,
+                            timeout=timeout).returncode
+    return rc, time.perf_counter() - t0, log.read_text().splitlines()
+
+
+def _learn_overfit(smi, work: Path) -> None:
+    """The tool's full run on both lookup routes; the 'pallas' run's
+    weights saved (save_params) as the port's first trained checkpoint."""
+    from scflow_tpu_torch.runtime.checkpoint import read_checkpoint, save_params
+
+    for route in ("xla", "pallas"):
+        res = _overfit(route, OVERFIT_STEPS, OVERFIT_EVERY)
+        final = res["curve"][-1]["add"]
+        at = [p["add"] for p in res["curve"] if p["step"] == LEARN_STEPS]
+        line = {"phase": f"learn_overfit_{route}", "steps": OVERFIT_STEPS,
+                "init_add": res["init"], "curve": res["curve"], "final_add": final,
+                f"factor_at_{LEARN_STEPS}": res["init"] / at[0] if at else None,
+                "below_0.01": final < 0.01, "first_step_s": res["first_step_s"],
+                "ms_per_step": res["ms_per_step"],
+                "launches_per_step": res["launches_per_step"], "eval_launches": OVERFIT_EVAL,
+                "card": smi}
+        if route == "pallas":
+            ckpt = work / "overfit_pallas.pth"
+            save_params(str(ckpt), res["model"], {"iter": OVERFIT_STEPS, "tool": "overfit"})
+            line.update(checkpoint=str(ckpt), checkpoint_keys=len(
+                read_checkpoint(str(ckpt))["state_dict"]), checkpoint_mb=ckpt.stat().st_size / 1e6)
+        emit(line)
+        require(final < res["init"], f"overfit ({route}): ADD/d {res['init']:.4f} -> {final:.4f}")
+
+
+def _learn_parity(smi, root: Path, work: Path) -> None:
+    """`cli bf16-parity` at PARITY's scale in its own process: its exit
+    code is the part's (PROTOCOL FAIL exits 1)."""
+    out = work / "parity"
+    args = ["bf16-parity", "--root", str(out), "--num-images", str(PARITY["num_images"]),
+            "--num-class", str(PARITY["num_class"]), "--ckpt-levels", PARITY["ckpt_levels"]]
+    rc, seconds, lines = _learn_cli(root, args, work / "parity.log", PARITY_S)
+    report = json.loads((out / "report.json").read_text()) if (out / "report.json").exists() else {}
+    its = _its_per_s(_log_lines(out / "work")[1]) if any((out / "work").glob("*.log")) else []
+    ckpts = {level: {k: entry[k] for k in ("passed", "max_table_delta", "worst_entry",
+                                            "table_entries", "threshold_crossings", "poses",
+                                            "divergence", "resolution_per_class_entry",
+                                            "fp32_table", "bf16_table")}
+             for level, entry in report.get("checkpoints", {}).items()}
+    emit({"phase": "learn_bf16_parity", "rc": rc, "seconds": seconds, **PARITY,
+          "tolerance": report.get("tolerance"), "passed": report.get("passed"),
+          "checkpoints": ckpts, "train_its_per_s": its,
+          "train_s_per_step": 1.0 / statistics.median(its[1:] or its) if its else None,
+          "lines": [ln for ln in lines if ln.startswith(("[ckpt", "PROTOCOL"))], "card": smi})
+    require(rc == 0, f"bf16-parity exited {rc}: {lines[-3:]}")
+
+
+def _learn_serve_bench(smi) -> None:
+    """`cli serve-bench` (its defaults: 64 objects from 4 640x480 frames,
+    256^2, 8 iterations, 21 classes) in fp32 and bf16, in this process:
+    8 K1 (K1_bf16) and 1 K2 per call, over the warm call and the rounds."""
+    from scflow_tpu_torch import cli
+
+    for dtype, k1 in (("fp32", "K1"), ("bf16", "K1_bf16")):
+        res, counts = counted(lambda: cli.COMMANDS["serve-bench"](["--dtype", dtype]))
+        calls = SERVE_BENCH_ROUNDS + 1
+        emit({"phase": f"learn_serve_bench_{dtype}", **res, "calls": calls,
+              "launches_per_call": {k: v / calls for k, v in counts.items() if v},
+              "card": smi})
+        require(only(counts, **{k1: ITERS * calls, "K2": calls}),
+                f"serve-bench {dtype}: launches {counts} over {calls} calls")
+
+
+def _learn_warmup(smi, root: Path, work: Path) -> None:
+    """`cli warmup` on _learn_config's config in a fresh process: each
+    first call's seconds."""
+    cfg = _learn_config(work / "warmup", root)
+    rc, seconds, lines = _learn_cli(root, ["warmup", str(cfg)], work / "warmup.log", 900)
+    times = [ln for ln in lines if re.match(r"(kernels built|backend=|infer bucket|serving fn|"
+                                            r"train step|cache warm)", ln)]
+    emit({"phase": "learn_warmup", "rc": rc, "seconds": seconds, "lines": times, "card": smi})
+    require(rc == 0 and lines and lines[-1] == "cache warm", f"warmup exited {rc}: {lines[-3:]}")
+
+
+def phase_learn_tools(smi, root: Path) -> None:
+    """The learn group (--phases learn only, outside the full run): the
+    learning check at the tool's 2000 steps on both lookup routes, `cli
+    bf16-parity` at PARITY's scale, `cli serve-bench` in fp32 and bf16 and
+    `cli warmup`.  Every part runs; any failure fails the group.  Under
+    build/learn/: the trained checkpoint, kept; the rest removed."""
+    import shutil
+
+    work = root / "build" / "learn"
+    shutil.rmtree(work, ignore_errors=True)
+    work.mkdir(parents=True)
+    t0 = time.perf_counter()
+    failed = []
+    for name, fn in (("overfit", lambda: _learn_overfit(smi, work)),
+                     ("serve-bench", lambda: _learn_serve_bench(smi)),
+                     ("warmup", lambda: _learn_warmup(smi, root, work)),
+                     ("bf16-parity", lambda: _learn_parity(smi, root, work))):
+        try:  # every part runs, so one call shows every failure; any fails the group
+            fn()
+        except Exception as e:  # noqa: BLE001
+            failed.append(f"({name}) {type(e).__name__}: {e}")
+            print(f"learn ({name}) failed: {e!r}", file=sys.stderr, flush=True)
+    for sub in ("parity", "warmup"):
+        shutil.rmtree(work / sub, ignore_errors=True)
+    require(not failed, f"learn: {failed}")
+    emit({"phase": "learn_tools", "seconds": time.perf_counter() - t0})
+
+
 PHASE_GROUPS = ("lookup", "raster", "slice", "raft", "options", "workflow",
-                "train_workflow", "train_pbr", "serve", "train_augment", "export", "parallel")
+                "train_workflow", "train_pbr", "serve", "train_augment", "export", "parallel",
+                "learn")
 
 
 def run_phase_groups(groups, dev, ptxas, smi, root: Path) -> None:
@@ -4946,6 +5173,8 @@ def run_phase_groups(groups, dev, ptxas, smi, root: Path) -> None:
             phase_export(smi, root)
         elif group == "parallel":
             phase_parallel(smi, root)
+        elif group == "learn":
+            phase_learn_tools(smi, root)
         else:
             phase_raft_small(smi)
             phase_scflow_options(smi, shipped)
@@ -5025,6 +5254,8 @@ def main() -> int:
     export_launches = phase_export(smi, args.root.resolve())
     # launches per rank step and per mesh shard (phase 26)
     parallel_launches = phase_parallel(smi, args.root.resolve())
+    # launches per step and per evaluation of the learning check (phase 27)
+    learn_launches = phase_learn(smi)
     src = "scflow_tpu_torch/csrc/"
     tpu = "scflow_tpu/ops/pallas/"
     table = [
@@ -5080,6 +5311,12 @@ def main() -> int:
         got = {run: n[key] for run, n in parallel_launches.items() if n.get(key)}
         return {"parallel_launches": got} if got else {}
 
+    def learn(key):
+        """The key's launches per step (overfit_step) and per evaluation
+        (overfit_eval) of phase 27's learning check."""
+        got = {run: n[key] for run, n in learn_launches.items() if n.get(key)}
+        return {"learn_launches": got} if got else {}
+
     def exported(key):
         """The key's launches per call of each loaded artifact (export,
         export_bf16, export_raft)."""
@@ -5090,7 +5327,8 @@ def main() -> int:
         {"name": f"{key} {fn}", "route": "cuda", "source": src + file, "replaces": tpu + where,
          "launches": launches[key], **({"raft_launches": raft_launches[key]}
                                        if key in raft_launches else {}), **res[key],
-         **radius_3(key), **workflow(key), **serving(key), **exported(key), **parallel(key)}
+         **radius_3(key), **workflow(key), **serving(key), **exported(key), **parallel(key),
+         **learn(key)}
         for key, fn, file, where in table], "card": smi})
     emit({"ok": True, "device": {"platform": "gpu", "kind": name,
                                  "count": torch.cuda.device_count()}})

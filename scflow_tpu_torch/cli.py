@@ -17,10 +17,22 @@
     python -m scflow_tpu_torch.cli export CONFIG [--checkpoint CKPT]
         --out FILE.scflowx [--batch-size N] [--platforms cuda cpu]
         [--cfg-options k=v ...]
+    python -m scflow_tpu_torch.cli overfit [--steps 2000] [--every 200]
+        [--lookup-backend xla|pallas] [--save W.pth] [--device cpu]
+    python -m scflow_tpu_torch.cli bf16-parity [--root DIR] [--num-images N]
+        [--num-class C] [--sym-classes 2,5,8] [--ckpt-levels 1500,4500]
+        [--tolerance 1e-3] [--skip-train] [--device cpu]
+    python -m scflow_tpu_torch.cli serve-bench [--batch 64] [--img 256]
+        [--frame-hw 480 640] [--frames 4] [--iters 8] [--nclass 21]
+        [--dtype fp32|bf16] [--render-backend B] [--rounds 20] [--device cpu]
+    python -m scflow_tpu_torch.cli warmup CONFIG [--what train,infer,serve]
+        [--frame-hw H W] [--max-objects N] [--cfg-options k=v ...] [--device cpu]
 
 (tools/train.py, tools/test.py, tools/serve.py, tools/serve_loadtest.py and
 tools/export_model.py, whose bodies are scflow_tpu/cli.py's train_main,
-test_main, serve_main, the load-test client and export_main).
+test_main, serve_main, the load-test client and export_main; the last four
+are tools/overfit_check.py, bf16_parity.py, serve_bench.py and
+warmup_cache.py, ported in scflow_tpu_torch/tools/).
 
 A launcher other than 'none' (or SCFLOW_DIST=1) runs train and test over
 the ranks of a job, e.g. with torchrun:
@@ -32,9 +44,11 @@ the ranks of a job, e.g. with torchrun:
 when ranks share a card).  Rank 0 writes every file."""
 
 import argparse
+import importlib
 import json
 import logging
 import os
+import random
 import sys
 import time
 
@@ -87,6 +101,16 @@ def parse_train_args(argv=None):
     return args
 
 
+def seed_pipeline_rngs(seed: int, rank: int) -> None:
+    """Seed Python's `random` and numpy's global RNG, which the data
+    pipeline's thread workers draw from, with seed + rank: each rank of a
+    job draws its own augmentation stream (the reference's workers are
+    seeded per rank; process workers seed themselves, datasets/loader.py),
+    and rank 0, like a single process, draws what --seed alone gives."""
+    random.seed(seed + rank)
+    np.random.seed(seed + rank)
+
+
 def train_main(argv=None, extra_hooks=()):
     """Train the config's refiner on data.train (scflow_tpu/cli.py::
     train_main on one card): seeded initial weights, then init_cfg's
@@ -99,8 +123,8 @@ def train_main(argv=None, extra_hooks=()):
     caller's instrumentation: they see each step first); --resume /
     --resume-from restore the weights, optimizer state and step from
     work_dir/checkpoints.  Python's `random` and numpy's global RNG, which
-    the pipeline draws from, are seeded with --seed first.  Returns the
-    IterRunner after its run.
+    the pipeline draws from, are seeded first (seed_pipeline_rngs: --seed
+    plus the rank).  Returns the IterRunner after its run.
 
     With a launcher (parallel/dist.py) every rank trains on its device: the
     global batch is data.samples_per_gpu x ranks, each rank loads its shard
@@ -113,8 +137,6 @@ def train_main(argv=None, extra_hooks=()):
     on one of them at samples_per_gpu, where JAX's meshes every chip, and
     warns so."""
     args = parse_train_args(argv)
-    import random
-
     import torch
 
     from scflow_tpu_torch.apis import (build_eval_fn, build_loss_assets, build_render_assets,
@@ -134,8 +156,7 @@ def train_main(argv=None, extra_hooks=()):
 
     dev = maybe_initialize_distributed(args.launcher, args.device)
     rank, world = rank_world()
-    random.seed(args.seed)
-    np.random.seed(args.seed)
+    seed_pipeline_rngs(args.seed, rank)
     cfg = Config.fromfile(args.config)
     if args.cfg_options:
         cfg.merge_from_dict(Config.parse_options(args.cfg_options))
@@ -627,8 +648,20 @@ def export_main(argv=None):
     return meta
 
 
+def _tool(module: str):
+    """The main of scflow_tpu_torch/tools/<module>.py, imported at the call
+    (this module imports no torch: spawned loader workers re-import it)."""
+
+    def main(argv=None):
+        return importlib.import_module(f"scflow_tpu_torch.tools.{module}").main(argv)
+
+    return main
+
+
 COMMANDS = {"train": train_main, "test": test_main, "serve": serve_main,
-            "loadtest": loadtest_main, "export": export_main}
+            "loadtest": loadtest_main, "export": export_main, "overfit": _tool("overfit_check"),
+            "bf16-parity": _tool("bf16_parity"), "serve-bench": _tool("serve_bench"),
+            "warmup": _tool("warmup_cache")}
 
 
 def main(argv=None) -> None:

@@ -4,7 +4,8 @@ imread and imwrite, cv2's INTER_LINEAR resize on uint8 images (imresize,
 imrescale), the crop and pad helpers, and for the colour transforms cv2's
 uint8 BGR<->HSV and BGR<->grey conversions (bgr2hsv, hsv2bgr, bgr2gray,
 gray2bgr), box filter (blur), min-max normalize (normalize_minmax) and
-affine warp (warp_affine, get_rotation_matrix_2d).
+affine warp (warp_affine, get_rotation_matrix_2d), and its filled circle
+(fill_circle).
 The port's copy of scflow_tpu/datasets/pipelines/imops.py, whose resize and
 reads are cv2's.
 
@@ -221,6 +222,34 @@ def imwrite(path: str, img: np.ndarray) -> None:
         data = png_encode(img)
     with open(path, "wb") as f:
         f.write(data)
+
+
+def fill_circle(img: np.ndarray, center, radius: int, value) -> np.ndarray:
+    """cv2.circle(img, center, radius, value, thickness=-1) in place, for
+    integer center and radius (cv2's 8-connected midpoint circle: each step
+    fills the rows cy +- dy over [cx - dx, cx + dx] and cy +- dx over
+    [cx - dy, cx + dy], clipped to the image).  Returns img."""
+    h, w = img.shape[:2]
+    cx, cy = int(center[0]), int(center[1])
+    err, dx, dy, plus, minus = 0, int(radius), 0, 1, 2 * int(radius) - 1
+
+    def hline(y, x1, x2):
+        if 0 <= y < h and x1 < w and x2 >= 0:
+            img[y, max(x1, 0):min(x2, w - 1) + 1] = value
+
+    while dx >= dy:
+        for y in (cy - dy, cy + dy):
+            hline(y, cx - dx, cx + dx)
+        for y in (cy - dx, cy + dx):
+            hline(y, cx - dy, cx + dy)
+        dy += 1
+        err += plus
+        plus += 2
+        mask = -1 if err > 0 else 0  # (err <= 0) - 1
+        err -= minus & mask
+        dx += mask
+        minus -= mask & 2
+    return img
 
 
 def imcrop_pad(img: np.ndarray, bbox, pad_val=0) -> np.ndarray:

@@ -1115,3 +1115,30 @@ def test_op_launch_count_is_exact_across_threads(cuda):
     torch.cuda.synchronize()
     assert not any(t.is_alive() for t in threads)
     assert k1.KERNEL.launches == before + 400
+
+
+@pytest.mark.cuda
+def test_overfit_check_launches_per_step(cuda):
+    """The learning check (tools/overfit_check.py) on lookup 'pallas' at the
+    tool's shapes (8 x 128^2, 4 iterations), 3 steps then one evaluation:
+    every step launches exactly 1 K2, 4 K1 and 4 K1b, the evaluation 1 K2
+    and 4 K1; finite losses."""
+    from scflow_tpu_torch.tools import overfit_check
+
+    per_step = []
+
+    def on_step(i, logs):
+        per_step.append(_all_launches())
+
+    start = _all_launches()
+    res = overfit_check.run(steps=3, every=3, lookup_backend="pallas", device=cuda,
+                            on_step=on_step, log=lambda line: None)
+    torch.cuda.synchronize()
+    end = _all_launches()
+    # _all_launches' order: K1, K7, K8, K1b, the four bf16 instances, K2-K6
+    step = (4, 0, 0, 4, 0, 0, 0, 0, 1, 0, 0, 0, 0)
+    counts = [tuple(b - a for a, b in zip(x, y)) for x, y in zip([start] + per_step, per_step)]
+    assert counts == [step] * 3
+    assert tuple(b - a for a, b in zip(per_step[-1], end)) == (4, 0, 0, 0, 0, 0, 0, 0, 1, 0, 0,
+                                                               0, 0)
+    assert np.isfinite(res["losses"]).all() and len(res["curve"]) == 1
