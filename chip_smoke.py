@@ -10,8 +10,9 @@ parent commit), without the kernels line: lookup (phases 3, 10 and 11),
 raster (4-7), slice (8), raft (14), options (16 and 17; with slice
 before it, 17 prints its pose difference from the slice's call), workflow
 (18), train_workflow (19), train_pbr (20), serve (21-23), train_augment
-(24), export (25), parallel (26) and learn (the user tools, run only
-there: see phase 27).
+(24), export (25), parallel (26), learn (the learning check's tools, run
+only there: see phase 27) and tools (28, plus each user tool in a fresh
+process, only there).
 
 Phases, each printing one JSON line; any failure exits non-zero before the
 last line:
@@ -405,6 +406,31 @@ last line:
                PROTOCOL FAIL) is the group's, with its report, crossings,
                divergence and the train's seconds per step.  Every part
                runs; any failure fails the group;
+ 28. tools   - the user tools in this process, on phase 18's synthetic
+               YCB-V layout written under build/tools/ (removed afterwards:
+               TOOLS_IMAGES test images of 3 objects, TOOLS_SAMPLES
+               train_real frames) from a config that _base_s the shipped
+               scflow.py with only its paths moved, and the slice's seeded
+               weights saved with save_params: `cli keypoints` in each mode
+               on the 21 meshes (21 x 8 x 3, finite; 'bbox' the set's own
+               box corners within 1e-3); `cli browse` on TOOLS_SAMPLES
+               samples with and without --skip-types PoseJitter (every
+               file decodes at 256 x 256 x 3); `cli visualize` on
+               TOOLS_IMAGES images, every count read and set to 0 as each
+               image's batch is padded: exactly 1 K2 and 8 K1 per image
+               (the infer call; the 'xla' silhouette render launches none),
+               none before the first, finite poses, one panel per object
+               decoding at 256 x 512 x 3; `cli mmflow-convert --strict
+               --save-torch` on a seeded RAFT of the shipped raft.py saved
+               in mmflow's layout: its --out loads into that model with
+               every tensor equal, the duplicated file has real_encoder.*
+               keys, and --strict on the file without one key raises
+               naming it; seconds of each (visualize per image: load,
+               infer, render, draw).
+     The tools group (--phases tools, not in the full run): phase 28, then
+               each of the four commands once as `python -m
+               scflow_tpu_torch.cli ...` in a fresh process on the card
+               (exit code 0, its outputs), with each process's seconds;
  15. the kernels line (float32 and bf16 instances; "raft_launches": each
      kernel's launches per RAFT call or step; "radius_3": the radius-3
      instance's numbers from phases 3/10/11 and its launches per call or
@@ -416,8 +442,8 @@ last line:
      "export_launches": per call of each loaded artifact; "parallel_launches":
      per step of each rank of phase 26 (b) and per shard of its mesh
      service (d); "learn_launches": per step and per evaluation of phase
-     27's learning check), then the device
-     line the chip harness reads.
+     27's learning check; "tools_launches": per image of phase 28's cli
+     visualize), then the device line the chip harness reads.
 Imports no JAX.  Needs one card; without one it exits non-zero at once.
 """
 
@@ -5136,9 +5162,241 @@ def phase_learn_tools(smi, root: Path) -> None:
     emit({"phase": "learn_tools", "seconds": time.perf_counter() - t0})
 
 
+# ---- tools: the user tools (cli keypoints, browse, visualize, mmflow-convert) ----
+
+TOOLS_IMAGES, TOOLS_SAMPLES = 2, 2  # cli visualize's test images; cli browse's samples
+TOOLS_VIS_LAUNCHES = {"K1": ITERS, "K2": 1}  # per visualized image: the SCFlow infer call
+TOOLS_FRESH_S = 600  # each fresh process's bound (--phases tools)
+
+
+def _tools_config(work: Path, repo: Path) -> Path:
+    """A config that _base_s the shipped configs/refine_models/scflow.py and
+    moves only its paths: data.train onto the synthetic train_real split
+    (the shipped train pipeline, its PoseJitter included), data.test onto
+    the synthetic test set, the renderer's meshes and the work_dir."""
+    ycbv = repo / "configs" / "refine_datasets" / "ycbv_real.py"
+    path = work / "tools_scflow.py"
+    path.write_text(f'''_base_ = {str(repo / "configs" / "refine_models" / "scflow.py")!r}
+_root = {str(work / "ycbv")!r}
+_dataset = load_cfg_vars({str(ycbv)!r})
+_meshes = _root + "/models_eval"
+data = dict(
+    train=dict(
+        data_root=_root + "/train_real", gt_annots_root=_root + "/train_real",
+        image_list=_root + "/image_lists/train_real.txt",
+        keypoints_json=_root + "/keypoints/bbox.json", meshes_eval=_meshes,
+        pipeline=[dict(t, mesh_dir=_meshes) if "mesh_dir" in t else t
+                  for t in _dataset["train_pipeline"]]),
+    test=dict(
+        data_root=_root + "/test", ref_annots_root=_root + "/initial_poses",
+        image_list=_root + "/image_lists/test.txt",
+        keypoints_json=_root + "/keypoints/bbox.json", meshes_eval=_meshes,
+        pipeline=[dict(t, mesh_dir=_meshes) if "mesh_dir" in t else t
+                  for t in _dataset["test_pipeline"]]))
+model = dict(renderer=dict(mesh_dir=_root + "/models_1024"))
+work_dir = _root + "/work"
+del _dataset
+''')
+    return path
+
+
+def _mmflow_source(raft_cfg: Path, path: Path):
+    """A RAFT model of the shipped raft.py with PyTorch's initialisation
+    from seed 7, and its state dict in mmflow's layout ('encoder.*',
+    'cxt_encoder.*', the decoder's keys as they are) saved to `path`."""
+    from scflow_tpu_torch.config import Config
+    from scflow_tpu_torch.refiners.build import build_refiner_from_config
+
+    with torch.random.fork_rng(devices=[]):
+        torch.manual_seed(7)
+        source = build_refiner_from_config(Config.fromfile(str(raft_cfg)).model)
+    mmflow = {}
+    for k, v in source.state_dict().items():
+        if k.startswith("render_encoder."):
+            k = "encoder." + k[len("render_encoder."):]
+        elif k.startswith("context."):
+            k = "cxt_encoder." + k[len("context."):]
+        mmflow[k] = v
+    torch.save({"state_dict": mmflow}, str(path))
+    return source, mmflow
+
+
+def _tools_visualize(cli, args):
+    """`cli visualize ARGS` with each image's launches: every count is read
+    and set to 0 as each image's batch is padded (eval_loop.pad_batch),
+    so the counts cover one image's infer call, silhouette render and
+    drawing.  Returns (its result, [counts per image], counts before the
+    first image)."""
+    from scflow_tpu_torch.runtime import eval_loop
+
+    kernels = kernel_counters()
+    reads, pad = [], eval_loop.pad_batch
+
+    def read():
+        torch.cuda.synchronize()
+        reads.append({name: k.launches for name, k in kernels.items()})
+        for k in kernels.values():
+            k.launches = 0
+
+    def probe(batch, size):
+        read()
+        return pad(batch, size)
+
+    for k in kernels.values():
+        k.launches = 0
+    eval_loop.pad_batch = probe
+    try:
+        res = cli.COMMANDS["visualize"](args)
+    finally:
+        eval_loop.pad_batch = pad
+    read()
+    return res, reads[1:], reads[0]
+
+
+def _tools_run(smi, root: Path, work: Path) -> dict:
+    """Phase 28 in this process on the workflow phase's synthetic set (see
+    the docstring); emits its line and returns each image's launches."""
+    from scflow_tpu_torch import cli
+    from scflow_tpu_torch.config import Config
+    from scflow_tpu_torch.datasets.pipelines.imops import imread
+    from scflow_tpu_torch.refiners.build import build_refiner_from_config
+    from scflow_tpu_torch.runtime.checkpoint import load_params, save_params
+
+    t_phase = t0 = time.perf_counter()
+    ycbv = work / "ycbv"
+    info = _workflow_scene(ycbv, torch.device("cuda", 0), images=TOOLS_IMAGES)
+    _workflow_scene(ycbv, torch.device("cuda", 0), images=TOOLS_SAMPLES, seed=1,
+                    split="train_real")
+    cfg_path = _tools_config(work, root)
+    model = build_refiner_from_config(Config.fromfile(str(cfg_path)).model)
+    model.load_state_dict(seeded_model().state_dict())
+    save_params(str(work / "scflow.pth"), model)
+    line = {"phase": "tools", "setup_s": time.perf_counter() - t0}
+
+    kp_s = {}
+    for mode in ("bbox", "obb", "fps"):
+        t0 = time.perf_counter()
+        kps = cli.COMMANDS["keypoints"]([str(ycbv / "models_eval"), "--out",
+                                         str(work / f"kp_{mode}.json"), "--mode", mode])
+        kp_s[mode] = time.perf_counter() - t0
+        require(np.shape(kps) == (NCLASS, 8, 3) and np.isfinite(kps).all(),
+                f"keypoints {mode}: shape {np.shape(kps)}")
+        if mode == "bbox":  # the set's own box corners (written from the meshes' float32)
+            want = json.loads((ycbv / "keypoints" / "bbox.json").read_text())
+            require(np.allclose(kps, want, atol=1e-3), "keypoints bbox: the set's box corners")
+    line["keypoints_s"] = kp_s
+
+    for tag, extra in (("browse", []), ("browse_skip_pose_jitter", ["--skip-types", "PoseJitter"])):
+        t0 = time.perf_counter()
+        paths = cli.COMMANDS["browse"]([str(cfg_path), "--num", str(TOOLS_SAMPLES), "--out-dir",
+                                        str(work / tag)] + extra)
+        line[f"{tag}_ms_per_sample"] = 1e3 * (time.perf_counter() - t0) / TOOLS_SAMPLES
+        line[f"{tag}_files"] = len(paths)
+        require(len(paths) >= TOOLS_SAMPLES and all(imread(p).shape == (IMG, IMG, 3)
+                                                    for p in paths), f"{tag}: {paths}")
+
+    res, per_image, before = _tools_visualize(
+        cli, [str(cfg_path), "--checkpoint", str(work / "scflow.pth"), "--num",
+              str(TOOLS_IMAGES), "--out-dir", str(work / "vis")])
+    objects = sum(len(labels) for labels, _, _ in info["gt"][:TOOLS_IMAGES])
+    require(only(before), f"visualize: launches before the first image {before}")
+    require(len(per_image) == TOOLS_IMAGES and all(only(c, **TOOLS_VIS_LAUNCHES)
+                                                   for c in per_image),
+            f"visualize: launches per image {per_image}, want {TOOLS_VIS_LAUNCHES}")
+    require(all(np.isfinite(R).all() and np.isfinite(t).all() for R, t in res["poses"]),
+            "visualize: non-finite poses")
+    require(len(res["paths"]) == objects and all(
+        imread(p).shape == (IMG, 2 * IMG, 3) for p in res["paths"]),
+        f"visualize: {len(res['paths'])} panels for {objects} objects")
+    line.update(visualize_images=res["images"], visualize_panels=len(res["paths"]),
+                visualize_s_per_image={k: v / res["images"] for k, v in res["seconds"].items()},
+                visualize_launches_per_image=per_image)
+
+    raft_cfg = root / "configs" / "refine_models" / "raft.py"
+    source, mmflow = _mmflow_source(raft_cfg, work / "mmflow_raft.pth")
+    t0 = time.perf_counter()
+    keys = cli.COMMANDS["mmflow-convert"]([str(work / "mmflow_raft.pth"), "--config",
+                                           str(raft_cfg), "--out", str(work / "raft_params.pth"),
+                                           "--save-torch", str(work / "raft_dup.pth"),
+                                           "--strict"])
+    line["mmflow_convert_s"] = time.perf_counter() - t0
+    loaded = build_refiner_from_config(Config.fromfile(str(raft_cfg)).model)
+    load_params(str(work / "raft_params.pth"), loaded)
+    require(not keys["missing"] and all(torch.equal(loaded.state_dict()[k], v)
+                                        for k, v in source.state_dict().items()),
+            f"mmflow-convert: the params differ from the source's ({keys['missing'][:3]})")
+    dup = torch.load(str(work / "raft_dup.pth"), map_location="cpu",
+                     weights_only=True)["state_dict"]
+    require({k for k in dup if k.startswith("real_encoder.")} and
+            len(dup) == len(mmflow) + sum(k.startswith("encoder.") for k in mmflow),
+            "mmflow-convert: the duplicated keys")
+    del mmflow["cxt_encoder.res_layer2.0.conv1.weight"]
+    torch.save({"state_dict": mmflow}, str(work / "mmflow_bad.pth"))
+    try:
+        cli.COMMANDS["mmflow-convert"]([str(work / "mmflow_bad.pth"), "--config", str(raft_cfg),
+                                        "--out", str(work / "bad.pth"), "--strict"])
+        named = False
+    except ValueError as e:
+        named = "cxt_encoder.res_layer2.0.conv1.weight" in str(e)
+    require(named, "mmflow-convert --strict: the removed key is not named")
+    emit({**line, "seconds": time.perf_counter() - t_phase, "card": smi})
+    return {"visualize": per_image[0]}
+
+
+def _tools_fresh(smi, root: Path, work: Path) -> None:
+    """Each of the four commands once as `python -m scflow_tpu_torch.cli`
+    in a fresh process on the card, on phase 28's files: exit code 0 and
+    its outputs, with the process's seconds."""
+    from scflow_tpu_torch.datasets.pipelines.imops import imread
+
+    cfg, raft_cfg = work / "tools_scflow.py", root / "configs" / "refine_models" / "raft.py"
+    runs = {
+        "keypoints": ["keypoints", str(work / "ycbv" / "models_eval"), "--out",
+                      str(work / "fresh_kp.json"), "--mode", "fps"],
+        "browse": ["browse", str(cfg), "--num", str(TOOLS_SAMPLES), "--out-dir",
+                   str(work / "fresh_browse"), "--skip-types", "PoseJitter"],
+        "visualize": ["visualize", str(cfg), "--checkpoint", str(work / "scflow.pth"), "--num",
+                      str(TOOLS_IMAGES), "--out-dir", str(work / "fresh_vis")],
+        "mmflow-convert": ["mmflow-convert", str(work / "mmflow_raft.pth"), "--config",
+                           str(raft_cfg), "--out", str(work / "fresh_params.pth"), "--strict"]}
+    line, failed = {"phase": "tools_fresh"}, []
+    for name, args in runs.items():
+        rc, seconds, lines = _learn_cli(root, args, work / f"fresh_{name}.log", TOOLS_FRESH_S)
+        line[name] = {"rc": rc, "seconds": seconds, "last_line": lines[-1] if lines else ""}
+        pngs = [ln for ln in lines if ln.endswith(".png")]
+        ok = rc == 0 and {
+            "keypoints": lambda: len(json.loads((work / "fresh_kp.json").read_text())) == NCLASS,
+            "browse": lambda: bool(pngs) and all(imread(p).shape == (IMG, IMG, 3) for p in pngs),
+            "visualize": lambda: bool(pngs) and all(imread(p).shape == (IMG, 2 * IMG, 3)
+                                                    for p in pngs),
+            "mmflow-convert": lambda: (work / "fresh_params.pth").exists()}[name]()
+        if not ok:
+            failed.append(f"{name}: rc {rc}, {lines[-3:]}")
+    emit({**line, "card": smi})
+    require(not failed, f"tools_fresh: {failed}")
+
+
+def phase_tools(smi, root: Path, fresh: bool = False) -> dict:
+    """Phase 28 (the full run; with fresh=True, the tools group: then also
+    each command in a fresh process) under build/tools/, removed
+    afterwards."""
+    import shutil
+
+    work = root / "build" / "tools"
+    shutil.rmtree(work, ignore_errors=True)
+    work.mkdir(parents=True)
+    try:
+        launches = _tools_run(smi, root, work)
+        if fresh:
+            _tools_fresh(smi, root, work)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    return launches
+
+
 PHASE_GROUPS = ("lookup", "raster", "slice", "raft", "options", "workflow",
                 "train_workflow", "train_pbr", "serve", "train_augment", "export", "parallel",
-                "learn")
+                "learn", "tools")
 
 
 def run_phase_groups(groups, dev, ptxas, smi, root: Path) -> None:
@@ -5175,6 +5433,8 @@ def run_phase_groups(groups, dev, ptxas, smi, root: Path) -> None:
             phase_parallel(smi, root)
         elif group == "learn":
             phase_learn_tools(smi, root)
+        elif group == "tools":
+            phase_tools(smi, root, fresh=True)
         else:
             phase_raft_small(smi)
             phase_scflow_options(smi, shipped)
@@ -5256,6 +5516,8 @@ def main() -> int:
     parallel_launches = phase_parallel(smi, args.root.resolve())
     # launches per step and per evaluation of the learning check (phase 27)
     learn_launches = phase_learn(smi)
+    # launches per visualized image of the user tools (phase 28)
+    tools_launches = phase_tools(smi, args.root.resolve())
     src = "scflow_tpu_torch/csrc/"
     tpu = "scflow_tpu/ops/pallas/"
     table = [
@@ -5317,6 +5579,11 @@ def main() -> int:
         got = {run: n[key] for run, n in learn_launches.items() if n.get(key)}
         return {"learn_launches": got} if got else {}
 
+    def tools(key):
+        """The key's launches per image of phase 28's cli visualize."""
+        got = {run: n[key] for run, n in tools_launches.items() if n.get(key)}
+        return {"tools_launches": got} if got else {}
+
     def exported(key):
         """The key's launches per call of each loaded artifact (export,
         export_bf16, export_raft)."""
@@ -5328,7 +5595,7 @@ def main() -> int:
          "launches": launches[key], **({"raft_launches": raft_launches[key]}
                                        if key in raft_launches else {}), **res[key],
          **radius_3(key), **workflow(key), **serving(key), **exported(key), **parallel(key),
-         **learn(key)}
+         **learn(key), **tools(key)}
         for key, fn, file, where in table], "card": smi})
     emit({"ok": True, "device": {"platform": "gpu", "kind": name,
                                  "count": torch.cuda.device_count()}})

@@ -27,12 +27,21 @@
         [--dtype fp32|bf16] [--render-backend B] [--rounds 20] [--device cpu]
     python -m scflow_tpu_torch.cli warmup CONFIG [--what train,infer,serve]
         [--frame-hw H W] [--max-objects N] [--cfg-options k=v ...] [--device cpu]
+    python -m scflow_tpu_torch.cli keypoints MESH_DIR --out FILE.json
+        [--mode bbox|obb|fps] [--num 8] [--device cpu]
+    python -m scflow_tpu_torch.cli browse CONFIG [--split train|val|test]
+        [--num 8] [--out-dir D] [--skip-types T ...] [--device cpu]
+    python -m scflow_tpu_torch.cli visualize CONFIG --checkpoint CKPT.pth
+        [--num 6] [--out-dir D] [--device cpu]
+    python -m scflow_tpu_torch.cli mmflow-convert MMFLOW.pth --config CONFIG
+        --out PARAMS.pth [--save-torch DUP.pth] [--strict] [--device cpu]
 
 (tools/train.py, tools/test.py, tools/serve.py, tools/serve_loadtest.py and
 tools/export_model.py, whose bodies are scflow_tpu/cli.py's train_main,
-test_main, serve_main, the load-test client and export_main; the last four
-are tools/overfit_check.py, bf16_parity.py, serve_bench.py and
-warmup_cache.py, ported in scflow_tpu_torch/tools/).
+test_main, serve_main, the load-test client and export_main; the rest
+are tools/overfit_check.py, bf16_parity.py, serve_bench.py,
+warmup_cache.py, collect_3d_keypoints.py, browse_dataset.py, visualize.py
+and mmflow_ckpt_converter.py, ported in scflow_tpu_torch/tools/).
 
 A launcher other than 'none' (or SCFLOW_DIST=1) runs train and test over
 the ranks of a job, e.g. with torchrun:
@@ -661,7 +670,9 @@ def _tool(module: str):
 COMMANDS = {"train": train_main, "test": test_main, "serve": serve_main,
             "loadtest": loadtest_main, "export": export_main, "overfit": _tool("overfit_check"),
             "bf16-parity": _tool("bf16_parity"), "serve-bench": _tool("serve_bench"),
-            "warmup": _tool("warmup_cache")}
+            "warmup": _tool("warmup_cache"), "keypoints": _tool("collect_3d_keypoints"),
+            "browse": _tool("browse_dataset"), "visualize": _tool("visualize"),
+            "mmflow-convert": _tool("mmflow_ckpt_converter")}
 
 
 def main(argv=None) -> None:

@@ -9,13 +9,14 @@ from scflow_tpu_torch.datasets.pipelines.color import (RandomBackground, RandomG
                                                        RandomNoise, RandomOcclusion,
                                                        RandomOcclusionV2, RandomSharpness,
                                                        RandomSmooth)
-from scflow_tpu_torch.datasets.pipelines.formatting import Collect, Compose, Normalize, ToArray
+from scflow_tpu_torch.datasets.pipelines.formatting import (Collect, Compose, CopyFields,
+                                                            Normalize, ToArray)
 from scflow_tpu_torch.datasets.pipelines.geometry import (ComputeBbox, Crop, Pad,
                                                           ProjectKeypoints, RemapPose, Resize)
 from scflow_tpu_torch.datasets.pipelines.jitter import PoseJitter
 from scflow_tpu_torch.datasets.pipelines.loading import LoadImages, LoadMasks
 
-__all__ = ["Collect", "Compose", "Normalize", "ToArray", "ComputeBbox", "Crop", "Pad",
-           "ProjectKeypoints", "RemapPose", "Resize", "LoadImages", "LoadMasks", "PoseJitter",
-           "RandomHSV", "RandomNoise", "RandomSmooth", "RandomSharpness", "RandomGray",
-           "RandomBackground", "RandomOcclusion", "RandomOcclusionV2"]
+__all__ = ["Collect", "Compose", "CopyFields", "Normalize", "ToArray", "ComputeBbox", "Crop",
+           "Pad", "ProjectKeypoints", "RemapPose", "Resize", "LoadImages", "LoadMasks",
+           "PoseJitter", "RandomHSV", "RandomNoise", "RandomSmooth", "RandomSharpness",
+           "RandomGray", "RandomBackground", "RandomOcclusion", "RandomOcclusionV2"]

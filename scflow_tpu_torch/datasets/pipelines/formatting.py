@@ -43,6 +43,26 @@ class Compose:
         return f"Compose(\n{inner}\n)"
 
 
+@PIPELINES.register_module("CopyFields")
+class CopyFields:
+    """Copy result fields src[i] -> dst[i] (arrays copied).  Pipeline
+    surgery uses it (`cli browse --skip-types PoseJitter`): a skipped
+    jitter must still give the downstream transforms their `ref_*` pose
+    fields, so ref = gt."""
+
+    def __init__(self, src: Sequence[str], dst: Sequence[str]):
+        if len(src) != len(dst):
+            raise ValueError(f"CopyFields: {len(src)} source fields for {len(dst)} targets")
+        self.src = list(src)
+        self.dst = list(dst)
+
+    def __call__(self, results: Dict) -> Dict:
+        for s, d in zip(self.src, self.dst):
+            v = results[s]
+            results[d] = np.copy(v) if isinstance(v, np.ndarray) else v
+        return results
+
+
 @PIPELINES.register_module("ToArray")
 @PIPELINES.register_module("ToTensor")  # config-name compatibility
 class ToArray:

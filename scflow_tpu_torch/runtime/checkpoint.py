@@ -77,7 +77,8 @@ def check_state_dict(got: Dict[str, torch.Tensor], want: Dict[str, torch.Tensor]
                      ignore_suffixes=("num_batches_tracked",)) -> None:
     """Raise ValueError naming every key `got` lacks, every key it has that
     `want` lacks, and every shape that differs (the JAX package's manifest
-    check, runtime/manifest.py::verify_state_dict)."""
+    check, runtime/manifest.py::verify_state_dict, against the model's own
+    keys and shapes)."""
     def keys(sd):
         return {k for k in sd if not k.endswith(ignore_suffixes)}
 
@@ -199,15 +200,18 @@ def duplicate_mmflow_encoder(sd: Dict[str, torch.Tensor]) -> Dict[str, torch.Ten
     return out
 
 
-def load_pretrained(path: str, model: torch.nn.Module) -> Dict[str, list]:
+def load_pretrained(path: str, model: torch.nn.Module,
+                    sd: Optional[Dict[str, torch.Tensor]] = None) -> Dict[str, list]:
     """A config's init_cfg 'Pretrained' checkpoint into `model`, as the JAX
     package converts one with strict=False: a file without 'real_encoder.*'
     keys is read in mmflow's layout (duplicate_mmflow_encoder); each model
     key the file holds is loaded, a shape that differs raises ValueError,
     the model's other keys keep their values and the file's other keys
-    (mmflow's own decoder, say) are ignored.  Returns {'missing': model
-    keys not in the file, 'unexpected': file keys not in the model}."""
-    sd = read_checkpoint(path)["state_dict"]
+    (mmflow's own decoder, say) are ignored.  `sd` is the file's state dict
+    when the caller has read it already.  Returns {'missing': model keys
+    not in the file, 'unexpected': file keys not in the model}."""
+    if sd is None:
+        sd = read_checkpoint(path)["state_dict"]
     if not any(k.startswith(_REAL) for k in sd):
         sd = duplicate_mmflow_encoder(sd)
     want = model.state_dict()

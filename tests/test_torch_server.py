@@ -461,7 +461,8 @@ def test_serve_and_loadtest_arguments():
     assert (lt.url, lt.clients, lt.requests, lt.objects, lt.frame_hw, lt.num_class,
             lt.save_responses) == ("http://127.0.0.1:8080", 2, 50, 4, [480, 640], 21, "r.npz")
     assert set(cli.COMMANDS) == {"train", "test", "serve", "loadtest", "export", "overfit",
-                                 "bf16-parity", "serve-bench", "warmup"}
+                                 "bf16-parity", "serve-bench", "warmup", "keypoints", "browse",
+                                 "visualize", "mmflow-convert"}
     with pytest.raises(SystemExit):
         cli.main(["export"])  # a config and --out are required
     a, b = (cli.loadtest_request((48, 64), 3, 21) for _ in range(2))
