@@ -6,8 +6,9 @@
 
 --phases runs phases 1 and 2 and then only the named groups, in the order
 given, of the package in DIR (default: this checkout; e.g. an unpacked
-parent commit), without the kernels line: lookup (phases 3, 10 and 11),
-raster (4-7), slice (8), raft (14), options (16 and 17; with slice
+parent commit), without the kernels line: lookup (phases 3, 10, 11, 11a
+and 11b), raster (4-7), slice (8), raft (14), raft_levels (14a), options
+(16 and 17; with slice
 before it, 17 prints its pose difference from the slice's call), workflow
 (18), train_workflow (19), train_pbr (20), serve (21-23), train_augment
 (24), export (25), parallel (26), learn (the learning check's tools, run
@@ -88,6 +89,19 @@ last line:
                printed), the flow grad within 1e-4, the bound with 2-byte
                level grads; then both again at radius 3 ("K1b_r3",
                "K1b_bf16_r3");
+ 11a. windows - K1, K7 and K8 at the windows past the first K1's
+               (LOOKUP_WINDOWS: 5 and 6 levels, radius 16 and 24) on
+               65,536 rows, float32 and bf16 maps, each against its plain
+               version (K7 bit for bit, K1 and K8 within 1e-4), with the
+               route the launch took (the generic kernel: more than four
+               levels or a radius past the pipeline's), ms, device ms,
+               plain ms, F.grid_sample's ms and the bound (lines
+               "K1_L5_r4", ...);
+ 11b. K1b windows - K1b at the same windows on 16,384 rows, with and
+               without the flow gradient, against its plain version (1e-4,
+               the flow gradient 1e-4 x max(1, L k^2 / 324); bf16 level
+               grads within one bf16 ulp), the same bits from two
+               launches, route, times and bound (lines "K1b_L5_r4", ...);
   9a. slice_bf16 - phase 8 with the same seeded weights in bf16
                (SCFlowRefiner(dtype=torch.bfloat16), bench.py's dtype): 8
                launches of K1's bf16 instance and 1 K2 per call, nothing
@@ -128,7 +142,7 @@ last line:
                reprojection error 3 px, 64 hypotheses) at batch 64, 256^2,
                21 classes, culling on, fp32, on train_batch's scene: 12 K1
                and 1 K2 per call, nothing else; finite flow, occlusion in
-               [0, 1], orthonormal poses; the first 4 samples' flow and
+               [0, 1], orthonormal poses; the first 2 samples' flow and
                occlusion against the CPU run of the plain versions (atol
                2e-2 px, 1e-3); the device PnP recovering the gt pose from
                the gt flow (|dR| <= 2e-3, 1 mm); the card's RANSAC equal to
@@ -148,6 +162,24 @@ last line:
                a card step against a CPU step at batch 2, 128^2, 3
                iterations (loss rtol 1e-3, worst per-leaf gradient rel L2
                <= 2e-2);
+ 14a. raft_levels - a 5-level RAFT: the shipped raft.py with
+               --cfg-options model.decoder.num_levels=5
+               model.decoder.convex_unsample_flow=False (convex upsampling
+               reshapes only at 4 levels, in JAX too; the decoder upsamples
+               the 1/8 flow 16x, to twice the image, as JAX's module does),
+               raft_model's weights: the config's infer fn (lookup 'pallas',
+               the default host PnP) at batch 64, 256^2: exactly 12 K1 (5
+               levels: two generic launches each) and 1 K2 per call, the
+               first 2 samples against the CPU (2e-2 px, 1e-3), the host
+               PnP's ms per object on the flow alone (the occlusion, like
+               the flow, is twice the image, which JAX's host solve does not
+               take either), the zero-flow host PnP returning the reference
+               poses on the card's and the CPU's outputs; one step
+               of the network (training forward, RAFT's sequence losses at
+               the flow's size, backward, clipped AdamW: make_raft_train_step
+               cannot take it in either package) at batch 16: exactly 12 K1
+               and 12 K1b; a card step against a CPU step at batch 2, 128^2,
+               3 iterations (loss rtol 1e-3, gradients rel L2 2e-2);
  16. raft_small - RAFT-S (RAFT_SMALL: the RAFT paper's small model,
                Bottleneck encoders, h 96 / context 64, radius 3, the Conv GRU,
                bilinear upsampling) through the raft phases' entry points and
@@ -180,8 +212,8 @@ last line:
                The slice's seeded weights, saved with save_params.  Runs,
                each after a 2-image warm-up: fp32 and bf16 (--cfg-options
                model.dtype=bfloat16) on the 16 images, and the shipped
-               configs/refine_models/raft.py with test_cfg.pnp_backend=device
-               on 8 (raft_model's weights).  Per run: ms/img and
+               configs/refine_models/raft.py as it is (the host PnP:
+               cv_pnp's numpy RANSAC-EPnP) on 4 (raft_model's weights).  Per run: ms/img and
                refinements/s (host clock over test_main's loop, which
                loads, calls, fetches and remaps each image in turn), the
                load ms/img and the call's ms/img (launch + fetch), the
@@ -195,7 +227,7 @@ last line:
                translations 2e-2 + 2e-3 |t|): fp32; bf16 against the
                CPU's bf16 run with twice the CPU's own bf16-to-fp32
                distance (largest |dR|, largest |dt|) added to each bound;
-               and RAFT with the device PnP with the flow head's output
+               and RAFT with the host PnP with the flow head's output
                zeroed (flow 0: exact correspondences, where random flow
                makes RANSAC turn 1e-6 differences into other poses), whose
                poses are also the initial ones (|dR| 2e-3, |dt| 1 mm, the
@@ -208,7 +240,7 @@ last line:
                parses back with one entry per object equal to --out; (d)
                a checkpoint saved from the card loads on the CPU, equal.
                Cycled inference: fp32 with --cfg-options
-               model.test_cfg.cycles=2 on 8 images (each refined, re-rendered
+               model.test_cfg.cycles=2 on 4 images (each refined, re-rendered
                at its refined pose and refined again): exactly 2 K2 and 16 K1
                per image, its ms/img, gate (c) on its export, and gate (a)
                cycle by cycle on the first 4 images' batches: the card's
@@ -239,8 +271,8 @@ last line:
                first 5, checkpoints iter_10/20, eval_history.json,
                best.json and best_ckpt.pth, a profiler trace, TensorBoard
                event files or the hook's warning, the logged it/s; --resume
-               --max-iters 30: the log's "Resumed from iter 20" and "Start
-               training: iter 20 -> 30", the weights equal iter_20.pth bit
+               --max-iters 25: the log's "Resumed from iter 20" and "Start
+               training: iter 20 -> 25", the weights equal iter_20.pth bit
                for bit, the first step's lr the schedule's at count 20; the
                card step against the CPU step (the plain versions) on the
                loader's first 2 samples with 3 iterations (loss rtol 1e-3,
@@ -308,12 +340,13 @@ last line:
                shapes);
  23. serve_raft - make_serving_from_cfg on a config that _base_s the shipped
                raft.py (raft_model's weights) on 4 requests of 16 objects:
-               host PnP (the serve fn and its fetch; the cv2 solve where cv2
-               is installed) and device PnP (PoseService.run), each 12 K1 and
-               1 K2 per call, ms per call; gate: with the flow head's output
-               zeroed and occ_thresh 0, the card's and the CPU's device PnP
-               solve every object and return the reference poses (|dR| 2e-3,
-               1 mm) on 4 objects;
+               host PnP (the serve fn, its fetch and post_fn's solve:
+               cv_pnp's numpy RANSAC-EPnP, ms per object) and device PnP
+               (PoseService.run), each 12 K1 and 1 K2 per call, ms per
+               call; gates: with the flow head's output zeroed and
+               occ_thresh 0, the host solve of the card's outputs and the
+               card's and the CPU's device PnP solve every object and
+               return the reference poses (|dR| 2e-3, 1 mm) on 4 objects;
  24. train_augment - the train phase's step with the render augmentations
                (ColorJiggle 0.3/0.3/0.3/0.05, RandomGaussianNoise 0.05 p 0.5,
                RandomGaussianBlur 5 (0.1, 2.0) p 0.5, RandomGrayscale 0.1):
@@ -371,8 +404,9 @@ last line:
                buffer after the step within rtol 1e-5, atol 1e-6; the
                floor itself under 1% of the norm, and 2 ranks that keep
                their own BatchNorm statistics must miss these bounds;
-               exactly 1 K2, 8 K1, 8 K1b per rank in each of 4 steps; each
-               rank's ms per step over 2 more steps, the gradient
+               exactly 1 K2, 8 K1, 8 K1b per rank in the compared step and
+               the one after it; each rank's ms per step over 1 more step,
+               the gradient
                all-reduce's ms, one process's ms at batch 32 with and
                without the float64 sums, in turns; (c) `cli test --launcher
                pytorch` at 2 ranks (gloo) on 5 images of phase 18's set
@@ -432,7 +466,9 @@ last line:
                scflow_tpu_torch.cli ...` in a fresh process on the card
                (exit code 0, its outputs), with each process's seconds;
  15. the kernels line (float32 and bf16 instances; "raft_launches": each
-     kernel's launches per RAFT call or step; "radius_3": the radius-3
+     kernel's launches per RAFT call or step; "raft_levels_launches": per
+     call and step of phase 14a; "windows": the numbers of phases 11a and
+     11b at each window, with its launches on phase 14a; "radius_3": the radius-3
      instance's numbers from phases 3/10/11 and its launches per call or
      step on phases 16 and 17; "workflow_launches_per_image": per image of
      each workflow run, the cycled one included;
@@ -644,9 +680,14 @@ def phase_build(strict: bool = True):
     ptxas = parse_ptxas(logs)
     sass, instances = {}, {}
     tags = [tag for key in LOOKUP_ENTRIES.values() for tag in key]
+    from concurrent.futures import ThreadPoolExecutor
+
+    with ThreadPoolExecutor(len(LOOKUP_SOURCES)) as pool:  # the cuobjdumps at once
+        counts = dict(zip(LOOKUP_SOURCES, pool.map(lambda src: sass_counts(library_path(src)),
+                                                   LOOKUP_SOURCES)))
     for src, template in LOOKUP_SOURCES.items():
         instances[src] = 0
-        for fname, c in sass_counts(library_path(src)).items():
+        for fname, c in counts[src].items():
             if template in fname:
                 instances[src] += 1
                 require(c["int_div_sequences_in_loops"] == 0 and c["calls_in_loops"] == 0,
@@ -809,6 +850,184 @@ def phase_lookup(dev, ptxas):
                       "ptxas": _lookup_resources(key, ptxas, radius=radius)})
             del levels, calls, tent, lib
         del levels32, coords
+    return out
+
+
+# the windows past the first K1's (levels, radius): RAFT at 5 levels (the
+# raft_levels phase's window), 6 levels, and radii past the pipeline
+# instances; each on maps halving from 32^2 (the flagship's level 0)
+LOOKUP_WINDOWS = {(5, 4): (32, 16, 8, 4, 2), (6, 3): (32, 16, 8, 4, 2, 1),
+                  (4, 16): (32, 16, 8, 4), (2, 24): (32, 16)}
+
+
+def _window_name(levels: int, radius: int) -> str:
+    return f"L{levels}_r{radius}"
+
+
+def _without_cudnn(fn):
+    """fn run with cuDNN off: F.grid_sample's native CUDA kernel, which
+    takes the windows' grids (cuDNN's grid sampler refused radius 16 on
+    65,536 rows: CUDNN_STATUS_NOT_SUPPORTED)."""
+    def call():
+        with torch.backends.cudnn.flags(enabled=False):
+            return fn()
+    return call
+
+
+def _window_inputs(dev, n: int, sizes):
+    """_flagship_lookup_inputs' centres (n images at 32x32) on levels of the
+    given sizes."""
+    levels4, coords = _flagship_lookup_inputs(dev, n)
+    rows = coords.shape[0]
+    g = torch.Generator().manual_seed(len(sizes))
+    levels = [torch.randn((rows, s * s), generator=g).to(dev) for s in sizes]
+    del levels4
+    return levels, coords
+
+
+def phase_lookup_windows(dev, ptxas):
+    """K1, K7 and K8 at LOOKUP_WINDOWS on 65,536 rows (the flagship's), on
+    float32 and bfloat16 maps: each against its plain version on the same
+    maps (K7 bit for bit, K1 and K8 within 1e-4), with the route the launch
+    took (window_layout: the generic kernel for each of these windows) and
+    its kernel launches per call,
+    ms, device ms, the plain ms, the same F.grid_sample calls (cuDNN off:
+    its native kernel) and the bound, as phase_lookup.  Returns {key:
+    {window: numbers}}."""
+    from scflow_tpu_torch.ops.cuda import corr_lookup as k1
+
+    if not hasattr(k1, "ROUTES"):  # a parent's package: four levels, no generic route
+        return {}
+    variants = (("K1", "tent", k1.corr_lookup_flat_plain, 1e-4),
+                ("K7", "shift", k1.corr_lookup_flat_shift_plain, 0.0),
+                ("K8", "bdiag", k1.corr_lookup_flat_plain, 1e-4))
+    out = {}
+    for (nlev, radius), sizes in LOOKUP_WINDOWS.items():
+        levels32, coords = _window_inputs(dev, BATCH, sizes)
+        rows = coords.shape[0]
+        name = _window_name(nlev, radius)
+        for dtype in (torch.float32, torch.bfloat16):
+            levels = [m.to(dtype) for m in levels32]
+            calls = [_without_cudnn(f) for f in _grid_sample_lookup(levels, coords, radius)]
+            library_ms = sum(median_ms(f, 5) for f in calls)
+            library_device_ms = sum(device_ms(f, 5) for f in calls)
+            bound_ms, bound_by, nbytes = _lookup_bound(levels, coords, radius)
+            for key, variant, plain, tol in variants:
+                key += "_bf16" if dtype == torch.bfloat16 else ""
+                layout = k1.window_layout(variant, nlev, radius, dtype)
+                got = k1.corr_lookup_flat(levels, coords, radius, variant=variant)
+                want = plain(levels, coords, radius)
+                torch.cuda.synchronize()
+                err = _max_abs(got, want)
+                if tol == 0.0:
+                    require(torch.equal(got, want), f"{key} {name} bit-identical (max |d| {err})")
+                require(math.isfinite(err) and err <= tol, f"{key} {name} max |d| {err} <= {tol}")
+                del got, want
+
+                def kernel():
+                    return k1.corr_lookup_flat(levels, coords, radius, variant=variant)
+
+                res = {"route": layout["route"], "kernel_launches_per_call": layout["launches"],
+                       "max_abs_err": err,
+                       "ms": median_ms(kernel, 5), "device_ms": device_ms(kernel, 10),
+                       "plain_ms": median_ms(lambda: plain(levels, coords, radius), 1, groups=3),
+                       "library_ms": library_ms, "bound_ms": bound_ms, "bound_by": bound_by}
+                out.setdefault(key, {})[name] = res
+                emit({"phase": f"{key}_{name}", "variant": variant, "maps": str(dtype),
+                      "rows": rows, "levels": nlev, "sizes": list(sizes), "radius": radius,
+                      "tolerance": tol, **res, "library_device_ms": library_device_ms,
+                      "bytes": nbytes, "share_of_bound": bound_ms / res["ms"],
+                      "device_share_of_bound": bound_ms / res["device_ms"],
+                      "smem_bytes": layout["smem_bytes"], "threads": layout["threads"]})
+            del levels, calls
+        del levels32, coords
+        torch.cuda.empty_cache()
+    return out
+
+
+def phase_k1b_windows(dev):
+    """K1b at LOOKUP_WINDOWS on the training shape's 16,384 rows, float32 and
+    bfloat16 maps: level grads within 1e-4 of the plain version's (bf16:
+    one bf16 ulp), the flow grad within 1e-4 x max(1, L k^2 / 324) (its
+    float32 sum of L k^2 taps), the same bits from two
+    launches, with and without the flow gradient; the route, ms and device
+    ms without the flow gradient (as the train step runs it) and with it,
+    the plain ms, the autograd backward of the F.grid_sample calls and the
+    bound, as phase_k1b.  Returns {key: {window: numbers}}."""
+    from scflow_tpu_torch.ops.cuda import corr_lookup as k1
+
+    if not hasattr(k1, "ROUTES"):
+        return {}
+    out = {}
+    for (nlev, radius), sizes in LOOKUP_WINDOWS.items():
+        levels32, coords = _window_inputs(dev, TRAIN_BATCH, sizes)
+        rows = coords.shape[0]
+        name = _window_name(nlev, radius)
+        k = 2 * radius + 1
+        g = torch.randn((rows, nlev * k * k), generator=torch.Generator().manual_seed(3)).to(dev)
+        # the flow gradient sums L k^2 float32 tap terms: 1e-4 at the
+        # flagship's 4 x 81, growing with the taps past them
+        coords_tol = 1e-4 * max(1.0, nlev * k * k / 324)
+        for dtype in (torch.float32, torch.bfloat16):
+            key = "K1b_bf16" if dtype == torch.bfloat16 else "K1b"
+            levels = [m.to(dtype) for m in levels32]
+            errs = {}
+            for want_coords in (True, False):
+                got, got_c = k1.corr_lookup_flat_bwd(levels, coords, g, radius, want_coords)
+                again, again_c = k1.corr_lookup_flat_bwd(levels, coords, g, radius, want_coords)
+                want, want_c = k1.corr_lookup_flat_bwd_plain(levels, coords, g, radius,
+                                                             want_coords)
+                torch.cuda.synchronize()
+                require(all(torch.equal(a, b) for a, b in zip(got, again)) and
+                        (not want_coords or torch.equal(got_c, again_c)),
+                        f"{key} {name}: two launches give the same bits")
+                if dtype == torch.bfloat16:
+                    ulps = max(_bf16_ulp_excess(a, b)[0] for a, b in zip(got, want))
+                    require(ulps <= 1.0, f"{key} {name} level grads within one bf16 ulp: {ulps}")
+                    errs[f"level_ulps_{want_coords}"] = ulps
+                else:
+                    errs[str(want_coords)] = max(_max_abs(a, b) for a, b in zip(got, want))
+                    require(errs[str(want_coords)] <= 1e-4, f"{key} {name} level grads {errs}")
+                if want_coords:
+                    errs["coords"] = _max_abs(got_c, want_c)
+                    require(math.isfinite(errs["coords"]) and errs["coords"] <= coords_tol,
+                            f"{key} {name} flow grad max |d| {errs['coords']} <= {coords_tol}")
+                del got, again, want
+            layout = k1.bwd_layout(nlev, radius, False, dtype)
+            maps = [m.detach().clone().requires_grad_() for m in levels]
+            outs = [_without_cudnn(f)() for f in _grid_sample_lookup(maps, coords, radius)]
+            gs = [gi.reshape(o.shape).to(o.dtype).contiguous()
+                  for gi, o in zip(g.split(k * k, dim=1), outs)]
+
+            @_without_cudnn
+            def library():
+                torch.autograd.grad(outs, maps, gs, retain_graph=True)
+
+            def kernel():
+                return k1.corr_lookup_flat_bwd(levels, coords, g, radius, want_coords=False)
+
+            def with_flow_grad():
+                return k1.corr_lookup_flat_bwd(levels, coords, g, radius)
+
+            nbytes = g.numel() * 4 + coords.numel() * 4 + sum(m.numel() * m.element_size()
+                                                              for m in levels)
+            cells = rows * nlev * (2 * radius + 2) ** 2
+            bound_ms, bound_by = bound(nbytes, cells * 4 * 5)
+            res = {"route": layout["route"], "kernel_launches_per_call": layout["launches"],
+                   "max_abs_err": max(v for c, v in errs.items() if not c.startswith("level_")),
+                   "ms": median_ms(kernel, 5), "device_ms": device_ms(kernel, 10),
+                   "device_ms_with_flow_grad": device_ms(with_flow_grad, 3),
+                   "plain_ms": median_ms(lambda: k1.corr_lookup_flat_bwd_plain(
+                       levels, coords, g, radius, want_coords=False), 1, groups=3),
+                   "library_ms": median_ms(library, 2), "bound_ms": bound_ms,
+                   "bound_by": bound_by}
+            out.setdefault(key, {})[name] = res
+            emit({"phase": f"{key}_{name}", "maps": str(dtype), "rows": rows, "levels": nlev,
+                  "sizes": list(sizes), "radius": radius, "errors": errs, **res,
+                  "bytes": nbytes, "device_share_of_bound": bound_ms / res["device_ms"]})
+            del levels, maps, outs, gs
+        del levels32, coords, g
+        torch.cuda.empty_cache()
     return out
 
 
@@ -2040,7 +2259,7 @@ def phase_raft(smi):
     """make_raft_infer_fn at the shipped configuration through the kernels
     (lookup 'pallas', device PnP): one call with every launch count reset
     (12 K1, 1 K2, nothing else); finite flow, occlusion in [0, 1],
-    orthonormal poses; gate 1, the first 4 samples' flow and occlusion
+    orthonormal poses; gate 1, the first 2 samples' flow and occlusion
     against a CPU run of the plain versions (flow atol 2e-2 px, occlusion
     atol 1e-3: the infer_full phase's bounds); gates 2 and 3
     (_raft_pnp_gates); ms per call, refinements/s, the stages and the
@@ -2069,9 +2288,9 @@ def phase_raft(smi):
 
     cpu_model = raft_model()  # the same seeded weights
     ref = _raft_infer(cpu_model, RenderAssets.from_bank(bank, device="cpu"), "cpu")(
-        {k: v[:4] for k, v in batch.items()})
-    d_flow = (flow[:4].cpu() - ref["flow"]).abs().max().item()
-    d_occ = (occ[:4].cpu() - ref["occlusion"]).abs().max().item()
+        {k: v[:2] for k, v in batch.items()})
+    d_flow = (flow[:2].cpu() - ref["flow"]).abs().max().item()
+    d_occ = (occ[:2].cpu() - ref["occlusion"]).abs().max().item()
     require(d_flow <= 2e-2 and d_occ <= 1e-3, f"raft card vs CPU: flow {d_flow}, occ {d_occ}")
 
     calls = 10
@@ -2234,6 +2453,184 @@ def phase_raft_train(smi):
     emit({"phase": "raft_train", "batch": TRAIN_BATCH, "image": IMG, "iters": RAFT_ITERS,
           "classes": NCLASS, **res, "card": smi})
     return {"K1b": c["K1b"]}
+
+
+# the 5-level RAFT: the shipped raft.py with these decoder options (convex
+# upsampling reshapes its 576 mask channels only at 4 levels, in JAX too)
+RAFT_LEVELS_OPTIONS = {"model.decoder.num_levels": 5, "model.decoder.convex_unsample_flow": False}
+RAFT_LEVELS = dict(num_levels=5, convex_upsample_flow=False)
+RAFT_LEVELS_PNP_OBJECTS = 16  # the objects whose host PnP is timed (ms per object)
+
+
+def _raft_levels_cfg(root: Path):
+    from scflow_tpu_torch.config import Config
+
+    cfg = Config.fromfile(str(root / "configs" / "refine_models" / "raft.py"))
+    cfg.merge_from_dict(dict(RAFT_LEVELS_OPTIONS))
+    return cfg
+
+
+def _raft_levels_step(model, images, target, tx):
+    """One step of the 5-level network: the training forward on 'pallas'
+    (12 K1), RAFT's sequence losses (gamma 0.8: the flow's L1 at the
+    flow's size, the occlusion's L1 to 0.5, weight 100), the backward (12
+    K1b) and the clipped AdamW update; the loss.  make_raft_train_step
+    cannot take this network in either package: its losses meet the gt
+    flow at the image's size, the 5-level flow is twice it."""
+    from scflow_tpu_torch.device import full_fp32
+
+    rendered, real = images
+    with full_fp32():
+        out = model(rendered, real, train=True, lookup_backend="pallas")
+        T = out["flow"].shape[0]
+        loss = sum(0.8 ** (T - 1 - i) * ((out["flow"][i] - target).abs().mean()
+                                         + 100.0 * (out["occlusion"][i] - 0.5).abs().mean())
+                   for i in range(T))
+        model.zero_grad(set_to_none=True)
+        loss.backward()
+        tx.step(0)
+    return loss.detach()
+
+
+def phase_raft_levels(smi, root: Path):
+    """A 5-level RAFT on the card (configs/refine_models/raft.py with
+    RAFT_LEVELS_OPTIONS; raft_model's seeded weights): (a) the config's
+    infer fn (apis.make_infer_from_cfg: make_raft_infer_fn on 'pallas' and
+    the default host PnP, cv_pnp's numpy RANSAC-EPnP) at batch 64, 256^2:
+    one call with every count reset, exactly 12 K1 (5 levels each: two
+    generic launches) and 1 K2; flow (64, 512, 512, 2), finite; the first
+    2 samples' flow and occlusion against the CPU run of the plain versions
+    (2e-2 px, 1e-3); the host PnP (cv_pnp) of RAFT_LEVELS_PNP_OBJECTS
+    objects on the flow alone (ms per object: the config's solve also reads
+    the occlusion, which is twice the image here, and fails in JAX too);
+    with the flow head's output zeroed, it returns the reference poses
+    (|dR| 2e-3, 1 mm: the raft phase's bounds) on the card's and the CPU's
+    outputs; (b) _raft_levels_step at batch 16: exactly
+    12 K1 and 12 K1b, finite loss; a card step against a CPU step at batch
+    2, 128^2, 3 iterations (loss rtol 1e-3, gradients rel L2 2e-2).
+    Returns {kernel: launches} per call (K1, K2) and per step (K1b)."""
+    import copy
+
+    from scflow_tpu_torch.apis import make_infer_from_cfg
+    from scflow_tpu_torch.refiners.build import build_refiner_from_config
+    from scflow_tpu_torch.refiners.flow_pose import solve_poses_from_flow
+    from scflow_tpu_torch.refiners.system import RenderAssets
+    from scflow_tpu_torch.render.meshbank import make_synthetic_bank
+    from scflow_tpu_torch.runtime.optim import build_optimizer
+
+    cfg = _raft_levels_cfg(root)
+    built = build_refiner_from_config(cfg.model)
+    model = raft_model(**RAFT_LEVELS)
+    require({k: tuple(v.shape) for k, v in built.state_dict().items()} ==
+            {k: tuple(v.shape) for k, v in model.state_dict().items()},
+            "raft_levels: raft_model(RAFT_LEVELS) is the config's network")
+    del built
+    bank = make_synthetic_bank(NCLASS, kind="uvsphere", size=80.0)
+    assets = RenderAssets.from_bank(bank)
+    batch = train_batch(assets, BATCH, IMG, seed=6)
+    infer, pose_from_output = make_infer_from_cfg(cfg, model, assets, (IMG, IMG))
+    require(pose_from_output is not None, "raft_levels: the config's host PnP route")
+    infer(batch)  # warm-up
+    torch.cuda.synchronize()
+    out, launches = counted(lambda: infer(batch))
+    require(only(launches, K1=RAFT_ITERS, K2=1), f"raft_levels launches per call {launches}")
+    flow, occ = out["flow"], out["occlusion"]
+    require(tuple(flow.shape) == (BATCH, 2 * IMG, 2 * IMG, 2) and bool(torch.isfinite(flow).all())
+            and 0 <= occ.min() and occ.max() <= 1, f"raft_levels outputs {tuple(flow.shape)}")
+    res = {"launches_per_call": launches, "flow_shape": list(flow.shape),
+           "flow_max_abs": flow.abs().max().item()}
+    cpu_infer, _ = make_infer_from_cfg(cfg, copy.deepcopy(model).cpu(),
+                                       RenderAssets.from_bank(bank, device="cpu"), (IMG, IMG),
+                                       device="cpu")
+    two = {k: v[:2] for k, v in batch.items()}
+    ref = cpu_infer(two)
+    d_flow = (flow[:2].cpu() - ref["flow"]).abs().max().item()
+    d_occ = (occ[:2].cpu() - ref["occlusion"]).abs().max().item()
+    require(d_flow <= 2e-2 and d_occ <= 1e-3, f"raft_levels card vs CPU: {d_flow}, {d_occ}")
+    res.update(cpu_flow_max_abs_diff=d_flow, cpu_occlusion_max_abs_diff=d_occ)
+    # the host PnP: the config's solve reads the occlusion at the rendered
+    # pixels, and this network's occlusion, like its flow, is twice the
+    # image (JAX's host solve fails there as the port's does: a broadcast
+    # of (256, 256) with (512, 512)), so the solve runs on the flow alone
+    fetched = {k: v.cpu().numpy() for k, v in out.items()}
+    sample = dict(cfg.model.test_cfg.get("sample_points", {}))
+    m = RAFT_LEVELS_PNP_OBJECTS
+    t0 = time.perf_counter()
+    R, t, _ = solve_poses_from_flow(fetched["flow"][:m], fetched["rendered_depths"][:m],
+                                    batch["ref_rotations"][:m], batch["ref_translations"][:m],
+                                    batch["k"][:m], sample_points=sample)
+    res["host_pnp_ms_per_object"] = 1e3 * (time.perf_counter() - t0) / m
+    require(np.isfinite(R).all() and np.isfinite(t).all(), "raft_levels host PnP: finite poses")
+    calls = 3
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        infer(batch)
+    torch.cuda.synchronize()
+    res["ms_per_call_without_pnp"] = 1e3 * (time.perf_counter() - t0) / calls
+    # zero flow: exact correspondences; the host PnP gives the reference poses
+    zero = copy.deepcopy(model)
+    with torch.no_grad():
+        zero.decoder.flow_pred.predict_layer.weight.zero_()
+        zero.decoder.flow_pred.predict_layer.bias.zero_()
+    zero_infer, _ = make_infer_from_cfg(cfg, zero, assets, (IMG, IMG))
+    zero_cpu, _ = make_infer_from_cfg(cfg, copy.deepcopy(zero).cpu(),
+                                      RenderAssets.from_bank(bank, device="cpu"), (IMG, IMG),
+                                      device="cpu")
+    for name, fn in (("card", zero_infer), ("cpu", zero_cpu)):
+        o = {k: v.cpu().numpy() for k, v in fn(two).items()}
+        Rz, tz, okz = solve_poses_from_flow(o["flow"], o["rendered_depths"],
+                                            two["ref_rotations"], two["ref_translations"],
+                                            two["k"], sample_points=sample)
+        dR = float(np.abs(Rz - two["ref_rotations"]).max())
+        dt = float(np.abs(tz - two["ref_translations"]).max())
+        require(float(np.abs(o["flow"]).max()) == 0 and okz.all() and dR <= 2e-3 and dt <= 1.0,
+                f"raft_levels zero flow on the {name}: ok {okz}, |dR| {dR}, |dt| {dt} mm")
+        res[f"zero_flow_host_pnp_{name}_vs_reference"] = [dR, dt]
+    del zero, zero_infer, zero_cpu, out, fetched, infer, cpu_infer
+
+    # (b) the step on the card, then card against CPU at batch 2, 128^2
+    def step_inputs(n, image, device):
+        g = torch.Generator().manual_seed(7)
+        images = tuple(torch.rand((n, image, image, 3), generator=g).to(device)
+                       for _ in range(2))
+        target = torch.randn((n, 2 * image, 2 * image, 2), generator=g).to(device)
+        return images, target
+
+    torch.manual_seed(0)
+    train_net = raft_model(**RAFT_LEVELS).cuda()
+    tx, _ = build_optimizer(train_net.parameters(), OPTIMIZER, None, grad_clip=RAFT_CLIP)
+    images, target = step_inputs(TRAIN_BATCH, IMG, "cuda")
+    _raft_levels_step(train_net, images, target, tx)  # warm-up
+    loss, c = counted(lambda: _raft_levels_step(train_net, images, target, tx))
+    require(only(c, K1=RAFT_ITERS, K1b=RAFT_ITERS) and math.isfinite(float(loss)),
+            f"raft_levels step launches {c}, loss {float(loss)}")
+    steps = 3
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(steps):
+        _raft_levels_step(train_net, images, target, tx)
+    torch.cuda.synchronize()
+    res.update(step_launches=c, step_loss=float(loss),
+               ms_per_step=1e3 * (time.perf_counter() - t0) / steps)
+    del train_net, tx, images, target
+    pair = [raft_model(iters=3, **RAFT_LEVELS) for _ in range(2)]
+    grads = []
+    for net, device in zip(pair, ("cuda", "cpu")):
+        net.to(device)
+        images, target = step_inputs(2, 128, device)
+        tx, _ = build_optimizer(net.parameters(), OPTIMIZER, None, grad_clip=RAFT_CLIP)
+        loss = _raft_levels_step(net, images, target, tx)
+        grads.append((float(loss), {k: p.grad.cpu() for k, p in net.named_parameters()}))
+    worst, leaf = _worst_grad_rel(grads[0][1], grads[1][1])
+    loss_rel = abs(grads[0][0] / grads[1][0] - 1)
+    require(loss_rel <= 1e-3 and worst <= 2e-2,
+            f"raft_levels card vs CPU step: loss rel {loss_rel}, worst grad {worst} ({leaf})")
+    res["step_card_vs_cpu"] = {"loss_rel_diff": loss_rel, "worst_grad_rel_l2": worst,
+                               "worst_leaf": leaf}
+    emit({"phase": "raft_levels", "cfg_options": RAFT_LEVELS_OPTIONS, "batch": BATCH,
+          "train_batch": TRAIN_BATCH, "image": IMG, "iters": RAFT_ITERS, **res, "card": smi})
+    return {"K1": launches["K1"], "K2": launches["K2"], "K1b": c["K1b"]}
 
 
 def _raft_train_stages(state, assets, batch):
@@ -2593,10 +2990,10 @@ FRAME_H, FRAME_W = 480, 640  # YCB-V's frames
 WF_SEQ = 48  # a YCB-V test scene id (48-59)
 # 16 images: the count is cut (48 -> 24 -> 16) so that the script keeps
 # inside its time with the later phases
-WF_IMAGES, WF_CPU_IMAGES, WF_RAFT_IMAGES = 16, 4, 8
+WF_IMAGES, WF_CPU_IMAGES, WF_RAFT_IMAGES = 16, 4, 4
 WF_JITTER = (15.0, 15.0, 15.0, 50.0)  # degrees, x, y, z mm: ycbv_real.py:38-51's PoseJitter
 WF_METRIC = {"add": [0.05, 0.10, 0.20, 0.50], "rep": [2, 5, 10, 20], "auc": []}
-WF_CYCLES, WF_CYCLED_IMAGES = 2, 8  # the cycled run: test_cfg.cycles, images
+WF_CYCLES, WF_CYCLED_IMAGES = 2, 4  # the cycled run: test_cfg.cycles, images
 
 
 def _write_ply(path: Path, verts, faces, colors) -> None:
@@ -3088,18 +3485,19 @@ def phase_workflow(smi, root: Path):
         require(set(got) == set(want), f"(b) metric keys {sorted(set(got) ^ set(want))[:5]}")
         worst = max(abs(got[k] - want[k]) for k in want)
         require(worst <= 1e-6, f"(b) evaluate vs numpy: {worst}")
-        # RAFT: the shipped config with the device PnP, on 8 images
+        # RAFT: the shipped config as it is (the host PnP: cv_pnp's numpy
+        # RANSAC-EPnP), on 8 images
         raft_cfg = _workflow_config(work, root, "raft.py")
         raft_ckpt = work / "raft.pth"
         save_params(str(raft_ckpt), raft_model().cuda())
-        ropts = ["--cfg-options", "model.test_cfg.pnp_backend=device"]
+        ropts = []
         cli.test_main([str(raft_cfg), "--checkpoint", str(raft_ckpt), "--limit", "1"]
                       + ropts)  # warm-up
         _, _, lines["raft"] = _workflow_run(
             cli, [str(raft_cfg), "--checkpoint", str(raft_ckpt), "--limit",
                   str(WF_RAFT_IMAGES), "--eval"] + ropts, "K1", RAFT_ITERS, "raft", smi)
         # gate (a) for RAFT on 4 images: the flow head's output zero, so the flow
-        # is 0 and the device PnP solves exact correspondences (on random flow
+        # is 0 and the host PnP solves exact correspondences (on random flow
         # its RANSAC turns the devices' 1e-6 differences into other poses): card
         # and CPU agree, and both return the initial poses
         zero_raft = raft_model()
@@ -3142,7 +3540,7 @@ def phase_workflow(smi, root: Path):
 # ---- train_workflow: the reference's train workflow from a config file ----
 
 TW_TRAIN_IMAGES, TW_VAL_IMAGES = 24, 8
-TW_ITERS, TW_RESUME_ITERS, TW_BF16_ITERS, TW_RAFT_ITERS = 20, 30, 6, 5
+TW_ITERS, TW_RESUME_ITERS, TW_BF16_ITERS, TW_RAFT_ITERS = 20, 25, 6, 5
 # timed steps of a worker mode: warm-up, measured, and the last of the measured
 # traced; thread mode (8.7-11.9 s a step) is cut to 1 + 1, process mode to
 # 2 + 6, to keep the script inside its time
@@ -3423,7 +3821,7 @@ def phase_train_workflow(smi, root: Path):
                 and [t["type"] for t in cfg.data.train.pipeline]
                 == [t["type"] for t in shipped.data.train.pipeline], "the shipped recipe")
 
-        # fp32: 30 steps, the hooks at their intervals
+        # fp32: 20 steps, the hooks at their intervals
         wd = work / "fp32"
         probe = _train_probe()
         with warnings.catch_warnings(record=True) as caught:
@@ -3458,7 +3856,7 @@ def phase_train_workflow(smi, root: Path):
               "first_lr": probe.lrs[0], "card": smi})
         del runner
 
-        # resume from iter 30 to 40: the weights bit for bit, the schedule's lr
+        # resume from iter 20 to 25: the weights bit for bit, the schedule's lr
         probe = _train_probe()
         runner = cli.train_main([str(cfg_path), "--work-dir", str(wd), "--resume",
                                  "--max-iters", str(TW_RESUME_ITERS), "--cfg-options", TW_FAST],
@@ -4017,16 +4415,16 @@ def _serve_requests(inputs, per_request: int):
 def phase_serve_raft(smi, root: Path):
     """make_serving_from_cfg on a config that _base_s the shipped raft.py,
     raft_model's weights: host PnP (the serve fn and its fetch of the flow,
-    occlusion, depth, K' and reference poses; the host solve needs cv2,
-    which runs only where it is installed) and device PnP
+    occlusion, depth, K' and reference poses, then post_fn's solve on the
+    host: cv_pnp's numpy RANSAC-EPnP, ms per object) and device PnP
     (test_cfg.pnp_backend=device: PoseService.run) on 4 requests of 16
-    objects; 12 K1 and 1 K2 per call; ms per call.  Gate: with the flow
-    head's output zeroed, the card's and the CPU's device PnP give the
-    reference poses (|dR| 2e-3, 1 mm: the raft phase's gt-flow bounds)."""
-    import importlib.util
-
+    objects; 12 K1 and 1 K2 per call; ms per call.  Gates: with the flow
+    head's output zeroed, the host solve of the card's serve fn returns the
+    reference poses, and the card's and the CPU's device PnP give them
+    (|dR| 2e-3, 1 mm: the raft phase's gt-flow bounds)."""
     from scflow_tpu_torch.apis import _raft_pnp_cfg
     from scflow_tpu_torch.config import Config
+    from scflow_tpu_torch.refiners.flow_pose import solve_poses_from_flow
     from scflow_tpu_torch.refiners.system import RenderAssets
     from scflow_tpu_torch.render.meshbank import make_synthetic_bank
     from scflow_tpu_torch.runtime.checkpoint import save_params
@@ -4048,17 +4446,15 @@ def phase_serve_raft(smi, root: Path):
     launches["serve_raft_host"] = {k: n for k, n in c.items() if n}
     require(set(out) == set(host.fetch_keys) and out["flow"].shape == (BATCH, IMG, IMG, 2)
             and bool(torch.isfinite(out["flow"]).all()), "serve_raft host: the fetched outputs")
-    if importlib.util.find_spec("cv2") is not None:
-        poses = host.post_fn({k: v.numpy() for k, v in out.items()})
-        _poses_ok(poses["rotations"], poses["translations"], out["ref_translations"].numpy(),
-                  "serve_raft host PnP")
-        res["host_pnp"] = "solved with cv2"
-        res["host_ms_per_call"] = _timed_calls(lambda: host.fetch(host.dispatch(requests)),
-                                               calls=5)
-    else:
-        res["host_pnp"] = "not run: cv2 is not installed (the serve fn and its fetch ran)"
-        res["host_ms_per_call_without_pnp"] = _timed_calls(
-            lambda: [e.synchronize() for e in host.dispatch(requests)[1]], calls=5)
+    m = BATCH // 4  # the first request's objects, timed
+    fetched = {k: v[:m].numpy() for k, v in out.items()}
+    t0 = time.perf_counter()
+    poses = host.post_fn(fetched)
+    res["host_pnp_ms_per_object"] = 1e3 * (time.perf_counter() - t0) / m
+    _poses_ok(poses["rotations"], poses["translations"], fetched["ref_translations"],
+              "serve_raft host PnP")
+    res["host_ms_per_call_without_pnp"] = _timed_calls(
+        lambda: [e.synchronize() for e in host.dispatch(requests)[1]], calls=5)
     del host
     device = _serve_service(Config.fromfile(str(cfg_path)), ckpt,
                             **{"model.test_cfg.pnp_backend": "device"})
@@ -4097,6 +4493,14 @@ def phase_serve_raft(smi, root: Path):
         require(bool(o["pnp_ok"].all()) and float(o["flow"].abs().max()) == 0,
                 f"zero flow on {dev_name}: PnP ok")
         poses[dev_name] = (o["rotations"].cpu().numpy(), o["translations"].cpu().numpy())
+        if dev_name == "cuda":  # the host solve (post_fn's) of the card's outputs
+            Rh, th, okh = solve_poses_from_flow(
+                *(o[k].cpu().numpy() for k in ("flow", "rendered_depths", "ref_rotations",
+                                               "ref_translations", "new_k")),
+                occlusion=o["occlusion"].cpu().numpy(), occ_thresh=0.0,
+                sample_points=cfg.model.test_cfg.get("sample_points"))
+            require(bool(okh.all()), "zero flow, host PnP: every object solved")
+            poses["cuda_host_pnp"] = (Rh, th)
     for dev_name, (Rz, tz) in poses.items():
         dR = float(np.abs(Rz - inputs["ref_rotations"]).max())
         dt = float(np.abs(tz - inputs["ref_translations"]).max())
@@ -4265,7 +4669,7 @@ def export_loader(spec_path: Path) -> dict:
         call(batch)  # warm-up: cuDNN plans, allocator
         torch.cuda.synchronize()
         out, r["launches_per_call"] = counted(lambda: call(batch))
-        r["ms_per_call"] = _timed_calls(lambda: call(batch))
+        r["ms_per_call"] = _timed_calls(lambda: call(batch), 5)
         r["device_ms_per_call"] = device_ms(lambda: call(batch), reps=2, groups=2)
         arrays[tag].update({f"loaded_{k}": v.cpu().numpy() for k, v in out.items()})
     imported = sorted(m for m in sys.modules if any(
@@ -4293,7 +4697,7 @@ def export_loader(spec_path: Path) -> dict:
         live(batch)
         torch.cuda.synchronize()
         out, r["live_launches_per_call"] = counted(lambda: live(batch))
-        r["live_ms_per_call"] = _timed_calls(lambda: live(batch))
+        r["live_ms_per_call"] = _timed_calls(lambda: live(batch), 5)
         r["live_device_ms_per_call"] = device_ms(lambda: live(batch), reps=2, groups=2)
         arrays[tag].update({f"live_{k}": v.cpu().numpy() for k, v in out.items()})
         np.savez(run["artifact"] + ".npz", **arrays[tag])
@@ -4479,7 +4883,7 @@ def serve_phases(smi, root: Path) -> dict:
 
 # ---- parallel: data-parallel train, test and serve (phase 26) ----
 
-PAR_TIMED = 2  # the timed steps after the compared one
+PAR_TIMED = 1  # the timed steps after the compared one
 PAR_FLOOR = 3.0  # (b): allowed distance in units of the step's own rounding floor
 PAR_FLOOR_MAX = 1e-2  # (b): the floor's own bound, as a share of the gradients' norm
 PAR_A_SHARE = 0.05  # (a): the runs' weights apart, as a share of what their steps moved
@@ -5394,7 +5798,7 @@ def phase_tools(smi, root: Path, fresh: bool = False) -> dict:
     return launches
 
 
-PHASE_GROUPS = ("lookup", "raster", "slice", "raft", "options", "workflow",
+PHASE_GROUPS = ("lookup", "raster", "slice", "raft", "raft_levels", "options", "workflow",
                 "train_workflow", "train_pbr", "serve", "train_augment", "export", "parallel",
                 "learn", "tools")
 
@@ -5406,6 +5810,8 @@ def run_phase_groups(groups, dev, ptxas, smi, root: Path) -> None:
         if group == "lookup":
             phase_lookup(dev, ptxas)
             phase_k1b(dev, ptxas)
+            phase_lookup_windows(dev, ptxas)
+            phase_k1b_windows(dev)
         elif group == "raster":
             scene = _flagship_scene(dev)
             _, k2_out = phase_k2(dev, scene)
@@ -5417,6 +5823,8 @@ def run_phase_groups(groups, dev, ptxas, smi, root: Path) -> None:
             _, shipped = phase_slice(smi)
         elif group == "raft":
             phase_raft_all(smi)
+        elif group == "raft_levels":
+            phase_raft_levels(smi, root)
         elif group == "workflow":
             phase_workflow(smi, root)
         elif group == "train_workflow":
@@ -5482,6 +5890,9 @@ def main() -> int:
     scene = _flagship_scene(dev)
     res = phase_lookup(dev, ptxas)
     res.update(phase_k1b(dev, ptxas))
+    # the windows past four levels and past the pipeline's radii
+    win = phase_lookup_windows(dev, ptxas)
+    win.update(phase_k1b_windows(dev))
     res["K2"], k2_out = phase_k2(dev, scene)
     res["K3"] = phase_k3(dev, scene, k2_out)
     res["K4"] = phase_k4(dev, scene)
@@ -5497,6 +5908,8 @@ def main() -> int:
     launches.update(train_launches)
     launches.update(phase_train_bf16(smi, fp32_loss))
     raft_launches = phase_raft_all(smi)
+    # launches per call (K1, K2) and per step (K1b) of the 5-level RAFT
+    levels_launches = phase_raft_levels(smi, args.root.resolve())
     # the radius-3 instances' launches on the two option paths
     r3_launches = {"raft_small": phase_raft_small(smi),
                    "scflow_options": phase_scflow_options(smi, fp32_slice)}
@@ -5584,6 +5997,17 @@ def main() -> int:
         got = {run: n[key] for run, n in tools_launches.items() if n.get(key)}
         return {"tools_launches": got} if got else {}
 
+    def windows(key):
+        """The key's numbers at LOOKUP_WINDOWS (route, ms, device ms, bound,
+        plain and library ms) with its launches per call or step there on
+        the 5-level RAFT path (0 where no main path runs the window)."""
+        if key not in win:
+            return {}
+        five = _window_name(5, 4)
+        return {"windows": {name: {**numbers, "launches": levels_launches.get(key, 0)
+                                   if name == five else 0}
+                            for name, numbers in win[key].items()}}
+
     def exported(key):
         """The key's launches per call of each loaded artifact (export,
         export_bf16, export_raft)."""
@@ -5594,8 +6018,9 @@ def main() -> int:
         {"name": f"{key} {fn}", "route": "cuda", "source": src + file, "replaces": tpu + where,
          "launches": launches[key], **({"raft_launches": raft_launches[key]}
                                        if key in raft_launches else {}), **res[key],
-         **radius_3(key), **workflow(key), **serving(key), **exported(key), **parallel(key),
-         **learn(key), **tools(key)}
+         **({"raft_levels_launches": levels_launches[key]} if key in levels_launches else {}),
+         **radius_3(key), **windows(key), **workflow(key), **serving(key), **exported(key),
+         **parallel(key), **learn(key), **tools(key)}
         for key, fn, file, where in table], "card": smi})
     emit({"ok": True, "device": {"platform": "gpu", "kind": name,
                                  "count": torch.cuda.device_count()}})

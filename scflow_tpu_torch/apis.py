@@ -152,9 +152,9 @@ def make_serving_from_cfg(cfg, model, render_assets: RenderAssets, device=None):
     too (sample_points' num; mode 'random' warns: the device PnP takes the
     top-k by confidence); with 'host' (the default) the service fetches the
     flow, occlusion, rendered depths, K' and reference poses, and post_fn
-    solves the pose with cv2's RANSAC on the host (not on a machine without
-    cv2) against K', so poses land in the original camera frame either
-    way.  The backends are JAX's 'auto': the kernels on a card."""
+    solves the pose with cv2's RANSAC-EPnP on the host (cv_pnp.py's numpy
+    rebuild: no cv2) against K', so poses land in the original camera
+    frame either way.  The backends are JAX's 'auto': the kernels on a card."""
     from scflow_tpu_torch.serving import make_raft_serving_fn, make_serving_fn
 
     norm_mean, norm_std = norm_stats_from_cfg(cfg)
@@ -198,7 +198,7 @@ def make_infer_from_cfg(cfg, model, render_assets: RenderAssets, image_size=(256
     reference's test forward); RAFT configs with test_cfg.pnp_backend
     'device' solve the pose on the device too, and with 'host' (the
     default) return the flow, which pose_from_output solves with cv2's
-    RANSAC on the host (not on a machine without cv2).  SCFlow with
+    RANSAC-EPnP on the host (cv_pnp.py's numpy rebuild: no cv2).  SCFlow with
     test_cfg.cycles > 1 refines that many times through
     make_scflow_cycled_infer_fn, on the same backends; a RAFT config with
     cycles > 1 raises ValueError (JAX's RAFT path ignores cycles).  The

@@ -7,6 +7,16 @@
 // k x k window (k = 2r + 1) samples level l at
 //   x = cx_b / 2^l + (j - r),  y = cy_b / 2^l + (i - r),
 // bilinearly with zeros outside, into column l*k*k + j*k + i.
+//
+// Any level count and any radius r >= 0 (the Pallas kernels take any).  A
+// launch function takes the levels as host arrays of map pointers and sizes.
+// Two routes: the window pipeline below, a templated instance per radius up
+// to the source's MaxR, for a window whose levels (at most GROUP_LEVELS) fit
+// one launch's two ring stages in a block's opt-in shared memory; and the
+// generic kernel at the end of this file (a run-time radius, no staging) for
+// every other window, launched once per group of GROUP_LEVELS levels, each
+// writing its taps at its column offset of the output rows with its levels'
+// scales 2^-(level0 + l).
 
 #pragma once
 
@@ -15,13 +25,13 @@
 #include <math.h>
 #include <stdint.h>
 
-#define MAX_LEVELS 4
+#define GROUP_LEVELS 4  // levels of one launch (the pipeline's limit)
 
 // the maps of one launch, of one cell type: float or __nv_bfloat16
 template <class T>
 struct LevelsT {
-  const T* map[MAX_LEVELS];
-  int size[MAX_LEVELS];
+  const T* map[GROUP_LEVELS];
+  int size[GROUP_LEVELS];
 };
 using Levels = LevelsT<float>;
 
@@ -128,7 +138,7 @@ struct Window {
   // one thread per float staging slot (row, level, e), in whole warps: as
   // many as the blend's (row, level, j), and more than the bf16 slots
   static constexpr int threads(int L) { return (G * L * KP + 31) / 32 * 32; }
-  static constexpr int MAX_THREADS = (G * MAX_LEVELS * KP + 31) / 32 * 32;
+  static constexpr int MAX_THREADS = (G * GROUP_LEVELS * KP + 31) / 32 * 32;
 };
 
 __device__ __forceinline__ void cp_async4(void* dst, const void* src, bool in) {
@@ -361,6 +371,17 @@ int with_radius(int radius, F&& f) {
     return (int)cudaErrorInvalidValue;
 }
 
+// f(std::integral_constant<int, radius>()) for radius 0..MaxR (a size);
+// 0 for any other radius
+template <int MaxR, int R = 0, class F>
+size_t with_radius_value(int radius, F&& f) {
+  if (radius == R) return f(std::integral_constant<int, R>());
+  if constexpr (R < MaxR)
+    return with_radius_value<MaxR, R + 1>(radius, f);
+  else
+    return 0;
+}
+
 // The device's SM count and the shared memory a block may opt in to.
 inline int device_limits(int* sms, int* optin) {
   int dev = 0;
@@ -380,7 +401,7 @@ template <class Kernel, class SmemOf>
 int resident_blocks(Kernel kernel, int* per_sm, int L, int threads, SmemOf smem_of, int optin) {
   if (per_sm[L] != 0) return 0;
   size_t most = 0;
-  for (int l = 1; l <= MAX_LEVELS; ++l)
+  for (int l = 1; l <= GROUP_LEVELS; ++l)
     if (smem_of(l) <= (size_t)optin) most = smem_of(l);
   if (most > 48 * 1024) {
     const cudaError_t err =
@@ -404,7 +425,7 @@ int launch_window(const float* coords, const LevelsT<T>& lv, int L, long long ro
   if (err != 0) return err;
   // two ring stages at this level count must fit a block's shared memory
   if (smem > (size_t)optin) return (int)cudaErrorInvalidConfiguration;
-  static int per_sm[MAX_LEVELS + 1] = {};  // resident blocks per SM, by level count
+  static int per_sm[GROUP_LEVELS + 1] = {};  // resident blocks per SM, by level count
   err = resident_blocks(kernel, per_sm, L, W::threads(L), [](int l) { return W::smem(l); },
                         optin);
   if (err != 0) return err;
@@ -416,65 +437,189 @@ int launch_window(const float* coords, const LevelsT<T>& lv, int L, long long ro
   return (int)cudaGetLastError();
 }
 
-// The launch of K1, K7 or K8 on maps of cell type T: radius 0..MaxR at
-// 1..MAX_LEVELS levels where two ring stages fit a block's shared memory
-// (checked at launch for the level count asked); anything else returns an
-// error and launches nothing.  bf16 maps must start on 4-byte boundaries
-// (the wrapper checks it).
-template <int MaxR, class Blend, class T>
-int launch_window_radius(const float* coords, const T* m0, const T* m1, const T* m2,
-                         const T* m3, int s0, int s1, int s2, int s3, int num_levels,
-                         int radius, long long rows, float* out, cudaStream_t stream) {
-  if (rows < 1 || num_levels < 1 || num_levels > MAX_LEVELS) return (int)cudaErrorInvalidValue;
-  const LevelsT<T> lv = {{m0, m1, m2, m3}, {s0, s1, s2, s3}};
-  return with_radius<MaxR>(radius, [&](auto r) {
-    return launch_window<decltype(r)::value, Blend, T>(coords, lv, num_levels, rows, out,
-                                                       stream);
-  });
+// ---------------------------------------------------------------------------
+// The generic route: any radius and any level count, for the windows the
+// pipeline does not take.  A thread per output column (level, tap j, tap i)
+// of the group's rows, i fastest, so a warp stores consecutive addresses of
+// a row; it splits its column once (the only divisions) and walks the rows
+// blockIdx.y, + gridDim.y, ..., reading its four cells straight from the map
+// through the read-only cache (no staging: the window's cells stay in L1)
+// and blending them with the pipeline's arithmetic and the source's Blend,
+// so both routes of a source compute the same function (K7's: bit for bit
+// with its plain version, as its pipeline).
+
+#define GENERIC_THREADS 256
+#define GENERIC_ROW_BLOCKS 4096  // gridDim.y: each block walks rows / 4096 rows
+
+// cell (y, x) of a level's row map as a float (a bfloat16 cell exactly), 0
+// where (y, x) lies outside the map; tested as floats, so a NaN or far-away
+// window never reaches an int cast
+template <class T>
+__device__ __forceinline__ float cell_at(const T* map, int s, float y, float x) {
+  if (!(y >= 0.f && y <= (float)(s - 1) && x >= 0.f && x <= (float)(s - 1))) return 0.f;
+  const T* p = map + (long long)(int)y * s + (int)x;
+  if constexpr (is_bf16<T>())
+    return __uint_as_float((uint32_t)__ldg(reinterpret_cast<const unsigned short*>(p)) << 16);
+  else
+    return __ldg(p);
 }
 
-// What a launch at (num_levels, radius) on float (bf16 = 0) or bfloat16
-// maps takes: rows per group, the largest radius, threads per block and
-// dynamic shared memory per block; the same error as the launch for a pair
-// it refuses.
-template <int MaxR>
-int window_layout(int num_levels, int radius, int bf16, int* rows_per_group, int* max_radius,
-                  int* threads, long long* smem_bytes) {
-  *rows_per_group = WINDOW_ROWS;
-  *max_radius = MaxR;
-  if (num_levels < 1 || num_levels > MAX_LEVELS) return (int)cudaErrorInvalidValue;
+template <class Blend, class T>
+__global__ void __launch_bounds__(GENERIC_THREADS)
+    generic_lookup_kernel(const float* __restrict__ coords, LevelsT<T> lv, int L, int level0,
+                          int radius, long long rows, long long ostride,
+                          float* __restrict__ out) {
+  const int k = 2 * radius + 1, kk = k * k;
+  const int col = blockIdx.x * GENERIC_THREADS + threadIdx.x;
+  if (col >= L * kk) return;
+  const int lev = col / kk, t = col - lev * kk;
+  const int j = t / k, i = t - j * k;
+  const int s = lv.size[lev];
+  const T* const map0 = lv.map[lev];
+  const float inv = ldexpf(1.f, -(level0 + lev));
+  const float oj = (float)(j - radius), oi = (float)(i - radius);
+  for (long long b = blockIdx.y; b < rows; b += gridDim.y) {
+    const float px = coords[2 * b] * inv, py = coords[2 * b + 1] * inv;
+    const float x0f = floorf(px), y0f = floorf(py);
+    const float4 ce = Blend::centre(px, py, x0f, y0f);
+    const float2 wx = Blend::xweights(ce, oj), wy = Blend::yweights(ce, oi);
+    const T* map = map0 + b * (long long)s * s;
+    const float xa = x0f + oj, ya = y0f + oi;  // window cell (i, j)
+    const float t0 = wy.x * cell_at(map, s, ya, xa) + wy.y * cell_at(map, s, ya + 1.f, xa);
+    const float t1 =
+        wy.x * cell_at(map, s, ya, xa + 1.f) + wy.y * cell_at(map, s, ya + 1.f, xa + 1.f);
+    out[b * ostride + col] = wx.x * t0 + wx.y * t1;
+  }
+}
+
+template <class Blend, class T>
+int launch_generic(const float* coords, const LevelsT<T>& lv, int L, int level0, int radius,
+                   long long rows, float* out, long long ostride, cudaStream_t stream) {
+  const long long cols = (long long)L * (2 * radius + 1) * (2 * radius + 1);
+  const long long blocks = (cols + GENERIC_THREADS - 1) / GENERIC_THREADS;
+  if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidConfiguration;
+  const dim3 grid((unsigned)blocks, (unsigned)(rows < GENERIC_ROW_BLOCKS ? rows
+                                                                         : GENERIC_ROW_BLOCKS));
+  generic_lookup_kernel<Blend, T><<<grid, GENERIC_THREADS, 0, stream>>>(
+      coords, lv, L, level0, radius, rows, ostride, out);
+  return (int)cudaGetLastError();
+}
+
+// ---------------------------------------------------------------------------
+// The route of a lookup at (num_levels, radius): the pipeline (ROUTE_WINDOW)
+// where the radius has a templated instance (<= max_radius), the levels fit
+// one launch (<= GROUP_LEVELS) and its two ring stages fit the device's
+// opt-in shared memory (smem_of(num_levels)); else the generic kernel.
+enum { ROUTE_WINDOW = 0, ROUTE_GENERIC = 1 };
+
+template <class SmemOf>
+int plan_route(int num_levels, int radius, int max_radius, SmemOf smem_of, int* route) {
+  if (num_levels < 1 || radius < 0) return (int)cudaErrorInvalidValue;
   int sms = 0, optin = 0;
   const int err = device_limits(&sms, &optin);
   if (err != 0) return err;
+  *route = radius <= max_radius && num_levels <= GROUP_LEVELS &&
+                   smem_of(num_levels) <= (size_t)optin
+               ? ROUTE_WINDOW
+               : ROUTE_GENERIC;
+  return 0;
+}
+
+// The levels l0 .. l0+n-1 of host arrays as one launch's group.
+template <class T>
+LevelsT<T> level_group(const T* const* maps, const int* sizes, int l0, int n) {
+  LevelsT<T> lv = {};
+  for (int i = 0; i < n; ++i) {
+    lv.map[i] = maps[l0 + i];
+    lv.size[i] = sizes[l0 + i];
+  }
+  return lv;
+}
+
+// The launch of K1, K7 or K8 on maps of cell type T: any level count, any
+// radius >= 0 (plan_route: one pipeline launch, or one generic launch per
+// group of GROUP_LEVELS levels); returns the first CUDA error, or
+// cudaErrorInvalidValue for no rows, no levels or a negative radius.  bf16
+// maps must start on 4-byte boundaries (the wrapper checks it).
+template <int MaxR, class Blend, class T>
+int launch_lookup(const float* coords, const T* const* maps, const int* sizes, int num_levels,
+                  int radius, long long rows, float* out, cudaStream_t stream) {
+  if (rows < 1) return (int)cudaErrorInvalidValue;
+  int route = 0;
+  int err = plan_route(
+      num_levels, radius, MaxR,
+      [&](int n) {
+        return with_radius_value<MaxR>(radius, [&](auto r) {
+          return Window<decltype(r)::value, T>::smem(n);
+        });
+      },
+      &route);
+  if (err != 0) return err;
+  if (route == ROUTE_WINDOW)
+    return with_radius<MaxR>(radius, [&](auto r) {
+      return launch_window<decltype(r)::value, Blend, T>(
+          coords, level_group(maps, sizes, 0, num_levels), num_levels, rows, out, stream);
+    });
+  const long long kk = (2LL * radius + 1) * (2LL * radius + 1);
+  for (int l0 = 0; l0 < num_levels && err == 0; l0 += GROUP_LEVELS) {
+    const int n = num_levels - l0 < GROUP_LEVELS ? num_levels - l0 : GROUP_LEVELS;
+    err = launch_generic<Blend, T>(coords, level_group(maps, sizes, l0, n), n, l0, radius, rows,
+                                   out + l0 * kk, num_levels * kk, stream);
+  }
+  return err;
+}
+
+// What a launch at (num_levels, radius) on float (bf16 = 0) or bfloat16
+// maps takes: the route (0 window pipeline, 1 generic), the kernel launches
+// a call makes, rows per group (the pipeline's; 1 for the generic kernel),
+// the largest templated radius, threads per block and dynamic shared memory
+// per block; the same error as the launch for what it refuses.
+template <int MaxR>
+int window_layout(int num_levels, int radius, int bf16, int* route, int* launches,
+                  int* rows_per_group, int* max_radius, int* threads, long long* smem_bytes) {
+  *max_radius = MaxR;
+  auto smem_of = [&](int n) {
+    return with_radius_value<MaxR>(radius, [&](auto r) {
+      constexpr int R = decltype(r)::value;
+      return bf16 ? Window<R, __nv_bfloat16>::smem(n) : Window<R>::smem(n);
+    });
+  };
+  const int err = plan_route(num_levels, radius, MaxR, smem_of, route);
+  if (err != 0) return err;
+  if (*route == ROUTE_GENERIC) {
+    *launches = (num_levels + GROUP_LEVELS - 1) / GROUP_LEVELS;
+    *rows_per_group = 1;
+    *threads = GENERIC_THREADS;
+    *smem_bytes = 0;
+    return 0;
+  }
+  *launches = 1;
+  *rows_per_group = WINDOW_ROWS;
+  *smem_bytes = (long long)smem_of(num_levels);
   return with_radius<MaxR>(radius, [&](auto r) {
-    constexpr int R = decltype(r)::value;
-    *threads = Window<R>::threads(num_levels);
-    *smem_bytes = bf16 ? (long long)Window<R, __nv_bfloat16>::smem(num_levels)
-                       : (long long)Window<R>::smem(num_levels);
-    return *smem_bytes > optin ? (int)cudaErrorInvalidConfiguration : 0;
+    *threads = Window<decltype(r)::value>::threads(num_levels);
+    return 0;
   });
 }
 
 // The extern "C" launch and layout functions of one source: `name`_launch
 // (float maps), `name`_bf16_launch (bfloat16 maps) and `name`_layout.
 #define WINDOW_ENTRY_POINTS(launch, launch_bf16, layout, MaxR, Blend)                          \
-  extern "C" int launch(const float* coords, const float* m0, const float* m1,                 \
-                        const float* m2, const float* m3, int s0, int s1, int s2, int s3,      \
+  extern "C" int launch(const float* coords, const float* const* maps, const int* sizes,       \
                         int num_levels, int radius, long long rows, float* out,                \
                         cudaStream_t stream) {                                                  \
-    return launch_window_radius<MaxR, Blend>(coords, m0, m1, m2, m3, s0, s1, s2, s3,           \
-                                             num_levels, radius, rows, out, stream);           \
+    return launch_lookup<MaxR, Blend>(coords, maps, sizes, num_levels, radius, rows, out,      \
+                                      stream);                                                  \
   }                                                                                             \
-  extern "C" int launch_bf16(const float* coords, const __nv_bfloat16* m0,                     \
-                             const __nv_bfloat16* m1, const __nv_bfloat16* m2,                 \
-                             const __nv_bfloat16* m3, int s0, int s1, int s2, int s3,          \
-                             int num_levels, int radius, long long rows, float* out,           \
-                             cudaStream_t stream) {                                             \
-    return launch_window_radius<MaxR, Blend>(coords, m0, m1, m2, m3, s0, s1, s2, s3,           \
-                                             num_levels, radius, rows, out, stream);           \
+  extern "C" int launch_bf16(const float* coords, const __nv_bfloat16* const* maps,            \
+                             const int* sizes, int num_levels, int radius, long long rows,     \
+                             float* out, cudaStream_t stream) {                                 \
+    return launch_lookup<MaxR, Blend>(coords, maps, sizes, num_levels, radius, rows, out,      \
+                                      stream);                                                  \
   }                                                                                             \
-  extern "C" int layout(int num_levels, int radius, int bf16, int* rows_per_group,             \
-                        int* max_radius, int* threads, long long* smem_bytes) {                \
-    return window_layout<MaxR>(num_levels, radius, bf16, rows_per_group, max_radius, threads,  \
-                               smem_bytes);                                                     \
+  extern "C" int layout(int num_levels, int radius, int bf16, int* route, int* launches,       \
+                        int* rows_per_group, int* max_radius, int* threads,                    \
+                        long long* smem_bytes) {                                                \
+    return window_layout<MaxR>(num_levels, radius, bf16, route, launches, rows_per_group,      \
+                               max_radius, threads, smem_bytes);                                \
   }

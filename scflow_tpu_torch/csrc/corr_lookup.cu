@@ -25,12 +25,12 @@
 // per block, 35% of the bound) divided by the run-time tap count and k in
 // every thread, read each cell from L1 up to four times, and overlapped
 // nothing beyond what occupancy gave.  Here the radius is a template
-// argument (radius 0-15, so every window the first K1 launched, L*k*k <=
-// 1024, still launches; two ring stages must fit a block's shared memory,
-// checked at launch for the level count asked: radius 15 at four levels,
-// about 258 KB, is refused), each window's cells are staged once by
-// cp.async while the previous group blends, each thread keeps two window
-// columns in registers, and a group leaves by one bulk copy.
+// argument (radius 0-15), each window's cells are staged once by cp.async
+// while the previous group blends, each thread keeps two window columns in
+// registers, and a group leaves by one bulk copy.  A window the pipeline
+// does not take (more than four levels, a radius past 15, or two ring
+// stages past a block's shared memory: radius 15 at four levels, about
+// 258 KB) takes the generic kernel of corr_common.cuh with these weights.
 //
 // The pipeline's cells for tap j are columns x0 = floor(px) + (j - r) and
 // x0 + 1.  x = px + (j - r) rounds into [x0, x0 + 1], so fx = x - x0 is K1's
@@ -48,7 +48,7 @@
 
 #include "corr_common.cuh"
 
-#define MAX_RADIUS 15  // the instances this source builds: radius 0-15
+#define MAX_RADIUS 15  // the pipeline instances this source builds: radius 0-15
 
 struct TentBlend {
   // the centre as it is: (px, py, floor(px), floor(py))

@@ -35,7 +35,8 @@
 
 #include "corr_common.cuh"
 
-#define MAX_RADIUS 12  // the instances this source builds: radius 0-12
+#define MAX_RADIUS 12  // the pipeline instances this source builds: radius 0-12;
+                       // a larger radius takes the generic kernel with these weights
 
 __device__ __forceinline__ float tent(float u) { return fmaxf(0.f, 1.f - fabsf(u)); }
 

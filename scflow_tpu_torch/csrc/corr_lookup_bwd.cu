@@ -24,8 +24,8 @@
 // 16,384 short blocks with a dependent load of the row's g and a barrier,
 // paid a run-time division per dense cell, stored 4 bytes at a time and
 // left 75-94% of its threads idle on the 8^2 and 4^2 maps.  Here:
-// - the radius is a template argument (0-15, every window K1 launches) and
-//   the level count a run-time one; each thread splits its work once,
+// - the radius is a template argument (0-15) and the level count (up to
+//   four) a run-time one; each thread splits its work once,
 //   before the loops, and walks (row, h, w) incrementally, so no loop
 //   divides at run time (windows are indexed level-major, win = l*G + row,
 //   so every other split divides by a compile-time constant);
@@ -63,11 +63,13 @@
 #include "corr_common.cuh"
 
 #define BWD_THREADS 256
-#define BWD_MAX_RADIUS 15  // the instances this source builds: radius 0-15
+#define BWD_MAX_RADIUS 15  // the pipeline instances this source builds: radius 0-15
+// Any other window (a larger radius, more than four levels, or stages past a
+// block's shared memory) takes the generic kernels at the end of this file.
 
 template <class T>
 struct GradLevelsT {
-  T* map[MAX_LEVELS];
+  T* map[GROUP_LEVELS];
 };
 
 __device__ __forceinline__ float tent(float u) { return fmaxf(0.f, 1.f - fabsf(u)); }
@@ -144,8 +146,8 @@ struct BwdWindow {
   static constexpr int VW = 16 / sizeof(T);
   // rows per group: 8 up to radius 4 (at the training shape 0.0629 ms of
   // device time against 0.0660 with 4 rows, H100 700 W), 4 up to radius 9,
-  // then 2, so that two stages fit every window K1 takes (radius 14 at four
-  // levels with the flow gradient: 223 KB)
+  // then 2, so that two stages of four levels fit up to radius 14 with the
+  // flow gradient (223 KB)
   static constexpr int G = R <= 4 ? 8 : (R <= 9 ? 4 : 2);
   __host__ __device__ static constexpr int gpad(int L) { return (G * L * KK + 3) / 4 * 4; }
   __host__ __device__ static constexpr int stage(int L, bool c) {
@@ -167,8 +169,8 @@ __global__ void __launch_bounds__(BWD_THREADS)
   constexpr int T = BWD_THREADS, VW = W::VW;
   constexpr bool BF = W::BF;
   extern __shared__ __align__(16) float smem[];
-  __shared__ int lsize[MAX_LEVELS];
-  __shared__ const C* lmap[MAX_LEVELS];
+  __shared__ int lsize[GROUP_LEVELS];
+  __shared__ const C* lmap[GROUP_LEVELS];
   const int tid = threadIdx.x;
   const int nwin = G * L;  // windows of a group, level-major: win = l * G + row
   const int gsz = G * L * KK;
@@ -177,7 +179,7 @@ __global__ void __launch_bounds__(BWD_THREADS)
   int4* const orgbuf = reinterpret_cast<int4*>(winbuf + 2 * nwin * KP2);  // [2][nwin]
   float* const taps = reinterpret_cast<float*>(orgbuf + 2 * nwin);     // [2][nwin * KK]
   float* const fpatch = taps + 2 * nwin * KK;  // bf16, flow gradient: [nwin * KP2]
-  if (tid < MAX_LEVELS) {
+  if (tid < GROUP_LEVELS) {
     lsize[tid] = lv.size[tid];
     lmap[tid] = lv.map[tid];
   }
@@ -186,10 +188,10 @@ __global__ void __launch_bounds__(BWD_THREADS)
   // cell (row, h, w) of the group's level block, and the step between its
   // chunks (T chunks of V cells) as (rows, h, w); V = VW (4 floats or 8
   // bfloat16s) where the level takes 16-byte stores.
-  int r0[MAX_LEVELS], h0[MAX_LEVELS], w0[MAX_LEVELS];
-  int dr[MAX_LEVELS], dh[MAX_LEVELS], dw[MAX_LEVELS];
+  int r0[GROUP_LEVELS], h0[GROUP_LEVELS], w0[GROUP_LEVELS];
+  int dr[GROUP_LEVELS], dh[GROUP_LEVELS], dw[GROUP_LEVELS];
 #pragma unroll
-  for (int l = 0; l < MAX_LEVELS; ++l) {
+  for (int l = 0; l < GROUP_LEVELS; ++l) {
     const int s = l < L ? lv.size[l] : 1, s2 = s * s;
     const int v = (vec_out >> l) & 1 ? VW : 1;
     int c = tid * v;
@@ -370,7 +372,7 @@ __global__ void __launch_bounds__(BWD_THREADS)
       }
       float gx = 0.f, gy = 0.f;
 #pragma unroll
-      for (int l = 0; l < MAX_LEVELS; ++l) {
+      for (int l = 0; l < GROUP_LEVELS; ++l) {
         const float lx = __shfl_sync(0xffffffffu, sx, (l * G + tid) & 31);
         const float ly = __shfl_sync(0xffffffffu, sy, (l * G + tid) & 31);
         if (l < L) {
@@ -388,7 +390,7 @@ __global__ void __launch_bounds__(BWD_THREADS)
 
     // the dense maps of the group, level by level
 #pragma unroll
-    for (int l = 0; l < MAX_LEVELS; ++l) {
+    for (int l = 0; l < GROUP_LEVELS; ++l) {
       if (l >= L) break;
       const int s = lv.size[l];
       const long long s2 = (long long)s * s;
@@ -463,7 +465,7 @@ int launch_bwd(const float* coords, const float* grad_out, const LevelsT<C>& lv,
   if (err != 0) return err;
   // two ring stages and the windows at this level count must fit a block
   if (smem > (size_t)optin) return (int)cudaErrorInvalidConfiguration;
-  static int per_sm[MAX_LEVELS + 1] = {};  // resident blocks per SM, by level count
+  static int per_sm[GROUP_LEVELS + 1] = {};  // resident blocks per SM, by level count
   err = resident_blocks(kernel, per_sm, L, BWD_THREADS,
                         [](int l) { return W::smem(l, COORDS); }, optin);
   if (err != 0) return err;
@@ -480,69 +482,252 @@ int launch_bwd(const float* coords, const float* grad_out, const LevelsT<C>& lv,
   return (int)cudaGetLastError();
 }
 
-template <class F>
-int with_bwd_window(int num_levels, int radius, F&& f) {
-  if (num_levels < 1 || num_levels > MAX_LEVELS) return (int)cudaErrorInvalidValue;
-  return with_radius<BWD_MAX_RADIUS>(radius, f);
+// ---------------------------------------------------------------------------
+// The generic route of K1b, for the windows the pipeline does not take: a
+// run-time radius, no staging, one launch per group of GROUP_LEVELS levels.
+// generic_bwd_dense_kernel: a thread per dense cell (h, w) of a level
+// (blockIdx.z), walking the rows blockIdx.y, + gridDim.y, ..., gathers the
+// taps that reach the cell as the pipeline forms a window cell (the sum over
+// j, then over i, in the same order and arithmetic) and writes it once (0
+// outside the window, NaN for a NaN centre): every cell written, no memset,
+// no atomics, the same bits from two launches.
+// generic_bwd_coords_kernel: a thread per (row, level) sums the level's tap
+// terms in tap order; a thread per row then sums the levels in level order,
+// going on from an earlier group's sum: the pipeline's order.
+
+#define GENERIC_COORD_ROWS 32  // rows per block of the flow-gradient kernel
+
+template <class C>
+__global__ void __launch_bounds__(GENERIC_THREADS)
+    generic_bwd_dense_kernel(const float* __restrict__ coords, const float* __restrict__ grad_out,
+                             LevelsT<C> lv, GradLevelsT<C> gl, int level0, int radius,
+                             long long rows, long long gstride) {
+  const int l = blockIdx.z;
+  const int s = lv.size[l];
+  const int c = blockIdx.x * GENERIC_THREADS + threadIdx.x;
+  if (c >= s * s) return;
+  const int hi = c / s, wi = c - hi * s;
+  const int k = 2 * radius + 1;
+  const float sc = level_scale(level0 + l);
+  const float w = (float)wi, h = (float)hi;
+  for (long long b = blockIdx.y; b < rows; b += gridDim.y) {
+    const float cx = coords[2 * b], cy = coords[2 * b + 1];
+    const float px = cx * sc, py = cy * sc;
+    // the cell's place (d, e) in the window, as floats (no int cast of a
+    // far-away or NaN origin)
+    const float e = w - (floorf(px) - (float)radius), d = h - (floorf(py) - (float)radius);
+    float v = 0.f;
+    if (isnan(cx) || isnan(cy)) {
+      v = cx + cy;
+    } else if (d >= 0.f && d <= (float)k && e >= 0.f && e <= (float)k) {
+      const int di0 = (int)d, ej0 = (int)e;
+      const float* gw = grad_out + b * gstride + (long long)l * k * k;  // g[j * k + i]
+#pragma unroll
+      for (int di = 1; di >= 0; --di) {
+        const int i = di0 - di;
+        if (i < 0 || i >= k) continue;
+        float a = 0.f;
+#pragma unroll
+        for (int dj = 1; dj >= 0; --dj) {
+          const int j = ej0 - dj;
+          if (j < 0 || j >= k) continue;
+          a = a + gw[j * k + i] * tent((px + (float)(j - radius)) - w);
+        }
+        v = v + tent((py + (float)(i - radius)) - h) * a;
+      }
+    }
+    C* dst = gl.map[l] + b * (long long)s * s + c;
+    if constexpr (is_bf16<C>())
+      *dst = __float2bfloat16_rn(v);
+    else
+      *dst = v;
+  }
+}
+
+// p[i][j] of the pipeline's window patch: map cell (floor(py) - r + i,
+// floor(px) - r + j), 0 outside the map
+template <class C>
+__device__ __forceinline__ float patch_at(const C* map, int s, float x0f, float y0f, int radius,
+                                          int i, int j) {
+  return cell_at(map, s, y0f - (float)radius + (float)i, x0f - (float)radius + (float)j);
 }
 
 template <class C>
-int launch_bwd_radius(const float* coords, const float* grad_out, const C* m0, const C* m1,
-                      const C* m2, const C* m3, int s0, int s1, int s2, int s3, C* g0, C* g1,
-                      C* g2, C* g3, int num_levels, int radius, long long rows,
-                      float* grad_coords, cudaStream_t stream) {
-  if (rows < 1) return (int)cudaErrorInvalidValue;
-  const LevelsT<C> lv = {{m0, m1, m2, m3}, {s0, s1, s2, s3}};
-  const GradLevelsT<C> gl = {{g0, g1, g2, g3}};
-  return with_bwd_window(num_levels, radius, [&](auto r) {
-    constexpr int R = decltype(r)::value;
-    return grad_coords != nullptr
-               ? launch_bwd<R, true>(coords, grad_out, lv, gl, num_levels, rows, grad_coords,
-                                     stream)
-               : launch_bwd<R, false>(coords, grad_out, lv, gl, num_levels, rows, nullptr,
-                                      stream);
+__global__ void __launch_bounds__(GENERIC_COORD_ROWS * GROUP_LEVELS)
+    generic_bwd_coords_kernel(const float* __restrict__ coords,
+                              const float* __restrict__ grad_out, LevelsT<C> lv, int L,
+                              int level0, int radius, long long rows, long long gstride,
+                              float* __restrict__ grad_coords) {
+  __shared__ float part[GROUP_LEVELS][GENERIC_COORD_ROWS][2];
+  const int l = threadIdx.x / GENERIC_COORD_ROWS, row = threadIdx.x - l * GENERIC_COORD_ROWS;
+  const long long b = (long long)blockIdx.x * GENERIC_COORD_ROWS + row;
+  const int k = 2 * radius + 1;
+  if (b < rows && l < L) {
+    const float cx = coords[2 * b], cy = coords[2 * b + 1];
+    const int s = lv.size[l];
+    const C* map = lv.map[l] + b * (long long)s * s;
+    const float* gw = grad_out + b * gstride + (long long)l * k * k;
+    const float px = cx * level_scale(level0 + l), py = cy * level_scale(level0 + l);
+    const float x0f = floorf(px), y0f = floorf(py);
+    float lx = 0.f, ly = 0.f;
+    for (int j = 0; j < k; ++j) {
+      for (int i = 0; i < k; ++i) {
+        const float x = px + (float)(j - radius), y = py + (float)(i - radius);
+        const float xw = x0f + (float)(j - radius), yh = y0f + (float)(i - radius);
+        const float wy0 = tent(y - yh), wy1 = tent(y - (yh + 1.f));
+        const float wx0 = tent(x - xw), wx1 = tent(x - (xw + 1.f));
+        float sx = 0.f, sy = 0.f;
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {  // t2[i, xw + e]
+          const float t2 = wy0 * patch_at(map, s, x0f, y0f, radius, i, j + e) +
+                           wy1 * patch_at(map, s, x0f, y0f, radius, i + 1, j + e);
+          sx = sx + dtent(x - (xw + (float)e)) * t2;
+        }
+#pragma unroll
+        for (int d = 0; d < 2; ++d) {  // t3[j, yh + d]
+          const float t3 = wx0 * patch_at(map, s, x0f, y0f, radius, i + d, j) +
+                           wx1 * patch_at(map, s, x0f, y0f, radius, i + d, j + 1);
+          sy = sy + dtent(y - (yh + (float)d)) * t3;
+        }
+        const float gv = gw[j * k + i];
+        lx = lx + gv * sx;
+        ly = ly + gv * sy;
+      }
+    }
+    part[l][row][0] = lx;
+    part[l][row][1] = ly;
+  }
+  __syncthreads();
+  if (l == 0 && b < rows) {
+    const float cx = coords[2 * b], cy = coords[2 * b + 1];
+    float gx = 0.f, gy = 0.f;
+    if (level0 > 0) {
+      gx = grad_coords[2 * b];
+      gy = grad_coords[2 * b + 1];
+    }
+    for (int m = 0; m < L; ++m) {
+      gx = gx + part[m][row][0] * level_scale(level0 + m);
+      gy = gy + part[m][row][1] * level_scale(level0 + m);
+    }
+    if (isnan(cx) || isnan(cy)) gx = gy = cx + cy;  // NaN, as the tent form gives
+    grad_coords[2 * b] = gx;
+    grad_coords[2 * b + 1] = gy;
+  }
+}
+
+template <class C>
+int launch_bwd_generic(const float* coords, const float* grad_out, const LevelsT<C>& lv,
+                       const GradLevelsT<C>& gl, int L, int level0, int radius, long long rows,
+                       long long gstride, float* grad_coords, cudaStream_t stream) {
+  int most = 0;
+  for (int l = 0; l < L; ++l) most = lv.size[l] * lv.size[l] > most ? lv.size[l] * lv.size[l] : most;
+  const dim3 grid((most + GENERIC_THREADS - 1) / GENERIC_THREADS,
+                  (unsigned)(rows < GENERIC_ROW_BLOCKS ? rows : GENERIC_ROW_BLOCKS), L);
+  generic_bwd_dense_kernel<C><<<grid, GENERIC_THREADS, 0, stream>>>(coords, grad_out, lv, gl,
+                                                                   level0, radius, rows, gstride);
+  int err = (int)cudaGetLastError();
+  if (err != 0 || grad_coords == nullptr) return err;
+  const long long blocks = (rows + GENERIC_COORD_ROWS - 1) / GENERIC_COORD_ROWS;
+  if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidConfiguration;
+  generic_bwd_coords_kernel<C><<<(unsigned)blocks, GENERIC_COORD_ROWS * GROUP_LEVELS, 0, stream>>>(
+      coords, grad_out, lv, L, level0, radius, rows, gstride, grad_coords);
+  return (int)cudaGetLastError();
+}
+
+// The shared memory of one pipeline launch of n levels, 0 past the
+// templated radii
+template <class C>
+size_t bwd_smem(int radius, int n, bool want_coords) {
+  return with_radius_value<BWD_MAX_RADIUS>(radius, [&](auto r) {
+    return BwdWindow<decltype(r)::value, C>::smem(n, want_coords);
   });
+}
+
+// K1b at any level count and radius >= 0: one pipeline launch where the
+// window fits one (plan_route), else the generic kernels once per group of
+// GROUP_LEVELS levels, each group writing its levels' gradients and adding
+// its part of the flow gradient; the first CUDA error, or
+// cudaErrorInvalidValue for no rows, no levels or a negative radius.
+template <class C>
+int launch_bwd_lookup(const float* coords, const float* grad_out, const C* const* maps,
+                      const int* sizes, C* const* grads, int num_levels, int radius,
+                      long long rows, float* grad_coords, cudaStream_t stream) {
+  if (rows < 1) return (int)cudaErrorInvalidValue;
+  const bool want = grad_coords != nullptr;
+  int route = 0;
+  int err = plan_route(num_levels, radius, BWD_MAX_RADIUS,
+                       [&](int n) { return bwd_smem<C>(radius, n, want); }, &route);
+  if (err != 0) return err;
+  GradLevelsT<C> gl = {};
+  if (route == ROUTE_WINDOW) {
+    const LevelsT<C> lv = level_group(maps, sizes, 0, num_levels);
+    for (int i = 0; i < num_levels; ++i) gl.map[i] = grads[i];
+    return with_radius<BWD_MAX_RADIUS>(radius, [&](auto r) {
+      constexpr int R = decltype(r)::value;
+      return want ? launch_bwd<R, true>(coords, grad_out, lv, gl, num_levels, rows, grad_coords,
+                                        stream)
+                  : launch_bwd<R, false>(coords, grad_out, lv, gl, num_levels, rows, nullptr,
+                                         stream);
+    });
+  }
+  const long long kk = (2LL * radius + 1) * (2LL * radius + 1);
+  for (int l0 = 0; l0 < num_levels && err == 0; l0 += GROUP_LEVELS) {
+    const int n = num_levels - l0 < GROUP_LEVELS ? num_levels - l0 : GROUP_LEVELS;
+    for (int i = 0; i < n; ++i) gl.map[i] = grads[l0 + i];
+    err = launch_bwd_generic(coords, grad_out + l0 * kk, level_group(maps, sizes, l0, n), gl, n,
+                             l0, radius, rows, num_levels * kk, grad_coords, stream);
+  }
+  return err;
 }
 
 // float maps and level gradients
 extern "C" int corr_lookup_bwd_launch(const float* coords, const float* grad_out,
-                                      const float* m0, const float* m1, const float* m2,
-                                      const float* m3, int s0, int s1, int s2, int s3,
-                                      float* g0, float* g1, float* g2, float* g3,
-                                      int num_levels, int radius, long long rows,
-                                      float* grad_coords, cudaStream_t stream) {
-  return launch_bwd_radius(coords, grad_out, m0, m1, m2, m3, s0, s1, s2, s3, g0, g1, g2, g3,
-                           num_levels, radius, rows, grad_coords, stream);
+                                      const float* const* maps, const int* sizes,
+                                      float* const* grads, int num_levels, int radius,
+                                      long long rows, float* grad_coords, cudaStream_t stream) {
+  return launch_bwd_lookup(coords, grad_out, maps, sizes, grads, num_levels, radius, rows,
+                           grad_coords, stream);
 }
 
 // bfloat16 maps and level gradients (4-byte aligned); grad_out, coords and
 // the flow gradient stay float
-extern "C" int corr_lookup_bwd_bf16_launch(
-    const float* coords, const float* grad_out, const __nv_bfloat16* m0, const __nv_bfloat16* m1,
-    const __nv_bfloat16* m2, const __nv_bfloat16* m3, int s0, int s1, int s2, int s3,
-    __nv_bfloat16* g0, __nv_bfloat16* g1, __nv_bfloat16* g2, __nv_bfloat16* g3, int num_levels,
-    int radius, long long rows, float* grad_coords, cudaStream_t stream) {
-  return launch_bwd_radius(coords, grad_out, m0, m1, m2, m3, s0, s1, s2, s3, g0, g1, g2, g3,
-                           num_levels, radius, rows, grad_coords, stream);
+extern "C" int corr_lookup_bwd_bf16_launch(const float* coords, const float* grad_out,
+                                           const __nv_bfloat16* const* maps, const int* sizes,
+                                           __nv_bfloat16* const* grads, int num_levels,
+                                           int radius, long long rows, float* grad_coords,
+                                           cudaStream_t stream) {
+  return launch_bwd_lookup(coords, grad_out, maps, sizes, grads, num_levels, radius, rows,
+                           grad_coords, stream);
 }
 
 // What a launch at (num_levels, radius, want_coords) on float (bf16 = 0) or
-// bfloat16 maps takes: rows per group, the largest radius, threads per block
-// and dynamic shared memory per block; the same error as the launch for a
-// window it refuses.
+// bfloat16 maps takes: the route (0 pipeline, 1 generic), the kernel
+// launches a call makes (the generic route's flow-gradient kernel not
+// counted), rows per group (the pipeline's; 1 for the generic kernels), the
+// largest templated radius, threads per block and dynamic shared memory per
+// block; the same error as the launch for what it refuses.
 extern "C" int corr_lookup_bwd_layout(int num_levels, int radius, int want_coords, int bf16,
-                                      int* rows_per_group, int* max_radius, int* threads,
-                                      long long* smem_bytes) {
+                                      int* route, int* launches, int* rows_per_group,
+                                      int* max_radius, int* threads, long long* smem_bytes) {
   *max_radius = BWD_MAX_RADIUS;
-  *threads = BWD_THREADS;
-  int sms = 0, optin = 0;
-  const int err = device_limits(&sms, &optin);
+  auto smem_of = [&](int n) {
+    return bf16 ? bwd_smem<__nv_bfloat16>(radius, n, want_coords != 0)
+                : bwd_smem<float>(radius, n, want_coords != 0);
+  };
+  const int err = plan_route(num_levels, radius, BWD_MAX_RADIUS, smem_of, route);
   if (err != 0) return err;
-  return with_bwd_window(num_levels, radius, [&](auto r) {
-    constexpr int R = decltype(r)::value;
-    *rows_per_group = BwdWindow<R>::G;
-    *smem_bytes = bf16 ? (long long)BwdWindow<R, __nv_bfloat16>::smem(num_levels, want_coords != 0)
-                       : (long long)BwdWindow<R>::smem(num_levels, want_coords != 0);
-    return *smem_bytes > optin ? (int)cudaErrorInvalidConfiguration : 0;
+  if (*route == ROUTE_GENERIC) {
+    *launches = (num_levels + GROUP_LEVELS - 1) / GROUP_LEVELS;
+    *rows_per_group = 1;
+    *threads = GENERIC_THREADS;
+    *smem_bytes = 0;
+    return 0;
+  }
+  *launches = 1;
+  *threads = BWD_THREADS;
+  *smem_bytes = (long long)smem_of(num_levels);
+  return with_radius<BWD_MAX_RADIUS>(radius, [&](auto r) {
+    *rows_per_group = BwdWindow<decltype(r)::value>::G;
+    return 0;
   });
 }

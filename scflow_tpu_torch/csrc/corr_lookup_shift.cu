@@ -36,7 +36,8 @@
 
 #include "corr_common.cuh"
 
-#define MAX_RADIUS 12  // the instances this source builds: radius 0-12
+#define MAX_RADIUS 12  // the pipeline instances this source builds: radius 0-12;
+                       // a larger radius takes the generic kernel with these weights
 
 struct ShiftBlend {
   // one pair per axis for the whole window: (1 - fy, fy) and (1 - fx, fx),

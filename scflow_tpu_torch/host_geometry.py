@@ -3,7 +3,8 @@ evaluation: the port's copy of scflow_tpu/geometry/host.py
 (reference datasets/pose.py:18-119) without cv2.  remap_pose solves its
 PnP with the port's own float64 DLT (pnp.py) and a Levenberg-Marquardt
 refinement on the keypoints' projections (refine_pose_lm), where the JAX package calls cv2's
-EPnP; the host RANSAC (pnp.solve_pnp_ransac) stays with pnp.py."""
+EPnP; the host RANSAC (pnp.solve_pnp_ransac, cv2's RANSAC-EPnP rebuilt in
+numpy by cv_pnp.py) stays with pnp.py."""
 
 import numpy as np
 

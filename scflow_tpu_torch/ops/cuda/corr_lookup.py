@@ -33,17 +33,17 @@ import torch
 
 from scflow_tpu_torch.ops.cuda.build import CudaKernel, build_all, library_path
 
-MAX_LEVELS = 4
 VARIANTS = ("tent", "shift", "bdiag")
-# the radii each forward source builds (MAX_RADIUS in csrc/; K1b's
-# BWD_MAX_RADIUS is 15, so the forward's is the limit): a copy, so that
-# check_window needs no build; tests/test_torch_kernels.py holds it to what
-# each built library reports (window_layout's and bwd_layout's max_radius)
-MAX_RADIUS = {"tent": 15, "shift": 12, "bdiag": 12}
 MAP_DTYPES = (torch.float32, torch.bfloat16)
-_LOOKUP_ARGS = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 6 + [ctypes.c_longlong, ctypes.c_void_p]
-_BWD_ARGS = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 4 + [ctypes.c_void_p] * 4
-             + [ctypes.c_int] * 2 + [ctypes.c_longlong, ctypes.c_void_p])
+ROUTES = ("window", "generic")  # the launch routes (csrc/corr_common.cuh)
+# coords, the maps' and sizes' host arrays, num_levels, radius, rows, out
+_LOOKUP_ARGS = [ctypes.c_void_p, ctypes.POINTER(ctypes.c_void_p), ctypes.POINTER(ctypes.c_int),
+                ctypes.c_int, ctypes.c_int, ctypes.c_longlong, ctypes.c_void_p]
+# coords, grad_out, the maps', sizes' and level grads' host arrays,
+# num_levels, radius, rows, the coords grad (None: not wanted)
+_BWD_ARGS = [ctypes.c_void_p, ctypes.c_void_p, ctypes.POINTER(ctypes.c_void_p),
+             ctypes.POINTER(ctypes.c_int), ctypes.POINTER(ctypes.c_void_p), ctypes.c_int,
+             ctypes.c_int, ctypes.c_longlong, ctypes.c_void_p]
 # float32 maps
 KERNEL = CudaKernel("corr_lookup.cu", "corr_lookup_launch", _LOOKUP_ARGS)
 SHIFT_KERNEL = CudaKernel("corr_lookup_shift.cu", "corr_lookup_shift_launch", _LOOKUP_ARGS)
@@ -72,33 +72,36 @@ def bwd_kernel(dtype: torch.dtype = torch.float32) -> CudaKernel:
 
 
 def _layout(source: str, symbol: str, *args) -> dict:
-    """Calls a layout function of a built library: (args..., rows per group,
-    largest radius, threads, dynamic shared memory) -> dict; raises
-    RuntimeError with the CUDA error for a window the launch refuses."""
+    """Calls a layout function of a built library: (args..., route, kernel
+    launches per call, rows per group, largest templated radius, threads,
+    dynamic shared memory) -> dict; raises RuntimeError with the CUDA error
+    for a window the launch refuses."""
     build_all()
     fn = getattr(ctypes.CDLL(str(library_path(source))), symbol)
-    fn.argtypes = [ctypes.c_int] * len(args) + [ctypes.POINTER(ctypes.c_int)] * 3 + [
+    fn.argtypes = [ctypes.c_int] * len(args) + [ctypes.POINTER(ctypes.c_int)] * 5 + [
         ctypes.POINTER(ctypes.c_longlong)]
     fn.restype = ctypes.c_int
-    ints = [ctypes.c_int() for _ in range(3)]
+    ints = [ctypes.c_int() for _ in range(5)]
     smem = ctypes.c_longlong()
     err = fn(*args, *map(ctypes.byref, ints), ctypes.byref(smem))
     if err != 0:
         raise RuntimeError(f"{symbol}{args}: CUDA error {err}")
-    rows, max_radius, threads = (i.value for i in ints)
-    return {"rows_per_group": rows, "max_radius": max_radius, "threads": threads,
-            "smem_bytes": smem.value}
+    route, launches, rows, max_radius, threads = (i.value for i in ints)
+    return {"route": ROUTES[route], "launches": launches, "rows_per_group": rows,
+            "max_radius": max_radius, "threads": threads, "smem_bytes": smem.value}
 
 
 def window_layout(variant: str, num_levels: int, radius: int,
                   dtype: torch.dtype = torch.float32) -> dict:
     """How K1 ('tent'), K7 ('shift') or K8 ('bdiag') launches at (num_levels,
     radius) on maps of `dtype`, read from its built library
-    (csrc/corr_common.cuh): rows_per_group, max_radius (the largest radius
-    the source builds), threads per block and smem_bytes of dynamic shared
-    memory per block.  Builds the kernels (needs nvcc); raises RuntimeError
-    for a pair the launch refuses (a radius it does not build, or two ring
-    stages that exceed a block's shared memory)."""
+    (csrc/corr_common.cuh): the route ('window': the templated pipeline,
+    one launch, where the radius is at most max_radius, the levels at most
+    four and its two ring stages fit a block's shared memory; 'generic': the
+    run-time-radius kernel, one launch per four levels), `launches` (kernel
+    launches a call), rows_per_group, threads per block and smem_bytes of
+    dynamic shared memory per block.  Builds the kernels (needs nvcc);
+    raises RuntimeError for no levels or a negative radius."""
     return _layout(FORWARD_KERNELS[variant].source, f"corr_lookup_{variant}_layout",
                    num_levels, radius, int(dtype == torch.bfloat16))
 
@@ -118,19 +121,14 @@ def check_variant(variant: str) -> str:
 
 
 def check_window(variant: str, num_levels: int, radius: int) -> None:
-    """Raise NotImplementedError for a lookup the kernels of `variant` (the
-    forward, and K1b for the backward) do not build: a radius past the
-    sources' MAX_RADIUS (K1 and K1b 15, K7 and K8 12) or more than
-    MAX_LEVELS levels (the Pallas kernels take any count).  Whether two
-    ring stages of the window fit a block's shared memory is the launch's
-    check (window_layout)."""
+    """Raise for a lookup no kernel takes: a negative radius or no levels.
+    Every other window launches (the templated pipeline, or the generic
+    kernel: window_layout)."""
     check_variant(variant)
-    if not 0 <= radius <= MAX_RADIUS[variant]:
-        raise NotImplementedError(f"the {variant!r} lookup kernel builds radius "
-                                  f"0-{MAX_RADIUS[variant]}, not {radius}")
-    if not 1 <= num_levels <= MAX_LEVELS:
-        raise NotImplementedError(f"the lookup kernels take 1-{MAX_LEVELS} levels, "
-                                  f"not {num_levels}")
+    if radius < 0:
+        raise ValueError(f"the lookup radius must be >= 0, not {radius}")
+    if num_levels < 1:
+        raise ValueError(f"the lookup needs at least one level, not {num_levels}")
 
 
 def _level_sizes(pyramid: Sequence[torch.Tensor], rows: int):
@@ -242,8 +240,8 @@ def _check_inputs(pyramid, coords, extra=()):
     b = coords.shape[0]
     if coords.shape != (b, 2):
         raise ValueError(f"coords must be (B, 2), got {tuple(coords.shape)}")
-    if not 1 <= len(pyramid) <= MAX_LEVELS:
-        raise ValueError(f"1..{MAX_LEVELS} pyramid levels supported, got {len(pyramid)}")
+    if not pyramid:
+        raise ValueError("the lookup needs at least one pyramid level")
     sizes = _level_sizes(pyramid, b)
     for t in (coords, *pyramid, *extra):
         if t.device != coords.device or not t.is_contiguous():
@@ -268,8 +266,8 @@ def _check_op(pyramid, coords, radius: int, variant: str, extra=()):
     """The checks of a lookup op that need only shapes, dtypes and devices;
     returns the level sizes.  A CUDA tensor gets the launch's
     (`_check_inputs`); a CPU one the plain version's level rule.  The fake
-    bodies add `check_window`, so that an export of a window the kernels
-    do not build stops at the trace; on the card the launch refuses it."""
+    bodies add `check_window`, so that an export of a window no kernel
+    takes stops at the trace; on the card the launch refuses it."""
     check_variant(variant)
     if coords.device.type == "cpu":
         return _level_sizes(pyramid, coords.shape[0])
@@ -290,11 +288,11 @@ def corr_lookup_flat(pyramid: Sequence[torch.Tensor], coords: torch.Tensor,
     alike); coords: (B, 2) float32 window centres (x, y) at level 0.
     Returns (B, L*(2r+1)^2) float32, level-major, tap index j*(2r+1) + i
     with j offsetting x.  variant picks the kernel: 'tent' K1, 'shift' K7,
-    'bdiag' K8, each in the instance of the maps' dtype.  K1 takes radius
-    0-15, K7 and K8 0-12 (`window_layout`'s max_radius), each at the level
-    counts whose two ring stages fit a block's shared memory; another pair
-    raises RuntimeError from the launch.  Calls the custom op
-    `scflow::corr_lookup`, whose registered backward is K1b."""
+    'bdiag' K8, each in the instance of the maps' dtype, at any level count
+    and radius >= 0 (`window_layout` says which route and how many kernel
+    launches; a negative radius raises RuntimeError from the launch).
+    Calls the custom op `scflow::corr_lookup`, whose registered backward is
+    K1b."""
     return torch.ops.scflow.corr_lookup(list(pyramid), coords, radius, variant)
 
 
@@ -311,12 +309,20 @@ def _corr_lookup_op(levels: List[torch.Tensor], coords: torch.Tensor, radius: in
     out = torch.empty((b, len(levels) * k * k), dtype=torch.float32, device=coords.device)
     if b == 0:
         return out
-    pad = MAX_LEVELS - len(levels)
-    ptrs = [m.data_ptr() for m in levels] + [None] * pad
     kernel = forward_kernel(variant, levels[0].dtype)
-    kernel.launch(coords.device, coords.data_ptr(), *ptrs, *(sizes + [0] * pad), len(levels),
+    kernel.launch(coords.device, coords.data_ptr(), _pointers(levels), _ints(sizes), len(levels),
                   radius, b, out.data_ptr())
     return out
+
+
+def _pointers(tensors) -> ctypes.Array:
+    """The data pointers of `tensors` as a host array (the launch reads it
+    before it returns)."""
+    return (ctypes.c_void_p * len(tensors))(*(t.data_ptr() for t in tensors))
+
+
+def _ints(values) -> ctypes.Array:
+    return (ctypes.c_int * len(values))(*values)
 
 
 @_corr_lookup_op.register_fake
@@ -372,9 +378,8 @@ def corr_lookup_flat_bwd(pyramid: Sequence[torch.Tensor], coords: torch.Tensor,
     """The backward of `corr_lookup_flat` (any variant): K1b for CUDA
     tensors (the instance of the maps' dtype), its plain version for CPU
     tensors.  grad_out: (B, L*(2r+1)^2) float32; the level grads come back
-    in the maps' dtype, the coords grad in float32.
-    K1b takes radius 0-15 at the level counts `bwd_layout` accepts (every
-    window K1 takes); another raises RuntimeError from the launch.
+    in the maps' dtype, the coords grad in float32.  Any level count and
+    radius >= 0, as the forward (`bwd_layout`: the route and launches).
     Returns (grads of the levels, grad of coords or None).  Calls the custom
     op `scflow::corr_lookup_bwd`."""
     grads = torch.ops.scflow.corr_lookup_bwd(list(pyramid), coords, grad_out, radius,
@@ -407,11 +412,9 @@ def _corr_lookup_bwd_op(levels: List[torch.Tensor], coords: torch.Tensor,
     grads = [torch.empty_like(m) for m in levels]
     gc = torch.empty_like(coords) if want_coords else None
     if b > 0:
-        pad = MAX_LEVELS - len(levels)
         bwd_kernel(levels[0].dtype).launch(
-            coords.device, coords.data_ptr(), grad_out.data_ptr(),
-            *([m.data_ptr() for m in levels] + [None] * pad), *(sizes + [0] * pad),
-            *([t.data_ptr() for t in grads] + [None] * pad), len(levels), radius, b,
+            coords.device, coords.data_ptr(), grad_out.data_ptr(), _pointers(levels),
+            _ints(sizes), _pointers(grads), len(levels), radius, b,
             gc.data_ptr() if want_coords else None)
     return grads + ([gc] if want_coords else [])
 

@@ -6,7 +6,7 @@ JAX's vmap turned into leading batch dimensions: every function takes
 (..., P, 3) points.  The small eigh / svd / solve calls are torch.linalg,
 as JAX leaves them to its linear algebra.  Also the port's copy of
 scflow_tpu/geometry/host.py::solve_pnp_ransac (cv2's RANSAC-EPnP on the
-host), which imports cv2 only when called.
+host), on cv_pnp.py's numpy rebuild of cv2's solver: no cv2.
 
 The RANSAC core, `ransac_from_indices`, takes the hypotheses' point
 indices (N, H, S); `sample_hypotheses` draws them (gumbel top-k over the
@@ -19,6 +19,7 @@ from typing import NamedTuple, Optional, Tuple
 import numpy as np
 import torch
 
+from scflow_tpu_torch import cv_pnp
 from scflow_tpu_torch.geometry import axis_angle_from_rotmat, rotmat_from_axis_angle
 
 _EPS = 1e-12
@@ -312,22 +313,8 @@ def solve_pnp_ransac_device(points_3d: torch.Tensor, points_2d: torch.Tensor, K:
 
 def solve_pnp_ransac(points_3d, points_2d, K, reprojection_error: float = 3.0,
                      iterations: int = 100):
-    """cv2.solvePnPRansac with EPnP on the host (numpy in, float64 inside):
-    (R (3, 3), t (3,), True) as float32, or (None, None, False) on fewer
-    than 4 points, a failed solve or a NaN pose.  Imports cv2 when called,
-    so that the package imports without it."""
-    import cv2
-
-    if len(points_2d) < 4:
-        return None, None, False
-    retval, rvec, tvec, _ = cv2.solvePnPRansac(
-        np.asarray(points_3d, np.float64), np.asarray(points_2d, np.float64),
-        np.asarray(K, np.float64), None, flags=cv2.SOLVEPNP_EPNP,
-        reprojectionError=reprojection_error, iterationsCount=iterations)
-    if not retval:
-        return None, None, False
-    R = cv2.Rodrigues(rvec)[0].astype(np.float32)
-    t = tvec.reshape(-1).astype(np.float32)
-    if np.isnan(R.sum()) or np.isnan(t.sum()):
-        return None, None, False
-    return R, t, True
+    """cv2.solvePnPRansac with EPnP on the host (numpy in, float64 inside),
+    as cv_pnp.py rebuilds it without cv2: (R (3, 3), t (3,), True) as
+    float32, or (None, None, False) on fewer than 4 points, a failed solve
+    or a NaN pose."""
+    return cv_pnp.solve_pnp_ransac(points_3d, points_2d, K, reprojection_error, iterations)

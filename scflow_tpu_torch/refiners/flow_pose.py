@@ -1,8 +1,9 @@
 """Pose from predicted flow by PnP on 2D-3D correspondences (the RAFT
 baseline's test path, reference base_flow_refiner.py:99-155).  Port of
-scflow_tpu/refiners/flow_pose.py: `solve_poses_from_flow`, numpy and cv2
-per object on the host, and `solve_poses_from_flow_device`, the batched
-RANSAC of pnp.py on the flow's device."""
+scflow_tpu/refiners/flow_pose.py: `solve_poses_from_flow`, numpy per
+object on the host (cv2's RANSAC-EPnP as cv_pnp.py rebuilds it), and
+`solve_poses_from_flow_device`, the batched RANSAC of pnp.py on the flow's
+device."""
 
 from typing import Dict, Optional
 
@@ -37,7 +38,8 @@ def solve_poses_from_flow(flow, rendered_depths, ref_rotations, ref_translations
     failed solve keeps the reference pose.  The correspondences are the
     rendered pixels (with occlusion > occ_thresh where given) and their
     targets pixel + flow; sample_points {'num', 'mode': 'random' | 'topk'}
-    subsamples them as the reference does.  Needs cv2 (pnp.solve_pnp_ransac)."""
+    subsamples them as the reference does.  The solve is
+    pnp.solve_pnp_ransac (cv2's RANSAC-EPnP in numpy: no cv2)."""
     rng = rng or np.random.default_rng(0)
     flow, rendered_depths, internal_k = _np(flow), _np(rendered_depths), _np(internal_k)
     ref_rotations, ref_translations = _np(ref_rotations), _np(ref_translations)

@@ -10,7 +10,7 @@ import torch.nn as nn
 
 from scflow_tpu_torch.models.raft_decoder import RAFTDecoder
 from scflow_tpu_torch.models.raft_encoder import RAFTEncoder
-from scflow_tpu_torch.refiners.scflow import check_channels, check_dtype, check_num_levels
+from scflow_tpu_torch.refiners.scflow import check_channels, check_dtype
 
 
 class _RAFTRefinerBase(nn.Module):
@@ -31,13 +31,16 @@ class _RAFTRefinerBase(nn.Module):
         'Small'), as in JAX, where another fails to broadcast.  RAFT-S, the
         RAFT paper's small model, is net_type='Small', h_channels=96,
         cxt_channels=64, encoder_out_channels=128, cxt_norm=None,
-        radius=3, gru_type='Conv'.  dtype: None computes in float32,
+        radius=3, gru_type='Conv'.  num_levels: any count, as JAX's module
+        takes; the decoder upsamples the 1/8 flow by 2^(num_levels - 1), so
+        only 4 levels give the image's size (5: twice it), and convex
+        upsampling (its 576 mask channels) reshapes only at 4 levels, where
+        JAX fails too.  dtype: None computes in float32,
         torch.bfloat16 in bf16 (parameters and BatchNorm statistics stay
         float32).  max_flow is carried for the configs; the steps take
         their own."""
         super().__init__()
         dtype = check_dtype(dtype)
-        check_num_levels(num_levels)
         if predict_occlusion is not None:
             self.predict_occlusion = predict_occlusion
         self.seperate_encoder, self.h_channels = seperate_encoder, h_channels

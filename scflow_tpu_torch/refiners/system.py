@@ -164,8 +164,8 @@ def _check_lookup(model, backend: str, variant: str, dev: torch.device,
     unknown name; on the card, 'pallas' asked for on an image that is not
     square (no kernel takes such maps; 'xla' runs them); and, where the
     lookup runs the kernels ('pallas', on the card or as their plain
-    versions on the CPU), a model whose radius or level count the variant's
-    kernels do not build (corr_lookup.check_window)."""
+    versions on the CPU), a window no kernel takes: a negative radius or no
+    levels (corr_lookup.check_window; every other window launches)."""
     check_variant(variant)
     square = image_size[0] == image_size[1]
     if backend == "pallas" and dev.type == "cuda" and not square:

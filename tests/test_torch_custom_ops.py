@@ -161,10 +161,12 @@ def test_fake_bodies_on_cuda_tensors():
         grads = torch.ops.scflow.corr_lookup_bwd(lv, c, g, 4, True)
         assert [(tuple(t.shape), t.dtype) for t in grads] == (
             [((10, s * s), torch.bfloat16) for s in SIZES] + [((10, 2), torch.float32)])
-        with pytest.raises(NotImplementedError, match="radius 0-12"):
-            torch.ops.scflow.corr_lookup(lv, c, 13, "shift")
-        with pytest.raises(ValueError, match="pyramid levels"):
-            torch.ops.scflow.corr_lookup(lv + lv[:1], c, 3, "tent")
+        wide = torch.ops.scflow.corr_lookup(lv, c, 13, "shift")  # K7's generic route
+        assert (wide.shape, wide.dtype) == ((10, len(SIZES) * 27 * 27), torch.float32)
+        five = torch.ops.scflow.corr_lookup(lv + lv[:1], c, 3, "tent")  # two launches
+        assert five.shape == (10, (len(SIZES) + 1) * 49)
+        with pytest.raises(ValueError, match="radius"):
+            torch.ops.scflow.corr_lookup(lv, c, -1, "tent")
         with pytest.raises(ValueError, match=r"\(10, S\*S\)"):
             torch.ops.scflow.corr_lookup([torch.empty((10, 63), device="cuda")] * 4, c, 3,
                                          "tent")

@@ -215,46 +215,86 @@ def test_bdiag_kernel_matches_tent_plain(radius, case, cuda):
 @pytest.mark.cuda
 @pytest.mark.parametrize("variant", ["shift", "bdiag"])
 def test_shift_and_bdiag_kernels_raise_at_radius_13(variant, cuda):
-    """K7 and K8 build radius 0-12: radius 13 (which K1 builds) raises from
-    the launch, and check_window, which the entry points call, says so
-    before any launch."""
+    """K7 and K8 build pipeline instances for radius 0-12: radius 13 takes
+    their generic route, one launch, and matches their plain versions (K7
+    bit for bit, K8 within K1's 1e-4); check_window, which the entry points
+    call, takes it and refuses only a negative radius, and so does the
+    launch."""
     levels, coords = _lookup_case("random")
-    levels = [m.to(cuda) for m in levels]
-    with pytest.raises(RuntimeError):
-        k1.corr_lookup_flat(levels, coords.to(cuda), 13, variant=variant)
-    with pytest.raises(NotImplementedError, match="radius"):
-        k1.check_window(variant, 4, 13)
-    k1.check_window("tent", 4, 13)
+    assert k1.window_layout(variant, 4, 13)["route"] == "generic"
+    k1.check_window(variant, 4, 13)
+    _check_window_kernel(variant, levels, coords, 13, cuda)
+    with pytest.raises(ValueError, match="radius"):
+        k1.check_window(variant, 4, -1)
+    with pytest.raises(RuntimeError, match="CUDA error"):
+        k1.corr_lookup_flat([m.to(cuda) for m in levels], coords.to(cuda), -1, variant=variant)
 
 
 @pytest.mark.cuda
 def test_entry_point_rejects_a_radius_the_variant_does_not_build(cuda):
     """make_raft_infer_fn on a radius-13 model with lookup_variant 'shift'
-    raises at construction, before its first call launches anything."""
+    (past K7's pipeline instances) builds without launching anything; its
+    call launches K7 once per iteration, on its generic route."""
     from scflow_tpu_torch.refiners.raft import RAFTRefinerFlowMask
     from scflow_tpu_torch.refiners.system import RenderAssets, make_raft_infer_fn
 
     model = RAFTRefinerFlowMask(iters=1, radius=13, convex_upsample_flow=False)
     assets = RenderAssets.from_bank(make_synthetic_bank(3), device=cuda)
     before = _all_launches()
-    with pytest.raises(NotImplementedError, match="radius"):
-        make_raft_infer_fn(model, assets, image_size=(64, 64), lookup_backend="pallas",
-                           lookup_variant="shift", device=cuda)
+    infer = make_raft_infer_fn(model, assets, image_size=(64, 64), lookup_backend="pallas",
+                               lookup_variant="shift", device=cuda)
     assert _all_launches() == before
+    rng = np.random.default_rng(0)
+    batch = {"real_images": rng.random((2, 64, 64, 3), dtype=np.float32),
+             "ref_rotations": np.tile(np.eye(3, dtype=np.float32), (2, 1, 1)),
+             "ref_translations": np.array([[0.0, 0.0, 400.0]] * 2, np.float32),
+             "labels": np.array([0, 1]),
+             "k": np.tile(np.array([[150.0, 0, 32], [0, 150.0, 32], [0, 0, 1]], np.float32),
+                          (2, 1, 1))}
+    out = infer(batch)
+    torch.cuda.synchronize()
+    assert k1.SHIFT_KERNEL.launches == before[1] + 1
+    assert bool(torch.isfinite(out["flow"]).all())
+
+
+# the route table: the largest radius of each source's pipeline instances
+# (MAX_RADIUS, BWD_MAX_RADIUS in csrc/); the pipeline takes a window of at
+# most four levels whose two ring stages fit a block's opt-in shared memory
+# (227 KB on an H100), the generic kernel every other, four levels a launch;
+# and the windows of up to four levels that a radius in the pipeline's range
+# still sends to the generic kernel: {(levels, radius): (fp32, bf16)}
+PIPELINE_RADIUS = {"tent": 15, "shift": 12, "bdiag": 12, "bwd": 15}
+OVER_SMEM = {(4, 15): (True, False), (4, 12): (False, False), (3, 15): (False, False)}
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_max_radius_table_matches_the_libraries(dtype, cuda):
-    """check_window's static MAX_RADIUS (it needs no build) is the largest
-    radius each built library reports: K1, K7 and K8 through window_layout,
-    and K1b, which every variant's backward launches, through bwd_layout,
-    whose range covers every forward's."""
-    for variant in k1.VARIANTS:
-        assert k1.window_layout(variant, 4, 0, dtype)["max_radius"] == k1.MAX_RADIUS[variant]
-    for want_coords in (False, True):
-        bwd = k1.bwd_layout(4, 0, want_coords, dtype)["max_radius"]
-        assert bwd == max(k1.MAX_RADIUS.values())
+    """The route table (PIPELINE_RADIUS, OVER_SMEM) against each built
+    library, at level counts 1-7: one pipeline launch up to the largest
+    radius and four levels, else the generic kernel, one launch per four
+    levels, without dynamic shared memory."""
+    for variant in (*k1.VARIANTS, "bwd"):
+        top = PIPELINE_RADIUS[variant]
+        for radius in (0, 4, top, top + 1, 24):
+            for levels in range(1, 8):
+                if variant == "bwd":
+                    layouts = [k1.bwd_layout(levels, radius, w, dtype) for w in (False, True)]
+                else:
+                    layouts = [k1.window_layout(variant, levels, radius, dtype)]
+                for layout in layouts:
+                    assert layout["max_radius"] == top
+                    if radius > top or levels > 4:
+                        assert layout["route"] == "generic"
+                    if layout["route"] == "generic":
+                        assert layout["launches"] == -(-levels // 4)
+                        assert layout["smem_bytes"] == 0
+                    else:
+                        assert layout["launches"] == 1
+                        assert 0 < layout["smem_bytes"] <= 227 * 1024
+    for (levels, radius), generic in OVER_SMEM.items():
+        got = k1.window_layout("tent", levels, radius, dtype)["route"]
+        assert got == ("generic" if generic[dtype == torch.bfloat16] else "window")
 
 
 @pytest.mark.cuda
@@ -361,13 +401,19 @@ def test_window_kernels_every_radius_and_level_count(variant, radius, levels, cu
 @pytest.mark.cuda
 @pytest.mark.parametrize("variant", ["shift", "bdiag"])
 def test_window_layout_matches_the_launch_switch(variant, cuda):
-    """The library's layout covers exactly the radii the tests drive, and
-    refuses the next radius and a fifth level."""
+    """The library's pipeline covers exactly the radii the tests drive, in
+    one launch at 1-4 levels; the next radius and a fifth level take the
+    generic route (a fifth level in a second launch); a negative radius and
+    no levels are refused."""
     for radius, levels in WINDOW_SHAPES:
         layout = k1.window_layout(variant, levels, radius)
         assert layout["max_radius"] == max(WINDOW_RADII)
+        assert (layout["route"], layout["launches"]) == ("window", 1)
         assert layout["threads"] % 32 == 0 and 0 < layout["smem_bytes"] <= 227 * 1024
-    for radius, levels in [(max(WINDOW_RADII) + 1, 1), (-1, 2), (4, 5), (4, 0)]:
+    assert k1.window_layout(variant, 1, max(WINDOW_RADII) + 1)["route"] == "generic"
+    five = k1.window_layout(variant, 5, 4)
+    assert (five["route"], five["launches"]) == ("generic", 2)
+    for radius, levels in [(-1, 2), (4, 0)]:
         with pytest.raises(RuntimeError, match="CUDA error"):
             k1.window_layout(variant, levels, radius)
 
@@ -401,14 +447,18 @@ def test_window_kernels_at_the_flagship_level_sizes(variant, cuda):
 def test_window_kernels_raise_outside_the_instantiated_set(variant, radius, levels, cuda,
                                                           monkeypatch):
     """A radius outside the launch switch ('past': one more than the
-    library's largest) raises from the launch; the plain version never runs
-    for a CUDA tensor."""
+    library's largest) takes the generic route and matches the plain
+    version; a negative radius raises from the launch, and the plain
+    version never runs for a CUDA tensor."""
+    lv, coords = _window_case(16, (6, 3, 2, 1)[:levels], 1)
     if radius == "past":
         radius = k1.window_layout(variant, levels, 0)["max_radius"] + 1
+        assert k1.window_layout(variant, levels, radius)["route"] == "generic"
+        _check_window_kernel(variant, lv, coords, radius, cuda)
+        return
     monkeypatch.setitem(k1.PLAIN, variant, _plain_must_not_run)
     monkeypatch.setattr(k1, "corr_lookup_flat_plain", _plain_must_not_run)
     monkeypatch.setattr(k1, "corr_lookup_flat_shift_plain", _plain_must_not_run)
-    lv, coords = _window_case(16, (6, 3, 2, 1)[:levels], 1)
     lv = [m.to(cuda) for m in lv]
     kernel = WINDOW_KERNELS[variant]
     before = kernel.launches
@@ -421,36 +471,31 @@ def test_window_kernels_raise_outside_the_instantiated_set(variant, radius, leve
 @pytest.mark.parametrize("radius,levels", TENT_SHAPES)
 def test_tent_kernel_every_window(radius, levels, cuda, monkeypatch):
     """K1 at every pair of TENT_SHAPES on 75 rows (18 groups and a ragged
-    tail of 3, NaN, far-outside and integer centres): each pair the first
-    K1 launched launches; a pair whose two ring stages exceed a block's
-    shared memory (the library's layout refuses it) raises, without the
-    plain version."""
+    tail of 3, NaN, far-outside and integer centres): every pair launches
+    (a pair whose two ring stages exceed a block's shared memory in groups
+    of fewer levels, each at its column offset) and matches the plain
+    version."""
     levels_, coords = _window_case(75, (10, 5, 3, 2)[:levels], radius, seed=radius)
-    try:
-        k1.window_layout("tent", levels, radius)
-    except RuntimeError:
-        assert not _launched_before(radius, levels)
-        monkeypatch.setitem(k1.PLAIN, "tent", _plain_must_not_run)
-        before = k1.KERNEL.launches
-        with pytest.raises(RuntimeError, match="CUDA error"):
-            k1.corr_lookup_flat([m.to(cuda) for m in levels_], coords.to(cuda), radius)
-        assert k1.KERNEL.launches == before
-        return
     _check_window_kernel("tent", levels_, coords, radius, cuda)
 
 
 @pytest.mark.cuda
 def test_tent_layout_takes_every_pair_the_first_k1_took(cuda):
-    """K1's library builds radius 0-15 and accepts every pair L*(2r+1)^2 <=
-    1024; it refuses radius 15 at four levels (about 258 KB of shared
-    memory) and radius 16."""
+    """K1's library builds pipeline instances for radius 0-15 and launches
+    every pair L*(2r+1)^2 <= 1024 in one pipeline launch; radius 15 at four
+    levels (about 258 KB of shared memory in one launch), radius 16 and five
+    levels take the generic route (five levels in two launches).  A
+    negative radius and no levels are refused."""
     for radius in range(16):
         for levels in range(1, 5):
             if _launched_before(radius, levels):
                 layout = k1.window_layout("tent", levels, radius)
-                assert layout["max_radius"] == 15
-                assert layout["smem_bytes"] <= 227 * 1024
-    for radius, levels in [(15, 4), (16, 1), (-1, 1), (4, 5)]:
+                assert layout["max_radius"] == 15 and layout["launches"] == 1
+                assert layout["route"] == "window" and layout["smem_bytes"] <= 227 * 1024
+    got = {pair: k1.window_layout("tent", *pair) for pair in [(4, 15), (1, 16), (5, 4)]}
+    assert [(v["route"], v["launches"]) for v in got.values()] == [
+        ("generic", 1), ("generic", 1), ("generic", 2)]
+    for levels, radius in [(1, -1), (0, 4)]:
         with pytest.raises(RuntimeError, match="CUDA error"):
             k1.window_layout("tent", levels, radius)
 
@@ -462,11 +507,18 @@ def _bwd_grad_out(rows, cols, seed, offset=False):
     return (g[1:] if offset else g[:-1]).view(rows, cols)
 
 
-def _check_bwd_kernel(levels, coords, g, radius, want_coords, cuda):
+def _coords_atol(levels, radius):
+    """The flow gradient's bound: 1e-4 at the flagship window's 4 x 81
+    taps, growing with the taps it sums in float32 past them (the plain
+    version sums them by matrix products in another order)."""
+    return 1e-4 * max(1.0, levels * (2 * radius + 1) ** 2 / 324)
+
+
+def _check_bwd_kernel(levels, coords, g, radius, want_coords, cuda, coords_atol=1e-4):
     """K1b against its plain version at atol 1e-4 (level grads, NaN where
-    they are NaN; the coords grad of every row with a finite centre), one
-    launch a call, the same bits from a second launch, and a NaN centre's
-    rows NaN in every level and in the coords grad."""
+    they are NaN; the coords grad of every row with a finite centre, at
+    coords_atol), one launch a call, the same bits from a second launch,
+    and a NaN centre's rows NaN in every level and in the coords grad."""
     levels = [m.to(cuda) for m in levels]
     coords, g = coords.to(cuda), g.to(cuda)
     before = k1.BWD_KERNEL.launches
@@ -482,7 +534,7 @@ def _check_bwd_kernel(levels, coords, g, radius, want_coords, cuda):
         assert torch.isnan(a[nan_rows]).all() and not torch.isnan(a[~nan_rows]).any()
     if want_coords:  # a NaN centre's flow gradient is NaN (the plain version
         # gives 0 on the axis whose weights' derivative a NaN compare zeroes)
-        torch.testing.assert_close(gc[~nan_rows], want_c[~nan_rows], rtol=0, atol=1e-4)
+        torch.testing.assert_close(gc[~nan_rows], want_c[~nan_rows], rtol=0, atol=coords_atol)
         assert torch.isnan(gc[nan_rows]).all()
         assert torch.equal(gc.nan_to_num(7.0), again_c.nan_to_num(7.0))
     else:
@@ -496,21 +548,11 @@ def test_bwd_kernel_every_window(radius, levels, want_coords, cuda, monkeypatch)
     """K1b at K1's windows on 75 rows (random, border, integer, NaN and
     far-outside centres; a 10^2 level of 16-byte stores, 5^2 and 3^2 of
     4-byte ones, a 2^2 one whose 16-byte chunks span two map rows); every
-    window K1 takes launches, a window the library's layout refuses raises
-    without the plain version."""
+    window launches (one past a block's shared memory in groups of fewer
+    levels, the flow gradient summed on from group to group) and matches
+    the plain version."""
     levels_, coords = _window_case(75, (10, 5, 3, 2)[:levels], radius, seed=radius)
     g = _bwd_grad_out(75, levels * (2 * radius + 1) ** 2, radius, offset=radius % 2 == 1)
-    try:
-        k1.bwd_layout(levels, radius, want_coords)
-    except RuntimeError:
-        assert not _launched_before(radius, levels)
-        monkeypatch.setattr(k1, "corr_lookup_flat_bwd_plain", _plain_must_not_run)
-        before = k1.BWD_KERNEL.launches
-        with pytest.raises(RuntimeError, match="CUDA error"):
-            k1.corr_lookup_flat_bwd([m.to(cuda) for m in levels_], coords.to(cuda), g.to(cuda),
-                                    radius, want_coords)
-        assert k1.BWD_KERNEL.launches == before
-        return
     _check_bwd_kernel(levels_, coords, g, radius, want_coords, cuda)
 
 
@@ -542,15 +584,22 @@ def test_bwd_kernel_at_the_flagship_level_sizes(want_coords, cuda):
 @pytest.mark.cuda
 @pytest.mark.parametrize("radius,levels", [(16, 1), (-1, 2), (4, 5)])
 def test_bwd_kernel_raises_outside_the_instantiated_set(radius, levels, cuda, monkeypatch):
-    """A radius K1b does not build, or a fifth level, raises from the
-    launch, without the plain version."""
+    """Radius 16 (past K1b's pipeline instances: the generic kernels) and a
+    fifth level (a second launch) run and match the plain version; a
+    negative radius raises from the launch, without the plain version."""
+    gen = torch.Generator().manual_seed(levels)
+    lv = [torch.randn((16, s * s), generator=gen) for s in (6, 3, 2, 1, 1)[:levels]]
+    coords = 6.0 * torch.rand((16, 2), generator=gen)
+    g = torch.randn((16, levels * (2 * max(radius, 0) + 1) ** 2), generator=gen)
+    if radius >= 0:
+        for want_coords in (True, False):
+            _check_bwd_kernel(lv, coords, g, radius, want_coords, cuda,
+                              _coords_atol(levels, radius))
+        return
     monkeypatch.setattr(k1, "corr_lookup_flat_bwd_plain", _plain_must_not_run)
-    lv = [torch.randn((16, s * s), device=cuda) for s in (6, 3, 2, 1, 1)[:levels]]
-    coords = torch.rand((16, 2), device=cuda)
-    g = torch.randn((16, levels * (2 * max(radius, 0) + 1) ** 2), device=cuda)
     before = k1.BWD_KERNEL.launches
     with pytest.raises((RuntimeError, ValueError)):
-        k1.corr_lookup_flat_bwd(lv, coords, g, radius)
+        k1.corr_lookup_flat_bwd([m.to(cuda) for m in lv], coords.to(cuda), g.to(cuda), radius)
     assert k1.BWD_KERNEL.launches == before
 
 
@@ -580,6 +629,57 @@ def test_bwd_kernel_matches_plain(radius, case, want_coords, cuda):
             assert gc.abs().max() > 0
     else:
         assert gc is None
+
+
+# The windows past the first K1's: more than four levels and radii past the
+# pipeline instances (the generic route), against the plain versions, on
+# levels that halve down to the window
+NEW_WINDOWS = [(5, 4), (6, 3), (4, 16), (2, 24)]  # (levels, radius)
+NEW_WINDOW_SIZES = {5: (16, 8, 4, 2, 1), 6: (32, 16, 8, 4, 2, 1), 4: (32, 16, 8, 4),
+                    2: (32, 16)}
+
+
+def _new_window_case(levels, radius):
+    lv, coords = _window_case(75, NEW_WINDOW_SIZES[levels], radius, seed=levels + radius)
+    return lv, _corner_rows(coords, NEW_WINDOW_SIZES[levels][0])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("variant", ["tent", "shift", "bdiag"])
+@pytest.mark.parametrize("levels,radius", NEW_WINDOWS)
+def test_lookup_kernels_at_the_new_windows(levels, radius, variant, dtype, cuda, monkeypatch):
+    """K1, K7 and K8 at 5 and 6 levels and at radius 16 and 24 (the generic
+    route; more than four levels in two launches): K7 bit for bit with its
+    plain version, K1 and K8 within 1e-4 of the tent plain version, one
+    count a call; on bf16 maps the bf16 instances."""
+    lv, coords = _new_window_case(levels, radius)
+    layout = k1.window_layout(variant, levels, radius, dtype)
+    assert (layout["route"], layout["launches"]) == ("generic", -(-levels // 4))
+    if dtype == torch.bfloat16:
+        _check_bf16_window_kernel(variant, lv, coords, radius, cuda, monkeypatch)
+    else:
+        _check_window_kernel(variant, lv, coords, radius, cuda)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("want_coords", [True, False])
+@pytest.mark.parametrize("levels,radius", NEW_WINDOWS)
+def test_bwd_kernel_at_the_new_windows(levels, radius, want_coords, dtype, cuda, monkeypatch):
+    """K1b at the new windows (the generic kernels), with and without the
+    flow gradient: level grads within 1e-4 (bf16: one bf16 ulp) of the
+    plain version's, the flow gradient within _coords_atol (it sums L k^2
+    taps; summed on from group to group), the same bits from two launches,
+    NaN rows NaN."""
+    lv, coords = _new_window_case(levels, radius)
+    g = _bwd_grad_out(75, levels * (2 * radius + 1) ** 2, radius, offset=radius % 2 == 1)
+    assert k1.bwd_layout(levels, radius, want_coords, dtype)["route"] == "generic"
+    atol = _coords_atol(levels, radius)
+    if dtype == torch.bfloat16:
+        _check_bf16_bwd_kernel(lv, coords, g, radius, want_coords, cuda, monkeypatch, atol)
+    else:
+        _check_bwd_kernel(lv, coords, g, radius, want_coords, cuda, atol)
 
 
 @pytest.mark.cuda
@@ -852,27 +952,14 @@ def _check_bf16_window_kernel(variant, levels, coords, radius, cuda, monkeypatch
 @pytest.mark.parametrize("radius", range(16))
 @pytest.mark.parametrize("sizes", [(10, 5, 3, 2), (32, 16, 8, 4)])
 def test_bf16_window_kernels_every_radius(variant, radius, sizes, cuda, monkeypatch):
-    """Radius 0-15 (K7/K8 build 0-12) at 4 levels on 75 rows: odd and even
-    window x starts (random, border, integer, NaN and far centres), odd map
-    sizes (5, 3: the start's parity changes from row to row) and an odd
-    element count (75 x 5^2: the level's last element sits alone in its
-    word), with the last rows on each map's last column and row.  A window
-    the library's layout refuses raises without the plain version."""
+    """Radius 0-15 (K7/K8's pipeline builds 0-12, their generic route takes
+    13-15) at 4 levels on 75 rows: odd and even window x starts (random,
+    border, integer, NaN and far centres), odd map sizes (5, 3: the start's
+    parity changes from row to row) and an odd element count (75 x 5^2: the
+    level's last element sits alone in its word), with the last rows on
+    each map's last column and row."""
     levels, coords = _window_case(75, sizes, radius, seed=radius)
     coords = _corner_rows(coords, sizes[0])
-    try:
-        k1.window_layout(variant, 4, radius, torch.bfloat16)
-    except RuntimeError:
-        assert radius > k1.window_layout(variant, 1, 0)["max_radius"] or \
-            not _launched_before(radius, 4)
-        monkeypatch.setitem(k1.PLAIN, variant, _plain_must_not_run)
-        kernel = k1.FORWARD_KERNELS_BF16[variant]
-        before = kernel.launches
-        with pytest.raises(RuntimeError, match="CUDA error"):
-            k1.corr_lookup_flat([m.to(cuda) for m in _bf16(levels)], coords.to(cuda), radius,
-                                variant=variant)
-        assert kernel.launches == before
-        return
     _check_bf16_window_kernel(variant, levels, coords, radius, cuda, monkeypatch)
 
 
@@ -926,7 +1013,8 @@ def test_bf16_levels_off_4_byte_boundaries_raise(cuda):
         k1.corr_lookup_flat(lv, coords.to(cuda).to(torch.bfloat16))
 
 
-def _check_bf16_bwd_kernel(levels, coords, g, radius, want_coords, cuda, monkeypatch):
+def _check_bf16_bwd_kernel(levels, coords, g, radius, want_coords, cuda, monkeypatch,
+                           coords_atol=1e-4):
     """K1b's bf16 instance on bf16 maps: level grads bf16 within one bf16
     ulp of the plain version's (each rounded once from a float32 sum), the
     flow grad within 1e-4 for every finite centre; the same bits from a
@@ -947,7 +1035,7 @@ def _check_bf16_bwd_kernel(levels, coords, g, radius, want_coords, cuda, monkeyp
         assert torch.equal(a.float().nan_to_num(7.0), c.float().nan_to_num(7.0))
     if want_coords:
         assert gc.dtype == torch.float32
-        torch.testing.assert_close(gc[~nan_rows], want_c[~nan_rows], rtol=0, atol=1e-4)
+        torch.testing.assert_close(gc[~nan_rows], want_c[~nan_rows], rtol=0, atol=coords_atol)
         assert torch.isnan(gc[nan_rows]).all()
         assert torch.equal(gc.nan_to_num(7.0), again_c.nan_to_num(7.0))
     else:

@@ -307,17 +307,20 @@ def test_entry_points_run_the_scflow_option_set(cpu_bank):
                                                    ("tent", 16, 4)])
 def test_entry_points_reject_a_window_the_kernels_do_not_build(variant, radius, levels,
                                                               cpu_bank):
-    """An entry point built on a model whose radius the variant's kernels do
-    not build (K7/K8 0-12, K1 0-15) raises at construction, before its
-    first call, on the kernels' backend (on the CPU too, whose plain
-    versions stand in for them); the tensor backend takes any radius."""
+    """An entry point built on a model whose radius is past the variant's
+    pipeline instances (K7/K8 0-12, K1 0-15: the generic route takes it)
+    builds on the kernels' backend and its call (the variant's plain
+    version on the CPU) gives the tensor backend's flow and occlusion
+    (tests/test_torch_raft_model.py's bounds)."""
     from scflow_tpu_torch.refiners.system import make_raft_infer_fn
 
     assets, _ = cpu_bank
     with torch.random.fork_rng(devices=[]):
         model = raft.RAFTRefinerFlowMask(iters=1, convex_upsample_flow=False, radius=radius,
                                          num_levels=levels)
-    with pytest.raises(NotImplementedError, match="radius"):
-        make_raft_infer_fn(model, assets, image_size=(IMG, IMG), lookup_backend="pallas",
-                           lookup_variant=variant, device="cpu")
-    make_raft_infer_fn(model, assets, image_size=(IMG, IMG), lookup_backend="xla", device="cpu")
+    batch = _batch()
+    got, want = (make_raft_infer_fn(model, assets, image_size=(IMG, IMG), lookup_backend=b,
+                                    lookup_variant=v, device="cpu")(batch)
+                 for b, v in (("pallas", variant), ("xla", "tent")))
+    _close({k: got[k] for k in ("flow", "occlusion")},
+           {k: want[k].numpy() for k in ("flow", "occlusion")}, f"{variant} radius {radius}")
