@@ -12,8 +12,8 @@ and 11b), raster (4-7), slice (8), raft (14), raft_levels (14a), options
 before it, 17 prints its pose difference from the slice's call), workflow
 (18), train_workflow (19), train_pbr (20), serve (21-23), train_augment
 (24), export (25), parallel (26), learn (the learning check's tools, run
-only there: see phase 27) and tools (28, plus each user tool in a fresh
-process, only there).
+only there: see phase 27), tools (28, plus each user tool in a fresh
+process, only there) and helpers (29).
 
 Phases, each printing one JSON line; any failure exits non-zero before the
 last line:
@@ -465,6 +465,35 @@ last line:
                each of the four commands once as `python -m
                scflow_tpu_torch.cli ...` in a fresh process on the card
                (exit code 0, its outputs), with each process's seconds;
+ 29. helpers - the registered backbones and the last public helpers, with
+               seeded weights (no kernel of their own): (a) ResNet-50 and
+               ResNetV1d-50 at their published widths, batch 64 at 256^2,
+               fp32 (TF32 off, device.full_fp32) and bf16: the four stage
+               outputs finite and of the right shapes, against a CPU run of
+               the same weights on 2 samples (fp32 within 1e-3 of the max
+               |output|; bf16 within that plus 2 |card bf16 - card fp32|),
+               ms per call, images/s, and the bound from the counted conv
+               FLOPs over 67 TFLOP/s (fp32) or 989 TFLOP/s (bf16) against
+               the bytes (input, weights, outputs once) over 3.35 TB/s;
+               then one train-mode step of ResNet-50 with frozen_stages=1
+               at batch 16 (forward, backward, SGD): the stem's and stage
+               1's running statistics and weights unchanged and their
+               gradients absent or zero, every other gradient present and
+               finite, the later running statistics moved, ms per step;
+               (b) BasicDenseBlock ((128, 128, 96, 64, 32), BatchNorm) on
+               64 x 128 x 32^2 and local_correlation (d = 4) on 64 x 32^2 x
+               256 features, each against the CPU on 4 samples, with its ms;
+               (c) corr_lookup_gather over correlation_pyramid's 4-D levels
+               at the flagship's 65,536 rows (levels 32^2..4^2, radius 4)
+               against K1 (corr_lookup 'pallas', one launch) on the same
+               levels within 1e-4, the ms of each; (d) grid_sample (both
+               modes, both align_corners), backward_warp, endpoint_error,
+               sequence_loss, point_matching_loss,
+               rot_point_matching_loss and filter_flow_by_face_index (on
+               whole-pixel flows) on card tensors against the CPU (nearest
+               bit for bit, the rest within 1e-5 of the output's scale).  Every part runs; any
+               failure fails the phase.  K1's launch in (c) is a comparison
+               and is not in the kernels line;
  15. the kernels line (float32 and bf16 instances; "raft_launches": each
      kernel's launches per RAFT call or step; "raft_levels_launches": per
      call and step of phase 14a; "windows": the numbers of phases 11a and
@@ -5798,9 +5827,327 @@ def phase_tools(smi, root: Path, fresh: bool = False) -> dict:
     return launches
 
 
+# ---- helpers: the registered backbones and the last public helpers ----
+
+HELPERS_BATCH, HELPERS_TRAIN_BATCH, HELPERS_CPU = 64, 16, 2  # (a)'s batches; its CPU samples
+BF16_FLOPS = 989e12  # H100 SXM dense bf16 on the tensor cores
+DENSE_FEAT = (128, 128, 96, 64, 32)  # BasicDenseBlock's default widths
+
+
+def _seeded_backbone(cls, **kw):
+    """A backbone with weights from a seeded generator: convs normal(0,
+    1/fan_in), BatchNorm scales uniform(0.5, 1), offsets normal(0, 0.1),
+    running means normal(0, 0.1) and variances uniform(0.5, 1.5), so that
+    eval mode does not hand every map through the identity."""
+    with torch.random.fork_rng(devices=[]):
+        model = cls(**kw)
+    g = torch.Generator().manual_seed(0)
+    with torch.no_grad():
+        for mod in model.modules():
+            if isinstance(mod, torch.nn.Conv2d):
+                mod.weight.copy_(torch.randn(mod.weight.shape, generator=g)
+                                 / math.sqrt(mod.weight[0].numel()))
+                if mod.bias is not None:
+                    mod.bias.copy_(0.1 * torch.randn(mod.bias.shape, generator=g))
+            elif hasattr(mod, "running_var"):
+                c = mod.weight.shape[0]
+                mod.weight.copy_(0.5 + 0.5 * torch.rand(c, generator=g))
+                mod.bias.copy_(0.1 * torch.randn(c, generator=g))
+                mod.running_mean.copy_(0.1 * torch.randn(c, generator=g))
+                mod.running_var.copy_(0.5 + torch.rand(c, generator=g))
+    return model
+
+
+def _conv_work(model, x) -> tuple:
+    """(conv FLOPs, bytes) of one forward on x: 2 x (input channels per
+    group x kernel taps) multiply-adds per conv output element, counted
+    from each conv's output shape (forward hooks: they fire for a float32
+    model, whose convs run their modules; a bf16 one calls F.conv2d, so its
+    caller counts the float32 model's FLOPs); bytes: the input, every
+    weight, and the outputs (the tuple's tensors) once, at their dtypes."""
+    flops, handles = [0], []
+
+    def hook(mod, inputs, out):
+        flops[0] += 2 * out.numel() * mod.weight[0].numel()
+
+    for mod in model.modules():
+        if isinstance(mod, torch.nn.Conv2d):
+            handles.append(mod.register_forward_hook(hook))
+    try:
+        with torch.no_grad():
+            outs = model(x)
+    finally:
+        for h in handles:
+            h.remove()
+    outs = outs if isinstance(outs, tuple) else (outs,)
+    weight_bytes = sum(p.numel() * p.element_size() for p in model.parameters())
+    out_bytes = sum(o.numel() * o.element_size() for o in outs)
+    return flops[0], x.numel() * x.element_size() + weight_bytes + out_bytes
+
+
+def _helpers_close(card, cpu, what: str, slack=None) -> float:
+    """max |card - cpu| over the outputs (tuples compared stage by stage);
+    each within 1e-3 of the CPU's max |output| (fp32 with TF32 off), plus
+    `slack` (a list of per-output allowances) where given.  Returns the
+    worst share of the allowance used."""
+    card = card if isinstance(card, tuple) else (card,)
+    cpu = cpu if isinstance(cpu, tuple) else (cpu,)
+    worst = 0.0
+    for i, (a, b) in enumerate(zip(card, cpu)):
+        diff = (a.float().cpu() - b.float()).abs().max().item()
+        allow = 1e-3 * b.float().abs().max().item() + (slack[i] if slack else 0.0)
+        require(math.isfinite(diff) and diff <= allow,
+                f"{what}: output {i} max |card - CPU| {diff} > {allow}")
+        worst = max(worst, diff / max(allow, 1e-30))
+    return worst
+
+
+def _helpers_backbone(dev, smi, cls, name: str) -> dict:
+    """(a) for one backbone at depth 50: fp32 and bf16 on the card at
+    HELPERS_BATCH x 256^2 against the CPU on HELPERS_CPU samples, ms per
+    call, images/s and the bound."""
+    from scflow_tpu_torch.device import full_fp32
+
+    g = torch.Generator().manual_seed(1)
+    x = torch.randn((HELPERS_BATCH, 3, IMG, IMG), generator=g)
+    line = {"phase": f"helpers_{name}", "batch": HELPERS_BATCH, "image": IMG}
+    outs = {}
+    for tag, dtype, peak in (("fp32", None, FP32_FLOPS), ("bf16", torch.bfloat16, BF16_FLOPS)):
+        cpu_model = _seeded_backbone(cls, depth=50, dtype=dtype).eval()
+        model = _seeded_backbone(cls, depth=50, dtype=dtype).eval().to(dev)
+        xd = x.to(dev)
+        with full_fp32(), torch.no_grad():
+            outs[tag] = model(xd)
+            torch.cuda.synchronize()
+            ms = median_ms(lambda: model(xd), 3, groups=3)
+            counted_flops, nbytes = _conv_work(model, xd)
+            flops = counted_flops if dtype is None else flops  # the fp32 model's count
+            ref = cpu_model(x[:HELPERS_CPU])
+        card = tuple(o[:HELPERS_CPU] for o in outs[tag])
+        require(all(torch.isfinite(o).all().item() for o in outs[tag]), f"{name} {tag}: finite")
+        require([tuple(o.shape) for o in outs[tag]] == [
+            (HELPERS_BATCH, 256 * 2**i, IMG // 4 >> i, IMG // 4 >> i) for i in range(4)],
+            f"{name} {tag}: stage shapes {[tuple(o.shape) for o in outs[tag]]}")
+        slack = None
+        if dtype is not None:  # the card's own bf16 distance from its fp32 call
+            slack = [2 * (a[:HELPERS_CPU].float() - b[:HELPERS_CPU]).abs().max().item()
+                     for a, b in zip(outs[tag], outs["fp32"])]
+        used = _helpers_close(card, ref, f"{name} {tag}", slack)
+        t_ops, t_bytes = flops / peak, nbytes / HBM_BYTES_PER_S
+        line[tag] = {"ms": ms, "images_per_s": HELPERS_BATCH / ms * 1e3, "conv_flops": flops,
+                     "bytes": nbytes, "bound_ms": max(t_ops, t_bytes) * 1e3,
+                     "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+                     "share_of_bound": max(t_ops, t_bytes) * 1e3 / ms,
+                     "stage_dtypes": [str(o.dtype) for o in outs[tag]],
+                     "share_of_cpu_tolerance": used, "bf16_slack": slack}
+        del model, cpu_model, xd
+    emit({**line, "card": smi})
+    return line
+
+
+def _helpers_frozen_step(dev, smi) -> dict:
+    """(a)'s train-mode step: ResNet-50 with frozen_stages=1 at
+    HELPERS_TRAIN_BATCH x 256^2, forward in train mode, backward, one SGD
+    step: the stem's and stage 1's running statistics and weights
+    unchanged, their gradients absent or zero; every other gradient
+    present and finite, the later stages' statistics moved."""
+    from scflow_tpu_torch.device import full_fp32
+    from scflow_tpu_torch.models.resnet import ResNet
+
+    model = _seeded_backbone(ResNet, depth=50, frozen_stages=1).to(dev)
+    before = {k: v.clone() for k, v in model.state_dict().items()}
+    opt = torch.optim.SGD(model.parameters(), lr=1e-3)
+    x = torch.randn((HELPERS_TRAIN_BATCH, 3, IMG, IMG),
+                    generator=torch.Generator().manual_seed(2)).to(dev)
+
+    def step():
+        opt.zero_grad(set_to_none=True)
+        loss = sum(o.float().mean() for o in model(x, train=True))
+        loss.backward()
+        opt.step()
+        return loss
+
+    with full_fp32():
+        loss = step()
+        torch.cuda.synchronize()
+        frozen = ("conv1.", "bn1.", "layer1.")
+        grads = {k: p.grad for k, p in model.named_parameters()}
+        bad = [k for k, gr in grads.items() if k.startswith(frozen)
+               and gr is not None and gr.abs().max().item() != 0.0]
+        require(not bad, f"frozen step: frozen gradients {bad[:3]}")
+        bad = [k for k, gr in grads.items() if not k.startswith(frozen)
+               and (gr is None or not torch.isfinite(gr).all().item())]
+        require(not bad, f"frozen step: missing or non-finite gradients {bad[:3]}")
+        after = model.state_dict()
+        moved = [k for k in after if k.startswith(frozen) and not torch.equal(after[k], before[k])]
+        require(not moved, f"frozen step: frozen state moved {moved[:3]}")
+        stats = [k for k in after if "running_mean" in k and not k.startswith(frozen)]
+        still = [k for k in stats if torch.equal(after[k], before[k])]
+        require(not still, f"frozen step: running statistics that did not move {still[:3]}")
+        ms = median_ms(step, 3, groups=3)
+    res = {"batch": HELPERS_TRAIN_BATCH, "loss": loss.item(), "ms_per_step": ms,
+           "frozen_keys": sum(k.startswith(frozen) for k in after),
+           "trained_grads": sum(not k.startswith(frozen) for k in grads)}
+    emit({"phase": "helpers_frozen_step", **res, "card": smi})
+    return res
+
+
+def _helpers_dense_and_local(dev, smi) -> dict:
+    """(b): BasicDenseBlock (DENSE_FEAT, BatchNorm, eval) on 64 x 128 x 32^2
+    and local_correlation (d = 4) on RAFT's 64 x 32^2 x 256 features, card
+    against the CPU on 4 samples, ms of each."""
+    from scflow_tpu_torch.device import full_fp32
+    from scflow_tpu_torch.models.densenet import BasicDenseBlock
+    from scflow_tpu_torch.ops.corr import local_correlation
+
+    g = torch.Generator().manual_seed(3)
+    out = {}
+    block = _seeded_backbone(BasicDenseBlock, feat_channels=DENSE_FEAT, norm="BN",
+                             in_channels=128).eval()
+    x = torch.randn((BATCH, 128, 32, 32), generator=g)
+    f1, f2 = (torch.randn((BATCH, 32, 32, 256), generator=g) for _ in range(2))
+    cases = (("dense_block", block, (x,), lambda m, a: m(a)),
+             ("local_correlation", None, (f1, f2), lambda m, a, b: local_correlation(a, b, 4)))
+    for name, module, args, fn in cases:
+        card_module = module.to(dev) if module is not None else None
+        cargs = [a.to(dev) for a in args]
+        with full_fp32(), torch.no_grad():
+            got = fn(card_module, *cargs)
+            torch.cuda.synchronize()
+            ms = median_ms(lambda: fn(card_module, *cargs), 5, groups=3)
+            ref = fn(module.cpu() if module is not None else None, *(a[:4] for a in args))
+        require(torch.isfinite(got).all().item(), f"{name}: finite")
+        _helpers_close(got[:4], ref, name)
+        out[name] = {"shape": list(got.shape), "ms": ms,
+                     "max_abs_diff_vs_cpu": (got[:4].cpu() - ref).abs().max().item()}
+    emit({"phase": "helpers_dense_local", **out, "card": smi})
+    return out
+
+
+def _helpers_gather_vs_k1(dev, smi) -> dict:
+    """(c): corr_lookup_gather over correlation_pyramid (4-D levels) on the
+    flagship's 65,536 rows (64 x 32^2, levels 32^2..4^2, radius 4; random,
+    border-straddling and integer centres) against K1 through corr_lookup
+    ('pallas') on the same levels: within 1e-4; ms of each."""
+    from scflow_tpu_torch.ops.corr import corr_lookup, corr_lookup_gather, correlation_pyramid
+    from scflow_tpu_torch.ops.cuda import corr_lookup as k1
+
+    g = torch.Generator().manual_seed(4)
+    h = IMG // 8
+    f1, f2 = (torch.randn((BATCH, h, h, 256), generator=g).to(dev) for _ in range(2))
+    flow = 4.0 * torch.randn((BATCH, h, h, 2), generator=g)
+    third = BATCH // 3
+    flow[third:2 * third] = 80.0 * torch.rand((third, h, h, 2), generator=g) - 40.0
+    flow[2 * third:] = torch.randint(-12, 13, (BATCH - 2 * third, h, h, 2), generator=g).float()
+    flow = flow.to(dev)
+    with torch.no_grad():
+        pyramid = correlation_pyramid(f1, f2, 4)
+        launches = k1.KERNEL.launches
+        got = corr_lookup(pyramid, flow, 4, backend="pallas")
+        torch.cuda.synchronize()
+        require(k1.KERNEL.launches == launches + 1, "gather vs K1: one K1 launch")
+        want = corr_lookup_gather(pyramid, flow, 4)
+        err = (got - want).abs().max().item()
+        require(math.isfinite(err) and err <= 1e-4, f"gather vs K1: max |d| {err} > 1e-4")
+        res = {"rows": BATCH * h * h, "max_abs_err": err, "tolerance": 1e-4,
+               "k1_ms": median_ms(lambda: corr_lookup(pyramid, flow, 4, backend="pallas"), 20),
+               "gather_ms": median_ms(lambda: corr_lookup_gather(pyramid, flow, 4), 3)}
+    emit({"phase": "helpers_gather_vs_k1", **res, "card": smi})
+    return res
+
+
+def _helpers_small(dev, smi) -> dict:
+    """(d): grid_sample (both modes, both align_corners), backward_warp,
+    the losses and filter_flow_by_face_index on card tensors against the
+    same calls on the CPU: nearest bit for bit, the rest within 1e-5 of
+    the CPU's max |output|."""
+    from scflow_tpu_torch import geometry, losses, ops
+
+    g = torch.Generator().manual_seed(5)
+    feat = torch.randn((8, 64, 64, 16), generator=g)
+    grid = 2.4 * torch.rand((8, 48, 48, 2), generator=g) - 1.2
+    flow = 6.0 * torch.randn((8, 64, 64, 2), generator=g)
+    # whole-pixel flows: nearest's rounding of a half-pixel tie may fall
+    # either way by the last bit of the grid's arithmetic on either device
+    # (tests/test_torch_helpers.py holds the ties to JAX's on the CPU)
+    iflow = torch.randint(-3, 4, (8, 64, 64, 2), generator=g).float()
+    faces = torch.randint(0, 6, (2, 8, 64, 64), generator=g)
+    pts = 50.0 * torch.randn((4, 500, 3), generator=g)
+    valid = torch.ones((4, 500), dtype=torch.bool)
+    valid[1, 400:] = False
+    q = torch.nn.functional.normalize(torch.randn((2, 16, 4), generator=g), dim=-1)
+    rots = geometry.rotmat_from_quat(q)
+    trans = 30.0 * torch.randn((2, 16, 3), generator=g) + torch.tensor([0.0, 0.0, 800.0])
+    labels = torch.randint(0, 4, (16,), generator=g)
+    bank = (pts, valid, torch.tensor([False, True, False, True]),
+            torch.tensor([100.0, 150.0, 80.0, 120.0]))
+    preds = torch.randn((4, 8, 64, 64, 2), generator=g)
+    calls = {f"grid_sample_{mode}_{ac}": (
+        lambda a, mode=mode, ac=ac: ops.grid_sample(a["feat"], a["grid"], mode,
+                                                    align_corners=ac), mode == "nearest")
+        for mode in ("bilinear", "nearest") for ac in (False, True)}
+    calls.update({
+        "backward_warp": (lambda a: ops.backward_warp(a["feat"], a["flow"],
+                                                      return_mask=True), False),
+        "endpoint_error": (lambda a: losses.endpoint_error(a["preds"][0], a["flow"], q=0.4,
+                                                           eps=0.01), False),
+        "sequence_loss": (lambda a: losses.sequence_loss(
+            losses.raft_loss, a["preds"], 0.8, gt_flow=a["flow"])[0], False),
+        "point_matching_loss": (lambda a: losses.point_matching_loss(
+            a["rots"][0], a["trans"][0], a["rots"][1], a["trans"][1], a["labels"],
+            *a["bank"]), False),
+        "rot_point_matching_loss": (lambda a: losses.rot_point_matching_loss(
+            a["rots"][0], a["rots"][1], a["labels"], *a["bank"]), False),
+        "filter_flow_by_face_index": (lambda a: geometry.filter_flow_by_face_index(
+            a["iflow"], a["faces"][0], a["faces"][1]), True)})
+    cpu = dict(feat=feat, grid=grid, flow=flow, iflow=iflow, faces=faces, rots=rots,
+               trans=trans, labels=labels, bank=bank, preds=preds)
+    card = {k: tuple(t.to(dev) for t in v) if isinstance(v, tuple) else v.to(dev)
+            for k, v in cpu.items()}
+    out = {}
+    for name, (fn, exact) in calls.items():
+        got, want = fn(card), fn(cpu)
+        got = got if isinstance(got, tuple) else (got,)
+        want = want if isinstance(want, tuple) else (want,)
+        torch.cuda.synchronize()
+        diff = max((a.cpu() - b).abs().max().item() for a, b in zip(got, want))
+        scale = max(b.abs().max().item() for b in want)
+        require(all(torch.isfinite(a).all().item() for a in got), f"{name}: finite")
+        require(diff == 0.0 if exact else diff <= 1e-5 * scale,
+                f"{name}: max |card - CPU| {diff} (scale {scale})")
+        out[name] = {"max_abs_diff": diff, "exact": exact}
+    emit({"phase": "helpers_small", **out, "card": smi})
+    return out
+
+
+def phase_helpers(dev, smi) -> None:
+    """Phase 29: the registered backbones and the last public helpers on
+    the card, (a)-(d) in the docstring.  Every part runs; any failure fails
+    the phase."""
+    from scflow_tpu_torch.models.resnet import ResNet, ResNetV1d
+
+    t0 = time.perf_counter()
+    failed = []
+    parts = (("resnet50", lambda: _helpers_backbone(dev, smi, ResNet, "resnet50")),
+             ("resnetv1d50", lambda: _helpers_backbone(dev, smi, ResNetV1d, "resnetv1d50")),
+             ("frozen_step", lambda: _helpers_frozen_step(dev, smi)),
+             ("dense_local", lambda: _helpers_dense_and_local(dev, smi)),
+             ("gather_vs_k1", lambda: _helpers_gather_vs_k1(dev, smi)),
+             ("small", lambda: _helpers_small(dev, smi)))
+    for name, fn in parts:
+        try:  # every part runs, so one call shows every failure; any fails the phase
+            fn()
+        except Exception as e:  # noqa: BLE001
+            failed.append(f"({name}) {type(e).__name__}: {e}")
+            print(f"helpers ({name}) failed: {e!r}", file=sys.stderr, flush=True)
+        torch.cuda.empty_cache()
+    require(not failed, f"helpers: {failed}")
+    emit({"phase": "helpers", "seconds": time.perf_counter() - t0, "card": smi})
+
+
 PHASE_GROUPS = ("lookup", "raster", "slice", "raft", "raft_levels", "options", "workflow",
                 "train_workflow", "train_pbr", "serve", "train_augment", "export", "parallel",
-                "learn", "tools")
+                "learn", "tools", "helpers")
 
 
 def run_phase_groups(groups, dev, ptxas, smi, root: Path) -> None:
@@ -5843,6 +6190,8 @@ def run_phase_groups(groups, dev, ptxas, smi, root: Path) -> None:
             phase_learn_tools(smi, root)
         elif group == "tools":
             phase_tools(smi, root, fresh=True)
+        elif group == "helpers":
+            phase_helpers(dev, smi)
         else:
             phase_raft_small(smi)
             phase_scflow_options(smi, shipped)
@@ -5931,6 +6280,8 @@ def main() -> int:
     learn_launches = phase_learn(smi)
     # launches per visualized image of the user tools (phase 28)
     tools_launches = phase_tools(smi, args.root.resolve())
+    # the registered backbones and the last helpers (phase 29; no kernel of its own)
+    phase_helpers(dev, smi)
     src = "scflow_tpu_torch/csrc/"
     tpu = "scflow_tpu/ops/pallas/"
     table = [

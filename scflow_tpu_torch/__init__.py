@@ -11,3 +11,18 @@ kernel wrapper runs its plain PyTorch version instead.
 """
 
 __version__ = "0.1.0"
+
+
+def lazy_exports(package: str, exports: dict):
+    """(__all__, __getattr__) for a subpackage that exports `exports`
+    ({name: its submodule}) and imports each submodule at the first use of
+    one of its names (PEP 562), so that importing one submodule does not
+    import the rest."""
+    import importlib
+
+    def __getattr__(name):
+        if name in exports:
+            return getattr(importlib.import_module(f"{package}.{exports[name]}"), name)
+        raise AttributeError(f"module {package!r} has no attribute {name!r}")
+
+    return list(exports), __getattr__

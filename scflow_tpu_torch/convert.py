@@ -1,4 +1,4 @@
-"""Weight bridge: a flax refiner's variables tree -> a PyTorch state dict.
+"""Weight bridge: a flax variables tree -> a PyTorch state dict.
 
 `state_dict_from_flax(variables)` takes the JAX package's
 {"params", "batch_stats"} tree (leaves as numpy arrays) of an
@@ -7,11 +7,15 @@ modules, with any of their options (a shared or a separate real-image
 encoder; 'Basic', 'Small' or 'Large' encoders, the Small one's Bottleneck
 blocks included; any norm, None leaving no norm leaves; either pose head
 and rotation mode; any radius; fused or unfused GRU gates, whose trees are
-the same) and returns a state dict that the port's module of the same name
+the same), or of a registered backbone (ResNet, ResNetV1d: the stem's
+conv1/norm1 or deep stem{j}, stage{i}_block{b}, avgdown_conv/norm;
+BasicDenseBlock: layer{i}'s conv and norm; its norm given as cxt_norm), and
+returns a state dict that the port's module of the same name
 (`refiners/scflow.py`, `refiners/raft.py`, `models/`) loads with
 strict=True.  The name mapping is this package's own copy of the one in
 scflow_tpu/runtime/convert_torch.py (flax module path -> the reference's
 mmcv key); the transposes run the other way: HWIO -> OIHW, (I, O) -> (O, I).
+`flax_from_state_dict` goes back by the same mapping.
 """
 
 import re
@@ -42,6 +46,14 @@ def _torch_prefix(path: Tuple[str, ...]) -> str:
             out.append("downsample.0")
         elif p == "downsample_norm":
             out.append("downsample.1")
+        elif m := re.fullmatch(r"stage(\d+)_block(\d+)", p):  # ResNet stages
+            out.append(f"layer{m.group(1)}.{m.group(2)}")
+        elif m := re.fullmatch(r"stem(\d+)", p):  # ResNet's deep stem
+            out.append(f"stem.{m.group(1)}")
+        elif p == "avgdown_conv":
+            out.append("downsample.1")
+        elif p == "avgdown_norm":
+            out.append("downsample.2")
         elif m := re.fullmatch(r"(corr_net|flow_net|out_net)(\d+)", p):
             out.append(f"{m.group(1)}.{m.group(2)}")
         elif m := re.fullmatch(r"conv_([zrq])(\d+)", p):
@@ -50,7 +62,7 @@ def _torch_prefix(path: Tuple[str, ...]) -> str:
             out.append(f"delta_flow_encoder.{m.group(1)}")
         elif m := re.fullmatch(r"mask_enc(\d+)", p):
             out.append(f"mask_encoder.{m.group(1)}")
-        elif m := re.fullmatch(r"layer(\d+)", p):  # XHead convs
+        elif m := re.fullmatch(r"layer(\d+)", p):  # XHead convs, DenseLayers
             out.append(f"layers.{m.group(1)}")
         elif p == "predict":
             out.append("predict_layer")
@@ -62,7 +74,7 @@ def _torch_prefix(path: Tuple[str, ...]) -> str:
             out.append(f"fc_layers.{m.group(1)}.0")
         elif p in ("norm1", "norm2", "norm3"):
             out.append(f"__{p}__")
-        elif p == "norm":  # ConvModule norm
+        elif p == "norm":  # ConvModule's and DenseLayer's norm
             out.append("__norm__")
         else:
             out.append(p)

@@ -1,16 +1,20 @@
 """Pose, camera and flow geometry (batched, on tensors).
 
 Ports of scflow_tpu/geometry: rotation.py::rotmat_from_ortho6d,
-rotmat_from_quat, rotmat_from_axis_angle and axis_angle_from_rotmat,
-se3.py::apply_delta_pose, camera.py::coords_grid and lift_depth_to_object_points(_at),
+rotmat_from_quat, quat_from_rotmat, rotmat_from_euler, rotmat_from_axis_angle
+and axis_angle_from_rotmat, se3.py::apply_delta_pose,
+camera.py::coords_grid, project_points and lift_depth_to_object_points(_at),
 flow.py::flow_from_object_points(_at), flow_from_pose_and_depth,
-filter_flow_by_mask, filter_flow_by_depth and cal_epe.  Same arithmetic and
-layouts (pixel grids in (x, y) order, NHWC maps).
+flow_to_coords, filter_flow_by_mask, filter_flow_by_depth,
+filter_flow_by_face_index and cal_epe.  Same arithmetic and layouts (pixel
+grids in (x, y) order, NHWC maps).
 """
 
 from typing import Dict, Optional, Tuple
 
 import torch
+
+from scflow_tpu_torch.ops.sampling import grid_sample
 
 _EPS = 1e-12
 
@@ -39,6 +43,50 @@ def rotmat_from_quat(q: torch.Tensor) -> torch.Tensor:
                      2 * (xy + wz), 1 - 2 * (xx + zz), 2 * (yz - wx),
                      2 * (xz - wy), 2 * (yz + wx), 1 - 2 * (xx + yy)], dim=-1)
     return r.reshape(q.shape[:-1] + (3, 3))
+
+
+def quat_from_rotmat(R: torch.Tensor) -> torch.Tensor:
+    """Rotation matrix (..., 3, 3) -> scalar-last quaternion (x, y, z, w),
+    branchless, as the JAX function: each component's magnitude from the
+    diagonal, the vector's signs from the skew part, then normalized."""
+    m00, m01, m02 = R[..., 0, 0], R[..., 0, 1], R[..., 0, 2]
+    m10, m11, m12 = R[..., 1, 0], R[..., 1, 1], R[..., 1, 2]
+    m20, m21, m22 = R[..., 2, 0], R[..., 2, 1], R[..., 2, 2]
+    tr = m00 + m11 + m22
+    qw = torch.sqrt(torch.clamp(1 + tr, min=0.0)) / 2
+    qx = torch.sqrt(torch.clamp(1 + m00 - m11 - m22, min=0.0)) / 2
+    qy = torch.sqrt(torch.clamp(1 - m00 + m11 - m22, min=0.0)) / 2
+    qz = torch.sqrt(torch.clamp(1 - m00 - m11 + m22, min=0.0)) / 2
+    qx = torch.copysign(qx, m21 - m12)
+    qy = torch.copysign(qy, m02 - m20)
+    qz = torch.copysign(qz, m10 - m01)
+    return _normalize(torch.stack([qx, qy, qz, qw], dim=-1))
+
+
+def rotmat_from_euler(angles: torch.Tensor, order: str = "xyz",
+                      degrees: bool = False) -> torch.Tensor:
+    """Euler angles (..., 3) -> rotation (..., 3, 3), extrinsic axes applied
+    in `order` (later axes multiply from the left): scipy's
+    Rotation.from_euler(order) for lower-case orders."""
+    if degrees:
+        angles = torch.deg2rad(angles)
+
+    def axis_rot(axis, a):
+        c, s = torch.cos(a), torch.sin(a)
+        o, i = torch.zeros_like(a), torch.ones_like(a)
+        if axis == "x":
+            rows = [i, o, o, o, c, -s, o, s, c]
+        elif axis == "y":
+            rows = [c, o, s, o, i, o, -s, o, c]
+        else:
+            rows = [c, -s, o, s, c, o, o, o, i]
+        return torch.stack(rows, dim=-1).reshape(a.shape + (3, 3))
+
+    R = None
+    for idx, ax in enumerate(order):
+        Ri = axis_rot(ax, angles[..., idx])
+        R = Ri if R is None else Ri @ R
+    return R
 
 
 def rotmat_from_axis_angle(rvec: torch.Tensor) -> torch.Tensor:
@@ -122,6 +170,17 @@ def coords_grid(h: int, w: int, dtype=torch.float32, device=None) -> torch.Tenso
     return torch.stack([gx, gy], dim=-1)
 
 
+def project_points(points: torch.Tensor, K: torch.Tensor, R: Optional[torch.Tensor] = None,
+                   t: Optional[torch.Tensor] = None, eps: float = 0.0) -> torch.Tensor:
+    """Points (..., P, 3), in the object frame when R (..., 3, 3) and t
+    (..., 3) are given, else in the camera's, projected by K (..., 3, 3) to
+    pixels (..., P, 2) in (x, y) order: uv / (w + eps)."""
+    if R is not None:
+        points = torch.einsum("...ij,...pj->...pi", R, points) + t[..., None, :]
+    uvw = torch.einsum("...ij,...pj->...pi", K, points)
+    return uvw[..., :2] / (uvw[..., 2:3] + eps)
+
+
 def lift_depth_to_object_points_at(
     depth: torch.Tensor,  # (N, h', w') sampled at pix
     K: torch.Tensor,  # (N, 3, 3)
@@ -184,48 +243,35 @@ def flow_from_pose_and_depth(R_src, t_src, R_dst, t_dst, depth_src, K,
     return flow_from_object_points(points_obj, valid, R_dst, t_dst, K, invalid_num)
 
 
-def sample_bilinear_zeros(feat: torch.Tensor, xy: torch.Tensor) -> torch.Tensor:
-    """feat (N, H, W, C) at pixel coordinates xy (N, P, 2), bilinear, zeros
-    outside: the port's copy of scflow_tpu/ops/sampling.py::sample_at_pixels
-    (bilinear, padding 'zeros'), in its order of operations."""
-    n, h, w, c = feat.shape
-    flat = feat.reshape(n, h * w, c)
-    x, y = xy[..., 0], xy[..., 1]
-    x0, y0 = torch.floor(x), torch.floor(y)
-    wx1, wy1 = x - x0, y - y0
-    wx0, wy0 = 1.0 - wx1, 1.0 - wy1
-    ix0, iy0 = x0.long(), y0.long()
-    ix1, iy1 = ix0 + 1, iy0 + 1
-    wx0 = wx0 * ((ix0 >= 0) & (ix0 <= w - 1)).to(feat.dtype)
-    wx1 = wx1 * ((ix1 >= 0) & (ix1 <= w - 1)).to(feat.dtype)
-    wy0 = wy0 * ((iy0 >= 0) & (iy0 <= h - 1)).to(feat.dtype)
-    wy1 = wy1 * ((iy1 >= 0) & (iy1 <= h - 1)).to(feat.dtype)
+def flow_to_coords(flow: torch.Tensor) -> torch.Tensor:
+    """Flow (N, H, W, 2) -> the absolute target coordinates pixel + flow."""
+    n, h, w, _ = flow.shape
+    return coords_grid(h, w, flow.dtype, flow.device)[None] + flow
 
-    def gather(ix, iy):
-        idx = torch.clamp(iy, 0, h - 1) * w + torch.clamp(ix, 0, w - 1)
-        return torch.gather(flat, 1, idx[..., None].expand(-1, -1, c))
 
-    return (gather(ix0, iy0) * (wx0 * wy0)[..., None] + gather(ix1, iy0) * (wx1 * wy0)[..., None]
-            + gather(ix0, iy1) * (wx0 * wy1)[..., None]
-            + gather(ix1, iy1) * (wx1 * wy1)[..., None])
+def _normalized_grid_from_flow(flow: torch.Tensor) -> torch.Tensor:
+    """The [-1, 1] sampling grid at pixel + flow, scaled by 2 / (size - 1)
+    whatever align_corners, as the reference's warp.coords_grid
+    (models/utils/warp.py:9-28) and the JAX package scale it."""
+    n, h, w, _ = flow.shape
+    coords = flow_to_coords(flow)
+    gx = coords[..., 0] * 2.0 / max(w - 1, 1) - 1.0
+    gy = coords[..., 1] * 2.0 / max(h - 1, 1) - 1.0
+    return torch.stack([gx, gy], dim=-1)
 
 
 def filter_flow_by_mask(flow: torch.Tensor, gt_mask: torch.Tensor,
-                        invalid_num: float = 400.0) -> torch.Tensor:
+                        invalid_num: float = 400.0, align_corners: bool = False
+                        ) -> torch.Tensor:
     """Set to invalid_num the flow (N, H, W, 2) whose target samples the
-    target mask (N, H, W) below 0.9, and flow that is already invalid.  As
-    the reference (models/utils/flow.py:6-26) and the JAX package: the grid
-    is normalized by 2 / (size - 1) and then sampled with
-    align_corners=False, which shifts the sample by half a pixel."""
-    n, h, w, _ = flow.shape
-    coords = coords_grid(h, w, flow.dtype, flow.device)[None] + flow
-    gx = coords[..., 0] * 2.0 / max(w - 1, 1) - 1.0
-    gy = coords[..., 1] * 2.0 / max(h - 1, 1) - 1.0
-    px = ((gx + 1.0) * w - 1.0) * 0.5  # grid_sample's unnormalization, align_corners=False
-    py = ((gy + 1.0) * h - 1.0) * 0.5
-    sampled = sample_bilinear_zeros(gt_mask[..., None].to(flow.dtype),
-                                    torch.stack([px, py], -1).reshape(n, -1, 2))
-    sampled = sampled.reshape(n, h, w)
+    target mask (N, H, W) below 0.9 (bilinear), and flow that is already
+    invalid.  As the reference (models/utils/flow.py:6-26) and the JAX
+    package: the grid is normalized by 2 / (size - 1) and then sampled with
+    align_corners (False by default, which shifts the sample by half a
+    pixel)."""
+    sampled = grid_sample(gt_mask[..., None].to(flow.dtype), _normalized_grid_from_flow(flow),
+                          mode="bilinear", padding_mode="zeros",
+                          align_corners=align_corners)[..., 0]
     already_invalid = (flow[..., 0] >= invalid_num) & (flow[..., 1] >= invalid_num)
     bad = (sampled < 0.9) | already_invalid
     return torch.where(bad[..., None], torch.full_like(flow, invalid_num), flow)
@@ -238,17 +284,27 @@ def filter_flow_by_depth(flow: torch.Tensor, depth1: torch.Tensor, depth0: torch
     from depth0 by thr or more relative to depth0 + 0.1; already invalid flow
     stays invalid.  The JAX function's documented intent (`already_invalid
     | ~consistent`), not the reference's AND, which is a no-op."""
-    n, h, w, _ = flow.shape
-    coords = coords_grid(h, w, flow.dtype, flow.device)[None] + flow
-    gx = coords[..., 0] * 2.0 / max(w - 1, 1) - 1.0
-    gy = coords[..., 1] * 2.0 / max(h - 1, 1) - 1.0
-    px = (gx + 1.0) * 0.5 * (w - 1)  # grid_sample's unnormalization, align_corners=True
-    py = (gy + 1.0) * 0.5 * (h - 1)
     d1 = torch.where(depth1 > 0, depth1, torch.zeros_like(depth1))
     d0 = torch.where(depth0 > 0, depth0, torch.zeros_like(depth0))
-    warped = sample_bilinear_zeros(d1[..., None].to(flow.dtype),
-                                   torch.stack([px, py], -1).reshape(n, -1, 2)).reshape(n, h, w)
+    warped = grid_sample(d1[..., None], _normalized_grid_from_flow(flow), mode="bilinear",
+                         padding_mode="zeros", align_corners=True)[..., 0]
     consistent = torch.abs(d0 - warped) / (d0 + 0.1) < thr
+    already_invalid = (flow[..., 0] >= invalid_num) & (flow[..., 1] >= invalid_num)
+    bad = already_invalid | ~consistent
+    return torch.where(bad[..., None], torch.full_like(flow, invalid_num), flow)
+
+
+def filter_flow_by_face_index(flow: torch.Tensor, face_index1: torch.Tensor,
+                              face_index2: torch.Tensor, invalid_num: float = 400.0
+                              ) -> torch.Tensor:
+    """Invalidate the flow (N, H, W, 2) whose target's face id in
+    face_index2 (N, H, W), sampled nearest (align_corners=True; the JAX
+    sampler's nearest, ops/sampling.py), differs from the source's in
+    face_index1, and flow that is already invalid (models/utils/flow.py:
+    47-59).  The ids compare in the flow's dtype, as in JAX."""
+    warped = grid_sample(face_index2[..., None].to(flow.dtype), _normalized_grid_from_flow(flow),
+                         mode="nearest", padding_mode="zeros", align_corners=True)[..., 0]
+    consistent = warped == face_index1.to(flow.dtype)
     already_invalid = (flow[..., 0] >= invalid_num) & (flow[..., 1] >= invalid_num)
     bad = already_invalid | ~consistent
     return torch.where(bad[..., None], torch.full_like(flow, invalid_num), flow)

@@ -1,6 +1,7 @@
-"""Disentangled point-matching pose loss over padded per-class vertex banks:
-the port's copy of scflow_tpu/losses/point_matching.py
-(sym_mask_from_types, disentangle_point_matching_loss).
+"""Point-matching pose losses over padded per-class vertex banks: the
+port's copy of scflow_tpu/losses/point_matching.py (sym_mask_from_types,
+point_matching_loss, disentangle_point_matching_loss and
+rot_point_matching_loss).
 
 Bank layout: points (C, V, 3) zero-padded vertices, valid (C, V) bool,
 sym (C,) bool (symmetric classes match each target point to its nearest
@@ -46,6 +47,49 @@ def _scale_translations(pred_t, gt_t, scale_factors, scale_xy, scale_depth,
     return sp, sg
 
 
+def _bank(labels, points_bank, points_valid, sym_mask, diameters):
+    labels = labels.long()
+    return points_bank[labels], points_valid[labels], sym_mask[labels], diameters[labels]
+
+
+def _matched(target: torch.Tensor, pred: torch.Tensor, valid: torch.Tensor,
+             sym: torch.Tensor) -> torch.Tensor:
+    """pred, with each target point's nearest valid pred point in its place
+    for the symmetric classes."""
+    idx, _ = nn_points(target, pred, ref_valid=valid)
+    matched = torch.gather(pred, 1, idx[..., None].expand(-1, -1, 3))
+    return torch.where(sym[:, None, None], matched, pred)
+
+
+def point_matching_loss(pred_r, pred_t, gt_r, gt_t, labels, points_bank, points_valid,
+                        sym_mask, diameters, loss_type: int = 2, loss_weight: float = 1.0,
+                        scale_factors=None, scale_xy: bool = False, scale_depth: bool = False,
+                        scale_depth_factor: float = 1.0) -> torch.Tensor:
+    """ADD(-S)-style loss (reference point_matching_loss.py:62-103): the
+    model points under the predicted and the gt pose (nearest-point matched
+    for symmetric classes), the mean norm over each image's valid points
+    divided by its diameter, the mean over images."""
+    pts, valid, sym, diam = _bank(labels, points_bank, points_valid, sym_mask, diameters)
+    sp, sg = _scale_translations(pred_t, gt_t, scale_factors, scale_xy, scale_depth,
+                                 scale_depth_factor)
+    pred = torch.einsum("nij,nvj->nvi", pred_r, pts) + sp[:, None]
+    target = torch.einsum("nij,nvj->nvi", gt_r, pts) + sg[:, None]
+    per_pt = _vnorm(_matched(target, pred, valid, sym) - target, loss_type)
+    return loss_weight * (_masked_mean(per_pt, valid) / diam).mean()
+
+
+def rot_point_matching_loss(pred_r, gt_r, labels, points_bank, points_valid, sym_mask,
+                            diameters, loss_type: int = 2,
+                            loss_weight: float = 1.0) -> torch.Tensor:
+    """The rotation-only loss (reference point_matching_loss.py:222-291):
+    point_matching_loss without the translations."""
+    pts, valid, sym, diam = _bank(labels, points_bank, points_valid, sym_mask, diameters)
+    pred = torch.einsum("nij,nvj->nvi", pred_r, pts)
+    target = torch.einsum("nij,nvj->nvi", gt_r, pts)
+    per_pt = _vnorm(_matched(target, pred, valid, sym) - target, loss_type)
+    return loss_weight * (_masked_mean(per_pt, valid) / diam).mean()
+
+
 def disentangle_point_matching_loss(pred_r, pred_t, gt_r, gt_t, labels, points_bank,
                                     points_valid, sym_mask, diameters, loss_type: int = 1,
                                     disentangle_z: bool = True, loss_weight: float = 1.0,
@@ -58,18 +102,14 @@ def disentangle_point_matching_loss(pred_r, pred_t, gt_r, gt_t, labels, points_b
     (pred xy, gt rotation and z); else pred t whole.  Each image's terms
     are over its valid points, divided by its diameter; mean over images
     (reference point_matching_loss.py:160-218)."""
-    labels = labels.long()
-    pts, valid = points_bank[labels], points_valid[labels]
-    sym, diam = sym_mask[labels], diameters[labels]
+    pts, valid, sym, diam = _bank(labels, points_bank, points_valid, sym_mask, diameters)
     sp, sg = _scale_translations(pred_t, gt_t, scale_factors, scale_xy, scale_depth,
                                  scale_depth_factor)
     pts_gt_rot = torch.einsum("nij,nvj->nvi", gt_r, pts)
     pts_gt_rt = pts_gt_rot + sg[:, None]
 
     pts_pred_rot = torch.einsum("nij,nvj->nvi", pred_r, pts) + sg[:, None]
-    idx, _ = nn_points(pts_gt_rt, pts_pred_rot, ref_valid=valid)
-    matched = torch.gather(pts_pred_rot, 1, idx[..., None].expand(-1, -1, 3))
-    pts_pred_rot_eff = torch.where(sym[:, None, None], matched, pts_pred_rot)
+    pts_pred_rot_eff = _matched(pts_gt_rt, pts_pred_rot, valid, sym)
     loss_rot = _masked_mean(_vnorm(pts_pred_rot_eff - pts_gt_rt, loss_type), valid)
 
     if disentangle_z:

@@ -19,6 +19,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from scflow_tpu_torch.models.layers import ConvModule, linear
+from scflow_tpu_torch.registry import HEADS
 
 ID_BIAS = {"ortho6d": (1.0, 0.0, 0.0, 0.0, 1.0, 0.0), "quaternion": (0.0, 0.0, 0.0, 1.0)}
 
@@ -60,6 +61,7 @@ class _PoseHead(nn.Module):
         return linear(self.rotation_pred, feat), linear(self.translation_pred, feat)
 
 
+@HEADS.register_module("MultiClassPoseHead", requires=("feat_size",))
 class MultiClassPoseHead(_PoseHead):
     def __init__(self, num_class: int = 21, in_channels: int = 224,
                  feat_size: Tuple[int, int] = (32, 32), dtype: Optional[torch.dtype] = None,
@@ -78,6 +80,7 @@ class MultiClassPoseHead(_PoseHead):
                 trans.view(n, self.num_class, 3)[idx, label])
 
 
+@HEADS.register_module("SingleClassPoseHead", requires=("feat_size",))
 class SingleClassPoseHead(_PoseHead):
     def __init__(self, in_channels: int = 224, feat_size: Tuple[int, int] = (32, 32),
                  dtype: Optional[torch.dtype] = None, rotation_mode: str = "ortho6d"):

@@ -35,8 +35,10 @@ from scflow_tpu_torch.models.scflow_decoder import CXT_CHANNELS, H_CHANNELS, che
 from scflow_tpu_torch.ops.corr import corr_lookup, correlation_pyramid_flat
 from scflow_tpu_torch.ops.resize import interpolate_bilinear
 from scflow_tpu_torch.ops.upsample import convex_upsample
+from scflow_tpu_torch.registry import DECODERS
 
 
+@DECODERS.register_module("RAFTDecoder", requires=("cxt_channels",))
 class RAFTDecoder(nn.Module):
     """The JAX module's fields, with its defaults, then the port's own
     cxt_channels (the context features' width, None: the net_type's; flax
@@ -129,6 +131,7 @@ class RAFTDecoder(nn.Module):
         return out
 
 
+@DECODERS.register_module("RAFTDecoderMask", requires=("cxt_channels",))
 class RAFTDecoderMask(RAFTDecoder):
     """RAFTDecoder with the occlusion head (predict_occlusion=True)."""
 

@@ -22,6 +22,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from scflow_tpu_torch.models.layers import NORM_ABBR, apply_norm, conv2d, make_norm
+from scflow_tpu_torch.registry import ENCODERS
 
 _BASE_CHANNELS = {"Basic": (64, 96, 128), "Large": (64, 96), "Small": (8, 16, 24)}
 _STRIDES = {"Basic": (1, 2, 2), "Large": (1, 2), "Small": (1, 2, 2)}
@@ -32,7 +33,11 @@ class _Block(nn.Module):
     """Shared parts of the residual blocks: the norm layers by index (none
     for norm None) and the downsample projection of the identity, a 1x1
     conv that keeps its bias, as the reference's ResLayer does
-    (load-bearing for its checkpoints), then the norm."""
+    (load-bearing for its checkpoints), then the norm.  With avg_down and a
+    stride, the projection is a stride-s average pool (ceil_mode,
+    count_include_pad=False, so odd maps keep the main branch's ceil(H/s))
+    and a stride-1 conv: the reference's downsample.0/1/2 (JAX's
+    avgdown_conv, avgdown_norm)."""
 
     def __init__(self, norm: Optional[str], dtype: Optional[torch.dtype]):
         super().__init__()
@@ -46,8 +51,13 @@ class _Block(nn.Module):
     def _norm(self, i: int, x: torch.Tensor, train: bool) -> torch.Tensor:
         return apply_norm(getattr(self, f"{self.abbr}{i}", None), x, train)
 
-    def _set_downsample(self, cin: int, cout: int, stride: int, norm: Optional[str]) -> None:
-        layers = [nn.Conv2d(cin, cout, 1, stride, bias=True)]
+    def _set_downsample(self, cin: int, cout: int, stride: int, norm: Optional[str],
+                        avg_down: bool = False) -> None:
+        layers = []
+        if avg_down and stride != 1:
+            layers.append(nn.AvgPool2d(stride, stride, ceil_mode=True, count_include_pad=False))
+            stride = 1
+        layers.append(nn.Conv2d(cin, cout, 1, stride, bias=True))
         if norm is not None:
             layers.append(make_norm(norm, cout, self.dtype))
         self.downsample = nn.Sequential(*layers)
@@ -55,24 +65,29 @@ class _Block(nn.Module):
     def _identity(self, x: torch.Tensor, train: bool) -> torch.Tensor:
         if self.downsample is None:
             return x
-        y = conv2d(self.downsample[0], x, self.dtype)
-        return apply_norm(self.downsample[1], y, train) if len(self.downsample) > 1 else y
+        layers = list(self.downsample)
+        if isinstance(layers[0], nn.AvgPool2d):
+            x = layers.pop(0)(x)
+        y = conv2d(layers[0], x, self.dtype)
+        return apply_norm(layers[1], y, train) if len(layers) > 1 else y
 
 
 class BasicBlock(_Block):
-    """3x3 convs with bias -> norm (the reference's modified BasicBlock)."""
+    """3x3 convs with bias -> norm (the reference's modified BasicBlock),
+    the dilation on conv1."""
 
     expansion = 1
 
     def __init__(self, in_channels: int, planes: int, stride: int, norm: Optional[str],
-                 dtype: Optional[torch.dtype] = None):
+                 dtype: Optional[torch.dtype] = None, dilation: int = 1,
+                 avg_down: bool = False):
         super().__init__(norm, dtype)
-        self.conv1 = nn.Conv2d(in_channels, planes, 3, stride, 1, bias=True)
+        self.conv1 = nn.Conv2d(in_channels, planes, 3, stride, dilation, dilation, bias=True)
         self._add_norm(1, norm, planes)
         self.conv2 = nn.Conv2d(planes, planes, 3, 1, 1, bias=True)
         self._add_norm(2, norm, planes)
         if stride != 1 or in_channels != planes:
-            self._set_downsample(in_channels, planes, stride, norm)
+            self._set_downsample(in_channels, planes, stride, norm, avg_down)
 
     def forward(self, x: torch.Tensor, train: bool = False) -> torch.Tensor:
         dt = self.dtype
@@ -83,22 +98,24 @@ class BasicBlock(_Block):
 
 class Bottleneck(_Block):
     """mmcv Bottleneck, 'pytorch' style (JAX Bottleneck): bias-free 1x1,
-    3x3 (the stride) and 1x1 (x4 expansion) convs, each with its norm."""
+    3x3 (the stride and the dilation) and 1x1 (x4 expansion) convs, each
+    with its norm."""
 
     expansion = 4
 
     def __init__(self, in_channels: int, planes: int, stride: int, norm: Optional[str],
-                 dtype: Optional[torch.dtype] = None):
+                 dtype: Optional[torch.dtype] = None, dilation: int = 1,
+                 avg_down: bool = False):
         super().__init__(norm, dtype)
         out = planes * self.expansion
         self.conv1 = nn.Conv2d(in_channels, planes, 1, bias=False)
         self._add_norm(1, norm, planes)
-        self.conv2 = nn.Conv2d(planes, planes, 3, stride, 1, bias=False)
+        self.conv2 = nn.Conv2d(planes, planes, 3, stride, dilation, dilation, bias=False)
         self._add_norm(2, norm, planes)
         self.conv3 = nn.Conv2d(planes, out, 1, bias=False)
         self._add_norm(3, norm, out)
         if stride != 1 or in_channels != out:
-            self._set_downsample(in_channels, out, stride, norm)
+            self._set_downsample(in_channels, out, stride, norm, avg_down)
 
     def forward(self, x: torch.Tensor, train: bool = False) -> torch.Tensor:
         dt = self.dtype
@@ -108,6 +125,7 @@ class Bottleneck(_Block):
         return F.relu(out + self._identity(x, train))
 
 
+@ENCODERS.register_module("RAFTEncoder")
 class RAFTEncoder(nn.Module):
     """(N, in_channels, H, W) -> (N, out_channels, H/8, W/8) ('Large': H/4).
     train=True runs BatchNorm on batch statistics (the JAX package's

@@ -52,6 +52,7 @@ from scflow_tpu_torch.models.motion import ConvGRU, MotionEncoder, XHead
 from scflow_tpu_torch.models.pose_head import build_pose_head
 from scflow_tpu_torch.ops.corr import corr_lookup, correlation_pyramid_flat
 from scflow_tpu_torch.ops.resize import interp_taps, interpolate_bilinear
+from scflow_tpu_torch.registry import DECODERS
 
 # the JAX decoders' channel tables (no 'Large': there they raise KeyError)
 H_CHANNELS = {"Basic": 128, "Small": 96}
@@ -90,6 +91,8 @@ def _flow_seq_from_poses(points_obj, valid, R_seq, t_seq, K, invalid_num: float)
     return torch.where(v, flow, torch.full_like(flow, invalid_num))
 
 
+@DECODERS.register_module("SCFlowDecoder",
+                           requires=("num_class", "image_size", "cxt_channels"))
 class SCFlowDecoder(nn.Module):
     """The JAX module's fields, with its defaults, after the port's own
     num_class (the pose head's classes where pose_head_cfg names none),

@@ -1,8 +1,14 @@
-"""All-pairs correlation pyramid (flat layout) and its windowed lookup.
+"""All-pairs correlation pyramid, its windowed lookup, and the local
+correlation.
 
-Ports of scflow_tpu/ops/corr.py::correlation_pyramid_flat,
-correlation_pyramid and `corr_lookup_dispatch`.  The all-pairs product is
-one large matmul, left to torch.matmul as the JAX package left it to XLA.
+Ports of scflow_tpu/ops/corr.py: correlation_pyramid_flat (the flat levels
+every decoder builds), correlation_pyramid (the same levels in the 4-D
+layout, as views of the flat ones), `corr_lookup_dispatch` (here
+`corr_lookup`), corr_lookup_gather (the reference's gather lookup, JAX's
+numerical oracle for the lookup kernels) and local_correlation.  The
+all-pairs product is one large matmul, left to torch.matmul as the JAX
+package left it to XLA; corr_lookup_gather and local_correlation are plain
+PyTorch too, as JAX computes them with XLA outside any Pallas kernel.
 Maps that are not square take the JAX package's own route there: its 4-D
 pyramid and its XLA tent lookup, outside any Pallas kernel (its kernels'
 index math assumes square maps), here the same levels kept flat and the
@@ -31,6 +37,7 @@ from scflow_tpu_torch.device import resolve_backend
 from scflow_tpu_torch.geometry import coords_grid
 from scflow_tpu_torch.ops.cuda.corr_lookup import (check_variant, corr_lookup_flat,
                                                    corr_lookup_flat_plain)
+from scflow_tpu_torch.ops.sampling import sample_at_pixels
 
 
 def correlation_pyramid_flat(feat1: torch.Tensor, feat2: torch.Tensor,
@@ -72,6 +79,60 @@ def correlation_pyramid_flat(feat1: torch.Tensor, feat2: torch.Tensor,
     return pyramid
 
 
+def correlation_pyramid(feat1: torch.Tensor, feat2: torch.Tensor, num_levels: int = 4,
+                        out_dtype: Optional[torch.dtype] = None) -> List[torch.Tensor]:
+    """The levels of correlation_pyramid_flat in the JAX function's 4-D
+    layout: (N*H*W, H_l, W_l, 1), each a view of the flat level, with
+    corr[n*H*W + s, y, x, 0] = <feat1[n, s // W, s % W], feat2[n, y, x]> /
+    sqrt(C)."""
+    n, h, w, _ = feat1.shape
+    flat = correlation_pyramid_flat(feat1, feat2, num_levels, out_dtype)
+    return [m.view(n * h * w, h >> lvl, w >> lvl, 1) for lvl, m in enumerate(flat)]
+
+
+def corr_lookup_gather(pyramid: Sequence[torch.Tensor], flow: torch.Tensor,
+                       radius: int = 4) -> torch.Tensor:
+    """The reference's gather lookup, JAX's numerical oracle for the lookup
+    kernels: levels (N*H*W, H_l, W_l, 1), flow (N, H, W, 2) at level-0
+    resolution -> (N, H, W, L*(2r+1)^2), level-major, each window sampled
+    bilinearly with zeros padding (sample_at_pixels) around (pixel + flow)
+    / 2^l.  Tap j*(2r+1) + i offsets x by j - r and y by i - r, the
+    reference's order, which every lookup shares."""
+    n, h, w, _ = flow.shape
+    k = 2 * radius + 1
+    coords = coords_grid(h, w, flow.dtype, flow.device)[None] + flow
+    offs = torch.arange(-radius, radius + 1, dtype=flow.dtype, device=flow.device)
+    dx = offs[:, None].expand(k, k)
+    dy = offs[None, :].expand(k, k)
+    delta = torch.stack([dx, dy], dim=-1).reshape(1, k * k, 2)
+    base = coords.reshape(n * h * w, 1, 2)
+    outs = []
+    for lvl, corr in enumerate(pyramid):
+        xy = base / (2.0**lvl) + delta
+        sampled = sample_at_pixels(corr, xy, mode="bilinear", padding_mode="zeros")
+        outs.append(sampled.reshape(n, h, w, k * k))
+    return torch.cat(outs, dim=-1)
+
+
+def local_correlation(feat1: torch.Tensor, feat2: torch.Tensor, max_displacement: int = 4,
+                      normalize: bool = True) -> torch.Tensor:
+    """Local-window correlation (mmcv's Correlation op behind the
+    reference's CorrBlock, models/utils/corr_block.py:9-109): feat1, feat2
+    (N, H, W, C) -> (N, H, W, (2d+1)^2), channel (dy+d)(2d+1) + (dx+d) =
+    <feat1[p], feat2[p + (dy, dx)]>, zero outside the map.  normalize
+    divides each feature by max(|f|, 1e-9) first.  Shifted slices of the
+    zero-padded feat2, as the JAX function computes it."""
+    n, h, w, _ = feat1.shape
+    d = max_displacement
+    if normalize:
+        feat1 = feat1 / torch.clamp(torch.linalg.norm(feat1, dim=-1, keepdim=True), min=1e-9)
+        feat2 = feat2 / torch.clamp(torch.linalg.norm(feat2, dim=-1, keepdim=True), min=1e-9)
+    padded = F.pad(feat2, (0, 0, d, d, d, d))
+    outs = [torch.sum(feat1 * padded[:, d + dy:d + dy + h, d + dx:d + dx + w, :], dim=-1)
+            for dy in range(-d, d + 1) for dx in range(-d, d + 1)]
+    return torch.stack(outs, dim=-1)
+
+
 class _JaxTent(torch.autograd.Function):
     """max(0, 1 - |u|) with JAX autodiff's derivative: -s(u) where
     1 - |u| > 0, -s(u)/2 where it is 0, else 0, with s(u) = +1 for u >= 0."""
@@ -94,7 +155,8 @@ def corr_lookup(pyramid: Sequence[torch.Tensor], flow: torch.Tensor, radius: int
                 backend: str = "auto", variant: str = "tent") -> torch.Tensor:
     """flow (N, h, w, 2) at level-0 resolution -> (N, h, w, L*(2r+1)^2):
     the window of every level around pixel + flow, tap order as in
-    corr_lookup_flat.  backend 'pallas' runs the kernels (their plain
+    corr_lookup_flat.  The levels are flat (N*h*w, h_l*w_l) or in
+    correlation_pyramid's 4-D layout.  backend 'pallas' runs the kernels (their plain
     versions on CPU tensors), 'xla' the tent tensor formulation, 'auto'
     'pallas' on a card and 'xla' on the CPU.  Maps that are not square
     take 'xla', as JAX's dispatch does, on 'auto' and on CPU tensors; no
@@ -106,6 +168,8 @@ def corr_lookup(pyramid: Sequence[torch.Tensor], flow: torch.Tensor, radius: int
     'xla' also rounds the tent weights to bfloat16 first, as the JAX
     package's XLA lookup does (its einsums take the map's dtype)."""
     check_variant(variant)
+    # the 4-D levels of correlation_pyramid (JAX's layout) read as flat ones
+    pyramid = [m.reshape(m.shape[0], -1) if m.dim() == 4 else m for m in pyramid]
     n, h, w, _ = flow.shape
     if h != w:
         if variant != "tent":

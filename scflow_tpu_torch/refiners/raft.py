@@ -11,6 +11,7 @@ import torch.nn as nn
 from scflow_tpu_torch.models.raft_decoder import RAFTDecoder
 from scflow_tpu_torch.models.raft_encoder import RAFTEncoder
 from scflow_tpu_torch.refiners.scflow import check_channels, check_dtype
+from scflow_tpu_torch.registry import REFINERS
 
 
 class _RAFTRefinerBase(nn.Module):
@@ -124,9 +125,11 @@ class _RAFTRefinerBase(nn.Module):
                             output_sequences=output_sequences)
 
 
+@REFINERS.register_module("RAFTRefinerFlow")
 class RAFTRefinerFlow(_RAFTRefinerBase):
     predict_occlusion = False
 
 
+@REFINERS.register_module("RAFTRefinerFlowMask")
 class RAFTRefinerFlowMask(_RAFTRefinerBase):
     predict_occlusion = True

@@ -9,6 +9,7 @@ import torch.nn as nn
 
 from scflow_tpu_torch.models.raft_encoder import RAFTEncoder
 from scflow_tpu_torch.models.scflow_decoder import SCFlowDecoder, check_net_type, check_unroll
+from scflow_tpu_torch.registry import REFINERS
 
 
 def check_dtype(dtype: Optional[torch.dtype]) -> Optional[torch.dtype]:
@@ -35,6 +36,7 @@ def check_num_levels(num_levels: int) -> None:
         raise ValueError(f"num_levels {num_levels}: the encoders' 1/8 maps need 4 levels")
 
 
+@REFINERS.register_module("SCFlowRefiner", requires=("num_class", "image_size"))
 class SCFlowRefiner(nn.Module):
     """The JAX module's fields, with its defaults (the reference's spelling
     of seperate_encoder included), after the port's own num_class (the pose

@@ -181,6 +181,31 @@ def test_corr_lookup_kernel_matches_plain(radius, case, cuda):
 
 
 @pytest.mark.cuda
+def test_gather_lookup_matches_k1_at_the_train_rows(cuda):
+    """ops/corr.py::corr_lookup_gather, the JAX package's numerical oracle
+    for the lookup (the reference's bilinear gathers), over
+    correlation_pyramid's 4-D levels against K1 through corr_lookup on the
+    same levels, at the train step's 16,384 rows (16 x 32^2, levels
+    32^2..4^2, radius 4; random, border-straddling and integer centres):
+    within 1e-4."""
+    from scflow_tpu_torch.ops.corr import corr_lookup, corr_lookup_gather, correlation_pyramid
+
+    g = torch.Generator().manual_seed(4)
+    f1, f2 = (torch.randn((16, 32, 32, 64), generator=g).to(cuda) for _ in range(2))
+    flow = 4.0 * torch.randn((16, 32, 32, 2), generator=g)
+    flow[5:10] = 80.0 * torch.rand((5, 32, 32, 2), generator=g) - 40.0
+    flow[10:] = torch.randint(-12, 13, (6, 32, 32, 2), generator=g).float()
+    flow = flow.to(cuda)
+    pyramid = correlation_pyramid(f1, f2, 4)
+    launches = k1.KERNEL.launches
+    got = corr_lookup(pyramid, flow, 4, backend="pallas")
+    assert k1.KERNEL.launches == launches + 1
+    want = corr_lookup_gather(pyramid, flow, 4)
+    assert got.shape == want.shape == (16, 32, 32, 324)
+    assert (got - want).abs().max().item() <= 1e-4
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("case", ["random", "border", "integer"])
 @pytest.mark.parametrize("radius", [3, 4])
 def test_shift_kernel_matches_plain_bit_for_bit(radius, case, cuda):
