@@ -222,7 +222,7 @@ last line:
                padded to 8 (ms back to back and device ms; lines
                "workflow_*_alone"), and exactly 8 K1 (or K1_bf16) and
                1 K2 per image for SCFlow, 12 K1 and 1 K2 for RAFT, nothing
-               else.  Gates: (a) the first 4 images with --device cpu give
+               else.  Gates: (a) the first 2 images with --device cpu give
                poses within the slice's card-vs-CPU bounds (rotations 2e-3,
                translations 2e-2 + 2e-3 |t|): fp32; bf16 against the
                CPU's bf16 run with twice the CPU's own bf16-to-fp32
@@ -243,7 +243,7 @@ last line:
                model.test_cfg.cycles=2 on 4 images (each refined, re-rendered
                at its refined pose and refined again): exactly 2 K2 and 16 K1
                per image, its ms/img, gate (c) on its export, and gate (a)
-               cycle by cycle on the first 4 images' batches: the card's
+               cycle by cycle on the first 2 images' batches: the card's
                first cycle against the CPU's one-cycle call, the card's
                cycled output against the CPU's one-cycle call from the
                card's first-cycle poses (the slice's bounds), and, ungated,
@@ -284,7 +284,7 @@ last line:
                warm-up steps, then 6 timed (ms per step on the host clock
                over the runner loop, samples/s, load ms per step blocked in
                next(data_iter), device ms per step by CUDA events around
-               the step), the last 3 of them traced (the device's idle
+               the step), the last of them traced (the device's idle
                share: 1 - the union of the kernels' intervals over the host
                window), with os.cpu_count(); thread mode (8.7-11.9 s a
                step) is cut to 1 warm-up and 1 measured step, traced;
@@ -299,12 +299,18 @@ last line:
                encoder) with PNG visible masks and every third object's
                visib_fract recorded as 0.1, and a background directory of
                JPEG and PNG files of COCO-like sizes (one JPEG with EXIF
-               orientation 6).  imread's median ms and the bytes of one
+               orientation 6) and tests/data/torch_decode's six files: a
+               progressive and a CMYK JPEG of 640x427, a palette PNG with
+               tRNS, a 4-bit grey PNG, an Adam7 PNG and a 24-bit BMP named
+               .png; for each, imread under each flag against the sha256 of
+               cv2's decode (digests.json), imread's median host ms and one
+               RandomBackground.augment forced to draw it (line
+               "train_pbr_decode").  imread's median ms and the bytes of one
                rendered frame as PNG, as JPEG, and as JPEG after Gaussian
                noise of sigma 8 (line "train_pbr_imread"); the patches whose
                background RandomBackground swapped over 16 samples drawn in
                this process (at least one); 11 steps with process workers (2
-               warm-up, 9 timed as phase 19's runs, the last 3 traced):
+               warm-up, 9 timed as phase 19's runs, the last traced):
                exactly 1 K2, 8 K1, 8 K1b per step, finite losses, the mean
                of the last 5 below that of the first 5; the card step
                against the CPU step on the loader's first 2 samples (phase
@@ -319,7 +325,16 @@ last line:
                make_scflow_infer_fn's on the patches and K' that
                project_bboxes + crop_resize_patches give (the slice's
                bounds), and (fp32) 4 objects served on the CPU (the plain
-               versions) within the slice's card-vs-CPU bounds;
+               versions) within the slice's card-vs-CPU bounds; then
+               (line "serve_keepalive") PoseService + MicroBatcher +
+               DeviceKeepAlive(interval_s=0.01) built directly over the fp32
+               serve fn, with PyTorch's default TF32 flags in force (cuDNN
+               TF32 on): 8 requests of 4 objects, until a tick has entered
+               device.full_fp32 before a batch and left it before the batch
+               did (at most 5 rounds); the poses equal the same service's
+               without the keep-alive within SERVE_ROT_ATOL/SERVE_TRANS_ATOL
+               (TF32 moves them by about 3e-3), and the flags are back at
+               their defaults afterwards;
  22. serve_http - `python -m scflow_tpu_torch.cli serve` in a subprocess
                from a config that _base_s the shipped scflow.py (only the
                renderer's meshes, written under build/serve/, and the
@@ -337,7 +352,10 @@ last line:
                1 K2; then the same load on a server started with
                --pow2-buckets ("serve_http_pow2"), the same gates but the
                answers within the slice's bounds of that run (other batch
-               shapes);
+               shapes); both servers are started before phase 21 and come
+               up beside phases 21 and 23 (server_up_s: to the port in the
+               log), and the loads, after phase 23, run one after the other,
+               each in this process (cli.loadtest_main);
  23. serve_raft - make_serving_from_cfg on a config that _base_s the shipped
                raft.py (raft_model's weights) on 4 requests of 16 objects:
                host PnP (the serve fn, its fetch and post_fn's solve:
@@ -360,15 +378,17 @@ last line:
  25. export  - `python -m scflow_tpu_torch.cli export` (tools/export_model.py's
                arguments) from configs that _base_ the shipped scflow.py and
                raft.py (only the renderer's meshes, written under
-               build/export/, and the work_dir overridden), --batch-size 64,
-               the slice's (raft_model's) weights saved with save_params:
-               fp32 with --platforms cuda cpu ("export"), bf16 with
-               --cfg-options model.dtype=bfloat16 ("export_bf16") and RAFT
-               with model.test_cfg.pnp_backend=device ("export_raft"), the
-               three exports at once; one fresh process loads each artifact
-               (load_exported) as its export ends and, once all have ended,
-               calls each on the bench batch: exactly 8 K1 (K1_bf16) and 1
-               K2 per SCFlow call, 12 K1 and 1 K2 per RAFT call; gates: the
+               build/export/, and the work_dir overridden), --batch-size 16
+               (cut from 64), the slice's (raft_model's) weights saved with
+               save_params: fp32 with --platforms cuda cpu ("export"), bf16
+               with --cfg-options model.dtype=bfloat16 ("export_bf16") and
+               RAFT with model.test_cfg.pnp_backend=device ("export_raft"),
+               the three exports at once, begun before phase 26 and running
+               beside it (its lines come first), with one fresh process
+               that loads each artifact (load_exported) as its export ends
+               and, after phase 26, calls each on the bench batch's first
+               16 (loader_s: from then to its end): exactly 8 K1 (K1_bf16)
+               and 1 K2 per SCFlow call, 12 K1 and 1 K2 per RAFT call; gates: the
                loading process has imported none of the model, refiner,
                config, apis or checkpoint modules; the loaded outputs within
                the slice's bounds of the live make_infer_from_cfg call in
@@ -377,7 +397,7 @@ last line:
                first 4 samples within the slice's bounds of the card's, and
                that artifact cut to its 'cpu' program refuses to load for
                the card (ValueError); the export's seconds, the artifact's
-               MB, the load's seconds, ms per call (host clock over 10 calls)
+               MB, the load's seconds, ms per call (host clock over 5 calls)
                and device ms beside the live call's;
  26. parallel - data parallelism (scflow_tpu_torch/parallel), under
                build/parallel/ (removed afterwards): (a) `python -m
@@ -403,11 +423,11 @@ last line:
                global norm) within 3 x theirs, every weight and BatchNorm
                buffer after the step within rtol 1e-5, atol 1e-6; the
                floor itself under 1% of the norm, and 2 ranks that keep
-               their own BatchNorm statistics must miss these bounds;
-               exactly 1 K2, 8 K1, 8 K1b per rank in the compared step and
-               the one after it; each rank's ms per step over 1 more step,
-               the gradient
-               all-reduce's ms, one process's ms at batch 32 with and
+               their own BatchNorm statistics (started with the 2 ranks)
+               must miss these bounds; exactly 1 K2, 8 K1, 8 K1b per rank
+               in the compared step and the one after it; each rank's ms
+               per step over 1 more step once the planted pair has left
+               the card, the gradient all-reduce's ms, one process's ms at batch 32 with and
                without the float64 sums, in turns; (c) `cli test --launcher
                pytorch` at 2 ranks (gloo) on 5 images of phase 18's set
                against one process: the same results within the slice's
@@ -416,7 +436,8 @@ last line:
                device from parallel.replicate) at tools/serve_bench.py's 64
                objects against one device: 8 K1 and 1 K2 per shard, the
                poses within the slice's bounds, ms per call of each.  Every
-               part runs; any failure fails the phase;
+               part runs; any failure fails the phase.  Phase 25's exports
+               run beside this phase;
  27. learn   - the learning check (scflow_tpu_torch/tools/overfit_check.py, the
                JAX package's tools/overfit_check.py: one synthetic batch of 8
                cube samples at 128^2, 4 iterations, AdamW 4e-4) for
@@ -1628,7 +1649,7 @@ def phase_profile(infer, model, assets, batch, smi, tag: str = "shipped"):
         h.remove()
     stage_ms = {k: statistics.median(v[1:]) for k, v in times.items()}
 
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:  # the kernels alone
         t0 = time.perf_counter()
         infer(batch)
         torch.cuda.synchronize()
@@ -2200,7 +2221,7 @@ def _profile_call(fn):
     the top 12 kernels (time, count)."""
     from torch.profiler import ProfilerActivity, profile
 
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:  # the kernels alone
         fn()
         torch.cuda.synchronize()
     kernels = {e.key: (e.device_time_total / 1e3, e.count) for e in prof.key_averages()
@@ -2715,7 +2736,7 @@ SCFLOW_OPTIONS = dict(seperate_encoder=True, radius=3, mask_flow=True, mask_corr
                                          rotation_mode="quaternion"))
 
 
-def _timed_calls(fn, calls: int = 10) -> float:
+def _timed_calls(fn, calls: int = 5) -> float:
     """Host-clock ms per call of `calls` back-to-back calls."""
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -3017,9 +3038,9 @@ def phase_render(dev, scene, smi):
 YCBV_K = ((1066.778, 0.0, 312.9869), (0.0, 1067.487, 241.3109), (0.0, 0.0, 1.0))
 FRAME_H, FRAME_W = 480, 640  # YCB-V's frames
 WF_SEQ = 48  # a YCB-V test scene id (48-59)
-# 16 images: the count is cut (48 -> 24 -> 16) so that the script keeps
-# inside its time with the later phases
-WF_IMAGES, WF_CPU_IMAGES, WF_RAFT_IMAGES = 16, 4, 4
+# 16 images: the count is cut (48 -> 24 -> 16), and the CPU's images (4 -> 2),
+# so that the script keeps inside its time with the later phases
+WF_IMAGES, WF_CPU_IMAGES, WF_RAFT_IMAGES = 16, 2, 4
 WF_JITTER = (15.0, 15.0, 15.0, 50.0)  # degrees, x, y, z mm: ycbv_real.py:38-51's PoseJitter
 WF_METRIC = {"add": [0.05, 0.10, 0.20, 0.50], "rep": [2, 5, 10, 20], "auc": []}
 WF_CYCLES, WF_CYCLED_IMAGES = 2, 4  # the cycled run: test_cfg.cycles, images
@@ -3323,8 +3344,8 @@ def _workflow_alone(cfg, ckpt: Path, smi, tag: str, bucket: int = 8):
     batch = {k: v for k, v in batch.items() if k not in ("img_metas", "per_img_patch_num")}
     padded = pad_batch(batch, bucket)
     line = {"phase": f"workflow_{tag}_alone", "objects": n, "bucket": bucket,
-            "call_ms": median_ms(lambda: infer(padded), 10),
-            "call_device_ms": device_ms(lambda: infer(padded), 10), "card": smi}
+            "call_ms": median_ms(lambda: infer(padded), 3),
+            "call_device_ms": device_ms(lambda: infer(padded), 3), "card": smi}
     emit(line)
     return line
 
@@ -3463,7 +3484,7 @@ def phase_workflow(smi, root: Path):
             alone = Config.fromfile(str(cfg_path))
             alone.merge_from_dict(Config.parse_options(opts[1:]))
             _workflow_alone(alone, ckpt, smi, tag)
-        # gate (a): the same workflow on the CPU for the first 4 images, fp32 and
+        # gate (a): the same workflow on the CPU for the first 2 images, fp32 and
         # bf16; bf16 within twice the CPU's own bf16-to-fp32 distance more
         cpu_args = base + ["--limit", str(WF_CPU_IMAGES), "--device", "cpu"]
         cpu = cli.test_main(cpu_args + ["--out", str(work / "cpu.json")])
@@ -3478,7 +3499,7 @@ def phase_workflow(smi, root: Path):
             2 * d16_rot, 2 * d16_t)
         # cycled inference (test_cfg.cycles): each image re-rendered at its
         # refined pose and refined again, on WF_CYCLED_IMAGES images; gate (c)
-        # on its export, gate (a) cycle by cycle on the first 4 images
+        # on its export, gate (a) cycle by cycle on the first 2 images
         copts = ["--cfg-options", f"model.test_cfg.cycles={WF_CYCLES}"]
         cli.test_main(base + ["--limit", "1"] + copts)  # warm-up
         out_json, save_dir = work / "scflow_cycled.json", work / "bop_cycled"
@@ -3525,7 +3546,7 @@ def phase_workflow(smi, root: Path):
         _, _, lines["raft"] = _workflow_run(
             cli, [str(raft_cfg), "--checkpoint", str(raft_ckpt), "--limit",
                   str(WF_RAFT_IMAGES), "--eval"] + ropts, "K1", RAFT_ITERS, "raft", smi)
-        # gate (a) for RAFT on 4 images: the flow head's output zero, so the flow
+        # gate (a) for RAFT on 2 images: the flow head's output zero, so the flow
         # is 0 and the host PnP solves exact correspondences (on random flow
         # its RANSAC turns the devices' 1e-6 differences into other poses): card
         # and CPU agree, and both return the initial poses
@@ -3572,8 +3593,9 @@ TW_TRAIN_IMAGES, TW_VAL_IMAGES = 24, 8
 TW_ITERS, TW_RESUME_ITERS, TW_BF16_ITERS, TW_RAFT_ITERS = 20, 25, 6, 5
 # timed steps of a worker mode: warm-up, measured, and the last of the measured
 # traced; thread mode (8.7-11.9 s a step) is cut to 1 + 1, process mode to
-# 2 + 6, to keep the script inside its time
-TW_TIMED = {"process": (2, 6, 3), "thread": (1, 1, 1)}
+# 2 + 6 with 1 traced (reading a traced step's events takes seconds), to keep
+# the script inside its time
+TW_TIMED = {"process": (2, 6, 1), "thread": (1, 1, 1)}
 TW_INTERVALS = dict(log=5, checkpoint=10, evaluation=20)
 TW_CPU = dict(samples=2, iters=3)  # the card-vs-CPU step: the loader's first 2 samples
 # the runs that check the path load in worker processes: with the config's
@@ -3935,13 +3957,17 @@ def phase_train_workflow(smi, root: Path):
 # ---- train_pbr: the PBR recipe (configs/refine_datasets/ycbv_mixpbr.py's data) ----
 
 TP_PBR_IMAGES = 24
-TP_STEPS = (2, 9, 3)  # warm-up, measured, traced: 11 steps in process mode
+TP_STEPS = (2, 9, 1)  # warm-up, measured, traced (cut from 3): 11 steps in process mode
 TP_BATCH = 24  # ycbv_mixpbr.py's samples_per_gpu
 TP_SWAP_SAMPLES = 16
 # background images of other sizes than the frames, as in COCO (one JPEG
 # carries EXIF orientation 6, which imread 'color' applies)
 TP_BACKGROUNDS = (("000000000001.jpg", 427, 640), ("000000000002.jpg", 333, 500),
                   ("000000000003.png", 480, 640), ("000000000004.png", 375, 500))
+# the other kinds of a user's background folder, committed with digests of
+# cv2's decodes (tests/data/torch_decode/make_fixtures.py writes them)
+TP_DECODE_FIXTURES = Path("tests") / "data" / "torch_decode"
+TP_DECODE_READS = 5  # imread's timed reads per file, after one
 
 
 def _relocated(obj, ycbv: Path, coco: Path):
@@ -3979,6 +4005,61 @@ def _pbr_backgrounds(coco: Path) -> None:
     first = coco / TP_BACKGROUNDS[0][0]
     data = first.read_bytes()
     first.write_bytes(data[:2] + _exif_orientation_app1(6) + data[2:])
+
+
+def _decode_backgrounds(repo: Path, coco: Path, smi) -> dict:
+    """Copies TP_DECODE_FIXTURES' six files (progressive and CMYK JPEGs of
+    640x427, a palette PNG with tRNS, a 4-bit grey PNG, an Adam7 PNG and a
+    24-bit BMP named .png) beside the phase's backgrounds, and for each:
+    whether imread's decode under each flag has the sha256, shape and dtype
+    of cv2's (digests.json), the median host ms of imread 'color', and one
+    RandomBackground.augment forced to draw it (the patch's background
+    swapped, no warning).  Line "train_pbr_decode"."""
+    import hashlib
+    import shutil
+    import warnings
+
+    from scflow_tpu_torch.datasets.mask import BitmapMasks
+    from scflow_tpu_torch.datasets.pipelines.color import RandomBackground
+    from scflow_tpu_torch.datasets.pipelines.imops import imread
+
+    src = repo / TP_DECODE_FIXTURES
+    digests = json.loads((src / "digests.json").read_text())
+    patch = (np.arange(60 * 80 * 3) % 251).reshape(60, 80, 3).astype(np.uint8)
+    mask = np.zeros((1, 60, 80), np.uint8)
+    mask[0, 20:40, 25:55] = 1
+    masks = BitmapMasks(mask, 60, 80)
+    files = {}
+    t_all = time.perf_counter()
+    for name in sorted(digests):
+        shutil.copy(src / name, coco / name)
+        path = str(coco / name)
+        match = {}
+        for flag, want in digests[name].items():
+            img = imread(path, flag)
+            match[flag] = (hashlib.sha256(np.ascontiguousarray(img).tobytes()).hexdigest()
+                           == want["sha256"] and list(img.shape) == want["shape"]
+                           and str(img.dtype) == want["dtype"])
+        times = []
+        for _ in range(TP_DECODE_READS):
+            t0 = time.perf_counter()
+            imread(path, "color")
+            times.append(1e3 * (time.perf_counter() - t0))
+        forced = RandomBackground(str(coco), p=1.0)
+        forced.backgrounds = [path]
+        with warnings.catch_warnings():
+            warnings.simplefilter("error")  # "failed to load background" would fail here
+            out = forced.augment(patch, masks)
+        swapped = bool((out[0:20] != patch[0:20]).any()) and bool(
+            (out[20:40, 25:55] == patch[20:40, 25:55]).all())
+        require(all(match.values()) and swapped,
+                f"train_pbr_decode: {name}: digests {match}, background swapped {swapped}")
+        files[name] = {"digest_match": match, "imread_color_ms": statistics.median(times),
+                       "shape": digests[name]["unchanged"]["shape"],
+                       "bytes": (src / name).stat().st_size, "background_swapped": swapped}
+    emit({"phase": "train_pbr_decode", "files": files,
+          "seconds": time.perf_counter() - t_all, "card": smi})
+    return files
 
 
 def _train_pbr_config(root: Path, repo: Path) -> Path:
@@ -4066,7 +4147,9 @@ def phase_train_pbr(smi, root: Path):
     and a background directory: 20 steps with process workers, timed as
     train_workflow's runs are (1 K2, 8 K1, 8 K1b per step, the loss
     falling); a card step against a CPU step on the loader's first
-    samples; the background swaps; imread's times on JPEG and PNG."""
+    samples; the background swaps; imread's times on JPEG and PNG; the
+    committed backgrounds of the other kinds (_decode_backgrounds) held to
+    cv2's digests and drawn by RandomBackground."""
     import shutil
 
     from scflow_tpu_torch import cli
@@ -4084,6 +4167,7 @@ def phase_train_pbr(smi, root: Path):
         (ycbv / "image_lists" / "val.txt").write_text(
             "\n".join(f"{WF_SEQ:06d}/rgb/{i:06d}.png" for i in range(TW_VAL_IMAGES)))
         _pbr_backgrounds(work / "coco")
+        _decode_backgrounds(root, work / "coco", smi)
         scene_s = time.perf_counter() - t0
         cfg_path = _train_pbr_config(work, root)
         decode = _imread_times(ycbv / "train_real" / f"{WF_SEQ:06d}" / "rgb" / "000000.png",
@@ -4156,6 +4240,86 @@ def _slice_bounds(R, t, R_ref, t_ref, what: str):
     return d_rot, t_excess
 
 
+SERVE_KA_REQUESTS, SERVE_KA_OBJECTS, SERVE_KA_ROUNDS = 8, 4, 5  # the keep-alive check
+
+
+def _serve_keepalive(serve, inputs, smi) -> dict:
+    """The keep-alive check of phase 21 (see the module's docstring): the
+    serve fn traced by thread, a reference pass through PoseService.run
+    alone, then the batcher and the keep-alive together."""
+    import threading
+
+    from scflow_tpu_torch.runtime.server import (DeviceKeepAlive, MicroBatcher, PoseService,
+                                                 RefineRequest, make_service_keepalive_tick)
+
+    spans, lock = [], threading.Lock()
+
+    def traced(*args):
+        t0 = time.perf_counter()
+        out = serve(*args)
+        with lock:
+            spans.append((threading.current_thread().name, t0, time.perf_counter()))
+        return out
+
+    service = PoseService(traced, frame_hw=(FRAME_H, FRAME_W), num_class=NCLASS,
+                          max_frames=8, max_objects=BATCH)
+    frames = (inputs["frames"] * 255).astype(np.uint8)
+    n = SERVE_KA_OBJECTS
+    requests = [RefineRequest(frame=frames[i % SERVE_FRAMES],
+                              rotations=inputs["ref_rotations"][i * n:(i + 1) * n],
+                              translations=inputs["ref_translations"][i * n:(i + 1) * n],
+                              k=inputs["K"][i * n], labels=inputs["labels"][i * n:(i + 1) * n])
+                for i in range(SERVE_KA_REQUESTS)]
+    matmul = torch.backends.cuda.matmul
+    script_flags = (torch.backends.cudnn.allow_tf32, matmul.allow_tf32,
+                    matmul.allow_bf16_reduced_precision_reduction)
+    defaults = (True, False, True)  # PyTorch's own
+    (torch.backends.cudnn.allow_tf32, matmul.allow_tf32,
+     matmul.allow_bf16_reduced_precision_reduction) = defaults
+    try:
+        ref = [service.run([r])[0] for r in requests]
+        crossings = rounds = 0
+        d_rot = d_trans = 0.0
+        while crossings == 0 and rounds < SERVE_KA_ROUNDS:
+            rounds += 1
+            spans.clear()
+            batcher = MicroBatcher(service.run, max_frames=8, max_objects=BATCH)
+            keepalive = DeviceKeepAlive(make_service_keepalive_tick(service), interval_s=0.01)
+            try:
+                futures = []
+                for r in requests:
+                    futures.append(batcher.submit(r))
+                    time.sleep(0.02)
+                got = [f.result(timeout=300) for f in futures]
+            finally:
+                keepalive.stop()
+                batcher.stop()
+            ticks = [sp for sp in spans if sp[0] == "scflow-keepalive"]
+            batches = [sp for sp in spans if sp[0] != "scflow-keepalive"]
+            crossings = sum(1 for _, a0, a1 in ticks for _, b0, b1 in batches
+                            if a0 < b0 < a1 < b1)
+            for g, w in zip(got, ref):
+                d_rot = max(d_rot, float(np.abs(g["rotations"] - w["rotations"]).max()))
+                d_trans = max(d_trans, float(np.abs(g["translations"] - w["translations"]).max()))
+        after = (torch.backends.cudnn.allow_tf32, matmul.allow_tf32,
+                 matmul.allow_bf16_reduced_precision_reduction)
+    finally:
+        (torch.backends.cudnn.allow_tf32, matmul.allow_tf32,
+         matmul.allow_bf16_reduced_precision_reduction) = script_flags
+    require(crossings >= 1, f"serve_keepalive: a tick crossed a batch ({rounds} rounds)")
+    require(d_rot <= SERVE_ROT_ATOL and d_trans <= SERVE_TRANS_ATOL,
+            f"serve_keepalive: poses with the keep-alive |dR| {d_rot}, |dt| {d_trans}")
+    require(after == defaults, f"serve_keepalive: the flags after the run {after}")
+    line = {"phase": "serve_keepalive", "requests": SERVE_KA_REQUESTS, "objects": n,
+            "rounds": rounds, "ticks": len(ticks), "batches": len(batches),
+            "ticks_crossing_a_batch": crossings, "rot_max_abs_diff": d_rot,
+            "trans_max_abs_diff": d_trans, "flags_after": dict(zip(
+                ("cudnn_allow_tf32", "matmul_allow_tf32", "bf16_reduced_reduction"), after)),
+            "card": smi}
+    emit(line)
+    return line
+
+
 def phase_serve(smi):
     """make_serving_fn(slim=True) at tools/serve_bench.py's configuration
     (64 objects from 4 frames of 640x480, 256^2 patches, 8 iterations, the
@@ -4219,6 +4383,7 @@ def phase_serve(smi):
             line.update(cpu_objects=n, cpu_rot_max_abs_diff=d_rot,
                         cpu_trans_tolerance_excess=t_excess)
             fp32 = (R, t)
+            keepalive = serve
         else:
             line["pose_diff_vs_fp32"] = _pose_dist(R, t, *fp32)
         calls = 10
@@ -4235,6 +4400,8 @@ def phase_serve(smi):
               "device_ms_per_call": device_ms(lambda: serve(*args), reps=3, groups=3),
               "crop_ms": median_ms(crop, reps=5, groups=3), "card": smi})
         del model, serve, infer
+    _serve_keepalive(keepalive, inputs, smi)
+    del keepalive
     return launches
 
 
@@ -4284,18 +4451,13 @@ def _serve_service(cfg, ckpt: Path, **cfg_options):
                        max_frames=8, max_objects=BATCH, fetch_keys=keys, post_fn=post_fn)
 
 
-def _serve_load(cfg_path: Path, ckpt: Path, root: Path, tag: str, extra=()) -> dict:
+def _serve_start(cfg_path: Path, ckpt: Path, root: Path, extra=()) -> dict:
     """Start `python -m scflow_tpu_torch.cli serve` (--frame-hw 480 640
     --max-objects 64 --max-frames 8 --port 0, then `extra`) in a
-    subprocess, wait for the port in its log and for /healthz, drive it
-    with `cli loadtest` (SERVE_LOAD, answers saved), read /v1/stats, send
-    SIGTERM and wait for the exit.  Gates: every request answered, 0
-    errors, exit code 0 after the drain.  The process is killed on any
-    failure."""
+    subprocess, not waited for; a thread collects its log and the port it
+    prints.  _serve_load drives it."""
     import queue
-    import signal
     import threading
-    from urllib.request import urlopen
 
     env = dict(os.environ, PYTHONPATH=os.pathsep.join(
         [str(root)] + [p for p in [os.environ.get("PYTHONPATH")] if p]))
@@ -4312,13 +4474,33 @@ def _serve_load(cfg_path: Path, ckpt: Path, root: Path, tag: str, extra=()) -> d
             lines.append(line.rstrip())
             m = re.search(r"serving on http://[\d.]+:(\d+)", line)
             if m:
-                ports.put(int(m.group(1)))
+                ports.put((int(m.group(1)), time.perf_counter()))
 
     reader = threading.Thread(target=read, daemon=True)
     reader.start()
+    return dict(proc=proc, lines=lines, ports=ports, reader=reader, t0=t0, cfg_path=cfg_path)
+
+
+def _serve_load(server: dict, tag: str) -> dict:
+    """Wait for a _serve_start server's port in its log and for /healthz,
+    drive it with `cli loadtest` (cli.loadtest_main in this process, which
+    has torch imported already: SERVE_LOAD, answers saved), read
+    /v1/stats, send SIGTERM and wait for the exit.  Gates: every request
+    answered, 0 errors, exit code 0 after the drain.  The process is
+    killed on any failure."""
+    import contextlib
+    import io
+    import queue
+    import signal
+    from urllib.request import urlopen
+
+    from scflow_tpu_torch import cli
+
+    proc, lines, ports, reader = server["proc"], server["lines"], server["ports"], server["reader"]
+    t0, cfg_path = server["t0"], server["cfg_path"]
     try:
         try:
-            port = ports.get(timeout=SERVE_START_S)
+            port, t_port = ports.get(timeout=max(SERVE_START_S - (time.perf_counter() - t0), 1))
         except queue.Empty:
             raise RuntimeError(f"{tag}: the server did not come up in {SERVE_START_S} s: "
                                + " | ".join(lines[-20:]))
@@ -4333,17 +4515,14 @@ def _serve_load(cfg_path: Path, ckpt: Path, root: Path, tag: str, extra=()) -> d
             require(time.perf_counter() < deadline and proc.poll() is None,
                     f"{tag}: the server answers /healthz within 60 s")
             time.sleep(0.5)
-        up_s = time.perf_counter() - t0
+        up_s = t_port - t0  # to the port in its log, then /healthz answered
         answers = cfg_path.parent / f"{tag}_responses.npz"
-        load = subprocess.run(
-            [sys.executable, "-m", "scflow_tpu_torch.cli", "loadtest", "--url", url,
-             "--clients", str(SERVE_LOAD["clients"]), "--requests", str(SERVE_LOAD["requests"]),
-             "--objects", str(SERVE_LOAD["objects"]), "--frame-hw", str(FRAME_H), str(FRAME_W),
-             "--num-class", str(NCLASS), "--timeout", "120", "--save-responses", str(answers)],
-            cwd=str(root), env=env, capture_output=True, text=True, timeout=600)
-        require(load.returncode == 0, f"{tag}: cli loadtest: {load.stderr[-2000:]}")
-        report = json.loads(next(ln for ln in load.stdout.splitlines()
-                                 if ln.startswith('{"requests_ok"')))
+        with contextlib.redirect_stdout(io.StringIO()):  # its printed report: returned too
+            report = cli.loadtest_main(
+                ["--url", url, "--clients", str(SERVE_LOAD["clients"]),
+                 "--requests", str(SERVE_LOAD["requests"]), "--objects", str(SERVE_LOAD["objects"]),
+                 "--frame-hw", str(FRAME_H), str(FRAME_W), "--num-class", str(NCLASS),
+                 "--timeout", "120", "--save-responses", str(answers)])
         stats = json.loads(urlopen(url + "/v1/stats", timeout=10).read())
         n = SERVE_LOAD["clients"] * SERVE_LOAD["requests"]
         require(report["requests_ok"] == n and report["requests_failed"] == 0,
@@ -4369,20 +4548,15 @@ def _serve_load(cfg_path: Path, ckpt: Path, root: Path, tag: str, extra=()) -> d
     return dict(line=line, answers=np.load(answers))
 
 
-def phase_serve_http(smi, root: Path):
-    """`python -m scflow_tpu_torch.cli serve` as a subprocess on the card,
-    from a config that _base_s the shipped scflow.py, the slice's seeded
-    weights saved with save_params, --frame-hw 480 640 --max-objects 64
-    --max-frames 8 --port 0; `cli loadtest` (8 clients x 3 requests x 4
-    objects) drives it (_serve_load's gates).  Gate: every answer equals
-    PoseService.run of the same request (rotations 2e-5, translations
-    2e-3), a run of 8 K1 and 1 K2.  Then the same load on a server with
-    --pow2-buckets ("serve_http_pow2": batches padded to their power of
-    two), its answers within the slice's bounds of the same run."""
+def serve_http_begin(root: Path) -> dict:
+    """Phase 22's first part, begun before phase 21 so that its two servers
+    come up beside phases 21 and 23: the config that _base_s the shipped
+    scflow.py, the slice's seeded weights saved with save_params, and
+    `cli serve` started twice (the second with --pow2-buckets).
+    phase_serve_http takes it on; serve_http_end kills what is left."""
     from scflow_tpu_torch.config import Config
     from scflow_tpu_torch.refiners.build import build_refiner_from_config
     from scflow_tpu_torch.runtime.checkpoint import save_params
-    from scflow_tpu_torch.runtime.server import RefineRequest
 
     work = _serve_work(root)
     cfg_path = _serve_config(work, root, "scflow.py")
@@ -4395,9 +4569,47 @@ def phase_serve_http(smi, root: Path):
     model.load_state_dict(seeded_model().state_dict())
     ckpt = work / "scflow.pth"
     save_params(str(ckpt), model)
-    runs = {"serve_http": _serve_load(cfg_path, ckpt, root, "serve_http"),
-            "serve_http_pow2": _serve_load(cfg_path, ckpt, root, "serve_http_pow2",
-                                           ["--pow2-buckets"])}
+    begun = {"cfg_path": cfg_path, "ckpt": ckpt, "servers": {}}
+    try:
+        for tag, extra in (("serve_http", ()), ("serve_http_pow2", ["--pow2-buckets"])):
+            begun["servers"][tag] = _serve_start(cfg_path, ckpt, root, extra)
+    except BaseException:
+        serve_http_end(begun)
+        raise
+    return begun
+
+
+def serve_http_end(begun: dict) -> None:
+    """Kills phase 22's servers that are still running."""
+    for server in begun["servers"].values():
+        if server["proc"].poll() is None:
+            server["proc"].kill()
+            server["proc"].wait(timeout=60)
+
+
+def phase_serve_http(smi, root: Path, begun: dict = None):
+    """`python -m scflow_tpu_torch.cli serve` as a subprocess on the card,
+    from a config that _base_s the shipped scflow.py, the slice's seeded
+    weights saved with save_params, --frame-hw 480 640 --max-objects 64
+    --max-frames 8 --port 0; `cli loadtest` (8 clients x 3 requests x 4
+    objects) drives it (_serve_load's gates).  Gate: every answer equals
+    PoseService.run of the same request (rotations 2e-5, translations
+    2e-3), a run of 8 K1 and 1 K2.  Then the same load on a server with
+    --pow2-buckets ("serve_http_pow2": batches padded to their power of
+    two), its answers within the slice's bounds of the same run.  Both
+    servers come up at once (server_up_s: to the port in the log; in the
+    serve group they are started before phase 21: `begun`, from
+    serve_http_begin), and the loads run one after the other."""
+    from scflow_tpu_torch.config import Config
+    from scflow_tpu_torch.runtime.server import RefineRequest
+
+    if begun is None:
+        begun = serve_http_begin(root)
+    cfg_path, ckpt = begun["cfg_path"], begun["ckpt"]
+    try:
+        runs = {tag: _serve_load(server, tag) for tag, server in begun["servers"].items()}
+    finally:
+        serve_http_end(begun)
 
     # every answer against PoseService.run of the same request, alone
     service = _serve_service(Config.fromfile(str(cfg_path)), ckpt)
@@ -4638,6 +4850,7 @@ def phase_train_augment(smi, root: Path):
     return launches
 
 
+EXPORT_BATCH = 16  # the exported programs' batch: the bench batch's first 16 (cut from 64)
 EXPORT_CPU_SAMPLES = 4  # the 'cpu' program's samples held to the card's
 EXPORT_TIMEOUT_S = 900  # each export process, and the loading process
 EXPORT_MODEL_CODE = ("models", "refiners", "config", "apis", "runtime.checkpoint")
@@ -4650,9 +4863,10 @@ def export_loader(spec_path: Path) -> dict:
     "<artifact>.ready" marker; the loads overlap the exports still
     running), with spec["cpu"] its 'cpu' program too, and with
     spec["refusal"] the artifact cut to that program, loaded for the card
-    (it must raise ValueError); once every export has finished, each loaded
-    program's call on the batch with every launch count reset, ms per call
-    (host clock over 10 calls) and device ms; the import gate (none of
+    (it must raise ValueError); once every export has finished and
+    spec["go"] exists (the card is free), each loaded program's call on
+    the batch with every launch count reset, ms per call (host clock over
+    5 calls) and device ms; the import gate (none of
     EXPORT_MODEL_CODE loaded); the 'cpu' programs on the batch; then each
     live call, built from the config and checkpoint as cli export builds
     it (which imports the model code, after the gate), its launches and
@@ -4691,6 +4905,8 @@ def export_loader(spec_path: Path) -> dict:
                 r["refusal"] = None
             except ValueError as e:
                 r["refusal"] = str(e)
+    while spec.get("go") and not Path(spec["go"]).exists():  # the card is free
+        time.sleep(0.2)
     batch = dict(np.load(spec["batch"]))
     arrays = {tag: {} for tag in runs}
     for tag, call in calls.items():
@@ -4741,7 +4957,7 @@ def _export_start(tag: str, cfg_path: Path, ckpt: Path, work: Path, root: Path, 
     out = work / f"{tag}.scflowx"
     log = work / f"{tag}.log"
     cmd = [sys.executable, "-m", "scflow_tpu_torch.cli", "export", str(cfg_path),
-           "--checkpoint", str(ckpt), "--out", str(out), "--batch-size", str(BATCH),
+           "--checkpoint", str(ckpt), "--out", str(out), "--batch-size", str(EXPORT_BATCH),
            "--platforms", *platforms]
     if options:
         cmd += ["--cfg-options", *options]
@@ -4751,25 +4967,16 @@ def _export_start(tag: str, cfg_path: Path, ckpt: Path, work: Path, root: Path, 
     return proc, out, log, time.perf_counter()
 
 
-def phase_export(smi, root: Path) -> dict:
-    """Phase 25: `python -m scflow_tpu_torch.cli export` of the shipped
-    scflow.py (fp32 for 'cuda' and 'cpu'; bf16 with --cfg-options
-    model.dtype=bfloat16 for 'cuda') and raft.py (test_cfg.pnp_backend
-    device, 'cuda'), each at --batch-size 64 with the slice's (raft_model's)
-    seeded weights saved with save_params and the meshes under
-    build/export/ (removed afterwards); the three exports run at once, each
-    in its own process, and one fresh process loads and calls the
-    artifacts (export_loader).  Gates: exactly 8 K1 (K1_bf16) and 1 K2 per
-    loaded SCFlow call, 12 K1 and 1 K2 per RAFT call, as many as the live
-    call; the loading process had imported none of EXPORT_MODEL_CODE after
-    loading and calling every artifact; the loaded poses within the slice's
-    bounds of the live make_infer_from_cfg call on the bench batch (RAFT:
-    flow 2e-2 px, occlusion 1e-3, poses |dR| 2e-3 and 1 mm); the fp32
-    artifact's 'cpu' program on the same batch within the slice's bounds of
-    the card's on the first 4 samples; that artifact cut to its 'cpu'
-    program refuses to load for the card.  Returns {run: launches per
-    loaded call}."""
-    import shutil
+def export_begin(root: Path) -> dict:
+    """Phase 25's first part, begun before phase 26 so that the three
+    exports run beside it: the configs, the seeded checkpoints and the
+    batch under build/export/, each `cli export` started in its own
+    process with a thread that notes when it ends and writes its marker,
+    and the loading process (export_loader), which loads each artifact as
+    its export ends and calls none before phase_export writes the "go"
+    marker.  phase_export takes it on; export_end stops and removes what is
+    left."""
+    import threading
 
     from scflow_tpu_torch.config import Config
     from scflow_tpu_torch.refiners.build import build_refiner_from_config
@@ -4778,7 +4985,7 @@ def phase_export(smi, root: Path) -> dict:
     work = _serve_work(root, "export")
     env = dict(os.environ, PYTHONPATH=os.pathsep.join(
         [str(root)] + [p for p in [os.environ.get("PYTHONPATH")] if p]))
-    procs = []
+    begun = {"work": work, "env": env, "procs": [], "ended": {}}
     try:
         cfgs = {m: _serve_config(work, root, f"{m}.py") for m in ("scflow", "raft")}
         cfg = Config.fromfile(str(cfgs["scflow"]))
@@ -4792,7 +4999,7 @@ def phase_export(smi, root: Path) -> dict:
         save_params(str(ckpts["scflow"]), model)
         save_params(str(ckpts["raft"]), raft_model())
         del model
-        batch = bench_batch()
+        batch = {k: v[:EXPORT_BATCH] for k, v in bench_batch().items()}
         np.savez(work / "batch.npz", **batch)
         runs = {"export": ("scflow", [], ["cuda", "cpu"], {"K1": ITERS, "K2": 1}),
                 "export_bf16": ("scflow", ["model.dtype=bfloat16"], ["cuda"],
@@ -4801,29 +5008,82 @@ def phase_export(smi, root: Path) -> dict:
                                 {"K1": RAFT_ITERS, "K2": 1})}
         started = {tag: _export_start(tag, cfgs[m], ckpts[m], work, root, env, opts, platforms)
                    for tag, (m, opts, platforms, _) in runs.items()}
-        procs = [v[0] for v in started.values()]
+        begun["procs"] += [v[0] for v in started.values()]
+
+        def note_end(tag, proc, out):
+            rc = proc.wait()
+            begun["ended"][tag] = time.perf_counter()
+            Path(f"{out}.{'ready' if rc == 0 else 'failed'}").touch()
+
+        for tag, (proc, out, *_) in started.items():
+            threading.Thread(target=note_end, args=(tag, proc, out), daemon=True).start()
         spec = work / "loader_spec.json"
-        spec.write_text(json.dumps({"batch": str(work / "batch.npz"), "runs": {
+        spec.write_text(json.dumps({"batch": str(work / "batch.npz"), "go": str(work / "go"),
+                                    "runs": {
             tag: {"artifact": str(started[tag][1]), "config": str(cfgs[m]),
                   "checkpoint": str(ckpts[m]), "cfg_options": opts, "cpu": "cpu" in platforms}
             for tag, (m, opts, platforms, _) in runs.items()}}))
-        t_loader = time.perf_counter()
         loader_log = work / "loader.log"
         with open(loader_log, "w") as f:
             loader = subprocess.Popen(
                 [sys.executable, str(Path(__file__).resolve()), "--root", str(root),
                  "--export-loader", str(spec)], cwd=str(root), env=env, stdout=f,
                 stderr=subprocess.STDOUT)
-        procs.append(loader)
+        begun["procs"].append(loader)
+    except BaseException:
+        export_end(begun)
+        raise
+    begun.update(batch=batch, runs=runs, started=started, loader=loader, loader_log=loader_log,
+                 go=work / "go")
+    return begun
+
+
+def export_end(begun: dict) -> None:
+    """Kills what is left of phase 25's processes and removes build/export/."""
+    import shutil
+
+    for proc in begun["procs"]:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait(timeout=60)
+    shutil.rmtree(begun["work"], ignore_errors=True)
+
+
+def phase_export(smi, root: Path, begun: dict = None) -> dict:
+    """Phase 25: `python -m scflow_tpu_torch.cli export` of the shipped
+    scflow.py (fp32 for 'cuda' and 'cpu'; bf16 with --cfg-options
+    model.dtype=bfloat16 for 'cuda') and raft.py (test_cfg.pnp_backend
+    device, 'cuda'), each at --batch-size EXPORT_BATCH with the slice's
+    (raft_model's) seeded weights saved with save_params and the meshes
+    under build/export/ (removed afterwards); the three exports run at
+    once, each in its own process (in the full run they are begun before
+    phase 26 and run beside it: `begun`, from export_begin), and then one
+    fresh process loads and calls the artifacts (export_loader).  Gates:
+    exactly 8 K1 (K1_bf16) and 1 K2 per loaded SCFlow call, 12 K1 and 1
+    K2 per RAFT call, as many as the live call; the loading process had
+    imported none of EXPORT_MODEL_CODE after loading and calling every
+    artifact; the loaded poses within the slice's bounds of the live
+    make_infer_from_cfg call on the bench batch's first EXPORT_BATCH
+    (RAFT: flow 2e-2 px, occlusion 1e-3, poses |dR| 2e-3 and 1 mm); the
+    fp32 artifact's 'cpu' program on the same batch within the slice's
+    bounds of the card's on the first 4 samples; that artifact cut to its
+    'cpu' program refuses to load for the card.  Returns {run: launches
+    per loaded call}."""
+    if begun is None:
+        begun = export_begin(root)
+    batch, runs, started, ended = begun["batch"], begun["runs"], begun["started"], begun["ended"]
+    loader, loader_log = begun["loader"], begun["loader_log"]
+    try:
+        t_loader = time.perf_counter()
+        begun["go"].touch()  # the loading process's calls may start once the exports end
         export_s, pending = {}, dict(started)
         while pending:
             for tag, (proc, out, log, t0) in list(pending.items()):
-                rc = proc.poll()
-                if rc is None:
+                if tag not in ended:
                     continue
+                rc = proc.returncode
                 del pending[tag]
-                export_s[tag] = time.perf_counter() - t0
-                Path(f"{out}.{'ready' if rc == 0 else 'failed'}").touch()
+                export_s[tag] = ended[tag] - t0
                 require(rc == 0, f"{tag}: cli export exited {rc}: {log.read_text()[-3000:]}")
             require(time.perf_counter() - t_loader < EXPORT_TIMEOUT_S, "the exports finish")
             require(loader.poll() in (None, 0), "the loading process runs: "
@@ -4878,7 +5138,7 @@ def phase_export(smi, root: Path) -> dict:
                 line.update(cpu_samples=n, cpu_rot_max_abs_diff=d_rot,
                             cpu_trans_tolerance_excess=t_excess, cpu_load_s=res["cpu_load_s"],
                             cpu_call_s=res["cpu_call_s"], refusal=res["refusal"])
-            emit({"phase": tag, "batch": BATCH, "image": IMG, "platforms": platforms,
+            emit({"phase": tag, "batch": EXPORT_BATCH, "image": IMG, "platforms": platforms,
                   "cfg_options": opts, "export_s": export_s[tag],
                   "exports_at_once": len(runs), "artifact_mb": artifact.stat().st_size / 1e6,
                   "load_s": res["load_s"], "loader_s": loader_s,
@@ -4888,23 +5148,26 @@ def phase_export(smi, root: Path) -> dict:
                   "live_ms_per_call": res["live_ms_per_call"],
                   "live_device_ms_per_call": res["live_device_ms_per_call"], "card": smi})
     finally:
-        for proc in procs:
-            if proc.poll() is None:
-                proc.kill()
-                proc.wait(timeout=60)
-        shutil.rmtree(work, ignore_errors=True)
+        export_end(begun)
     return launches
 
 
 def serve_phases(smi, root: Path) -> dict:
-    """The serving phases (serve, serve_http, serve_raft), build/serve/
+    """The serving phases: serve_http's two servers started, then serve
+    and serve_raft while they come up, then serve_http's loads; build/serve/
     removed afterwards; {run: launches per call}."""
     import shutil
 
     try:
-        launches = phase_serve(smi)
-        launches.update(phase_serve_http(smi, root))
-        launches.update(phase_serve_raft(smi, root))
+        # phase 22's servers come up beside phases 21 and 23; then its loads
+        http = serve_http_begin(root)
+        try:
+            launches = phase_serve(smi)
+            raft = phase_serve_raft(smi, root)
+            launches.update(phase_serve_http(smi, root, http))
+        finally:
+            serve_http_end(http)
+        launches.update(raft)
     finally:
         shutil.rmtree(root / "build" / "serve", ignore_errors=True)
     return launches
@@ -4968,10 +5231,11 @@ def _torchrun(root: Path, nproc: int, args, tag: str):
 def parallel_rank(spec_path: Path) -> dict:
     """One rank of phase 26 (b), in a process of its own with torchrun's
     variables set: the shipped train step on its rows of the global batch,
-    data-parallel (process_group WORLD), one compared step, then PAR_TIMED
-    timed steps (each counted apart), and the gradient all-reduce alone.  Writes
-    its logs and state to the spec's out path.  A planted spec (each rank's
-    own BatchNorm statistics) runs the compared step alone."""
+    data-parallel (process_group WORLD), one compared step, then (once the
+    spec's "go" file exists) PAR_TIMED timed steps (each counted apart), and
+    the gradient all-reduce alone.  Writes its logs and state to the spec's
+    out path.  A planted spec (each rank's own BatchNorm statistics) runs
+    the compared step alone."""
     import torch.distributed as dist
 
     from scflow_tpu_torch.parallel import (average_gradients, maybe_initialize_distributed,
@@ -5002,6 +5266,8 @@ def parallel_rank(spec_path: Path) -> dict:
                    f"{spec['out']}.rank{rank}")
         dist.destroy_process_group()
         return {"rank": rank}
+    while spec["go"] and not Path(spec["go"]).exists():  # the planted pair leaves the card
+        time.sleep(0.1)
     for _ in range(PAR_TIMED):  # the timed steps' launches too, counted apart
         (state, _), c = counted(lambda: step(state, batch))
         counts.append(c)
@@ -5115,12 +5381,14 @@ def _step_grads(state):
     return {n: p.grad.detach().cpu().clone() for n, p in state.model.named_parameters()}
 
 
-def _par_ranks(root: Path, work: Path, weights, batch, tag: str, plant: bool = False):
+def _par_ranks(root: Path, work: Path, weights, batch, tag: str, plant: bool = False,
+               go: Path = None):
     """Start (b)'s 2 rank processes (parallel_rank) on weights and the global
-    batch; returns wait() -> the ranks' outputs, which fails the phase if a
-    rank fails."""
+    batch, their timed steps held until `go` exists; returns wait() -> the
+    ranks' outputs, which fails the phase if a rank fails."""
     spec = work / f"{tag}.pt"
-    torch.save(dict(weights=weights, batch=batch, out=str(work / tag), plant=plant), spec)
+    torch.save(dict(weights=weights, batch=batch, out=str(work / tag), plant=plant,
+                    go=str(go) if go else None), spec)
     port = _free_port()
     procs = [subprocess.Popen([sys.executable, str(Path(__file__).resolve()), "--root", str(root),
                                "--parallel-rank", str(spec)], cwd=str(root),
@@ -5148,8 +5416,10 @@ def _par_train_step(smi, root: Path, work: Path) -> None:
     must stay under PAR_FLOOR_MAX of the gradients' norm, so a fault in the
     float64 path cannot widen its own bound; and a pair of ranks that keep
     their own BatchNorm statistics must miss the bound, which shows that it
-    separates.  Then, with the ranks done, one process's step in turns
-    with and without the float64 sums: their cost."""
+    separates.  Both pairs start at once; the ranks' timed steps wait
+    until the planted pair has left the card.  Then, with the ranks done,
+    one process's step in turns with and without the float64 sums: their
+    cost."""
     from scflow_tpu_torch.models import layers
     from scflow_tpu_torch.render.meshbank import make_synthetic_bank
 
@@ -5159,7 +5429,9 @@ def _par_train_step(smi, root: Path, work: Path) -> None:
     state, step, assets, _ = _train_setup(model, bank, IMG, lr_cfg=None, optimizer=PAR_OPT,
                                           render_augmentations=PAR_AUGMENT, augment_seed=3)
     batch = train_batch(assets, 2 * TRAIN_BATCH, IMG)
-    wait = _par_ranks(root, work, weights, batch, "rank")
+    go = work / "go"
+    wait = _par_ranks(root, work, weights, batch, "rank", go=go)
+    wait_planted = _par_ranks(root, work, weights, batch, "planted", plant=True)
     model64 = train_model(IMG, ITERS)
     model64.load_state_dict(weights)
     state64, step64, _, _ = _train_setup(model64, bank, IMG, lr_cfg=None, optimizer=PAR_OPT,
@@ -5183,8 +5455,11 @@ def _par_train_step(smi, root: Path, work: Path) -> None:
         grads64 = _step_grads(state64)
         floor_grads = _share_diff(grads64, one_grads)
     finally:
-        ranks = wait()
-    planted = _par_ranks(root, work, weights, batch, "planted", plant=True)()
+        try:
+            planted = wait_planted()
+        finally:
+            go.touch()
+            ranks = wait()
 
     def against_one(r):
         """(worst log over its allowance, worst weight over the tolerance,
@@ -6272,10 +6547,16 @@ def main() -> int:
     # launches per call of each serving run, per step of the augmented steps
     serve_launches = serve_phases(smi, args.root.resolve())
     serve_launches.update(phase_train_augment(smi, args.root.resolve()))
+    # phase 25's three exports run beside phase 26; then its loading process
+    exports = export_begin(args.root.resolve())
+    try:
+        # launches per rank step and per mesh shard (phase 26)
+        parallel_launches = phase_parallel(smi, args.root.resolve())
+    except BaseException:
+        export_end(exports)
+        raise
     # launches per call of each loaded artifact (phase 25)
-    export_launches = phase_export(smi, args.root.resolve())
-    # launches per rank step and per mesh shard (phase 26)
-    parallel_launches = phase_parallel(smi, args.root.resolve())
+    export_launches = phase_export(smi, args.root.resolve(), exports)
     # launches per step and per evaluation of the learning check (phase 27)
     learn_launches = phase_learn(smi)
     # launches per visualized image of the user tools (phase 28)

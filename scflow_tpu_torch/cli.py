@@ -423,13 +423,6 @@ def serve_main(argv=None):
     cfg = Config.fromfile(args.config)
     if args.cfg_options:
         cfg.merge_from_dict(Config.parse_options(args.cfg_options))
-    # the serve fns compute in full float32 (device.full_fp32), which saves
-    # and restores these process-wide flags around each call; set them once
-    # here, so that a keep-alive tick beside a batch cannot restore TF32 in
-    # the middle of the other's call
-    torch.backends.cudnn.allow_tf32 = False
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
     mesh = None
     if dev.type == "cuda":
         logger.info(f"device: {dev} ({torch.cuda.get_device_name(dev)})")

@@ -644,6 +644,20 @@ def _epnp_pose(X: np.ndarray, x: np.ndarray, K: np.ndarray) -> Tuple[np.ndarray,
     return rodrigues_to_vector(R[0]), t[0]
 
 
+def solve_pnp_epnp(points_3d, points_2d, K) -> Tuple[bool, np.ndarray, np.ndarray]:
+    """cv2.solvePnP(points_3d, points_2d, K, None, flags=cv2.SOLVEPNP_EPNP):
+    (retval, rvec (3,), tvec (3,)) in float64.  cv2's retval is True for
+    every EPnP solve (a degenerate set gives a NaN translation, not a
+    failure).  Raises ValueError for fewer than 4 point pairs (cv2
+    asserts)."""
+    X = np.asarray(points_3d, np.float64).reshape(-1, 3)
+    x = np.asarray(points_2d, np.float64).reshape(-1, 2)
+    if len(X) < 4 or len(x) != len(X):
+        raise ValueError(f"solvePnP(EPNP) needs at least 4 point pairs, got {len(X)}, {len(x)}")
+    rvec, tvec = _epnp_pose(X, x, np.asarray(K, np.float64))
+    return True, rvec, tvec
+
+
 def _subsets(count: int, iters: int) -> np.ndarray:
     """The RANSAC's subsets: MODEL_POINTS distinct indices each, drawn by
     cv::RNG(2^64 - 1) (a repeated index is drawn again)."""

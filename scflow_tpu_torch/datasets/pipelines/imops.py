@@ -1,19 +1,23 @@
 """Image helpers of the data pipeline without cv2 (the card's machine has
-none): a PNG codec on zlib and numpy and a JPEG codec (jpeg.py) behind
-imread and imwrite, cv2's INTER_LINEAR resize on uint8 images (imresize,
-imrescale), the crop and pad helpers, and for the colour transforms cv2's
-uint8 BGR<->HSV and BGR<->grey conversions (bgr2hsv, hsv2bgr, bgr2gray,
-gray2bgr), box filter (blur), min-max normalize (normalize_minmax) and
-affine warp (warp_affine, get_rotation_matrix_2d), and its filled circle
-(fill_circle).
+none): a PNG codec on zlib and numpy, a JPEG codec (jpeg.py) and a BMP
+reader behind imread and imwrite, cv2's INTER_LINEAR resize on uint8
+images (imresize, imrescale), the crop and pad helpers, and for the colour
+transforms cv2's uint8 BGR<->HSV and BGR<->grey conversions (bgr2hsv,
+hsv2bgr, bgr2gray, gray2bgr), box filter (blur), min-max normalize
+(normalize_minmax) and affine warp (warp_affine, get_rotation_matrix_2d),
+and its filled circle (fill_circle).
 The port's copy of scflow_tpu/datasets/pipelines/imops.py, whose resize and
 reads are cv2's.
 
-imread returns what cv2.imread does for 8- and 16-bit grey, grey+alpha,
-RGB and RGBA PNGs (non-interlaced, every row filter) and for the JPEGs that
-jpeg.py reads: the channels in BGR (BGRA) order.  imresize follows
-cv2.resize's fixed-point arithmetic for uint8 (11-bit coefficients, its 2x
-downscale switched to INTER_AREA), see _resize_linear_u8."""
+imread returns what cv2.imread does under its three flags for every PNG
+(each colour type and bit depth, palettes and tRNS, Adam7 interlace, every
+row filter), for the JPEGs that jpeg.py reads and for uncompressed 1-, 4-,
+8-, 24- and 32-bit BMPs: the channels in BGR (BGRA) order.  Each codec's
+grey read is cv2's own: libpng's rgb_to_gray for PNG, OpenCV's 14-bit
+weights for BMP, the luma (or OpenCV's CMYK weights) for JPEG, none of
+them cvtColor's (bgr2gray).  imresize follows cv2.resize's fixed-point
+arithmetic for uint8 (11-bit coefficients, its 2x downscale switched to
+INTER_AREA), see _resize_linear_u8."""
 
 import math
 import struct
@@ -22,7 +26,8 @@ from typing import Tuple
 
 import numpy as np
 
-from scflow_tpu_torch.datasets.pipelines.jpeg import DecodeError, jpeg_decode, jpeg_encode, orient
+from scflow_tpu_torch.datasets.pipelines.jpeg import (DecodeError, cv_bgr_to_grey, jpeg_decode,
+                                                      jpeg_encode, orient)
 
 _PNG_SIG = b"\x89PNG\r\n\x1a\n"
 _CHANNELS = {0: 1, 2: 3, 4: 2, 6: 4}  # PNG colour type -> samples per pixel
@@ -75,37 +80,129 @@ def _unfilter(raw: np.ndarray, ftype: np.ndarray) -> np.ndarray:
     return out[xs + ys + 2, ys + 1].astype(np.uint8)
 
 
-def png_decode(data: bytes) -> np.ndarray:
-    """PNG bytes -> (H, W) or (H, W, C) uint8/uint16 in the file's channel
-    order (grey, grey+alpha, RGB, RGBA)."""
-    header, idat = None, []
+# Adam7's passes: (x0, y0, dx, dy)
+_ADAM7 = ((0, 0, 8, 8), (4, 0, 8, 8), (0, 4, 4, 8), (2, 0, 4, 4), (0, 2, 2, 4), (1, 0, 2, 2),
+          (0, 1, 1, 2))
+_DEPTHS = {0: (1, 2, 4, 8, 16), 2: (8, 16), 3: (1, 2, 4, 8), 4: (8, 16), 6: (8, 16)}
+
+
+def _png_samples(rows: np.ndarray, w: int, ch: int, depth: int) -> np.ndarray:
+    """(H, row bytes) unfiltered rows -> (H, W, ch) samples at the file's
+    depth (uint8 for 1-8 bits, uint16 for 16)."""
+    h = len(rows)
+    if depth == 16:
+        b = rows[:, :2 * w * ch].reshape(h, w, ch, 2).astype(np.uint16)
+        return (b[..., 0] << 8) | b[..., 1]
+    if depth == 8:
+        return rows[:, :w * ch].reshape(h, w, ch)
+    bits = np.unpackbits(rows, axis=1)[:, :w * depth].reshape(h, w, depth)
+    weights = (1 << np.arange(depth - 1, -1, -1)).astype(np.uint8)
+    return (bits * weights).sum(axis=2, dtype=np.uint8)[..., None]
+
+
+def _png_parse(data: bytes):
+    """The file's (H, W, ch) samples at its depth (palette indices for a
+    palette file, grey at 1-16 bits), with its colour type, bit depth,
+    palette ((n, 3) uint8 or None) and tRNS body (bytes or None)."""
+    header, idat, palette, trns = None, [], None, None
     for kind, body in _chunks(data):
         if kind == b"IHDR":
             header = struct.unpack(">IIBBBBB", body)
+        elif kind == b"PLTE":
+            palette = np.frombuffer(body[:len(body) // 3 * 3], np.uint8).reshape(-1, 3)
+        elif kind == b"tRNS":
+            trns = body
         elif kind == b"IDAT":
             idat.append(body)
         elif kind == b"IEND":
             break
     if header is None:
-        raise ValueError("PNG without IHDR")
+        raise DecodeError("PNG without IHDR")
     w, h, depth, ctype, _, _, interlace = header
-    if ctype not in _CHANNELS or depth not in (8, 16) or interlace:
-        raise ValueError(f"unsupported PNG: colour type {ctype}, bit depth {depth}, "
-                         f"interlace {interlace} (8/16-bit grey, grey+alpha, RGB, RGBA, "
-                         "not interlaced)")
-    ch = _CHANNELS[ctype]
-    bpp = ch * depth // 8
-    rows = np.frombuffer(zlib.decompress(b"".join(idat)), np.uint8)
-    rows = rows.reshape(h, 1 + w * bpp)
-    if rows[:, 0].max(initial=0) > 4:
-        raise ValueError("PNG row with an unknown filter type")
-    img = _unfilter(rows[:, 1:].reshape(h, w, bpp), rows[:, 0])
-    if depth == 16:
-        img = img.reshape(h, w, ch, 2).astype(np.uint16)
-        img = (img[..., 0] << 8) | img[..., 1]
-    else:
-        img = img.reshape(h, w, ch)
-    return img[..., 0] if ch == 1 else img
+    if depth not in _DEPTHS.get(ctype, ()) or interlace > 1:
+        raise DecodeError(f"invalid PNG: colour type {ctype}, bit depth {depth}, "
+                          f"interlace {interlace}")
+    if ctype == 3 and palette is None:
+        raise DecodeError("palette PNG without PLTE")
+    ch = 1 if ctype == 3 else _CHANNELS[ctype]
+    bits_pp = ch * depth
+    bpp = max(bits_pp // 8, 1)
+    raw = np.frombuffer(zlib.decompress(b"".join(idat)), np.uint8)
+    passes = _ADAM7 if interlace else ((0, 0, 1, 1),)
+    img = np.zeros((h, w, ch), np.uint16 if depth == 16 else np.uint8)
+    pos = 0
+    for x0, y0, dx, dy in passes:
+        pw, ph = -(-(w - x0) // dx), -(-(h - y0) // dy)
+        if pw <= 0 or ph <= 0:
+            continue  # an empty pass holds no rows, not even filter bytes
+        nbytes = -(-(pw * bits_pp) // 8)
+        rows = raw[pos:pos + ph * (1 + nbytes)]
+        if len(rows) != ph * (1 + nbytes):
+            raise DecodeError("PNG image data ends early")
+        rows = rows.reshape(ph, 1 + nbytes)
+        pos += ph * (1 + nbytes)
+        if rows[:, 0].max(initial=0) > 4:
+            raise DecodeError("PNG row with an unknown filter type")
+        body = _unfilter(rows[:, 1:].reshape(ph, nbytes // bpp, bpp), rows[:, 0])
+        img[y0::dy, x0::dx] = _png_samples(body.reshape(ph, nbytes), pw, ch, depth)
+    return img, ctype, depth, palette, trns
+
+
+def _expand_grey(v: np.ndarray, depth: int) -> np.ndarray:
+    """libpng's png_set_expand_gray_1_2_4_to_8: each sample's bits repeated
+    to fill 8."""
+    return v if depth >= 8 else (v.astype(np.uint16) * (255 // ((1 << depth) - 1))).astype(np.uint8)
+
+
+def _palette_rgba(idx: np.ndarray, palette: np.ndarray, trns, alpha: bool) -> np.ndarray:
+    """Palette indices (H, W) -> (H, W, 3) RGB, or (H, W, 4) RGBA with the
+    tRNS alphas (255 past them) where alpha; an index past the palette
+    reads black, as libpng's png_set_PLTE pads the palette to 256."""
+    full = np.zeros((256, 4), np.uint8)
+    full[:len(palette), :3] = palette
+    full[:, 3] = 255
+    if trns:
+        full[:len(trns), 3] = np.frombuffer(trns[:256], np.uint8)
+    return full[idx][..., :4 if alpha else 3]
+
+
+def _png_unchanged(img, ctype, depth, palette, trns) -> np.ndarray:
+    """_png_parse's samples as cv2's IMREAD_UNCHANGED keeps them, in the
+    file's channel order: low-bit grey expanded to 8 bits, a palette as RGB,
+    or RGBA where the file has tRNS, an RGB file with tRNS as RGBA (alpha 0
+    on its key colour); a grey file's tRNS is dropped."""
+    if ctype == 3:
+        return _palette_rgba(img[..., 0], palette, trns, alpha=bool(trns))
+    if ctype == 0:
+        return _expand_grey(img[..., 0], depth)
+    if ctype == 2 and trns is not None and len(trns) >= 6:
+        key = np.array(struct.unpack(">HHH", trns[:6]), np.uint16).astype(img.dtype)
+        a = np.where((img == key).all(axis=2), 0, np.iinfo(img.dtype).max).astype(img.dtype)
+        return np.concatenate([img, a[..., None]], axis=2)
+    return img
+
+
+def png_decode(data: bytes) -> np.ndarray:
+    """PNG bytes -> (H, W) or (H, W, C) uint8/uint16 in the file's channel
+    order (grey, grey+alpha, RGB, RGBA) as cv2's IMREAD_UNCHANGED reads it
+    (_png_unchanged), for every colour type, bit depth and interlace."""
+    return _png_unchanged(*_png_parse(data))
+
+
+# libpng's png_set_rgb_to_gray(png_ptr, 1, 0.299, 0.587) as cv2 sets it:
+# 15-bit weights red 29900 * 32768 // 100000, green 58700 * 32768 // 100000,
+# blue the rest, truncated at 8 bits and rounded at 16
+_PNG_GREY_R, _PNG_GREY_G = 9797, 19234
+_PNG_GREY_B = 32768 - _PNG_GREY_R - _PNG_GREY_G
+
+
+def _png_rgb_to_grey(rgb: np.ndarray) -> np.ndarray:
+    """(H, W, 3+) RGB(A) uint8 or uint16 -> (H, W) grey of the same depth."""
+    r, g, b = (rgb[..., i].astype(np.int64) for i in range(3))
+    acc = _PNG_GREY_R * r + _PNG_GREY_G * g + _PNG_GREY_B * b
+    if rgb.dtype == np.uint16:
+        acc = acc + 16384
+    return (acc >> 15).astype(rgb.dtype)
 
 
 def _filter_rows(img_bytes: np.ndarray, bpp: int) -> np.ndarray:
@@ -159,53 +256,178 @@ def _to_bgr_order(img: np.ndarray) -> np.ndarray:
 
 
 # signatures of the other formats cv2.imread decodes, which the port does not
-_OTHER_FORMATS = ((b"BM", "BMP"), (b"II*\x00", "TIFF"), (b"MM\x00*", "TIFF"),
-                  (b"RIFF", "WebP"), (b"\x00\x00\x00\x0cjP", "JPEG 2000"),
-                  (b"\xffO\xffQ", "JPEG 2000"), (b"#?RADIANCE", "Radiance HDR"),
-                  (b"v/1\x01", "OpenEXR"), (b"GIF8", "GIF"))
+_OTHER_FORMATS = ((b"II*\x00", "TIFF"), (b"MM\x00*", "TIFF"), (b"RIFF", "WebP"),
+                  (b"\x00\x00\x00\x0cjP", "JPEG 2000"), (b"\xffO\xffQ", "JPEG 2000"),
+                  (b"#?RADIANCE", "Radiance HDR"), (b"v/1\x01", "OpenEXR"), (b"GIF8", "GIF"))
+
+
+def _bmp_decode(data: bytes, flag: str, path: str) -> np.ndarray:
+    """cv2.imread of a BMP (OpenCV's own reader, grfmt_bmp.cpp): 1-, 4- and
+    8-bit palette files, 24-bit and 32-bit BI_RGB ones, and 32-bit
+    BI_BITFIELDS ones with byte-wide masks (cv2.imwrite's BGRA files), rows
+    bottom-up or top-down, each padded to 4 bytes, after a header of 40
+    bytes or more.  'unchanged' gives one channel for a grey palette, four
+    for BI_BITFIELDS (alpha 255 where its mask is 0), else three;
+    'grayscale' takes OpenCV's 14-bit weights on the palette or the pixels,
+    and for BI_BITFIELDS its float32 sum floor(0.299 R + 0.587 G + 0.114 B).  RLE, 16-bit, other masks and
+    OS/2's 12-byte header raise NotImplementedError."""
+    if len(data) < 26:
+        raise DecodeError(f"{path}: truncated BMP header")
+    offset, size = struct.unpack("<I", data[10:14])[0], struct.unpack("<I", data[14:18])[0]
+    masks = None
+    if size >= 36:
+        if len(data) < 14 + 36:
+            raise DecodeError(f"{path}: truncated BMP header")
+        w, h, _, bpp, comp = struct.unpack("<iiHHI", data[18:34])
+        clrused = struct.unpack("<i", data[46:50])[0]
+        if bpp == 32 and comp == 3 and size >= 56:
+            masks = struct.unpack("<4I", data[54:70])
+    elif size == 12:
+        raise NotImplementedError(f"{path}: OS/2 BMP (a 12-byte header) is not read")
+    else:
+        raise DecodeError(f"{path}: BMP header of {size} bytes")
+    if comp in (1, 2):
+        raise NotImplementedError(f"{path}: RLE-compressed BMP ({'RLE8' if comp == 1 else 'RLE4'})"
+                                  " is not read (uncompressed BMP only)")
+    if bpp == 16:
+        raise NotImplementedError(f"{path}: 16-bit BMP is not read (1, 4, 8, 24 and 32-bit)")
+    if comp == 3 and bpp == 32 and masks is None:
+        raise NotImplementedError(f"{path}: BI_BITFIELDS BMP with its masks after a {size}-byte "
+                                  "header is not read")
+    if (bpp not in (1, 4, 8, 24, 32) or comp not in (0, 3) or (comp == 3 and bpp != 32)
+            or w <= 0 or h == 0):
+        raise DecodeError(f"{path}: not a BMP that cv2 reads ({bpp} bits, compression {comp})")
+    shifts = None
+    if masks is not None:
+        shifts = []
+        for m in masks:
+            if m and m not in (0xFF, 0xFF00, 0xFF0000, 0xFF000000):
+                raise NotImplementedError(f"{path}: BI_BITFIELDS BMP with the mask {m:#x} is not "
+                                          "read (byte-wide masks only)")
+            shifts.append(None if m == 0 else (m.bit_length() - 8))
+    bottom_up, h = h > 0, abs(h)
+    palette = None
+    if bpp <= 8:
+        n = clrused if clrused else 1 << bpp
+        if not 0 <= clrused <= 256:
+            raise DecodeError(f"{path}: BMP palette of {clrused} colours")
+        start = 14 + size
+        table = np.zeros((256, 4), np.uint8)
+        raw = np.frombuffer(data[start:start + n * 4], np.uint8)
+        if len(raw) != n * 4:
+            raise DecodeError(f"{path}: truncated BMP palette")
+        table[:n] = raw.reshape(n, 4)
+        palette = table[:, :3]  # B, G, R
+    pitch = ((w * bpp + 7) // 8 + 3) & -4
+    pixels = np.frombuffer(data[offset:offset + pitch * h], np.uint8)
+    if offset > len(data) or len(pixels) != pitch * h:
+        raise DecodeError(f"{path}: truncated BMP pixel data")
+    rows = pixels.reshape(h, pitch)
+    if bottom_up:
+        rows = rows[::-1]
+    if palette is not None:
+        if bpp == 8:
+            idx = rows[:, :w]
+        else:
+            bits = np.unpackbits(rows, axis=1)[:, :w * bpp].reshape(h, w, bpp)
+            idx = (bits * (1 << np.arange(bpp - 1, -1, -1)).astype(np.uint8)).sum(
+                axis=2, dtype=np.uint8)
+        grey_palette = palette[:1 << bpp]
+        is_colour = bool((grey_palette[:, 0] != grey_palette[:, 1]).any()
+                         or (grey_palette[:, 0] != grey_palette[:, 2]).any())
+        if flag == "grayscale" or (flag == "unchanged" and not is_colour):
+            return cv_bgr_to_grey(palette)[idx]
+        return palette[idx]
+    if bpp == 24:
+        bgr = rows[:, :3 * w].reshape(h, w, 3)
+        return cv_bgr_to_grey(bgr) if flag == "grayscale" else np.ascontiguousarray(bgr)
+    px = rows[:, :4 * w].reshape(h, w, 4)
+    if shifts is None:  # BI_RGB: the fourth byte is dropped
+        return cv_bgr_to_grey(px) if flag == "grayscale" else np.ascontiguousarray(px[..., :3])
+    word = px.view("<u4")[..., 0]
+    r, g, b = ((word >> s).astype(np.uint8) if s is not None else np.zeros((h, w), np.uint8)
+               for s in shifts[:3])
+    if flag == "grayscale":
+        f32 = np.float32
+        acc = (f32(0.299) * r.astype(f32)) + (f32(0.587) * g.astype(f32))
+        return np.floor(acc + f32(0.114) * b.astype(f32)).astype(np.uint8)
+    a = (word >> shifts[3]).astype(np.uint8) if shifts[3] is not None else np.full((h, w), 255,
+                                                                                   np.uint8)
+    return np.stack([b, g, r, a] if flag == "unchanged" else [b, g, r], axis=-1)
+
+
+def _png_read(data: bytes, flag: str) -> np.ndarray:
+    """cv2.imread of a PNG under one flag, as OpenCV drives libpng."""
+    img, ctype, depth, palette, trns = _png_parse(data)
+    if ctype == 3:
+        rgb = _palette_rgba(img[..., 0], palette, trns, alpha=flag == "unchanged" and bool(trns))
+    elif ctype == 0:
+        grey = _expand_grey(img[..., 0], depth)
+        if flag == "unchanged":
+            return grey
+        grey = (grey >> 8).astype(np.uint8) if depth == 16 else grey
+        return grey if flag == "grayscale" else np.repeat(grey[..., None], 3, axis=2)
+    elif ctype == 4:
+        if flag == "unchanged":
+            return _to_bgr_order(img)
+        grey = (img[..., 0] >> 8).astype(np.uint8) if depth == 16 else img[..., 0]
+        return grey if flag == "grayscale" else np.repeat(grey[..., None], 3, axis=2)
+    else:
+        rgb = img
+    if flag == "unchanged":
+        return _to_bgr_order(_png_unchanged(img, ctype, depth, palette, trns))
+    if flag == "grayscale":
+        grey = _png_rgb_to_grey(rgb)
+        return (grey >> 8).astype(np.uint8) if grey.dtype == np.uint16 else grey
+    if rgb.dtype == np.uint16:
+        rgb = (rgb >> 8).astype(np.uint8)
+    return np.ascontiguousarray(rgb[..., 2::-1])
+
+
+_FLAGS = ("unchanged", "color", "grayscale")
 
 
 def imread(path: str, flag: str = "color") -> np.ndarray:
-    """cv2.imread for PNG and JPEG files, the codec chosen by the file's
+    """cv2.imread for PNG, JPEG and BMP files, the codec chosen by the file's
     signature: flag 'unchanged' (cv2.IMREAD_UNCHANGED) keeps the depth and
     the channels, in BGR(A) order, and ignores a JPEG's EXIF orientation;
     'color' (cv2.IMREAD_COLOR) gives (H, W, 3) uint8 BGR (16-bit samples keep
-    their high byte, alpha is dropped); 'grayscale' reads grey PNGs and any
-    JPEG (its luma); 'color' and 'grayscale' apply a JPEG's EXIF Orientation
-    as cv2 does.  Raises FileNotFoundError for a missing file, DecodeError
-    where cv2.imread returns None (not an image, a truncated header, a bad
-    PNG checksum) and NotImplementedError for a format or a JPEG feature
-    that cv2 reads and the port does not."""
+    their high byte, alpha is dropped); 'grayscale' (cv2.IMREAD_GRAYSCALE)
+    gives (H, W) uint8, each codec with cv2's own conversion (a JPEG's luma,
+    or its CMYK through OpenCV's weights; libpng's rgb_to_gray for a colour
+    or palette PNG; OpenCV's 14-bit weights for a BMP); 'color' and
+    'grayscale' apply a JPEG's EXIF Orientation as cv2 does.
+    PNG: every colour type and bit depth (1-, 2-, 4-bit grey and palette
+    expanded as libpng does), tRNS (BGRA under 'unchanged' for palette and
+    RGB files), Adam7 interlace.  JPEG: what jpeg.py reads (baseline,
+    extended sequential and progressive Huffman files; grey, YCbCr, CMYK
+    and YCCK).  BMP: see _bmp_decode.
+    Raises FileNotFoundError for a missing file, DecodeError where
+    cv2.imread returns None (not an image, a truncated header, a bad PNG
+    checksum) and NotImplementedError, naming the file and the feature,
+    for a format or a feature that cv2 reads and the port does not."""
+    if flag not in _FLAGS:
+        raise ValueError(f"unknown imread flag {flag!r}")
     with open(path, "rb") as f:
         data = f.read()
     if data[:2] == b"\xff\xd8":
-        if flag not in ("unchanged", "color", "grayscale"):
-            raise ValueError(f"unknown imread flag {flag!r}")
         img, orientation = jpeg_decode(data, grey=flag == "grayscale", path=path)
         if flag == "unchanged":
             return img
         img = orient(img, orientation)
         return np.repeat(img[..., None], 3, axis=2) if flag == "color" and img.ndim == 2 else img
+    if data[:2] == b"BM":
+        return _bmp_decode(data, flag, path)
     if data[:8] != _PNG_SIG:
         for sig, name in _OTHER_FORMATS:
             if data.startswith(sig):
-                raise NotImplementedError(f"{path}: {name} files are not read (PNG and JPEG)")
+                raise NotImplementedError(f"{path}: {name} files are not read "
+                                          "(PNG, JPEG and BMP)")
         raise DecodeError(f"{path}: not an image file")
-    img = _to_bgr_order(png_decode(data))
-    if flag == "unchanged":
-        return img
-    if flag == "grayscale":
-        if img.ndim != 2:
-            raise ValueError(f"{path}: 'grayscale' reads grey PNGs only, this one has "
-                             f"{img.shape[2]} channels")
-        return (img >> 8).astype(np.uint8) if img.dtype == np.uint16 else img
-    if flag != "color":
-        raise ValueError(f"unknown imread flag {flag!r}")
-    if img.dtype == np.uint16:
-        img = (img >> 8).astype(np.uint8)
-    if img.ndim == 2:
-        return np.repeat(img[..., None], 3, axis=2)
-    return np.ascontiguousarray(img[..., :3])
+    try:
+        return _png_read(data, flag)
+    except DecodeError as e:
+        raise DecodeError(f"{path}: {e}") from None
 
 
 def imwrite(path: str, img: np.ndarray) -> None:

@@ -1,13 +1,20 @@
-"""Baseline JPEG without cv2 (the card's machine has none): a decoder that
-gives what cv2.imread gives, and an encoder for cv2.imwrite's '.jpg' paths.
+"""JPEG without cv2 (the card's machine has none): a decoder that gives
+what cv2.imread gives, and an encoder for cv2.imwrite's '.jpg' paths.
 
-The decoder reads baseline and extended sequential DCT, Huffman-coded,
-8-bit files with one (grey) or three (YCbCr) components in one scan, at any
-sampling factors, with restart intervals, and reproduces libjpeg-turbo's
-default decode (ITU-T T.81 Annex A/F):
-- the entropy decode is the one sequential loop, over 16-bit windows of
-  the bit stream with a lookahead table per Huffman table that holds the
-  code and, where they fit, the value bits (libjpeg's fast path);
+The decoder reads 8-bit Huffman-coded files, baseline, extended sequential
+(one scan or several, interleaved or not) and progressive (spectral
+selection and successive approximation), with one (grey), three (YCbCr)
+or four (CMYK, or YCCK where the Adobe marker says so) components, at any
+integral sampling factors, with restart intervals and with Huffman tables
+and restart intervals redefined between scans, and reproduces
+libjpeg-turbo's default decode (ITU-T T.81 Annexes A, F and G):
+- every scan fills a coefficient buffer for the whole image; the entropy
+  decode is a sequential loop over the symbols, over 16-bit windows of the
+  bit stream with a lookahead table per Huffman table that holds the code
+  and, where they fit, the value bits (libjpeg's fast path); a progressive
+  refinement scan walks its symbols in Python and applies the correction
+  bits, one per coefficient that an earlier scan made nonzero, with numpy
+  (each run of them is contiguous in the stream);
 - the integer "islow" IDCT (13-bit constants, 2 pass-1 bits): each pass is
   a linear map in integers followed by one rounding shift, so it runs as an
   exact int64 matrix product over all blocks at once; the output is
@@ -17,16 +24,23 @@ default decode (ITU-T T.81 Annex A/F):
   3:1 with libjpeg's alternating rounding biases, edge samples replicated
   beyond the component's own width and height), plain replication for
   every other factor;
-- the fixed-point YCbCr -> RGB tables (16 fraction bits), output in BGR.
+- the fixed-point YCbCr -> RGB tables (16 fraction bits), output in BGR;
+  YCCK -> CMYK on the same tables (jdcolor.c), then OpenCV's CMYK -> BGR
+  and CMYK -> grey (the Adobe marker's transform byte picks CMYK or YCCK;
+  neither libjpeg nor OpenCV inverts the samples).
 A file that runs out of data decodes as libjpeg does: zero bits past the
-end for the MCU that ran out, then grey (all-zero coefficients) for the
-rest of its restart interval.
+end for the MCU that ran out, then the rest of its scan as the earlier
+scans left it (grey where none reached); where the data ends at the end
+of a restart interval, the next interval's first MCU reads zero bits.
 
-Progressive, arithmetic-coded, lossless, hierarchical and 12-bit files,
-CMYK, Adobe YCCK or RGB colour, and files with more than one scan raise
-NotImplementedError.  A file that cannot be a JPEG raises DecodeError (where
-cv2.imread returns None); a bad Huffman code or a coefficient past the
-block's end raises DecodeError too, where libjpeg warns and goes on.
+Arithmetic-coded, lossless, hierarchical and 12-bit files, RGB-coded
+colour, non-integral sampling and the DNL height raise
+NotImplementedError, and so does a progressive file on which libjpeg
+would run its block smoothing (one whose scans stop before the last bit of
+a low coefficient, as a truncated file's do).  A file that cannot be a JPEG
+raises DecodeError (where cv2.imread returns None); a bad Huffman code or
+a coefficient past the block's end in a sequential scan raises
+CorruptData, where libjpeg warns and goes on.
 
 The encoder writes baseline files with cv2's defaults: quality 95 with
 libjpeg's quality scaling of the Annex K tables, 4:2:0 for colour, the
@@ -84,7 +98,7 @@ STD_HUFFMAN = {  # (class, id) -> (counts of codes of length 1..16, symbols)
 }
 
 _SOF_UNSUPPORTED = {
-    0xC2: "progressive DCT", 0xC3: "lossless", 0xC5: "differential sequential DCT",
+    0xC3: "lossless", 0xC5: "differential sequential DCT",
     0xC6: "differential progressive DCT", 0xC7: "differential lossless",
     0xC9: "arithmetic-coded sequential DCT", 0xCA: "arithmetic-coded progressive DCT",
     0xCB: "arithmetic-coded lossless", 0xCD: "arithmetic-coded differential sequential",
@@ -104,14 +118,16 @@ def _huffman_codes(counts, symbols) -> List[Tuple[int, int, int]]:
     return out
 
 
-@functools.lru_cache(maxsize=16)
-def _lookahead(counts, symbols, ac: bool):
+@functools.lru_cache(maxsize=64)
+def _lookahead(counts, symbols, ac: bool, eobrun: bool = False):
     """Per 16-bit window w (the next 16 bits of the stream, MSB first): a
     tuple (bits consumed, run, value) where the code and its value bits fit
     in 16 bits, else (0, code length, symbol), or (0, 0, 0) where no code
     matches.  An AC coefficient has value != 0 and run = the zeros before
     it; ZRL is (n, 16, 0) and EOB (n, 0, 0) (libjpeg ends the block on any
-    symbol with size 0 other than 0xF0)."""
+    symbol with size 0 other than 0xF0).  With eobrun (a progressive AC
+    scan) the EOB runs (symbols 0x10-0xE0) take the long form, (0, code
+    length, symbol), since their length bits follow."""
     length = np.zeros(1 << 16, np.int64)
     sym = np.zeros(1 << 16, np.int64)
     for code, n, s in _huffman_codes(counts, symbols):
@@ -127,6 +143,8 @@ def _lookahead(counts, symbols, ac: bool):
     value = np.where(size == 0, 0, np.where(raw < (1 << np.maximum(size - 1, 0)),
                                             raw - (1 << size) + 1, raw))
     if ac:
+        if eobrun:
+            fits &= ~((size == 0) & (run > 0) & (run < 15))
         run = np.where(size == 0, np.where(run == 15, 16, 0), run)
     return list(zip(np.where(fits, total, 0).tolist(), np.where(fits, run, length).tolist(),
                     np.where(fits, value, sym).tolist()))
@@ -212,7 +230,8 @@ def _decode_block(bits, p, dc_tab, ac_tab, pred, out, base, path):
 
 def _split_scan(data: bytes, start: int, path: str):
     """The entropy-coded data from `start`: (segments between RST markers,
-    unstuffed; whether a marker ends the scan, False where the data does)."""
+    unstuffed; whether a marker ends the scan, False where the data does;
+    the position of that marker, else the data's length)."""
     arr = np.frombuffer(data, np.uint8)
     ff = np.flatnonzero(arr[start:-1] == 0xFF) + start
     nxt = arr[ff + 1]
@@ -224,7 +243,7 @@ def _split_scan(data: bytes, start: int, path: str):
     for a, b in zip(bounds[0::2], bounds[1::2]):
         # fill bytes before a marker, then the stuffed zero bytes
         segments.append(data[a:b].rstrip(b"\xff").replace(b"\xff\x00", b"\xff"))
-    return segments, bool(len(ends))
+    return segments, bool(len(ends)), end
 
 
 def _exif_orientation(body: bytes) -> int:
@@ -250,34 +269,53 @@ def _exif_orientation(body: bytes) -> int:
 
 
 def _parse(data: bytes, path: str) -> Dict:
-    """Markers up to the end of the (single) scan."""
+    """Every marker up to EOI (or the data's end): the frame, and each scan
+    with the Huffman tables, the restart interval and the quantization
+    tables in force at its start, and its entropy-coded segments."""
     if data[:2] != b"\xff\xd8":
         raise DecodeError(f"{path}: not a JPEG file")
     qt: Dict[int, np.ndarray] = {}
     ht: Dict[Tuple[int, int], Tuple] = {}
-    info = dict(restart=0, orientation=1, adobe=None, jfif=False)
+    info = dict(restart=0, orientation=1, adobe=None, jfif=False, scans=[], progressive=False)
     pos = 2
     while True:
         while pos < len(data) and data[pos] == 0xFF and pos + 1 < len(data) \
                 and data[pos + 1] == 0xFF:
             pos += 1
-        if pos + 4 > len(data) or data[pos] != 0xFF:
+        if pos + 2 > len(data) or data[pos] != 0xFF:
+            if info["scans"] and pos + 2 > len(data):
+                return info  # the data ends after a scan, where EOI should stand
             raise DecodeError(f"{path}: corrupt or truncated JPEG header")
         marker = data[pos + 1]
         if marker in (0xD8, 0x01) or 0xD0 <= marker <= 0xD7:
             pos += 2
             continue
         if marker == 0xD9:
-            raise DecodeError(f"{path}: JPEG without a scan")
+            if not info["scans"]:
+                raise DecodeError(f"{path}: JPEG without a scan")
+            return info
+        if pos + 4 > len(data):
+            if info["scans"]:
+                return info
+            raise DecodeError(f"{path}: corrupt or truncated JPEG header")
         (length,) = struct.unpack(">H", data[pos + 2:pos + 4])
         body = data[pos + 4:pos + 2 + length]
         if len(body) != length - 2:
+            if info["scans"] and marker == 0xC4 and _dht_survives(body, length):
+                # libjpeg reads its inserted EOI bytes as the table's symbols,
+                # then ends the file: the scans so far, which only a block
+                # smoothing pass can show
+                raise NotImplementedError(f"{path}: JPEG cut inside a Huffman table between "
+                                          "its scans is not supported")
             raise DecodeError(f"{path}: truncated JPEG header")
         if marker in _SOF_UNSUPPORTED:
             raise NotImplementedError(f"{path}: {_SOF_UNSUPPORTED[marker]} JPEG is not "
-                                      "supported (baseline and extended sequential only)")
+                                      "supported (baseline, extended sequential and "
+                                      "progressive Huffman only)")
         if marker == 0xCC:
             raise NotImplementedError(f"{path}: arithmetic-coded JPEG is not supported")
+        if marker == 0xDC:
+            raise NotImplementedError(f"{path}: JPEG with a DNL marker is not supported")
         if marker == 0xDB:
             k = 0
             while k < len(body):
@@ -296,20 +334,22 @@ def _parse(data: bytes, path: str) -> Dict:
                 n = sum(counts)
                 ht[(tc, th)] = (counts, body[k + 17:k + 17 + n])
                 k += 17 + n
-        elif marker in (0xC0, 0xC1):
+        elif marker in (0xC0, 0xC1, 0xC2):
             precision, h, w, nc = struct.unpack(">BHHB", body[:6])
             if precision != 8:
                 raise NotImplementedError(f"{path}: {precision}-bit JPEG is not supported "
                                           "(8-bit only)")
-            if nc not in (1, 3):
-                raise NotImplementedError(f"{path}: JPEG with {nc} components (CMYK or YCCK) "
-                                          "is not supported (grey or YCbCr only)")
+            if nc not in (1, 3, 4):
+                raise NotImplementedError(f"{path}: JPEG with {nc} components is not "
+                                          "supported (1, 3 or 4)")
             if h == 0 or w == 0:
                 raise NotImplementedError(f"{path}: JPEG with its height in a DNL marker "
                                           "is not supported")
             comps = [dict(id=body[6 + 3 * i], h=body[7 + 3 * i] >> 4,
                           v=body[7 + 3 * i] & 15, tq=body[8 + 3 * i]) for i in range(nc)]
-            info.update(height=h, width=w, comps=comps)
+            if any(not (1 <= c["h"] <= 4 and 1 <= c["v"] <= 4) for c in comps):
+                raise DecodeError(f"{path}: bad JPEG sampling factors")
+            info.update(height=h, width=w, comps=comps, progressive=marker == 0xC2)
         elif marker == 0xDD:
             (info["restart"],) = struct.unpack(">H", body[:2])
         elif marker == 0xE0 and body[:5] == b"JFIF\x00":
@@ -322,91 +362,467 @@ def _parse(data: bytes, path: str) -> Dict:
             if "comps" not in info:
                 raise DecodeError(f"{path}: JPEG scan before its frame header")
             ns = body[0]
+            if not 1 <= ns <= 4 or len(body) < 4 + 2 * ns:
+                raise DecodeError(f"{path}: bad JPEG scan header")
             scan = [(body[1 + 2 * i], body[2 + 2 * i] >> 4, body[2 + 2 * i] & 15)
                     for i in range(ns)]
-            if ns != len(info["comps"]):
-                raise NotImplementedError(f"{path}: JPEG with more than one scan is not "
-                                          "supported (one interleaved scan only)")
-            info.update(qt=qt, ht=ht, scan=scan, scan_start=pos + 2 + length)
-            return info
+            ss, se, a = body[1 + 2 * ns], body[2 + 2 * ns], body[3 + 2 * ns]
+            start = pos + 2 + length
+            segments, ended, end = _split_scan(data, start, path)
+            info["scans"].append(dict(comps=scan, ss=ss, se=se, ah=a >> 4, al=a & 15,
+                                      ht=dict(ht), qt=dict(qt), restart=info["restart"],
+                                      segments=segments, ended=ended))
+            if not ended:
+                return info  # the data runs out inside this scan
+            pos = end
+            continue
         pos += 2 + length
 
 
-def _decode_coefficients(data: bytes, info: Dict, path: str) -> List[np.ndarray]:
-    """Every component's dequantized coefficients, (rows, cols, 64) natural
-    order int64 over its MCU-padded block grid."""
-    comps = info["comps"]
-    hmax = max(c["h"] for c in comps)
-    vmax = max(c["v"] for c in comps)
-    mx = -(-info["width"] // (8 * hmax))
-    my = -(-info["height"] // (8 * vmax))
-    by_id = {c["id"]: i for i, c in enumerate(comps)}
-    tables = {}
-    order = []  # (component index, block row in MCU, block col in MCU, dc tab, ac tab)
-    for cid, td, ta in info["scan"]:
+def _dht_survives(body: bytes, length: int) -> bool:
+    """Whether a DHT segment cut at the data's end still gives libjpeg valid
+    tables once the source's fake EOI bytes (FF D9, repeated) fill it."""
+    need = length - 2
+    body = body + (b"\xff\xd9" * (need // 2 + 1))[:need - len(body)]
+    k = 0
+    while k + 17 <= need:
+        n = sum(body[k + 1:k + 17])
+        if n > 256 or body[k] & 0xEC:
+            return False
+        k += 17 + n
+    return True
+
+
+class _Layout:
+    """The frame's block grids: per component the MCU-padded grid (rows,
+    cols) that holds its coefficients and its own grid (height and width in
+    blocks), which a non-interleaved scan walks."""
+
+    def __init__(self, info: Dict):
+        comps = info["comps"]
+        self.hmax = max(c["h"] for c in comps)
+        self.vmax = max(c["v"] for c in comps)
+        self.mx = -(-info["width"] // (8 * self.hmax))
+        self.my = -(-info["height"] // (8 * self.vmax))
+        self.padded = [(self.my * c["v"], self.mx * c["h"]) for c in comps]
+        self.own = [(-(-info["height"] * c["v"] // (8 * self.vmax)),
+                     -(-info["width"] * c["h"] // (8 * self.hmax))) for c in comps]
+
+    def scan_blocks(self, cis: List[int], comps: List[Dict]):
+        """A scan's blocks in its order: (component of each block, its flat
+        index in that component's padded grid, blocks per MCU, MCUs)."""
+        if len(cis) == 1:
+            ci = cis[0]
+            rows, cols = self.own[ci]
+            r, c = np.meshgrid(np.arange(rows), np.arange(cols), indexing="ij")
+            flat = (r * self.padded[ci][1] + c).ravel()
+            return np.full(len(flat), ci), flat, 1, len(flat)
+        comp_of, flat_of = [], []
+        my_, mx_ = np.meshgrid(np.arange(self.my), np.arange(self.mx), indexing="ij")
+        for ci in cis:
+            c = comps[ci]
+            for by in range(c["v"]):
+                for bx in range(c["h"]):
+                    rr = my_ * c["v"] + by
+                    cc = mx_ * c["h"] + bx
+                    flat_of.append((rr * self.padded[ci][1] + cc).ravel())
+                    comp_of.append(np.full(self.mx * self.my, ci))
+        bpm = len(flat_of)
+        return (np.stack(comp_of, 1).ravel(), np.stack(flat_of, 1).ravel(), bpm,
+                self.mx * self.my)
+
+
+def _scan_components(scan: Dict, info: Dict, path: str) -> List[int]:
+    by_id = {c["id"]: i for i, c in enumerate(info["comps"])}
+    cis = []
+    for cid, _, _ in scan["comps"]:
         if cid not in by_id:
             raise DecodeError(f"{path}: scan names an unknown component {cid}")
-        for key in ((0, td), (1, ta)):
-            if key not in tables:
-                counts, syms = info["ht"].get(key) or STD_HUFFMAN[key]
-                tables[key] = _lookahead(counts, syms, ac=key[0] == 1)
-        ci = by_id[cid]
-        c = comps[ci]
-        if c["tq"] not in info["qt"]:
-            raise DecodeError(f"{path}: missing quantization table {c['tq']}")
-        for by in range(c["v"]):
-            for bx in range(c["h"]):
-                order.append((ci, by, bx, tables[(0, td)], tables[(1, ta)]))
-    blocks_per_mcu = len(order)
-    n_mcu = mx * my
-    restart = info["restart"] or n_mcu
-    segments, ended = _split_scan(data, info["scan_start"], path)
+        cis.append(by_id[cid])
+    return cis
+
+
+def _tables(scan: Dict, key: Tuple[int, int], eobrun: bool = False):
+    counts, syms = scan["ht"].get(key) or STD_HUFFMAN[key]
+    return _lookahead(counts, syms, ac=key[0] == 1, eobrun=eobrun)
+
+
+def _intervals(scan: Dict, n_mcu: int, path: str):
+    """(restart interval in MCUs, the segments that hold data, whether the
+    last of them is an empty one past the data's end).  Where the data
+    runs out at the end of an interval, libjpeg finds no RST marker there,
+    decodes the next interval's first MCU from an empty segment (zero bits)
+    and leaves the rest; where it runs out inside an interval, the MCU that
+    ran out is the last one decoded."""
+    restart = scan["restart"] or n_mcu
     n_seg = -(-n_mcu // restart)
+    segments = scan["segments"]
+    if len(segments) < n_seg and scan["ended"]:
+        raise CorruptData(f"{path}: corrupt JPEG data: {len(segments)} restart intervals "
+                          f"of {n_seg}")
     if len(segments) < n_seg:
-        if ended:
-            raise CorruptData(f"{path}: corrupt JPEG data: {len(segments)} restart intervals "
-                              f"of {n_seg}")
+        return restart, segments + [b""], True
+    return restart, segments[:n_seg], False
+
+
+def _stop(extra: bool, s: int, segments, ran_out: bool) -> bool:
+    """Whether the interval s is the empty one past the data's end after an
+    interval that ran out (libjpeg then decodes nothing more)."""
+    return extra and s == len(segments) - 1 and ran_out
+
+
+def _sequential_scan(scan: Dict, info: Dict, layout: _Layout, cis: List[int],
+                     coef: List[np.ndarray], path: str) -> None:
+    """A sequential (baseline or extended) scan into the coefficient
+    buffers (zigzag order, quantized)."""
+    comps = info["comps"]
+    comp_of, flat_of, bpm, n_mcu = layout.scan_blocks(cis, comps)
+    order = []  # per block of an MCU: (component index, dc table, ac table)
+    for ci, (_, td, ta) in zip(cis, scan["comps"]):
+        dct, act = _tables(scan, (0, td)), _tables(scan, (1, ta))
+        order += [(ci, dct, act)] * (1 if len(cis) == 1 else comps[ci]["h"] * comps[ci]["v"])
+    restart, segments, extra = _intervals(scan, n_mcu, path)
     out: List[int] = []
-    for s in range(len(segments[:n_seg])):  # intervals after the data's end stay zero
+    ran_out = False
+    for s in range(len(segments)):  # intervals after the data's end stay zero
+        if _stop(extra, s, segments, ran_out):
+            break
         bits = _Bits(segments[s])
         p = 0
         pred = [0] * len(comps)
         for m in range(s * restart, min((s + 1) * restart, n_mcu)):
             start, mark, saved = p, len(out), list(pred)
             try:
-                for j, (ci, _, _, dct, act) in enumerate(order):
+                for j, (ci, dct, act) in enumerate(order):
                     p, pred[ci] = _decode_block(bits, p, dct, act, pred[ci], out,
-                                                (((m * blocks_per_mcu + j) * 64) << 16) + 32768,
-                                                path)
+                                                (((m * bpm + j) * 64) << 16) + 32768, path)
             except IndexError:  # read far past the end of the data
                 p = bits.nbits + 1
             if p > bits.nbits:
                 # libjpeg reads zero bits past the end for this MCU, then leaves
-                # the rest of the interval at zero
+                # the rest of the interval as it is
                 del out[mark:]
-                zbits = _Bits(segments[s], pad=64 * 64 * blocks_per_mcu)
+                zbits = _Bits(segments[s], pad=64 * 64 * bpm)
                 p, pred = start, saved
-                for j, (ci, _, _, dct, act) in enumerate(order):
+                for j, (ci, dct, act) in enumerate(order):
                     p, pred[ci] = _decode_block(zbits, p, dct, act, pred[ci], out,
-                                                (((m * blocks_per_mcu + j) * 64) << 16) + 32768,
-                                                path)
+                                                (((m * bpm + j) * 64) << 16) + 32768, path)
                 break
+        ran_out = p > bits.nbits
     packed = np.asarray(out, np.int64)
-    zz = np.zeros(n_mcu * blocks_per_mcu * 64, np.int64)
-    zz[packed >> 16] = (packed & 0xFFFF) - 32768
-    zz = zz.reshape(my, mx, blocks_per_mcu, 64)
+    block, k = packed >> 22, (packed >> 16) & 63
+    value = (packed & 0xFFFF) - 32768
+    for ci in cis:
+        sel = comp_of[block] == ci
+        coef[ci][flat_of[block[sel]], k[sel]] = value[sel]
+
+
+def _segment(fn, segment: bytes, *args):
+    """fn(bits, *args) over one restart interval, with a few zero bytes
+    past its end; where the MCU that ran out reads further, again with
+    enough zero bytes for any MCU (libjpeg's zero bits)."""
+    try:
+        return fn(_Bits(segment), *args)
+    except IndexError:
+        return fn(_Bits(segment, pad=64 * 64 * 10), *args)
+
+
+def _dc_first(bits, m0, m1, bpm, order, al, path):
+    """A DC first scan's interval: (scan-order blocks, values) up to the
+    MCU that ran out."""
+    p, where, out = 0, [], []
+    pred = {}
+    for m in range(m0, m1):
+        for j, (ci, tab) in enumerate(order):
+            win = bits.win
+            e = tab[(win[p >> 3] >> (8 - (p & 7))) & 0xFFFF]
+            if e[0]:
+                p += e[0]
+                diff = e[2]
+            else:
+                p, sz = _slow_symbol(bits, p, e, path)
+                if sz > 15:
+                    raise CorruptData(f"{path}: corrupt JPEG data: DC size {sz}")
+                diff = _extend(bits.get(p, sz), sz)
+                p += sz
+            dc = pred.get(ci, 0) + diff
+            pred[ci] = dc
+            where.append(m * bpm + j)
+            out.append(dc << al)
+        if p > bits.nbits:
+            break
+    return where, out, p > bits.nbits
+
+
+def _ac_first(bits, b0, b1, tab, ss, se, al, path):
+    """An AC first scan's interval of single-block MCUs: (scan-order block *
+    128 + zigzag index, value) of its coefficients, as two lists (an index
+    past 63, from a run past the band, stands for 63: libjpeg's
+    jpeg_natural_order ends in copies of 63)."""
+    p, where, out, eobrun = 0, [], [], 0
+    win = bits.win
+    for b in range(b0, b1):
+        if eobrun:
+            eobrun -= 1
+            continue
+        k = ss
+        base = b << 7  # block * 128 + zigzag index (a run past 63 stays in the block)
+        while k <= se:
+            e = tab[(win[p >> 3] >> (8 - (p & 7))) & 0xFFFF]
+            n, r, v = e
+            if n:
+                p += n
+                if v:
+                    k += r
+                    where.append(base + k)  # past Se: where libjpeg writes it
+                    out.append(v << al)
+                    k += 1
+                elif r:
+                    k += 16
+                else:
+                    break
+            else:
+                p, sym = _slow_symbol(bits, p, e, path)
+                r, size = sym >> 4, sym & 15
+                if size:
+                    k += r
+                    where.append(base + k)
+                    out.append(_extend(bits.get(p, size), size) << al)
+                    p += size
+                    k += 1
+                elif r == 15:
+                    k += 16
+                else:
+                    eobrun = (1 << r) + bits.get(p, r) - 1
+                    p += r
+                    break
+        if p > bits.nbits:
+            break
+    return where, out, p > bits.nbits
+
+
+def _ac_refine(bits, b0, b1, tab, band, zpos, zblock, path):
+    """An AC refinement scan's interval of single-block MCUs over `band`
+    coefficients per block.  The band's zero and nonzero history (before
+    this scan) is given flat, in scan order: zpos the positions of its
+    zeros, zblock[b] the zeros before block b.  Returns the newly nonzero
+    coefficients (flat positions, signs), the runs of correction bits (bit
+    positions, counts) in the order of the nonzero coefficients they
+    refine, the signs of the coefficients whose run passed the band's end
+    (libjpeg writes them at zigzag index min(Se + 1, 63)) by block, and the
+    end of the blocks decoded."""
+    p, eobrun = 0, 0
+    spill_at, spill_sign = [], []
+    new_at, new_sign, run_at, run_n = [], [], [], []
+    add_new, add_sign, add_at, add_n = new_at.append, new_sign.append, run_at.append, run_n.append
+    win = bits.win
+    b = b0
+    while b < b1:
+        g = b * band
+        end = g + band
+        zi, zend = zblock[b], zblock[b + 1]  # zi: the zeros before g
+        if not eobrun:
+            while g < end:
+                e = tab[(win[p >> 3] >> (8 - (p & 7))) & 0xFFFF]
+                n, r, v = e
+                if n:
+                    p += n
+                    if v:
+                        if v != 1 and v != -1:
+                            raise CorruptData(f"{path}: corrupt JPEG data: refinement "
+                                              "coefficient of size > 1")
+                    elif r:
+                        r = 15  # ZRL: past 16 zeros
+                    else:
+                        eobrun = 1
+                        break
+                else:
+                    p, sym = _slow_symbol(bits, p, e, path)
+                    r, size = sym >> 4, sym & 15
+                    if size:
+                        if size != 1:
+                            raise CorruptData(f"{path}: corrupt JPEG data: refinement "
+                                              "coefficient of size > 1")
+                        v = 1 if bits.get(p, 1) else -1
+                        p += 1
+                    elif r != 15:
+                        eobrun = (1 << r) + bits.get(p, r)
+                        p += r
+                        break
+                    else:
+                        v = 0
+                z = zi + r
+                if z >= zend:  # corrupt, or the zero bits past the data's end
+                    nc = (end - g) - (zend - zi)
+                    if nc:
+                        add_at(p)
+                        add_n(nc)
+                        p += nc
+                    if v:
+                        spill_at.append(b)
+                        spill_sign.append(v)
+                    g, zi = end, zend
+                    break
+                target = zpos[z]
+                nc = target - g - r
+                if nc:
+                    add_at(p)
+                    add_n(nc)
+                    p += nc
+                if v:
+                    add_new(target)
+                    add_sign(v)
+                g, zi = target + 1, z + 1
+        if eobrun:
+            # the rest of this block, then whole blocks of the run: each
+            # nonzero coefficient takes one correction bit, all in a row
+            last = min(b + eobrun, b1)
+            stop = last * band
+            nc = (stop - g) - (zblock[last] - zi)
+            if nc:
+                run_at.append(p)
+                run_n.append(nc)
+                p += nc
+            eobrun -= last - b
+            b = last
+        else:
+            b += 1
+        if p > bits.nbits:
+            break
+    return new_at, new_sign, run_at, run_n, spill_at, spill_sign, b, p > bits.nbits
+
+
+def _progressive_scan(scan: Dict, info: Dict, layout: _Layout, cis: List[int],
+                      coef: List[np.ndarray], coef_bits: np.ndarray, path: str) -> None:
+    """One scan of a progressive file into the coefficient buffers (zigzag
+    order, unscaled as libjpeg keeps them: each value already shifted by
+    its scan's Al)."""
+    ss, se, ah, al = scan["ss"], scan["se"], scan["ah"], scan["al"]
+    dc = ss == 0
+    if (dc and se != 0) or (not dc and (ss > se or se > 63 or len(cis) != 1)) \
+            or (ah and al != ah - 1) or al > 13:
+        raise DecodeError(f"{path}: bad JPEG progression (Ss {ss}, Se {se}, Ah {ah}, Al {al})")
+    for ci in cis:
+        coef_bits[ci, ss:se + 1] = al
+    comps = info["comps"]
+    comp_of, flat_of, bpm, n_mcu = layout.scan_blocks(cis, comps)
+    restart, segments, extra = _intervals(scan, n_mcu, path)
+    ran_out = False
+    if dc:
+        for s, seg in enumerate(segments):
+            if _stop(extra, s, segments, ran_out):
+                break
+            m0, m1 = s * restart, min((s + 1) * restart, n_mcu)
+            blocks = np.arange(m0 * bpm, m1 * bpm)
+            if ah:  # one bit per block, in a row
+                bits = np.unpackbits(np.frombuffer(seg, np.uint8))
+                bit = np.zeros(len(blocks), np.int64)
+                have = min(len(bits), len(blocks))
+                bit[:have] = bits[:have]
+                ran_out = len(blocks) > len(bits)
+                for ci in cis:
+                    sel = comp_of[blocks] == ci
+                    coef[ci][flat_of[blocks[sel]], 0] |= bit[sel] << al
+                continue
+            order = []
+            for ci, (_, td, _) in zip(cis, scan["comps"]):
+                tab = _tables(scan, (0, td))
+                order += [(ci, tab)] * (1 if len(cis) == 1 else comps[ci]["h"] * comps[ci]["v"])
+            blk, val, ran_out = _segment(_dc_first, seg, m0, m1, bpm, order, al, path)
+            blk, val = np.asarray(blk, np.int64), np.asarray(val, np.int64)
+            if len(blk):
+                for ci in cis:
+                    sel = comp_of[blk] == ci
+                    coef[ci][flat_of[blk[sel]], 0] = val[sel]
+        return
+    ci = cis[0]
+    ta = scan["comps"][0][2]
+    flat = flat_of
+    if not ah:
+        tab = _tables(scan, (1, ta), eobrun=True)
+        for s, seg in enumerate(segments):
+            if _stop(extra, s, segments, ran_out):
+                break
+            pos, val, ran_out = _segment(_ac_first, seg, s * restart,
+                                         min((s + 1) * restart, n_mcu), tab, ss, se, al, path)
+            pos, val = np.asarray(pos, np.int64), np.asarray(val, np.int64)
+            coef[ci][flat[pos >> 7], np.minimum(pos & 127, 63)] = val
+        return
+    tab = _tables(scan, (1, ta), eobrun=True)
+    width = se - ss + 1
+    values = coef[ci][flat, ss:se + 1]  # (blocks, band)
+    hist = (values != 0).ravel()
+    zblock = np.concatenate([[0], np.cumsum(width - (values != 0).sum(axis=1))]).tolist()
+    zpos = np.flatnonzero(~hist).tolist()
+    nonzero = np.flatnonzero(hist)
+    out = values.ravel()
+    p1 = 1 << al
+    spills = []
+    for s, seg in enumerate(segments):
+        if _stop(extra, s, segments, ran_out):
+            break
+        b0 = s * restart
+        new_at, new_sign, run_at, run_n, spill_at, spill_sign, b_end, ran_out = _segment(
+            _ac_refine, seg, b0, min(b0 + restart, n_mcu), tab, width, zpos, zblock, path)
+        spills.append((np.asarray(spill_at, np.int64), np.asarray(spill_sign, np.int64)))
+        refined = nonzero[np.searchsorted(nonzero, b0 * width):
+                          np.searchsorted(nonzero, b_end * width)]
+        start, count = np.asarray(run_at, np.int64), np.asarray(run_n, np.int64)
+        if count.sum() != len(refined):
+            raise CorruptData(f"{path}: corrupt JPEG data: refinement bits do not match")
+        at = np.repeat(start - np.cumsum(count) + count, count) + np.arange(count.sum())
+        bits = np.concatenate([np.unpackbits(np.frombuffer(seg, np.uint8)), [0]])
+        bit = bits[np.minimum(at, len(bits) - 1)].astype(np.int64)
+        v = out[refined]
+        out[refined] = v + bit * np.where(v >= 0, p1, -p1)
+        out[np.asarray(new_at, np.int64)] = np.asarray(new_sign, np.int64) * p1
+    coef[ci][flat, ss:se + 1] = out.reshape(len(flat), width)
+    for blk, sign in spills:
+        coef[ci][flat[blk], min(se + 1, 63)] = sign * p1
+
+
+def _smoothing_needed(coef_bits: np.ndarray) -> bool:
+    """libjpeg-turbo's smoothing_ok: block smoothing runs on a progressive
+    file whose DC is known for every component and one of whose first ten
+    zigzag coefficients was never refined to its last bit."""
+    return bool((coef_bits[:, 0] >= 0).all() and (coef_bits[:, 1:10] != 0).any())
+
+
+def _decode_coefficients(data: bytes, info: Dict, path: str) -> List[np.ndarray]:
+    """Every component's dequantized coefficients, (rows, cols, 64) natural
+    order int64 over its MCU-padded block grid, from all the file's scans."""
+    comps = info["comps"]
+    layout = _Layout(info)
+    coef = [np.zeros((rows * cols, 64), np.int64) for rows, cols in layout.padded]
+    coef_bits = np.full((len(comps), 64), -1, np.int64)
+    latched: Dict[int, np.ndarray] = {}
+    for scan in info["scans"]:
+        cis = _scan_components(scan, info, path)
+        for ci in cis:
+            if ci not in latched:  # libjpeg latches a table at its component's first scan
+                tq = comps[ci]["tq"]
+                if tq not in scan["qt"]:
+                    raise DecodeError(f"{path}: missing quantization table {tq}")
+                latched[ci] = scan["qt"][tq]
+        if info["progressive"]:
+            _progressive_scan(scan, info, layout, cis, coef, coef_bits, path)
+        else:
+            _sequential_scan(scan, info, layout, cis, coef, path)
+    if info["progressive"] and _smoothing_needed(coef_bits):
+        raise NotImplementedError(
+            f"{path}: progressive JPEG whose scans stop before the last bit of the low "
+            "coefficients (libjpeg's block smoothing) is not supported")
     planes = []
-    for ci, c in enumerate(comps):
-        js = [j for j, o in enumerate(order) if o[0] == ci]
-        coef = np.zeros((my, mx, c["v"], c["h"], 64), np.int64)
-        for j in js:
-            _, by, bx, _, _ = order[j]
-            coef[:, :, by, bx, ZIGZAG] = zz[:, :, j]
-        coef = coef.transpose(0, 2, 1, 3, 4).reshape(my * c["v"], mx * c["h"], 64)
-        coef = coef * info["qt"][c["tq"]]
-        if np.abs(coef).max(initial=0) > 32767:  # libjpeg-turbo's SIMD IDCT wraps there
+    for ci, (rows, cols) in enumerate(layout.padded):
+        q = latched.get(ci)
+        if q is None:  # a component that no scan reached stays grey
+            q = np.zeros(64, np.int64)
+        c = np.zeros((rows * cols, 64), np.int64)
+        c[:, ZIGZAG] = coef[ci]
+        c = (c * q).reshape(rows, cols, 64)
+        if np.abs(c).max(initial=0) > 32767:  # libjpeg-turbo's SIMD IDCT wraps there
             raise CorruptData(f"{path}: corrupt JPEG data: dequantized coefficient past 16 bits")
-        planes.append(coef)
+        planes.append(c)
     return planes
 
 
@@ -526,9 +942,41 @@ def orient(img: np.ndarray, orientation: int) -> np.ndarray:
     return np.ascontiguousarray(img)
 
 
+def ycck_to_cmyk(y: np.ndarray, cb: np.ndarray, cr: np.ndarray, k: np.ndarray) -> np.ndarray:
+    """jdcolor.c's ycck_cmyk_convert: (H, W, 4) uint8 CMYK, C M Y each 255
+    minus the YCbCr -> RGB conversion's value, K as it is."""
+    y = y.astype(np.int64)
+    r = y + _CR_R[cr]
+    g = y + ((_CB_G[cb] + _CR_G[cr]) >> _SCALEBITS)
+    b = y + _CB_B[cb]
+    cmy = np.clip(255 - np.stack([r, g, b], axis=-1), 0, 255)
+    return np.concatenate([cmy, k[..., None].astype(np.int64)], axis=-1).astype(np.uint8)
+
+
+def cv_bgr_to_grey(bgr: np.ndarray) -> np.ndarray:
+    """OpenCV's codec-side BGR -> grey (icvCvt_BGR2Gray_8u_C3C1R, which its
+    BMP reader and its CMYK -> grey use): weights 1868, 9617, 4899 over
+    2^14, rounded.  (..., 3+) -> (...) uint8."""
+    b, g, r = (bgr[..., i].astype(np.int64) for i in range(3))
+    return ((1868 * b + 9617 * g + 4899 * r + 8192) >> 14).astype(np.uint8)
+
+
+def cmyk_to_bgr(cmyk: np.ndarray, grey: bool = False) -> np.ndarray:
+    """OpenCV's CMYK -> BGR (icvCvt_CMYK2BGR_8u_C4C3R: each of C, M, Y
+    becomes k - ((255 - x) * k >> 8)), or its grey (cv_bgr_to_grey of
+    that): (H, W, 4) uint8 -> (H, W, 3) or (H, W)."""
+    x = cmyk.astype(np.int64)
+    k = x[..., 3:]
+    bgr = (k - (((255 - x[..., :3]) * k) >> 8))[..., ::-1]
+    return cv_bgr_to_grey(bgr) if grey else bgr.astype(np.uint8)
+
+
 def jpeg_decode(data: bytes, grey: bool = False, path: str = "<bytes>") -> Tuple[np.ndarray, int]:
     """JPEG bytes -> ((H, W) uint8 for a grey file or with grey=True, else
-    (H, W, 3) uint8 BGR; the EXIF Orientation value, not applied)."""
+    (H, W, 3) uint8 BGR; the EXIF Orientation value, not applied).  A
+    four-component file is CMYK, or YCCK where its Adobe marker's transform
+    is not 0, as libjpeg takes it; it decodes to CMYK (YCCK through
+    libjpeg's conversion) and then to BGR or grey as OpenCV converts CMYK."""
     info = _parse(data, path)
     comps = info["comps"]
     if len(comps) == 3:
@@ -543,7 +991,7 @@ def jpeg_decode(data: bytes, grey: bool = False, path: str = "<bytes>") -> Tuple
     vmax = max(c["v"] for c in comps)
     planes = []
     for ci, (c, coef) in enumerate(zip(comps, coefs)):
-        if ci and grey:
+        if ci and grey and len(comps) != 4:
             break
         comp_h = -(-h * c["v"] // vmax)
         comp_w = -(-w * c["h"] // hmax)
@@ -551,6 +999,11 @@ def jpeg_decode(data: bytes, grey: bool = False, path: str = "<bytes>") -> Tuple
                                 comp_h, comp_w, h, w))
     if len(planes) == 1:
         return planes[0].astype(np.uint8), info["orientation"]
+    if len(planes) == 4:
+        ycck = info["adobe"] is not None and info["adobe"] != 0
+        cmyk = (ycck_to_cmyk(*planes) if ycck
+                else np.stack(planes, axis=-1).astype(np.uint8))
+        return cmyk_to_bgr(cmyk, grey), info["orientation"]
     return ycc_to_bgr(*planes), info["orientation"]
 
 

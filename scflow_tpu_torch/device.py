@@ -1,6 +1,7 @@
 """Device resolution and float32 precision shared by every entry point."""
 
 import contextlib
+import threading
 from typing import Optional, Union
 
 import torch
@@ -37,6 +38,11 @@ def resolve_backend(name: str, device: torch.device) -> str:
     return name
 
 
+_FP32_LOCK = threading.Lock()
+_fp32_depth = 0
+_fp32_saved = None
+
+
 @contextlib.contextmanager
 def full_fp32():
     """The entry points' precision: float32 convolutions and matmuls in full
@@ -46,17 +52,29 @@ def full_fp32():
     (torch.backends.cudnn.allow_tf32 is True), which keeps about three
     decimal digits, and lets cuBLAS reduce bf16 GEMMs in reduced precision
     (torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction).
-    All three flags are restored on exit.  torch.backends.cudnn.flags(
-    allow_tf32=False) is no substitute: its other arguments default to
-    enabled=False, which turns cuDNN off."""
+    The three flags are process-wide, so the blocks of every thread count
+    as one: the first entry saves and clears them, the last exit restores
+    them (a keep-alive tick that leaves before a request's call does not
+    turn TF32 back on under it).  The lock guards only the count, never
+    the body.  torch.backends.cudnn.flags(allow_tf32=False) is no
+    substitute: its other arguments default to enabled=False, which turns
+    cuDNN off."""
+    global _fp32_depth, _fp32_saved
     matmul = torch.backends.cuda.matmul
-    saved = (torch.backends.cudnn.allow_tf32, matmul.allow_tf32,
-             matmul.allow_bf16_reduced_precision_reduction)
-    torch.backends.cudnn.allow_tf32 = False
-    matmul.allow_tf32 = False
-    matmul.allow_bf16_reduced_precision_reduction = False
+    with _FP32_LOCK:
+        if _fp32_depth == 0:
+            _fp32_saved = (torch.backends.cudnn.allow_tf32, matmul.allow_tf32,
+                           matmul.allow_bf16_reduced_precision_reduction)
+            torch.backends.cudnn.allow_tf32 = False
+            matmul.allow_tf32 = False
+            matmul.allow_bf16_reduced_precision_reduction = False
+        _fp32_depth += 1
     try:
         yield
     finally:
-        (torch.backends.cudnn.allow_tf32, matmul.allow_tf32,
-         matmul.allow_bf16_reduced_precision_reduction) = saved
+        with _FP32_LOCK:
+            _fp32_depth -= 1
+            if _fp32_depth == 0:
+                (torch.backends.cudnn.allow_tf32, matmul.allow_tf32,
+                 matmul.allow_bf16_reduced_precision_reduction) = _fp32_saved
+                _fp32_saved = None

@@ -4,8 +4,9 @@ imread equals cv2.imread bit for bit on baseline files of every sampling
 factor cv2 writes, two qualities, grey, restart intervals, odd sizes and
 EXIF orientations 1-8 under each flag; a truncated file gives cv2's partial
 image; the features the port does not read raise NotImplementedError
-naming them; a corrupt entropy stream, which cv2 decodes past with a
-warning, raises; a file cv2 returns None for raises DecodeError.  The
+naming them (progressive and CMYK files, read now, equal cv2's decode;
+tests/test_torch_decode.py holds the rest of those readers); a corrupt
+entropy stream, which cv2 decodes past with a warning, raises; a file cv2 returns None for raises DecodeError.  The
 encoder's files decode in cv2 within a stated bound of cv2's own
 quality-95 encoding of the same image."""
 
@@ -127,22 +128,40 @@ def _with_sof(data: bytes, marker: int = 0xC0, precision: int = 8, components=No
             + data[at + 2 + 2 + len(body):])
 
 
+def _pil_cmyk(img: np.ndarray) -> bytes:
+    import io
+
+    from PIL import Image
+
+    b = io.BytesIO()
+    Image.fromarray(img[..., ::-1].copy()).convert("CMYK").save(b, "JPEG", quality=90)
+    return b.getvalue()
+
+
+# case -> (file from a baseline file, the words of the error; None where
+# the port reads the file and is held to cv2)
 UNSUPPORTED = {
-    "progressive": (lambda d: _encode(_image(30, 40), cv2.IMWRITE_JPEG_PROGRESSIVE, 1),
-                    "progressive"),
+    "progressive": (lambda d: _encode(_image(30, 40), cv2.IMWRITE_JPEG_PROGRESSIVE, 1), None),
     "arithmetic": (lambda d: _with_sof(d, 0xC9), "arithmetic"),
     "lossless": (lambda d: _with_sof(d, 0xC3), "lossless"),
     "12-bit": (lambda d: _with_sof(d, precision=12), "12-bit"),
-    "cmyk": (lambda d: _with_sof(d, components=4), "4 components"),
+    "cmyk": (lambda d: _pil_cmyk(_image(30, 40)), None),
 }
 
 
 @pytest.mark.parametrize("case", list(UNSUPPORTED))
 def test_unsupported_features_raise(tmp_path, case):
+    """The features the port does not read raise NotImplementedError naming
+    them and the file; progressive and CMYK files, once on this list, are
+    read and equal cv2's decode under each flag."""
     make, words = UNSUPPORTED[case]
     data = make(_encode(_image(30, 40)))
-    if case == "progressive":
-        assert cv2.imdecode(np.frombuffer(data, np.uint8), cv2.IMREAD_COLOR) is not None
+    if words is None:
+        for flag in FLAGS:
+            got, want = _both(tmp_path, data, flag)
+            assert got.dtype == want.dtype and got.shape == want.shape, flag
+            np.testing.assert_array_equal(got, want, err_msg=flag)
+        return
     path = tmp_path / "x.jpg"
     path.write_bytes(data)
     with pytest.raises(NotImplementedError, match=words) as info:
@@ -189,8 +208,8 @@ def test_corrupt_stream_raises_where_cv2_decodes_past_it(tmp_path):
 
 def test_signature_picks_the_codec(tmp_path):
     """A PNG named .jpg and a JPEG named .png read as cv2 reads them; a file
-    of no image format raises DecodeError (cv2: None); a BMP, which cv2
-    reads and the port does not, raises NotImplementedError."""
+    of no image format raises DecodeError (cv2: None); a BMP reads as cv2
+    reads it under each flag."""
     img = _image(20, 30)
     ok, png = cv2.imencode(".png", img)
     got, want = _both(tmp_path, png.tobytes(), name="png.jpg")
@@ -202,9 +221,11 @@ def test_signature_picks_the_codec(tmp_path):
     with pytest.raises(jpeg.DecodeError):
         imops.imread(str(tmp_path / "junk.jpg"))
     cv2.imwrite(str(tmp_path / "x.bmp"), img)
-    assert cv2.imread(str(tmp_path / "x.bmp")) is not None
-    with pytest.raises(NotImplementedError, match="BMP"):
-        imops.imread(str(tmp_path / "x.bmp"))
+    for flag, code in FLAGS.items():
+        want = cv2.imread(str(tmp_path / "x.bmp"), code)
+        got = imops.imread(str(tmp_path / "x.bmp"), flag)
+        assert got.shape == want.shape, flag
+        np.testing.assert_array_equal(got, want, err_msg=flag)
 
 
 # the encoder against cv2's own quality-95 encoding of the same image: the

@@ -182,11 +182,16 @@ def _recording_warnings(transform, results):
 
 
 def test_random_background_raises_on_a_file_cv2_reads_and_the_port_cannot(tmp_path):
+    """A progressive JPEG cut in its first scan: cv2 reads it (libjpeg
+    smooths the blocks whose coefficients stop short), the port raises
+    rather than warn and skip it as a file that is not an image."""
     d = tmp_path / "bg"
     d.mkdir()
-    ok, buf = cv2.imencode(".jpg", np.zeros((20, 20, 3), np.uint8),
-                           [cv2.IMWRITE_JPEG_PROGRESSIVE, 1])
-    (d / "progressive.jpg").write_bytes(buf.tobytes())
+    img = np.random.default_rng(0).integers(0, 256, (48, 64, 3)).astype(np.uint8)
+    ok, buf = cv2.imencode(".jpg", img, [cv2.IMWRITE_JPEG_PROGRESSIVE, 1])
+    data = buf.tobytes()
+    (d / "progressive.jpg").write_bytes(data[:data.index(b"\xff\xda") + 60])
+    assert cv2.imread(str(d / "progressive.jpg")) is not None
     imgs, port_masks, _ = _patches(1)
     with pytest.raises(NotImplementedError, match="progressive"):
         color.RandomBackground(str(d), p=1.0)({"img": imgs, "gt_masks": port_masks})

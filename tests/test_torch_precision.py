@@ -123,3 +123,99 @@ def test_infer_poses_do_not_follow_the_global_tf32_flag(restore_flags):
     moved = (poses[True]["translations"].cpu() - torch.from_numpy(
         _batch(img)["ref_translations"])).abs().max()
     assert moved > 1e-3
+
+
+def test_full_fp32_holds_across_threads(restore_flags):
+    """A keep-alive tick (thread A) enters full_fp32 first and leaves first,
+    while a request's block (thread B) is still inside: the flags stay off
+    in B's block after A left, and come back to the saved values only when
+    both have left; a nested entry on one thread restores only at the
+    outermost exit."""
+    import threading
+
+    from scflow_tpu_torch.device import full_fp32
+
+    matmul = torch.backends.cuda.matmul
+    saved_bf16 = matmul.allow_bf16_reduced_precision_reduction
+    _set_flags(True, True)
+    matmul.allow_bf16_reduced_precision_reduction = True
+    a_in, b_in, a_out = threading.Event(), threading.Event(), threading.Event()
+    seen = {}
+
+    def tick():
+        with full_fp32():
+            a_in.set()
+            b_in.wait(10)
+        a_out.set()
+
+    def request():
+        a_in.wait(10)
+        with full_fp32():
+            b_in.set()
+            a_out.wait(10)
+            seen["after_tick_left"] = _flags() + (matmul.allow_bf16_reduced_precision_reduction,)
+            with full_fp32():
+                pass
+            seen["after_nested_exit"] = _flags()
+
+    threads = [threading.Thread(target=tick), threading.Thread(target=request)]
+    try:
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(20)
+        assert seen["after_tick_left"] == (False, False, False)
+        assert seen["after_nested_exit"] == (False, False)
+        assert _flags() == (True, True) and matmul.allow_bf16_reduced_precision_reduction
+    finally:
+        matmul.allow_bf16_reduced_precision_reduction = saved_bf16
+
+
+def test_full_fp32_stress_across_threads(restore_flags):
+    """More threads than cores enter and leave full_fp32 200 times each,
+    nesting at random, with a 1 us switch interval: every block reads the
+    three flags off, and after the last exit they read as they were (a
+    lost update of the depth count would break one or the other)."""
+    import os
+    import random
+    import sys
+    import threading
+
+    from scflow_tpu_torch.device import full_fp32
+
+    matmul = torch.backends.cuda.matmul
+    saved_bf16 = matmul.allow_bf16_reduced_precision_reduction
+    _set_flags(True, True)
+    matmul.allow_bf16_reduced_precision_reduction = True
+    wrong = []
+
+    def off():
+        return _flags() == (False, False) and not matmul.allow_bf16_reduced_precision_reduction
+
+    def worker(seed):
+        rng = random.Random(seed)
+        for _ in range(200):
+            with full_fp32():
+                if not off():
+                    wrong.append(seed)
+                if rng.random() < 0.3:
+                    with full_fp32():
+                        if not off():
+                            wrong.append(seed)
+
+    switch = sys.getswitchinterval()
+    sys.setswitchinterval(1e-6)
+    threads = [threading.Thread(target=worker, args=(i,))
+               for i in range(max(16, 2 * (os.cpu_count() or 1)))]
+    try:
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(60)
+    finally:
+        sys.setswitchinterval(switch)
+        after = _flags() + (matmul.allow_bf16_reduced_precision_reduction,)
+        matmul.allow_bf16_reduced_precision_reduction = saved_bf16
+    assert not any(t.is_alive() for t in threads)
+    assert not wrong
+    assert after == (True, True, True)

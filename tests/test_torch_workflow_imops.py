@@ -1,12 +1,13 @@
 """The port's data-layer image and pose helpers against cv2, which the JAX
 package's data layer calls and the card's machine lacks: imread against
 cv2.imread on PNGs that cv2 wrote (8-bit BGR, BGRA and grey, 16-bit BGR
-and grey, compression levels 0-9), each of the five PNG row filters, imwrite
+and grey, compression levels 0-9, under each flag), each of the five PNG row filters, imwrite
 read back by cv2; imresize against cv2.resize(INTER_LINEAR) on uint8
 images, bit for bit, over scales that include exact 2x downscales (which
 cv2 runs as INTER_AREA); BitmapMasks' nearest resize against
-cv2.INTER_NEAREST; remap_pose (host_geometry.py) against cv2's EPnP in the
-JAX package (geometry/host.py) in the keep and target modes."""
+cv2.INTER_NEAREST; remap_pose and remap_pose_to_origin_resolution
+(host_geometry.py) against cv2's EPnP in the JAX package (geometry/host.py)
+in the keep and target modes, bit for bit, and its failure branch."""
 
 import struct
 import sys
@@ -25,7 +26,8 @@ from scflow_tpu.geometry import host as jhost  # noqa: E402
 from scflow_tpu_torch.datasets.mask import BitmapMasks  # noqa: E402
 from scflow_tpu_torch.datasets.pipelines.imops import (imread, imrescale, imresize,  # noqa: E402
                                                        imwrite, png_decode)
-from scflow_tpu_torch.host_geometry import project_3d_point, remap_pose  # noqa: E402
+from scflow_tpu_torch.host_geometry import (project_3d_point, remap_pose,  # noqa: E402
+                                            remap_pose_to_origin_resolution)
 
 from torch_port_helpers import keep_torch_rng  # noqa: E402,F401
 
@@ -51,12 +53,8 @@ def test_imread_matches_cv2(tmp_path, c, dtype, level):
     img = _image(37, 61, c, dtype, seed=level)
     path = str(tmp_path / "a.png")
     assert cv2.imwrite(path, img, [cv2.IMWRITE_PNG_COMPRESSION, level])
-    flags = [("unchanged", cv2.IMREAD_UNCHANGED), ("color", cv2.IMREAD_COLOR)]
-    if c == 1:
-        flags.append(("grayscale", cv2.IMREAD_GRAYSCALE))
-    else:
-        with pytest.raises(ValueError):
-            imread(path, "grayscale")
+    flags = [("unchanged", cv2.IMREAD_UNCHANGED), ("color", cv2.IMREAD_COLOR),
+             ("grayscale", cv2.IMREAD_GRAYSCALE)]  # colour to grey: libpng's weights
     for flag, cv_flag in flags:
         want, got = cv2.imread(path, cv_flag), imread(path, flag)
         assert got.dtype == want.dtype and got.shape == want.shape, flag
@@ -173,32 +171,60 @@ def test_remap_pose_recovers_a_camera_motion_as_cv2_does():
 def test_remap_pose_against_cv2_epnp(mode):
     """A crop scaled by f under the same K (keep: dst K = src K; target: a
     256^2 patch's K) is not a camera motion, so no pose fits the 8
-    keypoints exactly.  The port solves least squares (float64 DLT, then
-    Levenberg-Marquardt), cv2 EPnP: the port's summed squared pixel error
-    is never above cv2's (x (1 + 1e-6)); the poses differ by up to 0.10 in a
-    rotation entry and 30 mm in translation on these 50 draws (bounds 0.15
-    and 50 mm)."""
+    keypoints exactly and the answer is the solver's own: the port's
+    (cv_pnp's EPnP, then cv2.Rodrigues rebuilt) equals the JAX package's
+    cv2.solvePnP(SOLVEPNP_EPNP) bit for bit, error included, on 50 draws;
+    and remap_pose_to_origin_resolution too."""
     rng = np.random.default_rng(3)
     kp = _box_keypoints()
     dstK = YCBV_K if mode == "keep" else np.array(
         [[1066.778, 0, 128], [0, 1067.487, 128], [0, 0, 1]], np.float32)
-    worst_r = worst_t = 0.0
+    Rs, ts, Ms = [], [], []
     for i in range(50):
         R, t = _pose(i, rng)
         f = rng.uniform(0.8, 2.0)
         M = np.array([[f, 0, -f * rng.uniform(100, 400)], [0, f, -f * rng.uniform(100, 300)],
                       [0, 0, 1]], np.float32)
-        target = project_3d_point(kp, YCBV_K, R, t, transform_matrix=M)
-        nr, nt, _ = remap_pose(YCBV_K, R, t, kp, dstK, M)
-        cr, ct, _ = jhost.remap_pose(YCBV_K, R, t, kp, dstK, M)
+        got = remap_pose(YCBV_K, R, t, kp, dstK, M)
+        want = jhost.remap_pose(YCBV_K, R, t, kp, dstK, M)
+        for g, w in zip(got, want):
+            np.testing.assert_array_equal(g, w, err_msg=str(i))
+        Rs.append(R)
+        ts.append(t)
+        Ms.append(M)
+    meta = dict(geometry_transform_mode=f"{mode}_intrinsic", keypoints_3d=np.stack([kp] * 50),
+                transform_matrix=np.linalg.inv(np.stack(Ms)), ori_k=dstK)
+    ks = np.stack([YCBV_K] * 50)
+    got = remap_pose_to_origin_resolution(np.stack(Rs), np.stack(ts), ks, meta)
+    want = jhost.remap_pose_to_origin_resolution(np.stack(Rs), np.stack(ts), ks, meta)
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(g, w)
 
-        def sse(R_, t_):
-            return float(((project_3d_point(kp, dstK, R_, t_) - target) ** 2).sum())
 
-        assert sse(nr, nt) <= sse(cr, ct) * (1 + 1e-6), i
-        worst_r = max(worst_r, float(np.abs(nr - cr).max()))
-        worst_t = max(worst_t, float(np.abs(nt - ct).max()))
-    assert worst_r <= 0.15 and worst_t <= 50.0, (worst_r, worst_t)
+def test_remap_pose_failure_keeps_the_source_pose(monkeypatch):
+    """Where the solve fails (cv2.solvePnP's retval False in the JAX
+    package, solve_pnp_epnp's in the port) both warn and return the source
+    pose with an error of -1.0; a degenerate keypoint set (all at one
+    point), which cv2's EPnP does not call a failure, gives both the same
+    NaN translation."""
+    from scflow_tpu_torch import host_geometry
+
+    kp = _box_keypoints()
+    R, t = _pose(0, np.random.default_rng(0))
+    M = np.eye(3, dtype=np.float32)
+    monkeypatch.setattr(jhost.cv2, "solvePnP", lambda *a, **k: (False, None, None))
+    monkeypatch.setattr(host_geometry, "solve_pnp_epnp", lambda *a: (False, None, None))
+    for solve in (remap_pose, jhost.remap_pose):
+        with pytest.warns(UserWarning, match="keeping source pose"):
+            nr, nt, err = solve(YCBV_K, R, t, kp, YCBV_K, M)
+        assert nr is R and nt is t and err == -1.0
+    monkeypatch.undo()
+    flat = np.zeros_like(kp)
+    with np.errstate(all="ignore"):
+        got = remap_pose(YCBV_K, R, t, flat, YCBV_K, M)
+        want = jhost.remap_pose(YCBV_K, R, t, flat, YCBV_K, M)
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(g, w)
 
 
 if __name__ == "__main__":
